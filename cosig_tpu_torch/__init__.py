@@ -1,0 +1,34 @@
+"""cosig_tpu_torch — the cosig ray tracer on PyTorch and CUDA.
+
+A port of :mod:`cosig_tpu` (JAX/Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper. It imports ``torch`` and never
+``jax``; the scene model, parser, tessellation, BVH builder and PNG writer
+are the JAX package's jax-free host modules, reused as they are.
+
+Layout mirrors :mod:`cosig_tpu`:
+
+* ``cosig_tpu_torch.models``  — StaticConfig / FrameParams builders (numpy)
+* ``cosig_tpu_torch.accel``   — cluster structure (host build, torch tensors)
+* ``cosig_tpu_torch.ops``     — plain PyTorch versions of the device code
+  and the wavefront render
+* ``cosig_tpu_torch.kernels`` — nvcc build, ctypes wrappers, launch counters
+* ``cosig_tpu_torch.csrc``    — the CUDA sources
+* ``cosig_tpu_torch.render``  — the Renderer front end
+"""
+
+__version__ = "0.1.0"
+
+from cosig_tpu.models.scene import SceneData
+from cosig_tpu.models.settings import RenderSettings
+from cosig_tpu.scene.parser import load_scene, parse_scene
+from cosig_tpu_torch.render.renderer import Renderer, RenderStats
+
+__all__ = [
+    "SceneData",
+    "RenderSettings",
+    "Renderer",
+    "RenderStats",
+    "load_scene",
+    "parse_scene",
+    "__version__",
+]

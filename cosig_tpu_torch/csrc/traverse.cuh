@@ -1,0 +1,195 @@
+// Per-ray cluster traversal: closest hit and any hit.
+//
+// Replaces the traversal that every TPU kernel inlines,
+// cosig_tpu/ops/kernel_core.py make_traverse (:200-1035). On the TPU a
+// tile of 4096 rays culls all clusters in one vector slab test, compacts
+// the hit list in scalar memory and intersects each listed cluster's
+// (K, rays) pair grid on the vector unit. Here one thread walks one ray:
+// for every cluster it runs the slab test and, on a pass, the K pair
+// tests. What the result must keep from the TPU version is the per-pair
+// arithmetic, not the schedule:
+//
+//  * the slab test is NaN-conservative: min/max propagate NaN and the
+//    tests are inverted, so a NaN slab (0 * inf from a zero direction
+//    component on a box plane, or a NaN padding column) passes and the
+//    exact pair test decides (kernel_core.py:410-453). fminf/fmaxf drop
+//    NaN, hence nan_min/nan_max below;
+//  * the Plücker chain order of kernel_core.py:818-842, with the build's
+//    --fmad=false so nothing is contracted;
+//  * the winner is the lexicographic (t, gid) minimum over all valid
+//    pairs (kernel_core.py:861-902). That fold does not depend on visit
+//    order or clustering, so a per-ray walk picks the TPU's winner;
+//  * normalization is 1/sqrt then multiply (kernel_core.py:137-140).
+//
+// The superblock level (sb_aabb_t, used on the TPU when C_pad > 512) is
+// only a culling shortcut; a flat loop over the C clusters is exact.
+//
+// Bound: the pair tests per ray — about 55 flops and 23 four-byte reads
+// from the cluster geometry per pair. The geometry is small (hundreds of
+// KB to a few MB) and read through the read-only cache (__ldg), so it
+// stays in L2; rays of a warp that enter the same cluster read the same
+// rows, which the cache serves as broadcasts. Padding rows sort last
+// within a cluster and can never hit, so the row loop stops at the first
+// one.
+#pragma once
+
+namespace cosig {
+
+constexpr float INF = 3.402823466e38f;  // FLT_MAX, the reference's "infinity"
+constexpr float EPSILON = 1e-4f;
+constexpr float GID_PAD = 16777216.0f;  // 2^24: padding rows / no hit
+
+// Geometry columns (accel/clusters.py).
+constexpr int GEOM_COMPS = 36;
+constexpr int C_GN = 3, C_NDA = 6, C_VA = 7, C_VB = 13, C_VC = 19;
+constexpr int C_N0 = 25, C_N1 = 28, C_N2 = 31, C_MAT = 34, C_GID = 35;
+
+// jnp.minimum / torch.minimum semantics: NaN if either input is NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+struct Geometry {
+  const float* __restrict__ geom;  // [C, K, GEOM_COMPS]
+  const float* __restrict__ aabb;  // [8, c_pad]: min xyz, max xyz, pad
+  int n_clusters, k, c_pad;
+};
+
+struct Hit {
+  bool hit;
+  float t, nx, ny, nz, mat;
+};
+
+// A ray with its reciprocal direction and moment w = o x d.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float idx, idy, idz, wx, wy, wz;
+};
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy,
+                                        float dz) {
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.idx = 1.0f / dx;
+  r.idy = 1.0f / dy;
+  r.idz = 1.0f / dz;
+  // Canonical component order (intersect.moller_trumbore).
+  r.wx = oy * dz - oz * dy;
+  r.wy = oz * dx - ox * dz;
+  r.wz = ox * dy - oy * dx;
+  return r;
+}
+
+// Slab test of the ray against cluster c (kernel_core.py:430-449): false
+// only when the ray cannot enter the box. tn is the entry distance, for
+// the shadow rays' clip.
+__device__ __forceinline__ bool box_pass(const Geometry& g, int c, const Ray& r,
+                                         float& tn) {
+  const float b0 = __ldg(g.aabb + 0 * g.c_pad + c);
+  const float b1 = __ldg(g.aabb + 1 * g.c_pad + c);
+  const float b2 = __ldg(g.aabb + 2 * g.c_pad + c);
+  const float b3 = __ldg(g.aabb + 3 * g.c_pad + c);
+  const float b4 = __ldg(g.aabb + 4 * g.c_pad + c);
+  const float b5 = __ldg(g.aabb + 5 * g.c_pad + c);
+  const float t0x = (b0 - r.ox) * r.idx;
+  const float t1x = (b3 - r.ox) * r.idx;
+  const float t0y = (b1 - r.oy) * r.idy;
+  const float t1y = (b4 - r.oy) * r.idy;
+  const float t0z = (b2 - r.oz) * r.idz;
+  const float t1z = (b5 - r.oz) * r.idz;
+  tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
+  const float tf =
+      nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
+  return !(tn > tf) && !(tf < 0.0f);
+}
+
+// Plücker / edge-volume pair test of the ray against geometry row p
+// (kernel_core.py:818-842) -> validity, with t, vb, vc and 1/s for the
+// winner's barycentrics.
+__device__ __forceinline__ bool pair_test(const float* __restrict__ p, const Ray& r,
+                                          float& t, float& vb, float& vc,
+                                          float& inv_s) {
+  const float va = r.dx * __ldg(p + C_VA) + r.dy * __ldg(p + C_VA + 1) +
+                   r.dz * __ldg(p + C_VA + 2) + r.wx * __ldg(p + C_VA + 3) +
+                   r.wy * __ldg(p + C_VA + 4) + r.wz * __ldg(p + C_VA + 5);
+  vb = r.dx * __ldg(p + C_VB) + r.dy * __ldg(p + C_VB + 1) + r.dz * __ldg(p + C_VB + 2) +
+       r.wx * __ldg(p + C_VB + 3) + r.wy * __ldg(p + C_VB + 4) + r.wz * __ldg(p + C_VB + 5);
+  vc = r.dx * __ldg(p + C_VC) + r.dy * __ldg(p + C_VC + 1) + r.dz * __ldg(p + C_VC + 2) +
+       r.wx * __ldg(p + C_VC + 3) + r.wy * __ldg(p + C_VC + 4) + r.wz * __ldg(p + C_VC + 5);
+  const float gnx = __ldg(p + C_GN), gny = __ldg(p + C_GN + 1), gnz = __ldg(p + C_GN + 2);
+  const float s = r.dx * gnx + r.dy * gny + r.dz * gnz;
+  const float ndo = r.ox * gnx + r.oy * gny + r.oz * gnz;
+  inv_s = 1.0f / s;
+  t = (__ldg(p + C_NDA) - ndo) * inv_s;
+  return (fabsf(s) >= EPSILON) && (va * s >= 0.0f) && (vb * s >= 0.0f) &&
+         (vc * s >= 0.0f) && (t > EPSILON);
+}
+
+// Closest hit: t = INF, normal (0, 1, 0) and material -1 on a miss.
+__device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
+  float bt = INF, bgid = GID_PAD, bu = 0.0f, bv = 0.0f;
+  int brow = -1;
+  for (int c = 0; c < g.n_clusters; ++c) {
+    float tn;
+    if (!box_pass(g, c, r, tn)) continue;
+    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
+    for (int k = 0; k < g.k; ++k) {
+      const float* __restrict__ p = rows + k * GEOM_COMPS;
+      const float gid = __ldg(p + C_GID);
+      if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
+      float t, vb, vc, inv_s;
+      if (pair_test(p, r, t, vb, vc, inv_s) && (t < bt || (t == bt && gid < bgid))) {
+        bt = t;
+        bgid = gid;
+        brow = c * g.k + k;
+        bu = vb * inv_s;
+        bv = vc * inv_s;
+      }
+    }
+  }
+  Hit h;
+  h.t = bt;
+  h.hit = bt < INF;
+  if (h.hit) {
+    const float* __restrict__ p = g.geom + (size_t)brow * GEOM_COMPS;
+    const float w = 1.0f - bu - bv;
+    float nx = w * __ldg(p + C_N0) + bu * __ldg(p + C_N1) + bv * __ldg(p + C_N2);
+    float ny = w * __ldg(p + C_N0 + 1) + bu * __ldg(p + C_N1 + 1) + bv * __ldg(p + C_N2 + 1);
+    float nz = w * __ldg(p + C_N0 + 2) + bu * __ldg(p + C_N1 + 2) + bv * __ldg(p + C_N2 + 2);
+    const float inv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
+    h.nx = nx * inv;
+    h.ny = ny * inv;
+    h.nz = nz * inv;
+    h.mat = __ldg(p + C_MAT);
+  } else {
+    h.nx = 0.0f;
+    h.ny = 1.0f;
+    h.nz = 0.0f;
+    h.mat = -1.0f;
+  }
+  return h;
+}
+
+// Any hit: is some valid pair at t <= max_t (kernel_core.py:843-860)?
+// Boxes entered beyond max_t are skipped; the walk stops at the first
+// occluder.
+__device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float max_t) {
+  for (int c = 0; c < g.n_clusters; ++c) {
+    float tn;
+    if (!box_pass(g, c, r, tn) || tn > max_t) continue;
+    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
+    for (int k = 0; k < g.k; ++k) {
+      const float* __restrict__ p = rows + k * GEOM_COMPS;
+      if (__ldg(p + C_GID) >= GID_PAD) break;
+      float t, vb, vc, inv_s;
+      if (pair_test(p, r, t, vb, vc, inv_s) && t <= max_t) return true;
+    }
+  }
+  return false;
+}
+
+}  // namespace cosig

@@ -1,0 +1,431 @@
+"""Plain PyTorch versions of the two device functions every wavefront
+kernel runs: cluster traversal and one Whitted bounce.
+
+Counterpart of :mod:`cosig_tpu.ops.kernel_core`. The JAX package runs
+``make_traverse`` (``:200-1035``) and ``bounce_core`` (``:1058-1270``)
+inside its Pallas kernels on (1, R) lane planes; here they are plain
+functions on [N] tensors, used as the CPU path and as the reference the
+CUDA kernels (``csrc/traverse.cuh``, ``csrc/bounce.cuh``) are held
+against on the card. The per-pair and per-ray arithmetic keeps the JAX
+package's operation order, so float32 results agree to the bit where the
+operations are IEEE (everything but sin/cos):
+
+* the slab cull is NaN-conservative: ``torch.minimum``/``maximum``
+  propagate NaN and the tests are inverted (``~(tn > tf)``), so a NaN slab
+  passes and the exact pair test decides (``:410-453``);
+* the Plücker chain order follows ``:818-842``;
+* the winner is the lexicographic (t, gid) minimum over all valid pairs
+  (``:861-902``) — independent of clustering and visit order;
+* normalization is ``1/sqrt`` then multiply (``:137-140``).
+
+Division by a Python scalar goes through a tensor divisor (``_div``):
+PyTorch's CUDA backend turns ``tensor / scalar`` into a multiply by the
+reciprocal, which is not IEEE division.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cosig_tpu_torch.accel.clusters import GID_PAD, ClusterSet
+from cosig_tpu_torch.models.soa import FrameParams, StaticConfig
+from cosig_tpu_torch.ops import rng
+
+F32 = np.float32
+
+INF = float(F32(3.402823466e38))  # FLT_MAX: the reference's "infinity"
+EPSILON = float(F32(1e-4))
+OFFSET = float(F32(1e-2))
+
+# Ray-state rows (f32 [16, N]): 0-2 origin, 3-5 direction, 6-8
+# attenuation, 9-11 accumulated color, 12 alive, 13 rays-traced count,
+# 14 ray id, 15 pad.
+ROW_ALIVE = 12
+ROW_COUNT = 13
+ROW_ID = 14
+STATE_ROWS = 16
+
+# uniforms layout (f32 [UNIFORMS_LEN])
+U_CAM = 0  # 12 floats: rows of the 3x4 camera->object matrix
+U_DIST = 12
+U_PLANE_H = 13
+U_ORTHO = 14
+U_BG = 15  # 3
+U_INTENSITY = 18
+U_LIGHT_SIZE = 19
+U_ROUGHNESS = 20
+U_SHUTTER = 21
+U_ROW_OFF = 22  # global row offset of the rendered band
+U_DEPTH = 23  # bounce index (kept for layout parity; stages take it as an argument)
+U_LAST = 24  # final-bounce flag (likewise)
+UNIFORMS_LEN = 25
+
+# Material defaults for a miss or an out-of-range index (compute:371-376).
+MAT_DEFAULTS = (1.0, 1.0, 1.0, 0.1, 0.7, 0.0, 0.0, 1.0)
+
+# Geometry columns read by the traversal (accel/clusters.py layout).
+_GN, _NDA, _VA, _VB, _VC, _N0, _MAT, _GID = 3, 6, 7, 13, 19, 25, 34, 35
+
+# Rays per pair-grid slice in the plain traversal (bounds [rays, K] temporaries).
+_PAIR_CHUNK = 1 << 20
+
+
+def build_uniforms(params: FrameParams, row_offset: float = 0.0) -> np.ndarray:
+    """Pack the frame's dynamic floats into the uniforms vector (f32 [25]).
+
+    ``plane_h = 2 * distance * tan(fov/2)`` is taken in float64 and rounded
+    once, after the float32 degrees-to-radians product — the correctly
+    rounded float32 value."""
+    m = params.cam_to_obj
+    half = F32(np.deg2rad(params.fov_deg)) * F32(0.5)
+    plane_h = F32(2.0) * F32(params.cam_distance) * F32(np.tan(np.float64(half)))
+    vals = [
+        m[0, 0], m[0, 1], m[0, 2], m[0, 3],
+        m[1, 0], m[1, 1], m[1, 2], m[1, 3],
+        m[2, 0], m[2, 1], m[2, 2], m[2, 3],
+        params.cam_distance,
+        plane_h,
+        params.ortho_size,
+        params.background[0], params.background[1], params.background[2],
+        params.light_intensity,
+        params.light_size,
+        params.surface_roughness,
+        params.shutter_speed,
+        row_offset, 0.0, 0.0,
+    ]
+    return np.array(vals, F32)
+
+
+def build_lights(params: FrameParams, multi_light: bool) -> np.ndarray:
+    """Light table f32 [L, 8]: position xyz, rgb, two pad columns."""
+    pos = params.light_pos if multi_light else params.light_pos[:1]
+    rgb = params.light_rgb if multi_light else params.light_rgb[:1]
+    pad = np.zeros((pos.shape[0], 2), F32)
+    return np.concatenate([pos, rgb, pad], axis=1).astype(F32)
+
+
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """IEEE ``a / b`` for a Python scalar ``b`` on any device (see module
+    docstring)."""
+    return torch.div(a, torch.full_like(a, b))
+
+
+def _pow32(x):
+    x2 = x * x
+    x4 = x2 * x2
+    x8 = x4 * x4
+    x16 = x8 * x8
+    return x16 * x16
+
+
+def _rsqrt3(x, y, z):
+    """1/sqrt then multiply (not rsqrt): bit-matches the JAX package."""
+    inv = torch.reciprocal(torch.sqrt(x * x + y * y + z * z))
+    return x * inv, y * inv, z * inv
+
+
+def _ruv(sx, sy, sz):
+    """random_unit_vector on planes (compute:124-131)."""
+    h0, _, h2 = rng.hash33(sx, sy, sz)
+    z = h2 * 2.0 - 1.0
+    a = h0 * rng.TWO_PI
+    r = torch.sqrt(torch.maximum(torch.zeros_like(z), 1.0 - z * z))
+    return r * torch.cos(a), r * torch.sin(a), z
+
+
+# ---------------------------------------------------------------------------
+# Traversal
+
+
+def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
+             max_t=None, any_hit=False):
+    """Closest hit (or, with ``any_hit``, occlusion at t <= max_t) of rays
+    [N] against the cluster set -> ``(hit, t, nx, ny, nz, mat)``.
+
+    Closest hit: ``t`` is INF and the normal (0, 1, 0) on a miss; ``mat``
+    is the winning triangle's material (-1 on a miss). Any hit: ``hit`` is
+    the occlusion flag and the other outputs are None. Inactive rays
+    report a miss."""
+    n = ox.shape[0]
+    dev = ox.device
+    geom = cset.geom
+    C, K = int(geom.shape[0]), int(geom.shape[1])
+    aabb = cset.aabb_t
+    idx = torch.reciprocal(dx)
+    idy = torch.reciprocal(dy)
+    idz = torch.reciprocal(dz)
+    # Ray moment w = o x d (canonical component order).
+    wx = oy * dz - oz * dy
+    wy = oz * dx - ox * dz
+    wz = ox * dy - oy * dx
+
+    if any_hit:
+        occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    else:
+        best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+        best_gid = torch.full((n,), float(GID_PAD), dtype=torch.float32, device=dev)
+        best_row = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+        best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    for c in range(C):
+        b = aabb[:6, c]
+        # Per-ray slab cull, NaN-conservative (cosig_tpu/ops/kernel_core.py:430-449).
+        t0x = (b[0] - ox) * idx
+        t1x = (b[3] - ox) * idx
+        t0y = (b[1] - oy) * idy
+        t1y = (b[4] - oy) * idy
+        t0z = (b[2] - oz) * idz
+        t1z = (b[5] - oz) * idz
+        tn = torch.maximum(
+            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+            torch.minimum(t0z, t1z),
+        )
+        tf = torch.minimum(
+            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+            torch.maximum(t0z, t1z),
+        )
+        boxhit = ~(tn > tf) & ~(tf < 0.0) & active
+        if max_t is not None:
+            boxhit = boxhit & ~(tn > max_t)
+        rays = torch.nonzero(boxhit).squeeze(1)
+        if rays.numel() == 0:
+            continue
+        g = geom[c]  # [K, 36]
+
+        def col(j):
+            return g[:, j].unsqueeze(0)  # [1, K]
+
+        gid = col(_GID)
+        for lo in range(0, int(rays.numel()), _PAIR_CHUNK):
+            r = rays[lo:lo + _PAIR_CHUNK]
+            oxs, oys, ozs = ox[r, None], oy[r, None], oz[r, None]
+            dxs, dys, dzs = dx[r, None], dy[r, None], dz[r, None]
+            wxs, wys, wzs = wx[r, None], wy[r, None], wz[r, None]
+            va = (dxs * col(_VA) + dys * col(_VA + 1) + dzs * col(_VA + 2)
+                  + wxs * col(_VA + 3) + wys * col(_VA + 4) + wzs * col(_VA + 5))
+            vb = (dxs * col(_VB) + dys * col(_VB + 1) + dzs * col(_VB + 2)
+                  + wxs * col(_VB + 3) + wys * col(_VB + 4) + wzs * col(_VB + 5))
+            vc = (dxs * col(_VC) + dys * col(_VC + 1) + dzs * col(_VC + 2)
+                  + wxs * col(_VC + 3) + wys * col(_VC + 4) + wzs * col(_VC + 5))
+            s = dxs * col(_GN) + dys * col(_GN + 1) + dzs * col(_GN + 2)
+            ndo = oxs * col(_GN) + oys * col(_GN + 1) + ozs * col(_GN + 2)
+            inv_s = torch.reciprocal(s)
+            t = (col(_NDA) - ndo) * inv_s
+            valid = (
+                (torch.abs(s) >= EPSILON)
+                & (va * s >= 0.0)
+                & (vb * s >= 0.0)
+                & (vc * s >= 0.0)
+                & (t > EPSILON)
+            )
+            if any_hit:
+                occ[r] |= (valid & (t <= max_t[r, None])).any(dim=1)
+                continue
+            tm = torch.where(valid, t, INF)
+            tmin = tm.min(dim=1).values
+            is_t = tm == tmin[:, None]
+            gmin = torch.where(is_t, gid, float(GID_PAD)).min(dim=1).values
+            j = (is_t & (gid == gmin[:, None])).to(torch.uint8).argmax(dim=1)
+            ar = torch.arange(r.numel(), device=dev)
+            u = vb[ar, j] * inv_s[ar, j]
+            v = vc[ar, j] * inv_s[ar, j]
+            bt = best_t[r]
+            better = ((tmin < bt) | ((tmin == bt) & (gmin < best_gid[r]))) & (tmin < INF)
+            rb = r[better]
+            best_t[rb] = tmin[better]
+            best_gid[rb] = gmin[better]
+            best_row[rb] = c * K + j[better]
+            best_u[rb] = u[better]
+            best_v[rb] = v[better]
+
+    if any_hit:
+        return occ, None, None, None, None, None
+
+    hit = best_t < INF
+    # Winner attributes: columns n0 | n1 | n2 | material of the winning row.
+    g = geom.reshape(C * K, -1)[:, _N0:_MAT + 1].index_select(0, best_row.clamp_min(0))
+    w = 1.0 - best_u - best_v
+    u, v = best_u, best_v
+    nx = w * g[:, 0] + u * g[:, 3] + v * g[:, 6]
+    ny = w * g[:, 1] + u * g[:, 4] + v * g[:, 7]
+    nz = w * g[:, 2] + u * g[:, 5] + v * g[:, 8]
+    nx, ny, nz = _rsqrt3(nx, ny, nz)
+    nx = torch.where(hit, nx, 0.0)
+    ny = torch.where(hit, ny, 1.0)
+    nz = torch.where(hit, nz, 0.0)
+    mat = torch.where(hit, g[:, 9], -1.0)
+    return hit, best_t, nx, ny, nz, mat
+
+
+# ---------------------------------------------------------------------------
+# One Whitted bounce on the ray state
+
+
+def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
+                lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
+                px, py, s, depth: int, is_last: bool) -> None:
+    """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
+    kernel_core.py:1089-1270): count and trace the live rays, add the
+    background on a miss, shade the hits (ambient, then per light a
+    shadow ray, Lambert and Blinn-Phong), and turn each surviving ray
+    into its secondary (refraction first, TIR reflects about the flipped
+    normal, else mirror reflection).
+
+    ``px``/``py``/``s`` are the RNG seed planes (read only with soft
+    shadows or glossy); ``depth`` is the bounce index; ``is_last`` skips
+    the secondary ray and retires every ray."""
+    u = [float(x) for x in uniforms]
+    bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
+    intensity = u[U_INTENSITY]
+    light_size = u[U_LIGHT_SIZE]
+    roughness = u[U_ROUGHNESS]
+    depth_f = float(depth)
+
+    ox, oy, oz = state[0], state[1], state[2]
+    dx, dy, dz = state[3], state[4], state[5]
+    at_r, at_g, at_b = state[6], state[7], state[8]
+    scol_r, scol_g, scol_b = state[9], state[10], state[11]
+    alive = state[ROW_ALIVE] > 0.0
+
+    state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
+    hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive)
+
+    miss = alive & ~hit
+    scol_r = scol_r + torch.where(miss, at_r * bg[0], 0.0)
+    scol_g = scol_g + torch.where(miss, at_g * bg[1], 0.0)
+    scol_b = scol_b + torch.where(miss, at_b * bg[2], 0.0)
+    alive = alive & hit
+
+    hx = ox + t * dx
+    hy = oy + t * dy
+    hz = oz + t * dz
+
+    props = [torch.full_like(ox, d) for d in MAT_DEFAULTS]
+    for m in range(mats.shape[0]):
+        is_m = mat_c == float(m)
+        for p in range(8):
+            props[p] = torch.where(is_m, float(mats[m, p]), props[p])
+    cr, cg, cb, ka, kd, ks, krefr, ior = props
+
+    zeros = torch.zeros_like(ox)
+    loc_r = cr * ka if cfg.enable_ambient else zeros
+    loc_g = cg * ka if cfg.enable_ambient else zeros
+    loc_b = cb * ka if cfg.enable_ambient else zeros
+
+    for li in range(lights.shape[0]):
+        lpx = torch.full_like(ox, float(lights[li, 0]))
+        lpy = torch.full_like(ox, float(lights[li, 1]))
+        lpz = torch.full_like(ox, float(lights[li, 2]))
+        if cfg.enable_soft_shadows:
+            jx, jy, jz = _ruv(px + s * 9.0, py + s * 4.0 + depth_f, s)
+            lpx = lpx + jx * light_size
+            lpy = lpy + jy * light_size
+            lpz = lpz + jz * light_size
+
+        tlx = lpx - hx
+        tly = lpy - hy
+        tlz = lpz - hz
+        dist_l = torch.sqrt(tlx * tlx + tly * tly + tlz * tlz)
+        ldx, ldy, ldz = _rsqrt3(tlx, tly, tlz)
+        ndl = torch.maximum(zeros, nx * ldx + ny * ldy + nz * ldz)
+
+        if cfg.enable_diffuse:
+            shadow_active = alive & (ndl > 0.0)
+            state[ROW_COUNT] = state[ROW_COUNT] + shadow_active.to(torch.float32)
+            s_occ = traverse(
+                cset, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
+                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True,
+            )[0]
+            gate = ~s_occ & (ndl > 0.0) & alive
+            dr = cr * kd * ndl
+            dg = cg * kd * ndl
+            db = cb * kd * ndl
+            if cfg.enable_specular:
+                hvx, hvy, hvz = _rsqrt3(ldx - dx, ldy - dy, ldz - dz)
+                spec = _pow32(torch.maximum(nx * hvx + ny * hvy + nz * hvz, zeros))
+                dr = dr + ks * spec
+                dg = dg + ks * spec
+                db = db + ks * spec
+            if cfg.multi_light:
+                dr = dr * float(lights[li, 3])
+                dg = dg * float(lights[li, 4])
+                db = db * float(lights[li, 5])
+            loc_r = loc_r + torch.where(gate, dr, 0.0)
+            loc_g = loc_g + torch.where(gate, dg, 0.0)
+            loc_b = loc_b + torch.where(gate, db, 0.0)
+
+    state[9] = scol_r + torch.where(alive, at_r * loc_r * intensity, 0.0)
+    state[10] = scol_g + torch.where(alive, at_g * loc_g * intensity, 0.0)
+    state[11] = scol_b + torch.where(alive, at_b * loc_b * intensity, 0.0)
+
+    if is_last:
+        state[ROW_ALIVE] = 0.0
+        return  # no secondary rays after the final bounce
+
+    # ---- secondary ray (compute:420-455) ----
+    should_reflect = ks > 0.0
+    should_refract = (krefr > 0.0) if cfg.enable_refraction else torch.zeros_like(alive)
+
+    cos_in = dx * nx + dy * ny + dz * nz
+    exiting = cos_in > 0.0
+    fnx = torch.where(exiting, -nx, nx)
+    fny = torch.where(exiting, -ny, ny)
+    fnz = torch.where(exiting, -nz, nz)
+    eta = torch.where(exiting, ior, torch.reciprocal(ior))
+    cos = -(dx * fnx + dy * fny + dz * fnz)
+    kk = 1.0 - eta * eta * (1.0 - cos * cos)
+    tir = kk < 0.0
+    coef = eta * cos - torch.sqrt(torch.maximum(kk, zeros))
+    rfx = eta * dx + coef * fnx
+    rfy = eta * dy + coef * fny
+    rfz = eta * dz + coef * fnz
+    dot_f = dx * fnx + dy * fny + dz * fnz
+    tirx = dx - 2.0 * dot_f * fnx
+    tiry = dy - 2.0 * dot_f * fny
+    tirz = dz - 2.0 * dot_f * fnz
+    dot_p = cos_in
+    rpx = dx - 2.0 * dot_p * nx
+    rpy = dy - 2.0 * dot_p * ny
+    rpz = dz - 2.0 * dot_p * nz
+
+    ndx = torch.where(should_refract, torch.where(tir, tirx, rfx), rpx)
+    ndy = torch.where(should_refract, torch.where(tir, tiry, rfy), rpy)
+    ndz = torch.where(should_refract, torch.where(tir, tirz, rfz), rpz)
+    amr = torch.where(should_refract, torch.where(tir, cr * ks, cr * krefr), cr * ks)
+    amg = torch.where(should_refract, torch.where(tir, cg * ks, cg * krefr), cg * ks)
+    amb = torch.where(should_refract, torch.where(tir, cb * ks, cb * krefr), cb * ks)
+    sox = torch.where(should_refract,
+                      torch.where(tir, hx + fnx * OFFSET, hx + rfx * OFFSET),
+                      hx + nx * OFFSET)
+    soy = torch.where(should_refract,
+                      torch.where(tir, hy + fny * OFFSET, hy + rfy * OFFSET),
+                      hy + ny * OFFSET)
+    soz = torch.where(should_refract,
+                      torch.where(tir, hz + fnz * OFFSET, hz + rfz * OFFSET),
+                      hz + nz * OFFSET)
+
+    if cfg.enable_glossy:
+        gx, gy, gz = _ruv(px + s * 55.0 + depth_f, py + s * 22.0,
+                          torch.full_like(ox, 13.0) * depth_f)
+        ndx = ndx + gx * roughness
+        ndy = ndy + gy * roughness
+        ndz = ndz + gz * roughness
+
+    cont = alive & (should_reflect | should_refract)
+    ndx, ndy, ndz = _rsqrt3(ndx, ndy, ndz)
+    at_r = torch.where(cont, at_r * amr, at_r)
+    at_g = torch.where(cont, at_g * amg, at_g)
+    at_b = torch.where(cont, at_b * amb, at_b)
+    state[6] = at_r
+    state[7] = at_g
+    state[8] = at_b
+    state[0] = torch.where(cont, sox, ox)
+    state[1] = torch.where(cont, soy, oy)
+    state[2] = torch.where(cont, soz, oz)
+    state[3] = torch.where(cont, ndx, dx)
+    state[4] = torch.where(cont, ndy, dy)
+    state[5] = torch.where(cont, ndz, dz)
+    max_at = torch.maximum(torch.maximum(at_r, at_g), at_b)
+    state[ROW_ALIVE] = (cont & (max_at > 0.0)).to(torch.float32)

@@ -1,0 +1,51 @@
+"""Deterministic hash RNG on float32 tensors (counterpart of
+:mod:`cosig_tpu.ops.rng`, reference ``BVHRayTracing.compute:108-131``).
+
+The hash is plain float32 arithmetic on the pixel and sample indices, so
+it is ported exactly: the same operations in the same order give the same
+bits as the JAX package and as ``csrc/rng.cuh``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _f(x) -> float:
+    """A Python float holding the float32 value of ``x`` (exact in f32 ops)."""
+    return float(np.float32(x))
+
+
+TWO_PI = _f(6.2831853)
+
+
+def _frac(x: torch.Tensor) -> torch.Tensor:
+    """HLSL frac: x - floor(x) (frac(-0.1) = 0.9)."""
+    return x - torch.floor(x)
+
+
+def hash22(px: torch.Tensor, py: torch.Tensor):
+    """compute:108-113 -> (h0, h1), each the shape of ``px``."""
+    p3x = _frac(px * _f(0.1031))
+    p3y = _frac(py * _f(0.1030))
+    p3z = _frac(px * _f(0.0973))
+    c = _f(33.33)
+    d = p3x * (p3y + c) + p3y * (p3z + c) + p3z * (p3x + c)
+    p3x = p3x + d
+    p3y = p3y + d
+    p3z = p3z + d
+    return _frac((p3x + p3y) * p3z), _frac((p3x + p3z) * p3y)
+
+
+def hash33(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor):
+    """compute:116-121 -> (h0, h1, h2)."""
+    x = _frac(px * _f(0.1031))
+    y = _frac(py * _f(0.1030))
+    z = _frac(pz * _f(0.0973))
+    c = _f(33.33)
+    d = x * (y + c) + y * (x + c) + z * (z + c)
+    x = x + d
+    y = y + d
+    z = z + d
+    return _frac((x + y) * z), _frac((x + x) * y), _frac((y + x) * x)

@@ -1,0 +1,85 @@
+"""The PyTorch port stands apart from JAX: importing and rendering with it
+loads no jax, and a CUDA renderer without a GPU refuses to start."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+import numpy as np
+import torch
+import cosig_tpu_torch
+import cosig_tpu_torch.kernels.build
+import cosig_tpu_torch.kernels.wavefront
+import chip_smoke
+from __graft_entry__ import _tiny_scene
+
+r = cosig_tpu_torch.Renderer(device="cpu")
+img = r.render(_tiny_scene(), cosig_tpu_torch.RenderSettings(
+    resolution_override=(16, 12), max_depth=2, aa_samples=2))
+assert img.shape == (12, 16, 3) and np.isfinite(img).all(), img.shape
+assert img.max() > 0.0
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not loaded, loaded
+if not torch.cuda.is_available():
+    try:
+        cosig_tpu_torch.Renderer(device="cuda")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("Renderer(device='cuda') started without a GPU")
+print("OK", r.last_stats.rays_traced)
+"""
+
+
+def test_port_imports_and_renders_without_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("OK "), out.stdout
+    assert int(out.stdout.split()[1]) >= 16 * 12 * 2
+
+
+# Modules of the JAX package that import jax (directly or through their
+# imports); the port may reuse only the others.
+_JAX_MODULES = re.compile(
+    r"^\s*(import|from)\s+(jax\b|jaxlib\b|cosig_tpu\.(ops|render|parallel|cli)\b"
+    r"|cosig_tpu\.accel\.clusters\b|cosig_tpu\.models\.soa\b)",
+    re.MULTILINE,
+)
+
+
+def test_port_sources_import_no_jax_module():
+    files = sorted((ROOT / "cosig_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        src = path.read_text()
+        m = _JAX_MODULES.search(src)
+        assert m is None, f"{path.relative_to(ROOT)} imports {m.group(0).strip()}"
+
+
+def test_cuda_renderer_raises_without_gpu(monkeypatch):
+    import cosig_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cosig_tpu_torch.Renderer(device="cuda")
+
+
+@pytest.mark.parametrize("device", ["meta", "mps"])
+def test_renderer_rejects_other_devices(device):
+    import cosig_tpu_torch
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        cosig_tpu_torch.Renderer(device=device)
