@@ -2,15 +2,20 @@
 
 A port of :mod:`cosig_tpu` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper. It imports ``torch`` and never
-``jax``; the scene model, parser, tessellation, BVH builder and PNG writer
-are the JAX package's jax-free host modules, reused as they are.
+``jax`` and nothing of the JAX package: the scene model, settings,
+parser, tessellation, BVH builder and procedural scenes are the port's own
+copies of the JAX package's host modules.
 
 Layout mirrors :mod:`cosig_tpu`:
 
-* ``cosig_tpu_torch.models``  — StaticConfig / FrameParams builders (numpy)
-* ``cosig_tpu_torch.accel``   — cluster structure (host build, torch tensors)
+* ``cosig_tpu_torch.models``  — scene data model, render settings,
+  StaticConfig / FrameParams builders (numpy)
+* ``cosig_tpu_torch.scene``   — scene-file parser, transforms, tessellation,
+  procedural bench scenes
+* ``cosig_tpu_torch.accel``   — BVH and cluster structure (host build, torch tensors)
 * ``cosig_tpu_torch.ops``     — plain PyTorch versions of the device code
-  and the wavefront render
+  and the wavefront, megakernel and debug renders, the analytic
+  primitive table
 * ``cosig_tpu_torch.kernels`` — nvcc build, ctypes wrappers, launch counters
 * ``cosig_tpu_torch.csrc``    — the CUDA sources
 * ``cosig_tpu_torch.render``  — the Renderer front end
@@ -18,9 +23,9 @@ Layout mirrors :mod:`cosig_tpu`:
 
 __version__ = "0.1.0"
 
-from cosig_tpu.models.scene import SceneData
-from cosig_tpu.models.settings import RenderSettings
-from cosig_tpu.scene.parser import load_scene, parse_scene
+from cosig_tpu_torch.models.scene import SceneData
+from cosig_tpu_torch.models.settings import RenderSettings
+from cosig_tpu_torch.scene.parser import load_scene, parse_scene
 from cosig_tpu_torch.render.renderer import Renderer, RenderStats
 
 __all__ = [

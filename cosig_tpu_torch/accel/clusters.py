@@ -2,7 +2,7 @@
 
 Counterpart of :func:`cosig_tpu.accel.clusters.build_clusters`
 (``clusters.py:236-483``): the reference-style median-split BVH
-(:mod:`cosig_tpu.accel.bvh`, jax-free) is cut into leaves of at most ``k``
+(:mod:`cosig_tpu_torch.accel.bvh`) is cut into leaves of at most ``k``
 triangles; leaves are chunked, packed and become *clusters*, each padded
 to exactly ``k`` rows of precomputed Plücker constants. The kernels test
 a ray against every cluster box and run the exact pair test on the
@@ -30,8 +30,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from cosig_tpu.accel.bvh import build_bvh
-from cosig_tpu.scene.tessellate import TriangleSoA
+from cosig_tpu_torch.accel.bvh import build_bvh
+from cosig_tpu_torch.scene.tessellate import TriangleSoA
 from cosig_tpu_torch.ops.intersect import plucker_constants_host
 
 log = logging.getLogger("cosig_tpu_torch.clusters")

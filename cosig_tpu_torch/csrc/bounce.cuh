@@ -36,7 +36,7 @@ constexpr int MAX_LIGHTS = 16;
 
 // Everything a launch needs besides the geometry and the state, passed by
 // value (it lands in the kernel's constant parameter bank). Mirrored by
-// cosig_tpu_torch/kernels/wavefront.py Frame; all fields are 4 bytes.
+// cosig_tpu_torch/kernels/binding.py Frame; all fields are 4 bytes.
 struct Frame {
   float u[UNIFORMS_LEN];
   int flags;

@@ -1,0 +1,155 @@
+// The megakernel and the debug kernel, with plain C launchers for ctypes.
+//
+// megakernel replaces cosig_tpu/ops/trace_pallas.py _make_kernel
+// (:132-288): per pixel, every AA sample in order, each traced through up
+// to max_depth bounces, then the colour mean and the per-pixel ray count.
+// On the TPU a grid step owns a 32x32 pixel tile, keeps the ray state in
+// VMEM and skips a bounce when no ray of the tile is alive; here one
+// thread owns one pixel (the TPU kernel's lane) and keeps its ray,
+// attenuation and colour in registers, so no state goes to device memory
+// and a thread stops as soon as its own ray dies. The camera ray and the
+// bounce are the same device code as the wavefront kernels (camera.cuh,
+// bounce.cuh), so for power-of-two AA the two paths give the same bits;
+// the mean here is acc * f32(1/aa) as on the TPU (trace_pallas.py
+// :282-285), not the wavefront's division.
+//
+// debug_kernel replaces cosig_tpu/ops/trace_pallas.py _make_debug_kernel
+// (:438-513): one perspective centre ray per pixel, even under the
+// orthographic toggle (the reference's quirk), one closest-hit traversal,
+// then mode 1 depth t/100, mode 2 normal * 0.5 + 0.5, mode 3 hit/miss.
+//
+// Bound: the traversals, as for the wavefront kernels (traverse.cuh): the
+// pair and slab tests per ray, and 16 bytes of output per pixel.
+// This first version does nothing about the divergence of a per-pixel
+// loop: a warp runs until its longest path (sample x depth) ends, while
+// the threads whose rays died wait.
+//
+// Build: as wavefront.cu (cosig_tpu_torch/kernels/build.py), --fmad=false
+// and IEEE division and sqrt.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "camera.cuh"
+
+namespace cosig {
+
+constexpr int MEGA_THREADS = 128;
+
+__global__ void __launch_bounds__(MEGA_THREADS)
+    megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+               const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+               const float* __restrict__ prims, int n_sph, int n_box, int max_depth,
+               float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // pixel py_local * W + px
+  if (i >= f.n_rays) return;
+  const int n = f.n_rays;
+  const float px = (float)(i % f.width);
+  // Global row: projection and RNG seeds stay those of the full frame.
+  // As on the TPU, every row of the band is traced (no in-image mask).
+  const float py = (float)(i / f.width) + f.u[U_ROW_OFF];
+  const Geometry g = make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box);
+
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  RayState st;
+  st.count = 0.0f;
+  for (int s_i = 0; s_i < f.aa; ++s_i) {
+    camera_ray(f, px, py, s_i, st);
+    st.at_r = st.at_g = st.at_b = 1.0f;
+    st.col_r = st.col_g = st.col_b = 0.0f;
+    st.alive = true;
+    // A dead ray's bounce is a no-op on the TPU as well: stopping is exact.
+    for (int depth = 0; depth < max_depth && st.alive; ++depth) {
+      bounce_core(f, g, st, px, py, (float)s_i, (float)depth, depth == max_depth - 1);
+    }
+    acc_r = acc_r + st.col_r;
+    acc_g = acc_g + st.col_g;
+    acc_b = acc_b + st.col_b;
+  }
+  const float inv_aa = 1.0f / (float)f.aa;  // == float32(1.0 / aa) for aa <= 64
+  out[0 * (size_t)n + i] = acc_r * inv_aa;
+  out[1 * (size_t)n + i] = acc_g * inv_aa;
+  out[2 * (size_t)n + i] = acc_b * inv_aa;
+  out[3 * (size_t)n + i] = st.count;
+}
+
+__global__ void __launch_bounds__(MEGA_THREADS)
+    debug_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+                 const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+                 const float* __restrict__ prims, int n_sph, int n_box, int mode,
+                 float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= f.n_rays) return;
+  const int n = f.n_rays;
+  const float px = (float)(i % f.width);
+  const float py = (float)(i / f.width) + f.u[U_ROW_OFF];
+  const float* cam = f.u + U_CAM;
+  const float ocz = f.u[U_DIST];
+  const float plane_h = f.u[U_PLANE_H];
+  const float plane_w = plane_h * f.aspect;
+
+  // trace_pallas.py:469-480, operation for operation: the origin is the
+  // camera position cam[., 2] * dist + cam[., 3].
+  float dcx = ((px + 0.5f) / (float)f.width - 0.5f) * plane_w;
+  float dcy = ((py + 0.5f) / (float)f.height - 0.5f) * plane_h;
+  float dcz = -ocz;
+  rsqrt3(dcx, dcy, dcz);
+  const float ox = cam[2] * ocz + cam[3];
+  const float oy = cam[6] * ocz + cam[7];
+  const float oz = cam[10] * ocz + cam[11];
+  float dx = cam[0] * dcx + cam[1] * dcy + cam[2] * dcz;
+  float dy = cam[4] * dcx + cam[5] * dcy + cam[6] * dcz;
+  float dz = cam[8] * dcx + cam[9] * dcy + cam[10] * dcz;
+  rsqrt3(dx, dy, dz);
+
+  const Geometry g = make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box);
+  const Hit h = trace_closest(g, make_ray(ox, oy, oz, dx, dy, dz));
+  float r, gr, b;
+  if (mode == 1) {
+    const float d = h.t / 100.0f;
+    r = h.hit ? d : 1.0f;
+    gr = h.hit ? d : 0.0f;
+    b = h.hit ? d : 0.0f;
+  } else if (mode == 2) {
+    r = h.hit ? h.nx * 0.5f + 0.5f : 0.0f;
+    gr = h.hit ? h.ny * 0.5f + 0.5f : 0.0f;
+    b = h.hit ? h.nz * 0.5f + 0.5f : 1.0f;
+  } else {
+    r = h.hit ? 0.0f : 0.2f;
+    gr = h.hit ? 1.0f : 0.2f;
+    b = h.hit ? 0.0f : 0.2f;
+  }
+  out[0 * (size_t)n + i] = r;
+  out[1 * (size_t)n + i] = gr;
+  out[2 * (size_t)n + i] = b;
+  out[3 * (size_t)n + i] = 1.0f;
+}
+
+}  // namespace cosig
+
+extern "C" {
+
+// Launch on `stream`; returns cudaGetLastError() (0 = launched). frame->n_rays
+// is the number of pixels, out f32 [4, n_rays]: rgb and the ray count.
+int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
+                            int n_clusters, int k, int c_pad, const float* prims, int n_sph,
+                            int n_box, int max_depth, float* out, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  const int blocks = (n + cosig::MEGA_THREADS - 1) / cosig::MEGA_THREADS;
+  cosig::megakernel<<<blocks, cosig::MEGA_THREADS, 0, (cudaStream_t)stream>>>(
+      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, max_depth, out);
+  return (int)cudaGetLastError();
+}
+
+int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
+                       int n_clusters, int k, int c_pad, const float* prims, int n_sph,
+                       int n_box, int mode, float* out, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  const int blocks = (n + cosig::MEGA_THREADS - 1) / cosig::MEGA_THREADS;
+  cosig::debug_kernel<<<blocks, cosig::MEGA_THREADS, 0, (cudaStream_t)stream>>>(
+      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, mode, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -19,7 +19,15 @@
 //  * the winner is the lexicographic (t, gid) minimum over all valid
 //    pairs (kernel_core.py:861-902). That fold does not depend on visit
 //    order or clustering, so a per-ray walk picks the TPU's winner;
-//  * normalization is 1/sqrt then multiply (kernel_core.py:137-140).
+//  * normalization is 1/sqrt then multiply (kernel_core.py:137-140);
+//  * analytic spheres and boxes (the prims table of ops/analytic.py,
+//    passed as a device pointer beside the cluster set) fold in after the
+//    cluster walk, as kernel_core.py:930-1018 does: the object-space ray is
+//    not normalized, box slabs use nan_min/nan_max (1/d is inf on an
+//    axis-parallel ray), the face sign is jnp.sign's (0 at 0, so not
+//    copysignf), and tie ids GID_SPH + 2p sit above every triangle id, so
+//    a primitive loses an equal-t tie to a triangle. The world normal stays
+//    unnormalized until the shared epilogue.
 //
 // The superblock level (sb_aabb_t, used on the TPU when C_pad > 512) is
 // only a culling shortcut; a flat loop over the C clusters is exact.
@@ -38,6 +46,8 @@ namespace cosig {
 constexpr float INF = 3.402823466e38f;  // FLT_MAX, the reference's "infinity"
 constexpr float EPSILON = 1e-4f;
 constexpr float GID_PAD = 16777216.0f;  // 2^24: padding rows / no hit
+constexpr float GID_SPH = 16777218.0f;  // 2^24 + 2: tie id of primitive 0
+constexpr int PRIM_COLS = 22;  // 3x4 inverse, 3x3 inverse-transpose, material
 
 // Geometry columns (accel/clusters.py).
 constexpr int GEOM_COMPS = 36;
@@ -52,11 +62,33 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
+// jnp.sign: -1, 1, and x itself at +-0 and NaN.
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
 struct Geometry {
-  const float* __restrict__ geom;  // [C, K, GEOM_COMPS]
-  const float* __restrict__ aabb;  // [8, c_pad]: min xyz, max xyz, pad
-  int n_clusters, k, c_pad;
+  const float* __restrict__ geom;   // [C, K, GEOM_COMPS]
+  const float* __restrict__ aabb;   // [8, c_pad]: min xyz, max xyz, pad
+  const float* __restrict__ prims;  // [>= n_sph + n_box, PRIM_COLS], spheres first
+  int n_clusters, k, c_pad, n_sph, n_box;
 };
+
+__device__ __forceinline__ Geometry make_geometry(const float* geom, const float* aabb,
+                                                  int n_clusters, int k, int c_pad,
+                                                  const float* prims, int n_sph,
+                                                  int n_box) {
+  Geometry g;
+  g.geom = geom;
+  g.aabb = aabb;
+  g.prims = prims;
+  g.n_clusters = n_clusters;
+  g.k = k;
+  g.c_pad = c_pad;
+  g.n_sph = n_sph;
+  g.n_box = n_box;
+  return g;
+}
 
 struct Hit {
   bool hit;
@@ -129,6 +161,59 @@ __device__ __forceinline__ bool pair_test(const float* __restrict__ p, const Ray
          (vc * s >= 0.0f) && (t > EPSILON);
 }
 
+// Analytic primitive p against the ray (kernel_core.py:955-1018) ->
+// validity, t (world parameterization) and the object-space normal.
+__device__ __forceinline__ bool prim_test(const Geometry& g, int p, const Ray& r, float& tp,
+                                          float& nxo, float& nyo, float& nzo) {
+  const float* __restrict__ m = g.prims + p * PRIM_COLS;
+  const float m0 = __ldg(m + 0), m1 = __ldg(m + 1), m2 = __ldg(m + 2), m3 = __ldg(m + 3);
+  const float m4 = __ldg(m + 4), m5 = __ldg(m + 5), m6 = __ldg(m + 6), m7 = __ldg(m + 7);
+  const float m8 = __ldg(m + 8), m9 = __ldg(m + 9), m10 = __ldg(m + 10), m11 = __ldg(m + 11);
+  const float oxo = m0 * r.ox + m1 * r.oy + m2 * r.oz + m3;
+  const float oyo = m4 * r.ox + m5 * r.oy + m6 * r.oz + m7;
+  const float ozo = m8 * r.ox + m9 * r.oy + m10 * r.oz + m11;
+  const float dxo = m0 * r.dx + m1 * r.dy + m2 * r.dz;
+  const float dyo = m4 * r.dx + m5 * r.dy + m6 * r.dz;
+  const float dzo = m8 * r.dx + m9 * r.dy + m10 * r.dz;
+  if (p < g.n_sph) {
+    // Unit sphere (HittableObjects.cs:83-108).
+    const float a = dxo * dxo + dyo * dyo + dzo * dzo;
+    const float b = 2.0f * (oxo * dxo + oyo * dyo + ozo * dzo);
+    const float c = oxo * oxo + oyo * oyo + ozo * ozo - 1.0f;
+    const float disc = b * b - 4.0f * a * c;
+    const float sq = sqrtf(nan_max(disc, 0.0f));
+    const float t0 = (-b - sq) / (2.0f * a);
+    const float t1 = (-b + sq) / (2.0f * a);
+    tp = t0 > EPSILON ? t0 : t1;
+    nxo = oxo + tp * dxo;  // the hit point on the unit sphere
+    nyo = oyo + tp * dyo;
+    nzo = ozo + tp * dzo;
+    return (disc >= 0.0f) && (tp > EPSILON);
+  }
+  // Unit cube [-0.5, 0.5]^3 (HittableObjects.cs:182-224), first-of-equals
+  // face pick.
+  const float ix = 1.0f / dxo, iy = 1.0f / dyo, iz = 1.0f / dzo;
+  const float t0x = (-0.5f - oxo) * ix;
+  const float t1x = (0.5f - oxo) * ix;
+  const float t0y = (-0.5f - oyo) * iy;
+  const float t1y = (0.5f - oyo) * iy;
+  const float t0z = (-0.5f - ozo) * iz;
+  const float t1z = (0.5f - ozo) * iz;
+  const float t_en =
+      nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
+  const float t_ex =
+      nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
+  tp = t_en > EPSILON ? t_en : t_ex;
+  const float pxo = oxo + tp * dxo, pyo = oyo + tp * dyo, pzo = ozo + tp * dzo;
+  const float ax = fabsf(pxo), ay = fabsf(pyo), az = fabsf(pzo);
+  const bool is_x = (ax >= ay) && (ax >= az);
+  const bool is_y = !is_x && (ay >= az);
+  nxo = is_x ? sign_of(pxo) : 0.0f;
+  nyo = is_y ? sign_of(pyo) : 0.0f;
+  nzo = (is_x || is_y) ? 0.0f : sign_of(pzo);
+  return (t_en <= t_ex) && (t_ex > EPSILON) && (tp > EPSILON);
+}
+
 // Closest hit: t = INF, normal (0, 1, 0) and material -1 on a miss.
 __device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
   float bt = INF, bgid = GID_PAD, bu = 0.0f, bv = 0.0f;
@@ -151,20 +236,42 @@ __device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
       }
     }
   }
+  // The triangle winner's interpolated normal, unnormalized.
+  float nx = 0.0f, ny = 1.0f, nz = 0.0f, mat = -1.0f;
+  if (brow >= 0) {
+    const float* __restrict__ p = g.geom + (size_t)brow * GEOM_COMPS;
+    const float w = 1.0f - bu - bv;
+    nx = w * __ldg(p + C_N0) + bu * __ldg(p + C_N1) + bv * __ldg(p + C_N2);
+    ny = w * __ldg(p + C_N0 + 1) + bu * __ldg(p + C_N1 + 1) + bv * __ldg(p + C_N2 + 1);
+    nz = w * __ldg(p + C_N0 + 2) + bu * __ldg(p + C_N1 + 2) + bv * __ldg(p + C_N2 + 2);
+    mat = __ldg(p + C_MAT);
+  }
+  // Analytic fold: lexicographic (t, gid), the world normal the
+  // inverse-transpose times the object normal.
+  for (int q = 0; q < g.n_sph + g.n_box; ++q) {
+    float tp, nxo, nyo, nzo;
+    const bool valid = prim_test(g, q, r, tp, nxo, nyo, nzo);
+    const float tm = valid ? tp : INF;
+    const float gid = GID_SPH + 2.0f * (float)q;
+    if (tm < bt || (tm == bt && gid < bgid)) {
+      const float* __restrict__ w = g.prims + q * PRIM_COLS + 12;
+      nx = __ldg(w + 0) * nxo + __ldg(w + 1) * nyo + __ldg(w + 2) * nzo;
+      ny = __ldg(w + 3) * nxo + __ldg(w + 4) * nyo + __ldg(w + 5) * nzo;
+      nz = __ldg(w + 6) * nxo + __ldg(w + 7) * nyo + __ldg(w + 8) * nzo;
+      mat = __ldg(w + 9);
+      bt = tm;
+      bgid = gid;
+    }
+  }
   Hit h;
   h.t = bt;
   h.hit = bt < INF;
   if (h.hit) {
-    const float* __restrict__ p = g.geom + (size_t)brow * GEOM_COMPS;
-    const float w = 1.0f - bu - bv;
-    float nx = w * __ldg(p + C_N0) + bu * __ldg(p + C_N1) + bv * __ldg(p + C_N2);
-    float ny = w * __ldg(p + C_N0 + 1) + bu * __ldg(p + C_N1 + 1) + bv * __ldg(p + C_N2 + 1);
-    float nz = w * __ldg(p + C_N0 + 2) + bu * __ldg(p + C_N1 + 2) + bv * __ldg(p + C_N2 + 2);
     const float inv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
     h.nx = nx * inv;
     h.ny = ny * inv;
     h.nz = nz * inv;
-    h.mat = __ldg(p + C_MAT);
+    h.mat = mat;
   } else {
     h.nx = 0.0f;
     h.ny = 1.0f;
@@ -174,7 +281,8 @@ __device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
   return h;
 }
 
-// Any hit: is some valid pair at t <= max_t (kernel_core.py:843-860)?
+// Any hit: is some valid pair or primitive at t <= max_t
+// (kernel_core.py:843-860, :936-939)?
 // Boxes entered beyond max_t are skipped; the walk stops at the first
 // occluder.
 __device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float max_t) {
@@ -188,6 +296,10 @@ __device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float
       float t, vb, vc, inv_s;
       if (pair_test(p, r, t, vb, vc, inv_s) && t <= max_t) return true;
     }
+  }
+  for (int q = 0; q < g.n_sph + g.n_box; ++q) {
+    float tp, nxo, nyo, nzo;
+    if (prim_test(g, q, r, tp, nxo, nyo, nzo) && tp <= max_t) return true;
   }
   return false;
 }

@@ -1,0 +1,189 @@
+"""The kernel library's binding and the four kernels' launch counters.
+
+The library (built by :mod:`cosig_tpu_torch.kernels.build`) holds the
+four kernels of ``csrc/`` behind plain C launchers; this module loads it
+with ctypes, mirrors ``struct Frame`` (their launch parameters), checks
+the tensors they read and launches them on the current stream.
+
+``LAUNCHES`` counts kernel launches per kernel (``primary``, ``bounce``,
+``megakernel``, ``debug``); each wrapper of
+:mod:`cosig_tpu_torch.kernels.wavefront` and
+:mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
+kernel, and plain runs on the CPU count nothing. :func:`reset_counts` sets
+all four to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from cosig_tpu_torch.accel.clusters import GEOM_COMPS, ClusterSet
+from cosig_tpu_torch.kernels import build as kbuild
+from cosig_tpu_torch.models.soa import StaticConfig
+from cosig_tpu_torch.ops import camera, trace_wavefront
+from cosig_tpu_torch.ops.kernel_core import UNIFORMS_LEN
+
+F32 = np.float32
+
+MAX_MATS = 64  # csrc/bounce.cuh
+MAX_LIGHTS = 16
+
+# Flag bits of csrc/bounce.cuh (StaticConfig toggles).
+_FLAGS = (
+    ("enable_ambient", 1),
+    ("enable_diffuse", 2),
+    ("enable_specular", 4),
+    ("enable_refraction", 8),
+    ("is_orthographic", 16),
+    ("enable_soft_shadows", 32),
+    ("enable_glossy", 64),
+    ("enable_motion_blur", 128),
+    ("multi_light", 256),
+)
+
+LAUNCHES = {"primary": 0, "bounce": 0, "megakernel": 0, "debug": 0}
+
+
+def reset_counts() -> None:
+    """Set all four launch counters to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class Frame(ctypes.Structure):
+    """Mirror of ``struct Frame`` in csrc/bounce.cuh (all fields 4 bytes)."""
+
+    _fields_ = [
+        ("u", ctypes.c_float * UNIFORMS_LEN),
+        ("flags", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+        ("band", ctypes.c_int),
+        ("aa", ctypes.c_int),
+        ("grid_w", ctypes.c_int),
+        ("grid_h", ctypes.c_int),
+        ("aspect", ctypes.c_float),
+        ("n_rays", ctypes.c_int),
+        ("n_mats", ctypes.c_int),
+        ("n_lights", ctypes.c_int),
+        ("depth", ctypes.c_int),
+        ("is_last", ctypes.c_int),
+        ("mats", ctypes.c_float * (MAX_MATS * 8)),
+        ("lights", ctypes.c_float * (MAX_LIGHTS * 8)),
+    ]
+
+
+def config_flags(cfg: StaticConfig) -> int:
+    return sum(bit for name, bit in _FLAGS if getattr(cfg, name))
+
+
+def make_frame(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
+               lights: np.ndarray, band: int, depth: int, is_last: bool,
+               n_rays: int | None = None) -> Frame:
+    """The launch parameters of one kernel; ``n_rays`` is its thread count
+    (default: the wavefront's rays in ``band`` rows)."""
+    if mats.shape[0] > MAX_MATS or lights.shape[0] > MAX_LIGHTS:
+        raise ValueError(
+            f"the kernels take at most {MAX_MATS} materials and {MAX_LIGHTS} lights; "
+            f"got {mats.shape[0]} and {lights.shape[0]}"
+        )
+    if uniforms.shape != (UNIFORMS_LEN,):
+        raise ValueError(f"uniforms must be [{UNIFORMS_LEN}], got {uniforms.shape}")
+    aa = max(1, cfg.aa_samples)
+    grid_w, grid_h = camera.aa_grid(aa)
+    f = Frame()
+    f.u[:] = [float(x) for x in np.asarray(uniforms, F32)]
+    f.flags = config_flags(cfg)
+    f.width, f.height, f.band = cfg.width, cfg.height, band
+    f.aa, f.grid_w, f.grid_h = aa, grid_w, grid_h
+    f.aspect = float(F32(cfg.width / cfg.height))
+    f.n_rays = trace_wavefront.num_rays(cfg, band) if n_rays is None else n_rays
+    f.n_mats, f.n_lights = mats.shape[0], lights.shape[0]
+    f.depth, f.is_last = depth, int(is_last)
+    m = np.zeros(MAX_MATS * 8, F32)
+    m[: mats.size] = np.asarray(mats, F32).ravel()
+    f.mats[:] = [float(x) for x in m]
+    li = np.zeros(MAX_LIGHTS * 8, F32)
+    li[: lights.size] = np.asarray(lights, F32).ravel()
+    f.lights[:] = [float(x) for x in li]
+    return f
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library (all four kernels)."""
+    path, _, _ = kbuild.build()
+    lib = ctypes.CDLL(path)
+    # frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box
+    common = [
+        ctypes.POINTER(Frame), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ]
+    for name, extra in (
+        ("cosig_primary_launch", []),  # state, stream
+        ("cosig_bounce_launch", []),
+        ("cosig_megakernel_launch", [ctypes.c_int]),  # max_depth, out, stream
+        ("cosig_debug_launch", [ctypes.c_int]),  # mode, out, stream
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = common + extra + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.cosig_frame_bytes.argtypes = []
+    lib.cosig_frame_bytes.restype = ctypes.c_int
+    if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
+        raise RuntimeError(
+            f"Frame layout mismatch: C {lib.cosig_frame_bytes()} bytes, "
+            f"Python {ctypes.sizeof(Frame)}"
+        )
+    return lib
+
+
+def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
+                 n_sph: int, n_box: int) -> None:
+    """Raise unless the cluster set and the primitive table are what the
+    kernels read: contiguous float32 on ``dev``, of the layout they index."""
+    for name in ("geom", "aabb_t"):
+        t = getattr(cset, name)
+        if t.device != dev:
+            raise ValueError(f"cset.{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"cset.{name} must be contiguous float32")
+    if cset.geom.dim() != 3 or cset.geom.shape[2] != GEOM_COMPS:
+        raise ValueError(f"cset.geom must be [C, K, {GEOM_COMPS}], got {tuple(cset.geom.shape)}")
+    if cset.aabb_t.dim() != 2 or cset.aabb_t.shape[0] != 8 \
+            or cset.aabb_t.shape[1] < cset.geom.shape[0]:
+        raise ValueError(f"cset.aabb_t must be [8, >= C], got {tuple(cset.aabb_t.shape)}")
+    if (prims.device != dev or prims.dtype != torch.float32 or not prims.is_contiguous()
+            or prims.dim() != 2 or prims.shape[1] != 22
+            or prims.shape[0] < n_sph + n_box or min(n_sph, n_box) < 0):
+        raise ValueError(
+            f"prims must be contiguous float32 [>= {n_sph + n_box}, 22] on {dev}, "
+            f"got {prims.dtype} {tuple(prims.shape)} on {prims.device}"
+        )
+
+
+def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph: int,
+           n_box: int, out: torch.Tensor, *extra: int) -> None:
+    """Launch ``name`` on the current stream of ``out``'s device; raise if
+    the launch is refused. ``extra``: the launcher's int arguments between
+    the primitive counts and ``out``."""
+    fn = getattr(library(), name)
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            ctypes.byref(frame),
+            ctypes.c_void_p(cset.geom.data_ptr()),
+            ctypes.c_void_p(cset.aabb_t.data_ptr()),
+            cset.num_clusters, cset.k, int(cset.aabb_t.shape[1]),
+            ctypes.c_void_p(prims.data_ptr()), n_sph, n_box,
+            *extra,
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -6,8 +6,8 @@ holds numpy float32 values, and the builders keep the reference's
 override precedence (settings beat scene-file values; fallbacks fov 50,
 distance 30, 256x256, background (0.2, 0.2, 0.2)).
 
-The triangle soup itself comes from the jax-free
-:func:`cosig_tpu.scene.tessellate.extract_triangles`; the port never
+The triangle soup itself comes from
+:func:`cosig_tpu_torch.scene.tessellate.extract_triangles`; the port never
 builds a device copy of it (the kernels read the cluster set only).
 """
 
@@ -18,9 +18,9 @@ from typing import Tuple
 
 import numpy as np
 
-from cosig_tpu.models.scene import SceneData
-from cosig_tpu.models.settings import RenderSettings
-from cosig_tpu.scene import transforms as tf
+from cosig_tpu_torch.models.scene import SceneData
+from cosig_tpu_torch.models.settings import RenderSettings
+from cosig_tpu_torch.scene import transforms as tf
 
 F32 = np.float32
 

@@ -16,11 +16,17 @@ operations are IEEE (everything but sin/cos):
 * the Plücker chain order follows ``:818-842``;
 * the winner is the lexicographic (t, gid) minimum over all valid pairs
   (``:861-902``) — independent of clustering and visit order;
-* normalization is ``1/sqrt`` then multiply (``:137-140``).
+* normalization is ``1/sqrt`` then multiply (``:137-140``);
+* analytic spheres and boxes (``analytic_primitives``) fold in after the
+  cluster walk with tie ids above every triangle's (``:931-1018``).
 
 Division by a Python scalar goes through a tensor divisor (``_div``):
 PyTorch's CUDA backend turns ``tensor / scalar`` into a multiply by the
-reciprocal, which is not IEEE division.
+reciprocal, which is not IEEE division. Square roots go through float64
+(``_sqrt``): PyTorch's vectorized float32 sqrt on the CPU is not always
+correctly rounded (an AVX-512 build misses by 1 ulp on some inputs;
+tests/test_torch_host.py counts them), while the float64 root rounded to
+float32 is, on every device.
 """
 
 from __future__ import annotations
@@ -67,8 +73,28 @@ MAT_DEFAULTS = (1.0, 1.0, 1.0, 0.1, 0.7, 0.0, 0.0, 1.0)
 # Geometry columns read by the traversal (accel/clusters.py layout).
 _GN, _NDA, _VA, _VB, _VC, _N0, _MAT, _GID = 3, 6, 7, 13, 19, 25, 34, 35
 
+# Tie ids of analytic primitives: GID_SPH + 2p, above every triangle id
+# (< 2^24), so a primitive loses an equal-t tie to a triangle; spaced by 2
+# to stay f32-exact above 2^24 (cosig_tpu/ops/kernel_core.py:108-111).
+GID_SPH = float(F32(2.0 ** 24 + 2))
+
 # Rays per pair-grid slice in the plain traversal (bounds [rays, K] temporaries).
 _PAIR_CHUNK = 1 << 20
+
+# Work entered by the plain traversal since the last reset_work(): ray x
+# cluster slab tests, ray x triangle pair tests on the clusters a ray
+# enters (padding rows excluded), and ray x analytic-primitive tests —
+# the tests csrc/traverse.cuh runs on the same rays. Its closest-hit walk
+# visits everything; its any-hit walk visits clusters, then rows, then
+# primitives in order and stops at the first occluder, so a shadow ray
+# counts up to that test and no further. chip_smoke.py turns the counts
+# into each kernel's bound.
+WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0}
+
+
+def reset_work() -> None:
+    for key in WORK:
+        WORK[key] = 0
 
 
 def build_uniforms(params: FrameParams, row_offset: float = 0.0) -> np.ndarray:
@@ -111,6 +137,11 @@ def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     return torch.div(a, torch.full_like(a, b))
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt on any device (see module docstring)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _pow32(x):
     x2 = x * x
     x4 = x2 * x2
@@ -121,8 +152,29 @@ def _pow32(x):
 
 def _rsqrt3(x, y, z):
     """1/sqrt then multiply (not rsqrt): bit-matches the JAX package."""
-    inv = torch.reciprocal(torch.sqrt(x * x + y * y + z * z))
+    inv = torch.reciprocal(_sqrt(x * x + y * y + z * z))
     return x * inv, y * inv, z * inv
+
+
+def prim_table(prims, prim_counts, device):
+    """The analytic primitive table as the traversals take it ->
+    (contiguous f32 [P, 22] tensor on ``device``, n_sph, n_box); one zero
+    row when there is none (``ops/analytic.pack_prims_host``)."""
+    n_sph, n_box = (int(n) for n in prim_counts)
+    if prims is None:
+        prims = np.zeros((1, 22), F32)
+    prims = torch.as_tensor(prims, dtype=torch.float32, device=device).contiguous()
+    if prims.dim() != 2 or prims.shape[1] != 22 or prims.shape[0] < max(1, n_sph + n_box):
+        raise ValueError(
+            f"prims must be [>= max(1, n_sph + n_box), 22], got {tuple(prims.shape)} "
+            f"for counts {(n_sph, n_box)}"
+        )
+    return prims, n_sph, n_box
+
+
+def _sign(x):
+    """jnp.sign: -1, 1, and x itself at 0 and NaN (torch.sign maps NaN to 0)."""
+    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
 
 
 def _ruv(sx, sy, sz):
@@ -130,7 +182,7 @@ def _ruv(sx, sy, sz):
     h0, _, h2 = rng.hash33(sx, sy, sz)
     z = h2 * 2.0 - 1.0
     a = h0 * rng.TWO_PI
-    r = torch.sqrt(torch.maximum(torch.zeros_like(z), 1.0 - z * z))
+    r = _sqrt(torch.maximum(torch.zeros_like(z), 1.0 - z * z))
     return r * torch.cos(a), r * torch.sin(a), z
 
 
@@ -139,19 +191,26 @@ def _ruv(sx, sy, sz):
 
 
 def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
-             max_t=None, any_hit=False):
+             max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0):
     """Closest hit (or, with ``any_hit``, occlusion at t <= max_t) of rays
-    [N] against the cluster set -> ``(hit, t, nx, ny, nz, mat)``.
+    [N] against the cluster set and the analytic primitives -> ``(hit, t,
+    nx, ny, nz, mat)``.
 
     Closest hit: ``t`` is INF and the normal (0, 1, 0) on a miss; ``mat``
-    is the winning triangle's material (-1 on a miss). Any hit: ``hit`` is
-    the occlusion flag and the other outputs are None. Inactive rays
-    report a miss."""
+    is the winner's material (-1 on a miss). Any hit: ``hit`` is the
+    occlusion flag and the other outputs are None. Inactive rays report a
+    miss. ``prims`` is the [P, 22] table of :func:`prim_table` with its
+    first ``n_sph`` rows spheres and the next ``n_box`` boxes."""
     n = ox.shape[0]
     dev = ox.device
     geom = cset.geom
     C, K = int(geom.shape[0]), int(geom.shape[1])
     aabb = cset.aabb_t
+    rows_real = (geom[:, :, _GID] != float(GID_PAD)).sum(dim=1).tolist()
+    if not any_hit:
+        n_active = int(active.sum())
+        WORK["slab_tests"] += n_active * C
+        WORK["prim_tests"] += n_active * (n_sph + n_box)
     idx = torch.reciprocal(dx)
     idy = torch.reciprocal(dy)
     idz = torch.reciprocal(dz)
@@ -170,6 +229,10 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         best_v = torch.zeros(n, dtype=torch.float32, device=dev)
 
     for c in range(C):
+        if any_hit:
+            # An occluded ray's walk has stopped: it tests no more clusters.
+            active = active & ~occ
+            WORK["slab_tests"] += int(active.sum())
         b = aabb[:6, c]
         # Per-ray slab cull, NaN-conservative (cosig_tpu/ops/kernel_core.py:430-449).
         t0x = (b[0] - ox) * idx
@@ -192,6 +255,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         rays = torch.nonzero(boxhit).squeeze(1)
         if rays.numel() == 0:
             continue
+        if not any_hit:
+            WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
         g = geom[c]  # [K, 36]
 
         def col(j):
@@ -221,7 +286,12 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                 & (t > EPSILON)
             )
             if any_hit:
-                occ[r] |= (valid & (t <= max_t[r, None])).any(dim=1)
+                # The walk stops at the first occluding row of the cluster.
+                occludes = valid & (t <= max_t[r, None])
+                first = occludes.to(torch.uint8).argmax(dim=1)
+                hit_here = occludes.any(dim=1)
+                WORK["pair_tests"] += int(torch.where(hit_here, first + 1, rows_real[c]).sum())
+                occ[r] |= hit_here
                 continue
             tm = torch.where(valid, t, INF)
             tmin = tm.min(dim=1).values
@@ -240,22 +310,99 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             best_u[rb] = u[better]
             best_v[rb] = v[better]
 
+    if not any_hit:
+        # Winner attributes: columns n0 | n1 | n2 | material of the winning
+        # row; the normal stays unnormalized until after the primitive fold.
+        g = geom.reshape(C * K, -1)[:, _N0:_MAT + 1].index_select(0, best_row.clamp_min(0))
+        w = 1.0 - best_u - best_v
+        u, v = best_u, best_v
+        nx = w * g[:, 0] + u * g[:, 3] + v * g[:, 6]
+        ny = w * g[:, 1] + u * g[:, 4] + v * g[:, 7]
+        nz = w * g[:, 2] + u * g[:, 5] + v * g[:, 8]
+        mat = g[:, 9]
+
+    # ---- analytic primitive fold (cosig_tpu/ops/kernel_core.py:930-1018) ----
+    table = prims.tolist() if n_sph + n_box else []
+    for p in range(n_sph + n_box):
+        if any_hit:
+            active = active & ~occ
+            WORK["prim_tests"] += int(active.sum())
+        m = table[p]
+        # Object-space ray; the direction is NOT normalized, so t stays in
+        # world parameterization.
+        oxo = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
+        oyo = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
+        ozo = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
+        dxo = m[0] * dx + m[1] * dy + m[2] * dz
+        dyo = m[4] * dx + m[5] * dy + m[6] * dz
+        dzo = m[8] * dx + m[9] * dy + m[10] * dz
+        if p < n_sph:
+            # Unit sphere (HittableObjects.cs:83-108).
+            a = dxo * dxo + dyo * dyo + dzo * dzo
+            b = 2.0 * (oxo * dxo + oyo * dyo + ozo * dzo)
+            c = oxo * oxo + oyo * oyo + ozo * ozo - 1.0
+            disc = b * b - 4.0 * a * c
+            sq = _sqrt(torch.maximum(disc, torch.zeros_like(disc)))
+            t0 = (-b - sq) / (2.0 * a)
+            t1 = (-b + sq) / (2.0 * a)
+            tp = torch.where(t0 > EPSILON, t0, t1)
+            valid = (disc >= 0.0) & (tp > EPSILON)
+            # Object normal = the hit point on the unit sphere.
+            nxo, nyo, nzo = oxo + tp * dxo, oyo + tp * dyo, ozo + tp * dzo
+        else:
+            # Unit cube [-0.5, 0.5]^3 (HittableObjects.cs:182-224), the
+            # first-of-equals face pick of intersect.intersect_unit_box.
+            ix, iy, iz = torch.reciprocal(dxo), torch.reciprocal(dyo), torch.reciprocal(dzo)
+            t0x = (-0.5 - oxo) * ix
+            t1x = (0.5 - oxo) * ix
+            t0y = (-0.5 - oyo) * iy
+            t1y = (0.5 - oyo) * iy
+            t0z = (-0.5 - ozo) * iz
+            t1z = (0.5 - ozo) * iz
+            t_en = torch.maximum(
+                torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+                torch.minimum(t0z, t1z),
+            )
+            t_ex = torch.minimum(
+                torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+                torch.maximum(t0z, t1z),
+            )
+            tp = torch.where(t_en > EPSILON, t_en, t_ex)
+            valid = (t_en <= t_ex) & (t_ex > EPSILON) & (tp > EPSILON)
+            pxo, pyo, pzo = oxo + tp * dxo, oyo + tp * dyo, ozo + tp * dzo
+            ax, ay, az = torch.abs(pxo), torch.abs(pyo), torch.abs(pzo)
+            is_x = (ax >= ay) & (ax >= az)
+            is_y = ~is_x & (ay >= az)
+            nxo = torch.where(is_x, _sign(pxo), 0.0)
+            nyo = torch.where(is_y, _sign(pyo), 0.0)
+            nzo = torch.where(is_x | is_y, 0.0, _sign(pzo))
+        valid = valid & active
+        if any_hit:
+            occ |= valid & (tp <= max_t)
+            continue
+        # World normal = inverse-transpose x object normal, unnormalized.
+        wx_ = m[12] * nxo + m[13] * nyo + m[14] * nzo
+        wy_ = m[15] * nxo + m[16] * nyo + m[17] * nzo
+        wz_ = m[18] * nxo + m[19] * nyo + m[20] * nzo
+        tm = torch.where(valid, tp, INF)
+        gid_p = GID_SPH + 2.0 * p
+        better = (tm < best_t) | ((tm == best_t) & (gid_p < best_gid))
+        best_t = torch.where(better, tm, best_t)
+        best_gid = torch.where(better, gid_p, best_gid)
+        nx = torch.where(better, wx_, nx)
+        ny = torch.where(better, wy_, ny)
+        nz = torch.where(better, wz_, nz)
+        mat = torch.where(better, m[21], mat)
+
     if any_hit:
         return occ, None, None, None, None, None
 
     hit = best_t < INF
-    # Winner attributes: columns n0 | n1 | n2 | material of the winning row.
-    g = geom.reshape(C * K, -1)[:, _N0:_MAT + 1].index_select(0, best_row.clamp_min(0))
-    w = 1.0 - best_u - best_v
-    u, v = best_u, best_v
-    nx = w * g[:, 0] + u * g[:, 3] + v * g[:, 6]
-    ny = w * g[:, 1] + u * g[:, 4] + v * g[:, 7]
-    nz = w * g[:, 2] + u * g[:, 5] + v * g[:, 8]
     nx, ny, nz = _rsqrt3(nx, ny, nz)
     nx = torch.where(hit, nx, 0.0)
     ny = torch.where(hit, ny, 1.0)
     nz = torch.where(hit, nz, 0.0)
-    mat = torch.where(hit, g[:, 9], -1.0)
+    mat = torch.where(hit, mat, -1.0)
     return hit, best_t, nx, ny, nz, mat
 
 
@@ -265,7 +412,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
 
 def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
-                px, py, s, depth: int, is_last: bool) -> None:
+                px, py, s, depth: int, is_last: bool,
+                prims=None, n_sph: int = 0, n_box: int = 0) -> None:
     """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
     kernel_core.py:1089-1270): count and trace the live rays, add the
     background on a miss, shade the hits (ambient, then per light a
@@ -275,7 +423,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
 
     ``px``/``py``/``s`` are the RNG seed planes (read only with soft
     shadows or glossy); ``depth`` is the bounce index; ``is_last`` skips
-    the secondary ray and retires every ray."""
+    the secondary ray and retires every ray. ``prims``/``n_sph``/``n_box``
+    are the analytic primitives both traversals fold in (:func:`traverse`)."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -290,7 +439,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     alive = state[ROW_ALIVE] > 0.0
 
     state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
-    hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive)
+    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box)
+    hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive, **pk)
 
     miss = alive & ~hit
     scol_r = scol_r + torch.where(miss, at_r * bg[0], 0.0)
@@ -327,7 +477,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
         tlx = lpx - hx
         tly = lpy - hy
         tlz = lpz - hz
-        dist_l = torch.sqrt(tlx * tlx + tly * tly + tlz * tlz)
+        dist_l = _sqrt(tlx * tlx + tly * tly + tlz * tlz)
         ldx, ldy, ldz = _rsqrt3(tlx, tly, tlz)
         ndl = torch.maximum(zeros, nx * ldx + ny * ldy + nz * ldz)
 
@@ -336,7 +486,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
             state[ROW_COUNT] = state[ROW_COUNT] + shadow_active.to(torch.float32)
             s_occ = traverse(
                 cset, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
-                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True,
+                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True, **pk,
             )[0]
             gate = ~s_occ & (ndl > 0.0) & alive
             dr = cr * kd * ndl
@@ -377,7 +527,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     cos = -(dx * fnx + dy * fny + dz * fnz)
     kk = 1.0 - eta * eta * (1.0 - cos * cos)
     tir = kk < 0.0
-    coef = eta * cos - torch.sqrt(torch.maximum(kk, zeros))
+    coef = eta * cos - _sqrt(torch.maximum(kk, zeros))
     rfx = eta * dx + coef * fnx
     rfy = eta * dy + coef * fny
     rfz = eta * dz + coef * fnz

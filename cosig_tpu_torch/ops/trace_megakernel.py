@@ -1,0 +1,168 @@
+"""Megakernel render and debug render: the second path of the renderer.
+
+Counterpart of :mod:`cosig_tpu.ops.trace_pallas` (the JAX package's
+``backend="pallas"``); nothing here is Pallas, so the module is named for
+what it does.
+
+* :func:`render_clusters` renders each pixel in one pass: every AA sample
+  in order, each through up to ``max_depth`` bounces, then the colour mean
+  and the pixel's ray count (``trace_pallas.py:132-288``). The mean is
+  ``acc * float32(1/aa)`` as on the TPU (``:282-285``), where the
+  wavefront divides by aa; so the two renders give the same bits when aa
+  is a power of two, and differ by that one rounding otherwise.
+* :func:`render_debug` shoots one perspective centre ray per pixel, even
+  under the orthographic toggle, and shows depth (mode 1), normals (mode
+  2) or hit/miss (mode 3) (``trace_pallas.py:438-513``).
+
+Both dispatch by device as :mod:`cosig_tpu_torch.ops.trace_wavefront`
+does: on a CUDA cluster set they launch the kernels of ``csrc/megakernel.cu``
+through :mod:`cosig_tpu_torch.kernels.megakernel`, on the CPU they run the
+plain versions below, which reuse the wavefront's camera rays and
+``kernel_core.bounce_core``/``traverse``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cosig_tpu_torch.accel.clusters import ClusterSet
+from cosig_tpu_torch.models.soa import StaticConfig
+from cosig_tpu_torch.ops import camera, kernel_core
+from cosig_tpu_torch.ops.kernel_core import (
+    ROW_ALIVE,
+    ROW_COUNT,
+    STATE_ROWS,
+    U_CAM,
+    U_DIST,
+    U_PLANE_H,
+    U_ROW_OFF,
+    _div,
+    _rsqrt3,
+)
+from cosig_tpu_torch.ops.trace_wavefront import frame_inputs
+
+F32 = np.float32
+
+
+def _pixel_planes(cfg: StaticConfig, band: int, row_offset: float, dev):
+    """(px, py) float32 planes of the band's pixels in order py_local * W + px;
+    py is global."""
+    pid = torch.arange(band * cfg.width, device=dev, dtype=torch.int64)
+    px = (pid % cfg.width).to(torch.float32)
+    py = (pid // cfg.width).to(torch.float32) + row_offset
+    return px, py
+
+
+def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
+                     lights: np.ndarray, cfg: StaticConfig, band: int,
+                     prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+    """Plain version of the megakernel -> f32 [4, band * W] (rgb mean, ray
+    count) on the cluster set's device."""
+    dev = cset.device
+    u = [float(x) for x in uniforms]
+    px, py = _pixel_planes(cfg, band, u[U_ROW_OFF], dev)
+    aa = max(1, cfg.aa_samples)
+    acc_r = torch.zeros_like(px)
+    acc_g = torch.zeros_like(px)
+    acc_b = torch.zeros_like(px)
+    state = torch.zeros((STATE_ROWS, px.shape[0]), dtype=torch.float32, device=dev)
+    for s in range(aa):
+        s_plane = torch.full_like(px, float(s))
+        for row, plane in enumerate(camera.primary_rays(cfg, u, px, py, s_plane)):
+            state[row] = plane
+        state[6:9] = 1.0
+        state[9:12] = 0.0
+        state[ROW_ALIVE] = 1.0  # as on the TPU, every row of the band is traced
+        for depth in range(cfg.max_depth):
+            if not bool((state[ROW_ALIVE] > 0.0).any()):
+                break  # a bounce on dead rays changes nothing
+            kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
+                                    px, py, s_plane, depth=depth,
+                                    is_last=depth == cfg.max_depth - 1,
+                                    prims=prims, n_sph=n_sph, n_box=n_box)
+        acc_r = acc_r + state[9]
+        acc_g = acc_g + state[10]
+        acc_b = acc_b + state[11]
+    inv_aa = float(F32(1.0 / aa))
+    return torch.stack([acc_r * inv_aa, acc_g * inv_aa, acc_b * inv_aa, state[ROW_COUNT]])
+
+
+def debug_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
+                lights: np.ndarray, cfg: StaticConfig, prims: torch.Tensor,
+                n_sph: int, n_box: int) -> torch.Tensor:
+    """Plain version of the debug kernel -> f32 [4, H * W] (rgb, count 1)."""
+    del mats, lights  # the debug views read geometry only
+    dev = cset.device
+    u = [float(x) for x in uniforms]
+    px, py = _pixel_planes(cfg, cfg.height, u[U_ROW_OFF], dev)
+    cam = u[U_CAM:U_CAM + 12]
+    plane_h = u[U_PLANE_H]
+    plane_w = float(F32(plane_h) * F32(cfg.width / cfg.height))
+    ocz = torch.full_like(px, u[U_DIST])
+    # trace_pallas.py:469-480, operation for operation.
+    uu = (_div(px + 0.5, float(cfg.width)) - 0.5) * plane_w
+    vv = (_div(py + 0.5, float(cfg.height)) - 0.5) * plane_h
+    dcx, dcy, dcz = _rsqrt3(uu, vv, -ocz)
+    ox = cam[2] * ocz + cam[3]
+    oy = cam[6] * ocz + cam[7]
+    oz = cam[10] * ocz + cam[11]
+    dx = cam[0] * dcx + cam[1] * dcy + cam[2] * dcz
+    dy = cam[4] * dcx + cam[5] * dcy + cam[6] * dcz
+    dz = cam[8] * dcx + cam[9] * dcy + cam[10] * dcz
+    dx, dy, dz = _rsqrt3(dx, dy, dz)
+    hit, t, nx, ny, nz, _ = kernel_core.traverse(
+        cset, ox, oy, oz, dx, dy, dz, torch.ones_like(px, dtype=torch.bool),
+        prims=prims, n_sph=n_sph, n_box=n_box,
+    )
+    if cfg.debug_mode == 1:
+        d = _div(t, 100.0)
+        rgb = (torch.where(hit, d, 1.0), torch.where(hit, d, 0.0), torch.where(hit, d, 0.0))
+    elif cfg.debug_mode == 2:
+        rgb = (torch.where(hit, nx * 0.5 + 0.5, 0.0), torch.where(hit, ny * 0.5 + 0.5, 0.0),
+               torch.where(hit, nz * 0.5 + 0.5, 1.0))
+    else:
+        rgb = (torch.where(hit, 0.0, 0.2), torch.where(hit, 1.0, 0.2),
+               torch.where(hit, 0.0, 0.2))
+    return torch.stack([*rgb, torch.ones_like(px)])
+
+
+def _image(out: torch.Tensor, width: int, band: int):
+    """[4, band * W] kernel output -> (image [band, W, 3], rays summed in int64)."""
+    img = out[:3].reshape(3, band, width).permute(1, 2, 0).contiguous()
+    return img, int(out[3].to(torch.int64).sum())
+
+
+def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                    cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
+                    device=None, plain: bool = False, prims=None, prim_counts=(0, 0)):
+    """Render through the megakernel -> ``(img [rows, W, 3] f32 on device,
+    rays traced)``. Arguments as in
+    :func:`cosig_tpu_torch.ops.trace_wavefront.render_wavefront`: a band of
+    global rows, ``plain=True`` for the plain version on any device, and
+    the analytic primitives. Unlike the wavefront, rows of a band past the
+    image are traced like the others, as on the TPU."""
+    from cosig_tpu_torch.kernels import megakernel as km
+
+    band = cfg.height if rows is None else int(rows)
+    uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
+        cset, uniforms, lights, row_offset, device, prims, prim_counts)
+    run = megakernel_plain if plain else km.megakernel
+    return _image(run(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box),
+                  cfg.width, band)
+
+
+def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                 cfg: StaticConfig, device=None, plain: bool = False, prims=None,
+                 prim_counts=(0, 0)):
+    """Debug view ``cfg.debug_mode`` (1, 2 or 3) -> ``(img [H, W, 3] f32 on
+    device, rays = H * W)``; arguments as in :func:`render_clusters`."""
+    from cosig_tpu_torch.kernels import megakernel as km
+
+    if cfg.debug_mode not in (1, 2, 3):
+        raise ValueError(f"debug_mode must be 1, 2 or 3, got {cfg.debug_mode}")
+    uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
+        cset, uniforms, lights, 0, device, prims, prim_counts)
+    run = debug_plain if plain else km.debug
+    return _image(run(cset, uniforms, mats, lights, cfg, prims, n_sph, n_box),
+                  cfg.width, cfg.height)

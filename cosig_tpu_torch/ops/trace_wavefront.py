@@ -28,21 +28,14 @@ import torch
 
 from cosig_tpu_torch.accel.clusters import ClusterSet
 from cosig_tpu_torch.models.soa import StaticConfig
-from cosig_tpu_torch.ops import camera, kernel_core, rng
+from cosig_tpu_torch.ops import camera, kernel_core
 from cosig_tpu_torch.ops.kernel_core import (
     ROW_ALIVE,
     ROW_COUNT,
     ROW_ID,
     STATE_ROWS,
-    U_CAM,
-    U_DIST,
-    U_ORTHO,
-    U_PLANE_H,
     U_ROW_OFF,
-    U_SHUTTER,
     _div,
-    _rsqrt3,
-    _ruv,
 )
 
 F32 = np.float32
@@ -70,67 +63,21 @@ def _seed_planes(rid: torch.Tensor, cfg: StaticConfig, row_offset: float):
 
 
 def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
-                  lights: np.ndarray, cfg: StaticConfig, band: int) -> torch.Tensor:
+                  lights: np.ndarray, cfg: StaticConfig, band: int,
+                  prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
     """Plain version of the primary kernel -> state f32 [16, N] on the
-    cluster set's device (trace_wavefront.py:317-434)."""
+    cluster set's device (trace_wavefront.py:317-434). ``prims`` is the
+    table of :func:`kernel_core.prim_table`."""
     dev = cset.device
     n = num_rays(cfg, band)
-    width, height = cfg.width, cfg.height
-    aa = max(1, cfg.aa_samples)
-    grid_w, grid_h = camera.aa_grid(aa)
     u = [float(x) for x in uniforms]
     row_off = u[U_ROW_OFF]
 
     rid = torch.arange(n, device=dev, dtype=torch.int64)
-    s_i = rid % aa
     px, py, s = _seed_planes(rid, cfg, row_off)
-    in_image = py < float(height)
+    in_image = py < float(cfg.height)
 
-    cam = u[U_CAM:U_CAM + 12]
-    dist = u[U_DIST]
-    plane_h = u[U_PLANE_H]
-    aspect = float(F32(width / height))
-    plane_w = float(F32(plane_h) * F32(aspect))
-    ortho_h = u[U_ORTHO]
-    ortho_w = float(F32(ortho_h) * F32(aspect))
-
-    # AA offsets (compute:300-310): stratified cell + hash22 jitter.
-    if aa == 1:
-        off_x = torch.full_like(px, 0.5)
-        off_y = torch.full_like(px, 0.5)
-    else:
-        gx = (s_i % grid_w).to(torch.float32)
-        gy = (s_i // grid_w).to(torch.float32)
-        jx, jy = rng.hash22(px + s * 13.0, py + s * 7.0)
-        off_x = _div(gx + jx, float(grid_w))
-        off_y = _div(gy + jy, float(grid_h))
-
-    zeros = torch.zeros_like(px)
-    if cfg.is_orthographic:
-        uu = (_div(px + off_x, float(width)) - 0.5) * 2.0 * ortho_w
-        vv = (_div(py + off_y, float(height)) - 0.5) * 2.0 * ortho_h
-        ocx, ocy, ocz = uu, vv, torch.full_like(px, dist)
-        dcx, dcy, dcz = zeros, zeros, torch.full_like(px, -1.0)
-    else:
-        uu = (_div(px + off_x, float(width)) - 0.5) * plane_w
-        vv = (_div(py + off_y, float(height)) - 0.5) * plane_h
-        ocx, ocy, ocz = zeros, zeros, torch.full_like(px, dist)
-        dcx, dcy, dcz = _rsqrt3(uu - ocx, vv - ocy, -ocz)
-
-    ox = cam[0] * ocx + cam[1] * ocy + cam[2] * ocz + cam[3]
-    oy = cam[4] * ocx + cam[5] * ocy + cam[6] * ocz + cam[7]
-    oz = cam[8] * ocx + cam[9] * ocy + cam[10] * ocz + cam[11]
-    dx = cam[0] * dcx + cam[1] * dcy + cam[2] * dcz
-    dy = cam[4] * dcx + cam[5] * dcy + cam[6] * dcz
-    dz = cam[8] * dcx + cam[9] * dcy + cam[10] * dcz
-    dx, dy, dz = _rsqrt3(dx, dy, dz)
-
-    if cfg.enable_motion_blur:
-        rx, ry, rz = _ruv(px + s, py, s)
-        scale = float(F32(0.2) * F32(u[U_SHUTTER]))
-        ox = ox + (rx - 0.5) * scale
-        oy = oy + (ry - 0.5) * scale
-        oz = oz + (rz - 0.5) * scale
+    ox, oy, oz, dx, dy, dz = camera.primary_rays(cfg, u, px, py, s)
 
     state = torch.zeros((STATE_ROWS, n), dtype=torch.float32, device=dev)
     state[0], state[1], state[2] = ox, oy, oz
@@ -139,13 +86,14 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     state[ROW_ALIVE] = in_image.to(torch.float32)
     state[ROW_ID] = rid.to(torch.float32)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
-                            px, py, s, depth=0, is_last=cfg.max_depth == 1)
+                            px, py, s, depth=0, is_last=cfg.max_depth == 1,
+                            prims=prims, n_sph=n_sph, n_box=n_box)
     return state
 
 
 def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                  mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
-                 depth: int) -> None:
+                 depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
     """Plain version of the bounce kernel: one bounce at ``depth`` on
     ``state`` in place (trace_wavefront.py:466-507)."""
     if cfg.enable_soft_shadows or cfg.enable_glossy:
@@ -155,7 +103,8 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
         px = py = s = None  # unread without the stochastic effects
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=depth,
-                            is_last=depth == cfg.max_depth - 1)
+                            is_last=depth == cfg.max_depth - 1,
+                            prims=prims, n_sph=n_sph, n_box=n_box)
 
 
 def finalize(state: torch.Tensor, cfg: StaticConfig, band: int):
@@ -176,34 +125,47 @@ def finalize(state: torch.Tensor, cfg: StaticConfig, band: int):
     return img, rays
 
 
-def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
-                cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
-                device=None, plain: bool = False) -> torch.Tensor:
-    """Run the primary stage and the ``max_depth - 1`` bounce stages ->
-    the final ray state f32 [16, N] (arguments as in :func:`render_wavefront`)."""
-    from cosig_tpu_torch.kernels import wavefront as kw
-
+def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                 row_offset, device, prims, prim_counts):
+    """Check the device and put a render's inputs in the form the stages
+    take -> (uniforms with the row offset, lights, mats as numpy, prims
+    table, n_sph, n_box). Shared by the wavefront, megakernel and debug
+    renders."""
     dev = cset.device if device is None else torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if cset.device != dev:
         raise ValueError(f"cluster set lives on {cset.device}, not {dev}")
-    band = cfg.height if rows is None else int(rows)
     uniforms = np.array(uniforms, F32)
     uniforms[U_ROW_OFF] = F32(row_offset)
     lights = np.ascontiguousarray(lights, F32)
     mats = cset.mats.detach().cpu().numpy()
+    prims, n_sph, n_box = kernel_core.prim_table(prims, prim_counts, dev)
+    return uniforms, lights, mats, prims, n_sph, n_box
 
+
+def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
+                device=None, plain: bool = False, prims=None,
+                prim_counts=(0, 0)) -> torch.Tensor:
+    """Run the primary stage and the ``max_depth - 1`` bounce stages ->
+    the final ray state f32 [16, N] (arguments as in :func:`render_wavefront`)."""
+    from cosig_tpu_torch.kernels import wavefront as kw
+
+    band = cfg.height if rows is None else int(rows)
+    uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
+        cset, uniforms, lights, row_offset, device, prims, prim_counts)
     primary, bounce = (primary_stage, bounce_stage) if plain else (kw.primary, kw.bounce)
-    state = primary(cset, uniforms, mats, lights, cfg, band)
+    state = primary(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box)
     for depth in range(1, cfg.max_depth):
-        bounce(state, cset, uniforms, mats, lights, cfg, depth)
+        bounce(state, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box)
     return state
 
 
 def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                      cfg: StaticConfig, rows: int | None = None,
-                     row_offset: int = 0, device=None, plain: bool = False):
+                     row_offset: int = 0, device=None, plain: bool = False,
+                     prims=None, prim_counts=(0, 0)):
     """Render -> ``(img [rows, W, 3] f32 on device, rays traced)``.
 
     ``uniforms``/``lights`` come from :func:`kernel_core.build_uniforms` /
@@ -211,6 +173,10 @@ def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     render to a band of global rows (projection and RNG seeds stay
     global). ``device`` must be where ``cset`` lives (default: there).
     ``plain=True`` runs the plain PyTorch stages on any device instead of
-    dispatching by device (the kernels' reference on the card)."""
-    state = trace_state(cset, uniforms, lights, cfg, rows, row_offset, device, plain)
+    dispatching by device (the kernels' reference on the card).
+    ``prims``/``prim_counts``: the analytic sphere/box table of
+    :func:`cosig_tpu_torch.ops.analytic.pack_prims_host` and its
+    (n_sph, n_box), folded into every traversal."""
+    state = trace_state(cset, uniforms, lights, cfg, rows, row_offset, device, plain,
+                        prims, prim_counts)
     return finalize(state, cfg, state.shape[1] // (cfg.width * max(1, cfg.aa_samples)))

@@ -1,38 +1,140 @@
-"""Host-side parity of the PyTorch port with the JAX package: cluster
-build, hash RNG, uniforms and lights, frame configuration."""
+"""Host-side parity of the PyTorch port with the JAX package: the port's
+own copies of the host modules (scene model, settings, parser, generator,
+tessellation, BVH builder), cluster build, hash RNG, uniforms and lights,
+frame configuration. Each side builds its inputs with its own modules."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import cosig_tpu
+import cosig_tpu_torch
+from cosig_tpu.accel import bvh as jbvh
 from cosig_tpu.accel import clusters as jcl
 from cosig_tpu.models import soa as jsoa
 from cosig_tpu.ops import kernel_core as jkc
 from cosig_tpu.ops import rng as jrng
-from cosig_tpu.scene.generate import CONFIGS
-from cosig_tpu.scene.tessellate import extract_triangles
+from cosig_tpu.scene import generate as jgen
+from cosig_tpu.scene import tessellate as jtess
+from cosig_tpu_torch.accel import bvh as tbvh
 from cosig_tpu_torch.accel import clusters as tcl
 from cosig_tpu_torch.models import soa as tsoa
 from cosig_tpu_torch.ops import kernel_core as tkc
 from cosig_tpu_torch.ops import rng as trng
+from cosig_tpu_torch.scene import generate as tgen
+from cosig_tpu_torch.scene import tessellate as ttess
+
+SCENE_FILES = sorted(pathlib.Path("scenes").glob("*.txt"))
 
 
 def _scene(name):
+    """(scene, settings) built with the JAX package's modules."""
     if name == "tiny":
         from __graft_entry__ import _tiny_scene
 
         return _tiny_scene(), cosig_tpu.RenderSettings()
     if name == "demo_cornell":
         return cosig_tpu.load_scene("scenes/demo_cornell.txt"), cosig_tpu.RenderSettings()
-    return CONFIGS[name]()
+    return jgen.CONFIGS[name]()
+
+
+def _port_scene(name):
+    """The same (scene, settings) built with the port's own modules."""
+    if name == "tiny":
+        return cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE), cosig_tpu_torch.RenderSettings()
+    if name == "demo_cornell":
+        return (cosig_tpu_torch.load_scene("scenes/demo_cornell.txt"),
+                cosig_tpu_torch.RenderSettings())
+    return tgen.CONFIGS[name]()
 
 
 def _port_clusters(scene):
     mats = np.concatenate(tsoa.materials_host(scene), axis=1)
-    return tcl.build_clusters(extract_triangles(scene), mats)
+    return tcl.build_clusters(ttess.extract_triangles(scene), mats)
+
+
+@pytest.mark.parametrize("path", SCENE_FILES, ids=[p.stem for p in SCENE_FILES])
+def test_parser_copy_matches_jax(path):
+    assert len(SCENE_FILES) >= 1
+    ref = cosig_tpu.load_scene(str(path))
+    port = cosig_tpu_torch.load_scene(str(path))
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    text = path.read_text()
+    assert (dataclasses.asdict(cosig_tpu_torch.parse_scene(text))
+            == dataclasses.asdict(cosig_tpu.parse_scene(text)))
+
+
+def test_inline_scenes_match_jax():
+    """chip_smoke.py carries the JAX entry module's tiny scene as text and
+    rebuilds the JAX analytic test scene with the port's classes."""
+    from __graft_entry__ import _tiny_scene
+    from test_analytic import _mixed_scene
+
+    assert (dataclasses.asdict(cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE))
+            == dataclasses.asdict(_tiny_scene()))
+    assert dataclasses.asdict(chip_smoke.mixed_scene()) == dataclasses.asdict(_mixed_scene())
+
+
+@pytest.mark.parametrize("backend", ["wavefront", "megakernel"])
+def test_jax_parsed_scene_renders_in_port(backend):
+    """The port reads a scene by its fields: one parsed by the JAX package
+    gives the same image as one parsed by the port, analytic mode too."""
+    from __graft_entry__ import _tiny_scene
+
+    st = cosig_tpu_torch.RenderSettings(resolution_override=(16, 12), max_depth=2)
+    for analytic in (False, True):
+        s = st.replace(analytic_primitives=analytic)
+        r = cosig_tpu_torch.Renderer(device="cpu", backend=backend)
+        a = r.render(_tiny_scene(), s)
+        b = r.render(cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE), s)
+        assert a.max() > 0.0
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(jgen.CONFIGS))
+def test_generator_copy_matches_jax(name):
+    assert sorted(tgen.CONFIGS) == sorted(jgen.CONFIGS)
+    j_scene, j_settings = jgen.CONFIGS[name]()
+    t_scene, t_settings = tgen.CONFIGS[name]()
+    assert dataclasses.asdict(t_scene) == dataclasses.asdict(j_scene)
+    assert dataclasses.asdict(t_settings) == dataclasses.asdict(j_settings)
+
+
+def test_render_settings_copy_matches_jax():
+    ref, port = cosig_tpu.RenderSettings(), cosig_tpu_torch.RenderSettings()
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    changed = dict(max_depth=5, aa_samples=3, debug_mode=2, analytic_primitives=True)
+    assert dataclasses.asdict(port.replace(**changed)) == dataclasses.asdict(ref.replace(**changed))
+
+
+@pytest.mark.parametrize("name", ["tiny", "demo_cornell", "cosig_walls", "large_mesh"])
+@pytest.mark.parametrize("primitives", [True, False])
+def test_tessellation_copy_bit_equal(name, primitives):
+    ref = jtess.extract_triangles(_scene(name)[0], include_primitives=primitives)
+    port = ttess.extract_triangles(_port_scene(name)[0], include_primitives=primitives)
+    assert port.count == ref.count
+    for field in ("v0", "v1", "v2", "n0", "n1", "n2", "material"):
+        a, b = getattr(ref, field), getattr(port, field)
+        assert a.dtype == b.dtype, field
+        np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["tiny", "glass_sphere", "cosig_walls", "large_mesh"])
+def test_bvh_copy_bit_equal(name):
+    """The port's Python builder against the JAX package's builder (its
+    C++ one where that is built): the same nodes and triangle order."""
+    tris = ttess.extract_triangles(_port_scene(name)[0])
+    for leaf in (4, 128):
+        ref = jbvh.build_bvh(jtess.extract_triangles(_scene(name)[0]), max_leaf=leaf)
+        port = tbvh.build_bvh(tris, max_leaf=leaf)
+        for field in ("node_min", "node_max", "left_or_first", "count", "order"):
+            np.testing.assert_array_equal(getattr(ref, field), getattr(port, field),
+                                          err_msg=field)
 
 
 @pytest.mark.parametrize(
@@ -44,7 +146,7 @@ def test_clusters_bit_equal_to_jax(name):
     doubling (k = 64)."""
     scene, _ = _scene(name)
     ref = jcl.build_clusters(jsoa.compile_scene(scene))
-    port = _port_clusters(scene)
+    port = _port_clusters(_port_scene(name)[0])
     for field in ("geom", "aabb_t", "sb_aabb_t", "mats"):
         a = np.asarray(getattr(ref, field))
         b = getattr(port, field).numpy()
@@ -63,7 +165,7 @@ def test_cluster_set_from_arrays_round_trip():
         np.asarray(ref.geom), np.asarray(ref.aabb_t), np.asarray(ref.sb_aabb_t),
         np.asarray(ref.mats),
     )
-    port = _port_clusters(scene)
+    port = _port_clusters(_port_scene("tiny")[0])
     assert cs.num_triangles == port.num_triangles == ref.num_triangles
     assert torch.equal(cs.geom, port.geom)
     assert torch.equal(cs.aabb_t.nan_to_num(7.0), port.aabb_t.nan_to_num(7.0))
@@ -74,9 +176,8 @@ def test_cluster_set_from_arrays_round_trip():
 
 
 def test_empty_scene_clusters():
-    scene = cosig_tpu.SceneData()
-    ref = jcl.build_clusters(jsoa.compile_scene(scene))
-    port = _port_clusters(scene)
+    ref = jcl.build_clusters(jsoa.compile_scene(cosig_tpu.SceneData()))
+    port = _port_clusters(cosig_tpu_torch.SceneData())
     assert port.num_triangles == 0
     np.testing.assert_array_equal(np.asarray(ref.geom), port.geom.numpy())
     np.testing.assert_array_equal(np.asarray(ref.aabb_t), port.aabb_t.numpy())
@@ -125,8 +226,10 @@ def test_uniforms_and_lights_match(name, kw):
     rounds the float64 tan once), lights and static config exact."""
     scene, settings = _scene(name)
     settings = settings.replace(**kw)
+    port_scene, port_settings = _port_scene(name)
+    port_settings = port_settings.replace(**kw)
     jp = jsoa.frame_params(scene, settings)
-    tp = tsoa.frame_params(scene, settings)
+    tp = tsoa.frame_params(port_scene, port_settings)
     for row_offset in (0.0, 37.0):
         ju = np.asarray(jkc.build_uniforms(jp, np.float32(row_offset)))
         tu = tkc.build_uniforms(tp, row_offset)
@@ -139,7 +242,7 @@ def test_uniforms_and_lights_match(name, kw):
             np.asarray(jkc.build_lights(jp, multi)), tkc.build_lights(tp, multi)
         )
     jc = jsoa.static_config(scene, settings)
-    tc = tsoa.static_config(scene, settings)
+    tc = tsoa.static_config(port_scene, port_settings)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
 
 
@@ -151,3 +254,18 @@ def test_uniform_slots_match_jax():
     assert np.float32(tkc.INF) == jkc.INF
     assert np.float32(tkc.EPSILON) == jkc.EPSILON
     assert np.float32(tkc.OFFSET) == jkc.OFFSET
+    assert np.float32(tkc.GID_SPH) == jkc.GID_SPH
+
+
+def test_sqrt_correctly_rounded():
+    """The plain versions' sqrt equals the correctly rounded float32 root
+    (numpy's), which the kernels' IEEE sqrtf gives; PyTorch's own float32
+    sqrt on this CPU may not (printed for the record, not asserted)."""
+    r = np.random.default_rng(0)
+    x = np.concatenate([r.uniform(0, 10, 500_000), r.uniform(0, 1e-3, 250_000),
+                        r.uniform(0, 1e6, 250_000)]).astype(np.float32)
+    ref = np.sqrt(x)
+    np.testing.assert_array_equal(tkc._sqrt(torch.from_numpy(x)).numpy(), ref)
+    off = int((torch.sqrt(torch.from_numpy(x)).numpy() != ref).sum())
+    print(f"torch.sqrt float32 on {torch.backends.cpu.get_cpu_capability()}: "
+          f"{off} of {x.size} roots off by 1 ulp")

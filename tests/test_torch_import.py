@@ -1,5 +1,6 @@
 """The PyTorch port stands apart from JAX: importing and rendering with it
-loads no jax, and a CUDA renderer without a GPU refuses to start."""
+loads no jax and nothing of the JAX package, and a CUDA renderer without a
+GPU refuses to start."""
 
 import os
 import pathlib
@@ -17,18 +18,29 @@ import sys
 import numpy as np
 import torch
 import cosig_tpu_torch
+import cosig_tpu_torch.kernels.binding
 import cosig_tpu_torch.kernels.build
 import cosig_tpu_torch.kernels.wavefront
+import cosig_tpu_torch.kernels.megakernel
+import cosig_tpu_torch.ops.trace_megakernel
+import cosig_tpu_torch.scene.generate
 import chip_smoke
-from __graft_entry__ import _tiny_scene
 
+scene = cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE)
+st = cosig_tpu_torch.RenderSettings(resolution_override=(16, 12), max_depth=2, aa_samples=2)
 r = cosig_tpu_torch.Renderer(device="cpu")
-img = r.render(_tiny_scene(), cosig_tpu_torch.RenderSettings(
-    resolution_override=(16, 12), max_depth=2, aa_samples=2))
+img = r.render(scene, st)
 assert img.shape == (12, 16, 3) and np.isfinite(img).all(), img.shape
 assert img.max() > 0.0
+for backend in ("wavefront", "megakernel"):
+    m = cosig_tpu_torch.Renderer(device="cpu", backend=backend)
+    a = m.render(scene, st.replace(analytic_primitives=True, debug_mode=2))
+    assert a.shape == (12, 16, 3) and np.isfinite(a).all()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
+jax_pkg = sorted(m for m in sys.modules
+                 if m in ("cosig_tpu", "__graft_entry__") or m.startswith("cosig_tpu."))
+assert not jax_pkg, jax_pkg
 if not torch.cuda.is_available():
     try:
         cosig_tpu_torch.Renderer(device="cuda")
@@ -51,22 +63,26 @@ def test_port_imports_and_renders_without_jax():
     assert int(out.stdout.split()[1]) >= 16 * 12 * 2
 
 
-# Modules of the JAX package that import jax (directly or through their
-# imports); the port may reuse only the others.
+# jax itself, any module of the JAX package (cosig_tpu, cosig_tpu.*) and
+# the JAX package's entry module: the port keeps its own copies of what it
+# needs from them.
 _JAX_MODULES = re.compile(
-    r"^\s*(import|from)\s+(jax\b|jaxlib\b|cosig_tpu\.(ops|render|parallel|cli)\b"
-    r"|cosig_tpu\.accel\.clusters\b|cosig_tpu\.models\.soa\b)",
+    r"^\s*(import|from)\s+(jax\b|jaxlib\b|cosig_tpu\b|__graft_entry__\b)",
     re.MULTILINE,
 )
 
 
 def test_port_sources_import_no_jax_module():
     files = sorted((ROOT / "cosig_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 20
     for path in files:
         src = path.read_text()
         m = _JAX_MODULES.search(src)
         assert m is None, f"{path.relative_to(ROOT)} imports {m.group(0).strip()}"
+    for bad in ("import cosig_tpu.ops", "from cosig_tpu.scene import parser",
+                "    from __graft_entry__ import _tiny_scene", "import jax.numpy as jnp"):
+        assert _JAX_MODULES.search(bad), bad
+    assert not _JAX_MODULES.search("from cosig_tpu_torch.ops import kernel_core")
 
 
 def test_cuda_renderer_raises_without_gpu(monkeypatch):

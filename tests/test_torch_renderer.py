@@ -1,6 +1,6 @@
 """The port's Renderer and kernel plumbing on the CPU: caching, row bands,
-unported options, launch counters, the build command and the C/Python
-mirror of the kernels' launch parameters."""
+the backends and options, launch counters, the build commands and the
+C/Python mirror of the kernels' launch parameters."""
 
 import ctypes
 import pathlib
@@ -10,21 +10,27 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import cosig_tpu_torch
-from cosig_tpu.scene.generate import CONFIGS
+from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.kernels import build as kbuild
+from cosig_tpu_torch.kernels import megakernel as km
 from cosig_tpu_torch.kernels import wavefront as kw
 from cosig_tpu_torch.models import soa as tsoa
 from cosig_tpu_torch.ops import kernel_core as tkc
+from cosig_tpu_torch.ops import trace_megakernel as ttm
 from cosig_tpu_torch.ops import trace_wavefront as ttw
+from cosig_tpu_torch.scene.generate import CONFIGS
 
 CSRC = pathlib.Path(kbuild.CSRC_DIR)
 
 
+def _tiny_scene():
+    return cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE)
+
+
 @pytest.fixture(scope="module")
 def tiny():
-    from __graft_entry__ import _tiny_scene
-
     return _tiny_scene()
 
 
@@ -32,17 +38,22 @@ def test_cache_reused_across_frames(tiny):
     r = cosig_tpu_torch.Renderer(device="cpu")
     st = cosig_tpu_torch.RenderSettings(resolution_override=(16, 16), max_depth=2)
     a = r.render(tiny, st)
-    cset = r._cached_cset
+    cached = r._cached
+    cset, prims, counts = cached[2:]
+    assert cached[:2] == (tiny, False) and counts == (0, 0)
+    assert prims.shape == (1, 22) and not prims.any()
+    assert tkc.prim_table(prims, counts, r.device)[0] is prims  # a frame uploads no table
     b = r.render(tiny, st.replace(camera_fov_override=40.0, light_intensity_scale=0.5))
-    assert r._cached_cset is cset  # camera/settings changes keep the geometry
+    assert r._cached is cached  # camera/settings changes keep the geometry and the table
     assert a.shape == b.shape == (16, 16, 3) and not np.array_equal(a, b)
     np.testing.assert_array_equal(r.render(tiny, st), a)
-    from __graft_entry__ import _tiny_scene
-
-    r.render(_tiny_scene(), st)  # another scene object: rebuilt
-    assert r._cached_cset is not cset
+    other = _tiny_scene()
+    r.render(other, st)  # another scene object: rebuilt
+    assert r._cached[0] is other and r._cached[2] is not cset
+    r.render(other, st.replace(analytic_primitives=True))  # another mode: rebuilt
+    assert r._cached[:2] == (other, True) and r._cached[4] == (1, 1)
     r.invalidate_cache()
-    assert r._cached_cset is None
+    assert r._cached is None
 
 
 def test_last_stats(tiny):
@@ -53,10 +64,10 @@ def test_last_stats(tiny):
     s = r.last_stats
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
-    _, rays = ttw.render_wavefront(r._cached_cset, tkc.build_uniforms(params),
+    _, rays = ttw.render_wavefront(r._geometry_for(tiny)[0], tkc.build_uniforms(params),
                                    tkc.build_lights(params, False), cfg)
     assert (s.width, s.height) == (20, 12)
-    assert s.triangles == r._cached_cset.num_triangles > 0
+    assert s.triangles == r._geometry_for(tiny)[0].num_triangles > 0
     assert s.rays_traced == rays >= 20 * 12
     assert s.render_ms > 0 and s.mrays_per_s > 0
 
@@ -70,7 +81,7 @@ def test_row_bands_bit_equal_full_frame(tiny, effects):
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
     r = cosig_tpu_torch.Renderer(device="cpu")
-    cset = r._cset_for(tiny)
+    cset = r._geometry_for(tiny)[0]
     uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
     full, rays = ttw.render_wavefront(cset, uni, lights, cfg)
     bands, band_rays = [], 0
@@ -88,49 +99,103 @@ def test_row_bands_bit_equal_full_frame(tiny, effects):
 @pytest.mark.parametrize("kw_", [dict(debug_mode=1), dict(debug_mode=3),
                                  dict(analytic_primitives=True)])
 def test_unported_options_raise(tiny, kw_):
-    r = cosig_tpu_torch.Renderer(device="cpu")
-    st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), **kw_)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render(tiny, st)
+    """These options raised NotImplementedError until the debug kernel and
+    the analytic fold were ported. Now both backends render them, as the
+    direct calls do; what the renderer still refuses is a backend it does
+    not have and a debug mode the debug kernel does not draw."""
+    st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=2, **kw_)
+    cfg = tsoa.static_config(tiny, st)
+    params = tsoa.frame_params(tiny, st)
+    uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
+    for backend in ("wavefront", "megakernel"):
+        r = cosig_tpu_torch.Renderer(device="cpu", backend=backend)
+        img = r.render(tiny, st)
+        cset, prims, counts = r._geometry_for(tiny, st.analytic_primitives)
+        if st.analytic_primitives:
+            assert counts == (1, 1) and cset.num_triangles == 1
+        else:
+            assert counts == (0, 0)
+        pk = dict(prims=prims, prim_counts=counts)
+        if cfg.debug_mode:
+            ref, rays = ttm.render_debug(cset, uni, lights, cfg, **pk)
+            assert rays == 64
+        elif backend == "wavefront":
+            ref, rays = ttw.render_wavefront(cset, uni, lights, cfg, **pk)
+        else:
+            ref, rays = ttm.render_clusters(cset, uni, lights, cfg, **pk)
+        np.testing.assert_array_equal(img, ref.numpy())
+        assert r.last_stats.rays_traced == rays
+    with pytest.raises(ValueError, match="backend"):
+        cosig_tpu_torch.Renderer(device="cpu", backend="pallas")
+    with pytest.raises(ValueError, match="debug_mode"):
+        cosig_tpu_torch.Renderer(device="cpu").render(tiny, st.replace(debug_mode=4))
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
-    kw.reset_counts()
+    for name in binding.LAUNCHES:
+        binding.LAUNCHES[name] = 7
+    binding.reset_counts()
+    assert binding.LAUNCHES == dict(primary=0, bounce=0, megakernel=0, debug=0)
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
-    r = cosig_tpu_torch.Renderer(device="cpu")
-    a = r.render(tiny, st)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
-    b, _ = ttw.render_wavefront(r._cached_cset, tkc.build_uniforms(params),
-                                tkc.build_lights(params, False), cfg, plain=True)
-    np.testing.assert_array_equal(a, b.numpy())
-    assert kw.primary_launches == 0 and kw.bounce_launches == 0
+    for backend, render in (("wavefront", ttw.render_wavefront),
+                            ("megakernel", ttm.render_clusters)):
+        r = cosig_tpu_torch.Renderer(device="cpu", backend=backend)
+        a = r.render(tiny, st)
+        b, _ = render(r._geometry_for(tiny)[0], tkc.build_uniforms(params),
+                      tkc.build_lights(params, False), cfg, plain=True)
+        np.testing.assert_array_equal(a, b.numpy())
+        r.render(tiny, st.replace(debug_mode=2))
+    assert binding.LAUNCHES == dict(primary=0, bounce=0, megakernel=0, debug=0)
 
 
 def test_wrappers_reject_other_devices(tiny):
     r = cosig_tpu_torch.Renderer(device="cpu")
-    cset = r._cset_for(tiny).to("meta")
+    cset = r._geometry_for(tiny)[0].to("meta")
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8))
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
     mats = np.zeros((2, 8), np.float32)
+    uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
+    pk = (torch.zeros((1, 22), device="meta"), 0, 0)
     with pytest.raises(ValueError, match="no primary kernel"):
-        kw.primary(cset, tkc.build_uniforms(params), mats, tkc.build_lights(params, False), cfg, 8)
+        kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
     state = torch.zeros((16, 64), device="meta")
     with pytest.raises(ValueError, match="no bounce kernel"):
-        kw.bounce(state, cset, tkc.build_uniforms(params), mats,
-                  tkc.build_lights(params, False), cfg, 1)
+        kw.bounce(state, cset, uni, mats, lights, cfg, 1, *pk)
+    with pytest.raises(ValueError, match="no megakernel"):
+        km.megakernel(cset, uni, mats, lights, cfg, 8, *pk)
+    with pytest.raises(ValueError, match="no debug kernel"):
+        km.debug(cset, uni, mats, lights, cfg, *pk)
 
 
 def test_nvcc_command_keeps_ieee_arithmetic():
-    cmd = kbuild.nvcc_command("nvcc", "/tmp/x.so")
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "--fmad=false" in cmd and "-O3" in cmd and "-shared" in cmd
-    assert "fast_math" not in joined and "fast-math" not in joined
-    assert cmd[-1].endswith("wavefront.cu")
-    assert "-v" in kbuild.nvcc_command("nvcc", "/tmp/x.so", verbose=True)
-    assert re.fullmatch(r".*libcosig_wavefront_[0-9a-f]{16}\.so", kbuild.library_path())
+    """Every kernel source compiles with the IEEE flags for sm_90a, one
+    nvcc each; one link makes the library."""
+    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "megakernel.cu")
+    for src in kbuild.KERNEL_SOURCES:
+        cmd = kbuild.nvcc_command("nvcc", src, "/tmp/x.o")
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined
+        assert "--fmad=false" in cmd and "-O3" in cmd and "-c" in cmd
+        assert "fast_math" not in joined and "fast-math" not in joined
+        assert cmd[-1].endswith(src) and (CSRC / src).is_file()
+        assert "-v" in kbuild.nvcc_command("nvcc", src, "/tmp/x.o", verbose=True)
+    link = kbuild.link_command("nvcc", ["/tmp/a.o", "/tmp/b.o"], "/tmp/x.so")
+    assert "-shared" in link and link[-2:] == ["/tmp/a.o", "/tmp/b.o"]
+    assert set(kbuild.SOURCES) == {p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+    assert re.fullmatch(r".*libcosig_kernels_[0-9a-f]{16}\.so", kbuild.library_path())
+
+
+@pytest.mark.parametrize("parallel", [True, False])
+def test_compile_waits_for_every_command(parallel):
+    """Each compile's exit code and stderr, in order, also after a failure."""
+    import sys
+
+    cmds = [[sys.executable, "-c", f"import sys; sys.stderr.write('{i}'); sys.exit({rc})"]
+            for i, rc in enumerate((0, 3, 0))]
+    assert kbuild._compile(cmds, parallel) == [(0, "0"), (3, "1"), (0, "2")]
 
 
 def test_build_raises_without_nvcc(monkeypatch):
@@ -155,16 +220,16 @@ def test_frame_struct_mirrors_header():
             continue
         for part in decl.split(None, 1)[1].split(","):
             names.append(part.strip().split("[")[0])
-    assert names == [f[0] for f in kw.Frame._fields_]
+    assert names == [f[0] for f in binding.Frame._fields_]
     consts = dict(re.findall(r"\b(MAX_MATS|MAX_LIGHTS|UNIFORMS_LEN) = (\d+)", src))
-    assert int(consts["MAX_MATS"]) == kw.MAX_MATS
-    assert int(consts["MAX_LIGHTS"]) == kw.MAX_LIGHTS
+    assert int(consts["MAX_MATS"]) == binding.MAX_MATS
+    assert int(consts["MAX_LIGHTS"]) == binding.MAX_LIGHTS
     assert int(consts["UNIFORMS_LEN"]) == tkc.UNIFORMS_LEN
     n_scalars = len(names) - 3  # all but u, mats, lights
-    assert ctypes.sizeof(kw.Frame) == 4 * (
-        tkc.UNIFORMS_LEN + n_scalars + 8 * (kw.MAX_MATS + kw.MAX_LIGHTS))
+    assert ctypes.sizeof(binding.Frame) == 4 * (
+        tkc.UNIFORMS_LEN + n_scalars + 8 * (binding.MAX_MATS + binding.MAX_LIGHTS))
     flags = dict((k, int(v)) for k, v in re.findall(r"\bF_(\w+) = (\d+)", src))
-    assert sorted(flags.values()) == sorted(bit for _, bit in kw._FLAGS)
+    assert sorted(flags.values()) == sorted(bit for _, bit in binding._FLAGS)
 
 
 def test_frame_contents_and_limits(tiny):
@@ -174,14 +239,14 @@ def test_frame_contents_and_limits(tiny):
     mats = np.concatenate(tsoa.materials_host(scene), axis=1)
     lights = tkc.build_lights(params, cfg.multi_light)
     uni = tkc.build_uniforms(params)
-    f = kw.make_frame(cfg, uni, mats, lights, band=cfg.height, depth=2, is_last=True)
+    f = binding.make_frame(cfg, uni, mats, lights, band=cfg.height, depth=2, is_last=True)
     assert f.n_rays == cfg.width * cfg.height
     assert (f.n_mats, f.n_lights, f.depth, f.is_last) == (mats.shape[0], 2, 2, 1)
     assert f.flags & 256 and not f.flags & 16  # multi_light on, orthographic off
     np.testing.assert_array_equal(np.array(f.u[:], np.float32), uni)
     np.testing.assert_array_equal(np.array(f.mats[: mats.size], np.float32), mats.ravel())
     with pytest.raises(ValueError, match="materials"):
-        kw.make_frame(cfg, uni, np.zeros((kw.MAX_MATS + 1, 8), np.float32), lights,
+        binding.make_frame(cfg, uni, np.zeros((binding.MAX_MATS + 1, 8), np.float32), lights,
                       cfg.height, 0, False)
     with pytest.raises(ValueError, match="f32-exact"):
         ttw.num_rays(cfg.__class__(width=4096, height=4096, aa_samples=1), 4096)
@@ -204,15 +269,25 @@ def test_kernels_match_plain_on_card(tiny, card):
                                         surface_roughness=0.05)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
-    cset = cosig_tpu_torch.Renderer(device="cpu")._cset_for(tiny).to(card)
+    cset = cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0].to(card)
     uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
-    kw.reset_counts()
+    binding.reset_counts()
     st_k = ttw.trace_state(cset, uni, lights, cfg)
-    assert (kw.primary_launches, kw.bounce_launches) == (1, 2)
+    img_m, rays_m = ttm.render_clusters(cset, uni, lights, cfg)
+    img_d, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)))
+    counts = dict(binding.LAUNCHES)
+    assert counts == dict(primary=1, bounce=2, megakernel=1, debug=1)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
+    img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
+    img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),
+                                 plain=True)
     torch.cuda.synchronize()
-    assert (kw.primary_launches, kw.bounce_launches) == (1, 2)
+    assert binding.LAUNCHES == counts
     assert torch.equal(st_k, st_p)
+    assert torch.equal(img_m, img_mp) and rays_m == rays_mp
+    assert torch.equal(img_d, img_dp)
+    # The megakernel and the wavefront kernels run the same device code.
+    assert torch.equal(img_m, ttw.finalize(st_k, cfg, cfg.height)[0])
 
 
 @pytest.mark.gpu
@@ -220,16 +295,21 @@ def test_wrappers_check_inputs_on_card(tiny, card):
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=2)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
-    cset = cosig_tpu_torch.Renderer(device="cpu")._cset_for(tiny).to(card)
+    cset = cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0].to(card)
     uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
     mats = cset.mats.cpu().numpy()
-    state = kw.primary(cset, uni, mats, lights, cfg, 8)
+    pk = tkc.prim_table(None, (0, 0), card)
+    state = kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state.double(), cset, uni, mats, lights, cfg, 1)
+        kw.bounce(state.double(), cset, uni, mats, lights, cfg, 1, *pk)
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state[:, :-1].contiguous(), cset, uni, mats, lights, cfg, 1)
+        kw.bounce(state[:, :-1].contiguous(), cset, uni, mats, lights, cfg, 1, *pk)
     with pytest.raises(ValueError, match="depth"):
-        kw.bounce(state, cset, uni, mats, lights, cfg, 2)
+        kw.bounce(state, cset, uni, mats, lights, cfg, 2, *pk)
     with pytest.raises(ValueError, match="expected"):
-        kw.bounce(state, cosig_tpu_torch.Renderer(device="cpu")._cset_for(tiny),
-                  uni, mats, lights, cfg, 1)
+        kw.bounce(state, cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0],
+                  uni, mats, lights, cfg, 1, *pk)
+    with pytest.raises(ValueError, match="prims"):
+        km.megakernel(cset, uni, mats, lights, cfg, 8, pk[0].cpu(), 0, 0)
+    with pytest.raises(ValueError, match="prims"):
+        km.debug(cset, uni, mats, lights, cfg, pk[0], 2, 0)

@@ -50,14 +50,12 @@ def case(request):
     return cset, planes, brute
 
 
-def _numpy_closest(cset, o, d):
-    """Exact reference: every (ray, triangle) pair of the cluster geometry
-    in numpy float32, the traversal's operation order, lexicographic
-    (t, gid) winner. numpy never contracts a multiply-add, so this is the
+def _numpy_pairs(g, o, d):
+    """Every (ray, row) pair test of geometry rows ``g`` [R, 36] in numpy
+    float32, the traversal's operation order -> (valid, t, vb, vc, 1/s),
+    each [N, R]. numpy never contracts a multiply-add, so this is the
     arithmetic the port and its kernel are built to reproduce bit for bit."""
     F = np.float32
-    g = cset.geom.numpy().reshape(-1, 36)
-    g = g[g[:, 35] != F(2 ** 24)]
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
     wx, wy, wz = oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
@@ -74,6 +72,16 @@ def _numpy_closest(cset, o, d):
         t = (g[:, 6] - ndo) * inv_s
         valid = ((np.abs(s) >= F(1e-4)) & (va * s >= 0) & (vb * s >= 0) & (vc * s >= 0)
                  & (t > F(1e-4)))
+    return valid, t, vb, vc, inv_s
+
+
+def _numpy_closest(cset, o, d):
+    """Exact reference: every (ray, triangle) pair of the cluster geometry,
+    lexicographic (t, gid) winner."""
+    F = np.float32
+    g = cset.geom.numpy().reshape(-1, 36)
+    g = g[g[:, 35] != F(2 ** 24)]
+    valid, t, vb, vc, inv_s = _numpy_pairs(g, o, d)
     inf = F(tkc.INF)
     tm = np.where(valid, t, inf)
     tmin = tm.min(axis=1)
@@ -149,3 +157,64 @@ def test_inactive_rays_miss(case):
     assert not hit[~active].any()
     assert (ny[~active] == 1.0).all() and (mat[~active] == -1.0).all()
     assert torch.equal(t[active], full[1][active])
+
+
+def _numpy_walk_work(cset, o, d, max_t):
+    """(slab, pair) tests of csrc/traverse.cuh's walks, ray by ray in numpy:
+    closest hit tests every cluster and every real row of an entered one;
+    any hit visits clusters and rows in order, skips boxes entered beyond
+    max_t, and stops at the first row with a valid t <= max_t."""
+    geom = cset.geom.numpy()
+    C, K = geom.shape[:2]
+    b = cset.aabb_t.numpy()[:6, :C]
+    real = geom[:, :, 35] != np.float32(2 ** 24)  # [C, K]
+    with np.errstate(all="ignore"):
+        inv = np.float32(1.0) / d
+        t0 = [(b[a][None, :] - o[:, a:a + 1]) * inv[:, a:a + 1] for a in range(3)]
+        t1 = [(b[a + 3][None, :] - o[:, a:a + 1]) * inv[:, a:a + 1] for a in range(3)]
+    tn = np.maximum(np.maximum(np.minimum(t0[0], t1[0]), np.minimum(t0[1], t1[1])),
+                    np.minimum(t0[2], t1[2]))
+    tf = np.minimum(np.minimum(np.maximum(t0[0], t1[0]), np.maximum(t0[1], t1[1])),
+                    np.maximum(t0[2], t1[2]))
+    passed = ~(tn > tf) & ~(tf < 0.0)  # [N, C]
+    valid, t, *_ = _numpy_pairs(geom.reshape(-1, 36), o, d)
+    occl = (valid & (t <= max_t[:, None])).reshape(-1, C, K) & real[None]
+    closest = (len(o) * C, int((passed * real.sum(axis=1)[None]).sum()))
+    slabs = pairs = 0
+    for n in range(len(o)):
+        for c in range(C):
+            slabs += 1
+            if not passed[n, c] or tn[n, c] > max_t[n]:
+                continue
+            rows = np.nonzero(occl[n, c])[0]
+            pairs += int(rows[0]) + 1 if rows.size else int(real[c].sum())
+            if rows.size:
+                break
+    return closest, (slabs, pairs)
+
+
+def test_work_counts_follow_the_kernels_walk(case):
+    """The plain traversal's work counters (the kernels' bounds in
+    chip_smoke.py) count what the kernel's walk tests: every cluster and
+    entered row for a closest hit, and for an any hit only up to the
+    first occluder."""
+    cset, planes, _ = case
+    n = 512
+    planes = [p[:n].contiguous() for p in planes]
+    active = torch.ones(n, dtype=torch.bool)
+    tkc.reset_work()
+    _, t, *_ = tkc.traverse(cset, *planes, active)
+    closest = (tkc.WORK["slab_tests"], tkc.WORK["pair_tests"])
+    r = np.random.default_rng(5)
+    finite = torch.where(t < tkc.INF, t, torch.full_like(t, 20.0))
+    max_t = finite * torch.from_numpy(r.uniform(0.5, 1.5, n).astype(np.float32))
+    tkc.reset_work()
+    occ = tkc.traverse(cset, *planes, active, max_t=max_t, any_hit=True)[0]
+    any_hit = (tkc.WORK["slab_tests"], tkc.WORK["pair_tests"])
+    assert tkc.WORK["prim_tests"] == 0 and 0 < int(occ.sum()) < n
+    o = torch.stack(planes[:3], 1).numpy()
+    d = torch.stack(planes[3:], 1).numpy()
+    ref_closest, ref_any = _numpy_walk_work(cset, o, d, max_t.numpy())
+    assert closest == ref_closest
+    assert any_hit == ref_any
+    assert any_hit[0] < closest[0] and any_hit[1] < closest[1]

@@ -1,16 +1,21 @@
 """The port's wavefront render (plain PyTorch on the CPU) against the JAX
 package's backends, on one identical cluster structure: the JAX
-``ClusterSet`` is carried across with ``cluster_set_from_arrays``.
+``ClusterSet`` is carried across with ``cluster_set_from_arrays``. The
+frame parameters come from each package's own scene and settings.
 
 JAX runs as its own tests run it on the CPU: the wavefront Pallas
 kernels in interpret mode, and the XLA oracle ``trace_xla``. Tolerances
 are the ones the JAX backends hold among themselves
 (tests/test_pallas.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
+import chip_smoke
 import cosig_tpu
+import cosig_tpu_torch
 from cosig_tpu.accel import clusters as jcl
 from cosig_tpu.models import soa as jsoa
 from cosig_tpu.ops import trace_wavefront as jtw
@@ -20,6 +25,7 @@ from cosig_tpu_torch.accel.clusters import cluster_set_from_arrays
 from cosig_tpu_torch.models import soa as tsoa
 from cosig_tpu_torch.ops import kernel_core as tkc
 from cosig_tpu_torch.ops import trace_wavefront as ttw
+from cosig_tpu_torch.scene import generate as tgen
 
 
 def _scene(name):
@@ -32,17 +38,29 @@ def _scene(name):
     return CONFIGS[name]()[0]
 
 
-def _setup(scene, settings):
+def _port_scene(name):
+    """The same scene built with the port's own modules."""
+    if name == "tiny":
+        return cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE)
+    if name == "demo_cornell":
+        return cosig_tpu_torch.load_scene("scenes/demo_cornell.txt")
+    return tgen.CONFIGS[name]()[0]
+
+
+def _setup(name, settings):
     """(JAX arrays, JAX params, JAX cfg, JAX cluster set) and the port's
     (cluster set from the JAX arrays, uniforms, lights, cfg)."""
+    scene = _scene(name)
     arrays = jsoa.compile_scene(scene)
     jparams = jsoa.frame_params(scene, settings)
     jcfg = jsoa.static_config(scene, settings)
     jcs = jcl.build_clusters(arrays)
     cset = cluster_set_from_arrays(np.asarray(jcs.geom), np.asarray(jcs.aabb_t),
                                    np.asarray(jcs.sb_aabb_t), np.asarray(jcs.mats))
-    tparams = tsoa.frame_params(scene, settings)
-    tcfg = tsoa.static_config(scene, settings)
+    port_scene = _port_scene(name)
+    port_settings = cosig_tpu_torch.RenderSettings(**dataclasses.asdict(settings))
+    tparams = tsoa.frame_params(port_scene, port_settings)
+    tcfg = tsoa.static_config(port_scene, port_settings)
     port = (cset, tkc.build_uniforms(tparams), tkc.build_lights(tparams, tcfg.multi_light), tcfg)
     return (arrays, jparams, jcfg, jcs), port
 
@@ -59,7 +77,7 @@ def _rmse(a, b):
 
 def test_demo_cornell_depth1_matches_jax_wavefront():
     st = cosig_tpu.RenderSettings(resolution_override=(64, 48), max_depth=1)
-    (arrays, params, cfg, jcs), port = _setup(_scene("demo_cornell"), st)
+    (arrays, params, cfg, jcs), port = _setup("demo_cornell", st)
     ref, jrays = jtw.render_wavefront(jcs, params, cfg, interpret=True)
     img, rays = _port_render(port)
     assert img.shape == (48, 64, 3)
@@ -69,7 +87,7 @@ def test_demo_cornell_depth1_matches_jax_wavefront():
 
 def test_tiny_depth3_matches_jax_wavefront():
     st = cosig_tpu.RenderSettings(resolution_override=(32, 32), max_depth=3)
-    (arrays, params, cfg, jcs), port = _setup(_scene("tiny"), st)
+    (arrays, params, cfg, jcs), port = _setup("tiny", st)
     ref, jrays = jtw.render_wavefront(jcs, params, cfg, interpret=True)
     ref = np.asarray(ref)
     img, rays = _port_render(port)
@@ -91,7 +109,7 @@ def test_effects_match_oracle_on_stable_pixels():
         enable_glossy=True, surface_roughness=0.05,
         enable_motion_blur=True, shutter_speed=0.5,
     )
-    (arrays, params, cfg, _), port = _setup(_scene("tiny"), st)
+    (arrays, params, cfg, _), port = _setup("tiny", st)
     ref = np.asarray(trace_xla.render_jit(arrays, params, cfg))
     ref2 = np.asarray(trace_xla.render_jit(arrays, params, cfg, pixel_tile=512))
     img, _ = _port_render(port)
@@ -120,7 +138,7 @@ ORACLE_CASES = [
 @pytest.mark.parametrize("label,name,kw", ORACLE_CASES, ids=[c[0] for c in ORACLE_CASES])
 def test_matches_oracle(label, name, kw):
     st = cosig_tpu.RenderSettings(resolution_override=(32, 32), **kw)
-    (arrays, params, cfg, _), port = _setup(_scene(name), st)
+    (arrays, params, cfg, _), port = _setup(name, st)
     ref, jrays = trace_xla.render_jit(arrays, params, cfg, with_rays=True)
     img, rays = _port_render(port)
     assert _rmse(img, np.asarray(ref)) < 1e-5
