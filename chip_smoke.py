@@ -11,18 +11,25 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit and the torch version; build the
    four kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
    all started at once), then rebuild them warm with the compiles one
-   after another and in parallel, and print the three times;
+   after another and in parallel, and print the three times and each
+   kernel's registers and spills;
 2. render small frames with the kernels and with their plain PyTorch
    versions on the card and hold them to the tolerances below: the
    wavefront (primary + bounce) and the megakernel on every case, the
    megakernel against the wavefront kernels (bit-equal at AA 1 and 4),
    the debug kernel in modes 1-3, and analytic spheres and boxes through
-   all four kernels;
-3. time each kernel against its plain version at the main path's shapes
-   (glass_sphere, 1024x1024, depth 6, AA 4), and compute its bound from
-   the work the plain traversal counts at those shapes (what the kernel's
-   walk tests, shadow rays up to their first occluder) and the bytes it
-   must move (the bounce: a dead ray's alive flag only);
+   all four kernels; then the edges of the primary kernel's and the
+   megakernel's block walk (partial tiles, inactive threads, AA 3, a band
+   of rows, large_mesh's 64-row clusters, an analytic frame), bit for bit;
+3. print two models of the block walk at the main path's shapes (the
+   pair-loop efficiency of the kernels' warps, from the plain traversal's
+   count of warp slots; the trip fill of the megakernel's block-uniform
+   depth loop, from the wavefront's live rows), then time each kernel
+   against its plain version at the main path's shapes (glass_sphere,
+   1024x1024, depth 6, AA 4), and compute its bound from the work the
+   plain traversal counts at those shapes (what the kernel's walk tests,
+   shadow rays up to their first occluder) and the bytes it must move
+   (the bounce: a dead ray's alive flag only);
 4. drive each path through ``Renderer`` with the launch counters reset
    just before it and read just after: the wavefront and the megakernel
    on glass_sphere (1024x1024, depth 6, AA 4) and large_mesh (2048x2048,
@@ -31,13 +38,11 @@ Phases (any failure raises and the script exits non-zero):
    wavefront's bit for bit, a debug frame, and analytic frames of
    glass_sphere and cosig_walls held to their plain versions; ms/frame
    with CUDA events;
-5. time each wavefront stage of one such frame, model how evenly the
-   megakernel's per-pixel loops fill a warp from the wavefront's live
-   rays, and time the plain versions' frames at the same size against the
-   kernels' images.
+5. time each wavefront stage of one such frame, and time the plain
+   versions' frames at the same size against the kernels' images.
 
-Near the end the script prints a JSON line of per-frame numbers, a JSON
-line of per-kernel numbers, the card's name and power limit, and, as the
+Near the end the script prints a JSON line of the models, a JSON line of
+per-frame numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
 last line, the result ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
 prints no result.
@@ -73,15 +78,20 @@ MEAN_ABS = 1e-4
 PLAIN_FRAME_LIMIT_S = 60.0
 
 # The bound of a kernel: the larger of its float32 operations over the
-# H100 SXM's 67 TFLOP/s outside the tensor cores and its bytes (each input
-# read once, each output written once) over 3.35 TB/s. Operations per
-# unit of traversal work (csrc/traverse.cuh): a slab test is 6 subtracts,
-# 6 multiplies, 10 min/max and 2 compares; a pair test 55 (three 6-term
-# edge volumes, two 3-term dots, a reciprocal, t and 9 compares); an
-# analytic primitive about 70 (the 3x4 object transform, then the
-# quadratic or the slabs). Shading adds a few hundred per ray and is left
-# out, so the bound is a floor.
-PEAK_F32_FLOPS = 67e12
+# H100 SXM's fp32 issue rate and its bytes (each input read once, each
+# output written once) over 3.35 TB/s. NVIDIA's 67 TFLOP/s counts a fused
+# multiply-add as two operations; these kernels are built with
+# --fmad=false (cosig_tpu_torch/kernels/build.py), so every multiply and
+# every add is its own instruction, and the fp32 pipes issue at most
+# 132 SMs x 128 lanes x 1.98 GHz = 33.45 T operations/s of them (min, max
+# and compares may issue slower, which only raises the floor). Operations
+# per unit of traversal work (csrc/traverse.cuh): a slab test is 6
+# subtracts, 6 multiplies, 10 min/max and 2 compares; a pair test 55
+# (three 6-term edge volumes, two 3-term dots, a reciprocal, t and 9
+# compares); an analytic primitive about 70 (the 3x4 object transform,
+# then the quadratic or the slabs). Shading adds a few hundred per ray and
+# is left out, so the bound is a floor.
+PEAK_F32_OPS = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_SLAB = 24
 FLOPS_PER_PAIR = 55
@@ -286,13 +296,16 @@ def tag_of(name, cfg, analytic=False) -> str:
     return tag
 
 
-def hold(tag, cfg, img_k, rays_k, img_p, rays_p) -> None:
-    """A kernel's image against its plain version's, at the port's gates."""
+def hold(tag, cfg, img_k, rays_k, img_p, rays_p, exact=False) -> None:
+    """A kernel's image against its plain version's, at the port's gates
+    (``exact``: bit for bit, rays equal)."""
     import torch
 
     same, i_max, i_rmse = diff(img_k, img_p)
     log(f"  {tag}: bitwise={same} max={i_max:.3e} rmse={i_rmse:.3e} "
         f"rays kernel={rays_k} plain={rays_p}")
+    if exact:
+        check(same and rays_k == rays_p, (tag, "not bit-equal to the plain version", i_max))
     check(abs(rays_k - rays_p) <= RAYS_SLACK, (tag, rays_k, rays_p))
     check(bool(torch.isfinite(img_k).all()), tag)
     if cfg.max_depth == 1 or cfg.debug_mode:
@@ -302,11 +315,8 @@ def hold(tag, cfg, img_k, rays_k, img_p, rays_p) -> None:
 
 
 def compare_small(device) -> None:
-    """Phase 2: every kernel against its plain version on small frames."""
-    from cosig_tpu_torch.models.soa import static_config
-    from cosig_tpu_torch.ops import trace_megakernel as tm
-    from cosig_tpu_torch.ops import trace_wavefront as tw
-
+    """Phase 2: every kernel against its plain version on small frames,
+    then the edges of the block walk (edge_cases)."""
     effects = dict(aa_samples=4, enable_soft_shadows=True, light_size=5.0, enable_glossy=True,
                    surface_roughness=0.05, enable_motion_blur=True, shutter_speed=0.5)
     cases = [
@@ -320,35 +330,106 @@ def compare_small(device) -> None:
         ("cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True),
     ]
     for name, kw, analytic in cases:
-        s = scene_setup(name, kw, device, analytic)
-        cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-        pk = dict(prims=s["prims"], prim_counts=s["prim_counts"])
-        tag = tag_of(name, cfg, analytic)
-        log(f"compare {tag}")
-        # Wavefront: primary + bounce kernels, state against the plain stages.
-        st_k = tw.trace_state(cset, uni, lights, cfg, **pk)
-        st_p = tw.trace_state(cset, uni, lights, cfg, plain=True, **pk)
-        s_same, s_max, _ = diff(st_k, st_p)
-        log(f"  wavefront state: bitwise={s_same} max={s_max:.3e}")
-        img_w, rays_w = tw.finalize(st_k, cfg, cfg.height)
-        hold("wavefront image", cfg, img_w, rays_w, *tw.finalize(st_p, cfg, cfg.height))
-        # Megakernel against its plain version, and against the wavefront
-        # kernels: the same device code, so the same bits at AA 1 and 4.
-        img_m, rays_m = tm.render_clusters(cset, uni, lights, cfg, **pk)
-        hold("megakernel", cfg, img_m, rays_m,
-             *tm.render_clusters(cset, uni, lights, cfg, plain=True, **pk))
-        same, mx, _ = diff(img_m, img_w)
-        log(f"  megakernel vs wavefront kernels: bitwise={same} max={mx:.3e} "
-            f"rays {rays_m} / {rays_w}")
-        if cfg.aa_samples in (1, 4):
-            check(same and rays_m == rays_w, (tag, "megakernel vs wavefront", mx))
-        if (name in ("demo_cornell", "tiny") and cfg.max_depth > 1) or analytic:
-            for mode in (1, 2, 3):
-                dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=mode))
-                img_d, rays_d = tm.render_debug(cset, uni, lights, dcfg, **pk)
-                hold(f"debug mode {mode}", dcfg, img_d, rays_d,
-                     *tm.render_debug(cset, uni, lights, dcfg, plain=True, **pk))
-                check(rays_d == cfg.width * cfg.height, (tag, rays_d))
+        compare_case(device, name, kw, analytic)
+    edge_cases(device)
+
+
+def edge_cases(device) -> None:
+    """The edges of the block walk, each held bit for bit to its plain
+    version on both backends: partial 16 x 8 tiles and partial blocks of
+    rays (61 x 37), inactive threads at every barrier, a non-power-of-two
+    AA, a band of rows (rows, row_offset); large_mesh, whose 64-row
+    clusters are listed many more times than the ring has stages and whose
+    secondary rays are incoherent; and the analytic cosig_walls frame."""
+    cornell = dict(resolution_override=(61, 37), max_depth=3)
+    for aa in (1, 3, 4):
+        compare_case(device, "demo_cornell", dict(cornell, aa_samples=aa), False, exact=True)
+        compare_case(device, "demo_cornell", dict(cornell, aa_samples=aa), False, exact=True,
+                     band=(21, 9))
+    compare_case(device, "large_mesh", dict(resolution_override=(128, 96), max_depth=4), False,
+                 exact=True)
+    # More clusters than one pass of the block walk's cull (TILE_C = 256).
+    compare_case(device, "large_mesh", dict(resolution_override=(128, 96), max_depth=4), False,
+                 exact=True, split=True)
+    compare_case(device, "cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True,
+                 exact=True)
+
+
+def split_clusters(cset):
+    """The cluster set with each cluster cut into two of half the rows, each
+    half under its whole cluster's box (a superset, so still exact): twice
+    the clusters, for a walk over more clusters than one cull pass holds.
+    Padding rows stay last in every half."""
+    import torch
+
+    c, k = cset.num_clusters, cset.k
+    geom = cset.geom.reshape(2 * c, k // 2, cset.geom.shape[2]).contiguous()
+    c_pad = -(-2 * c // 512) * 512
+    aabb = torch.full((8, c_pad), float("nan"), dtype=torch.float32, device=cset.device)
+    aabb[:, :2 * c] = cset.aabb_t[:, :c].repeat_interleave(2, dim=1)
+    return type(cset)(geom=geom, aabb_t=aabb, sb_aabb_t=cset.sb_aabb_t, mats=cset.mats,
+                      num_triangles=cset.num_triangles)
+
+
+def compare_case(device, name, kw, analytic, exact=False, band=None, split=False) -> None:
+    """One small frame: the wavefront kernels and the megakernel against
+    their plain versions (``exact``: bit for bit), the megakernel against
+    the wavefront kernels (the same bits at AA 1 and 4; at other AA the
+    wavefront's sample sum times float32(1/aa)), and on some frames the
+    debug kernel. ``band``: (rows, row_offset), rows inside the image;
+    ``split``: the scene's clusters cut in two (split_clusters)."""
+    import numpy as np
+
+    from cosig_tpu_torch.models.soa import static_config
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    s = scene_setup(name, kw, device, analytic)
+    cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+    if split:
+        cset = split_clusters(cset)
+    pk = dict(prims=s["prims"], prim_counts=s["prim_counts"])
+    rows, row_off = band if band else (cfg.height, 0)
+    bk = dict(rows=rows, row_offset=row_off) if band else {}
+    tag = tag_of(name, cfg, analytic) + (f" rows {row_off}..{row_off + rows - 1}" if band else "")
+    log(f"compare {tag} (clusters={cset.num_clusters} k={cset.k})")
+    # Wavefront: primary + bounce kernels, state against the plain stages.
+    st_k = tw.trace_state(cset, uni, lights, cfg, **bk, **pk)
+    st_p = tw.trace_state(cset, uni, lights, cfg, plain=True, **bk, **pk)
+    s_same, s_max, _ = diff(st_k, st_p)
+    log(f"  wavefront state: bitwise={s_same} max={s_max:.3e}")
+    img_w, rays_w = tw.finalize(st_k, cfg, rows)
+    hold("wavefront image", cfg, img_w, rays_w, *tw.finalize(st_p, cfg, rows), exact=exact)
+    if exact:
+        check(s_same, tag, "wavefront state not bit-equal to the plain stages", s_max)
+    # Megakernel against its plain version, and against the wavefront
+    # kernels: the same device code, so the same bits at AA 1 and 4.
+    img_m, rays_m = tm.render_clusters(cset, uni, lights, cfg, **bk, **pk)
+    hold("megakernel", cfg, img_m, rays_m,
+         *tm.render_clusters(cset, uni, lights, cfg, plain=True, **bk, **pk), exact=exact)
+    same, mx, _ = diff(img_m, img_w)
+    log(f"  megakernel vs wavefront kernels: bitwise={same} max={mx:.3e} "
+        f"rays {rays_m} / {rays_w}")
+    aa = max(1, cfg.aa_samples)
+    if aa in (1, 4):
+        check(same and rays_m == rays_w, (tag, "megakernel vs wavefront", mx))
+    else:
+        # The megakernel's mean is acc * float32(1/aa), the wavefront's acc / aa.
+        cols = st_k[9:12].reshape(3, rows, cfg.width, aa)
+        acc = cols[..., 0]
+        for k in range(1, aa):
+            acc = acc + cols[..., k]
+        scaled = (acc * float(np.float32(1.0 / aa))).permute(1, 2, 0)
+        same_s = diff(img_m, scaled)[0]
+        log(f"  megakernel vs the wavefront kernels' sample sum x f32(1/{aa}): bitwise={same_s}")
+        check(same_s and rays_m == rays_w, (tag, "megakernel vs wavefront sum x 1/aa"))
+    if not band and ((name in ("demo_cornell", "tiny") and cfg.max_depth > 1) or analytic):
+        for mode in (1, 2, 3):
+            dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=mode))
+            img_d, rays_d = tm.render_debug(cset, uni, lights, dcfg, **pk)
+            hold(f"debug mode {mode}", dcfg, img_d, rays_d,
+                 *tm.render_debug(cset, uni, lights, dcfg, plain=True, **pk), exact=exact)
+            check(rays_d == cfg.width * cfg.height, (tag, rays_d))
 
 
 def work_bound(work: dict, nbytes: int) -> dict:
@@ -356,11 +437,104 @@ def work_bound(work: dict, nbytes: int) -> dict:
     the bytes it must move."""
     flops = (FLOPS_PER_SLAB * work["slab_tests"] + FLOPS_PER_PAIR * work["pair_tests"]
              + FLOPS_PER_PRIM * work["prim_tests"])
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
+    op_ms = flops / PEAK_F32_OPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
                 work=dict(work, flops=flops, bytes=nbytes))
+
+
+def uniform_fill(trips, grp, lanes: int) -> float:
+    """Trip fill of a loop that a group of ``lanes`` threads runs in step
+    per sample: trips [P, aa] per (pixel, sample), grp [P] each pixel's
+    group -> sum of trips / (lanes x sum over groups and samples of the
+    group's largest trip count). Empty lanes count as idle."""
+    import torch
+
+    aa = trips.shape[1]
+    top = torch.zeros((int(grp.max()) + 1, aa), dtype=trips.dtype, device=trips.device)
+    top.scatter_reduce_(0, grp[:, None].expand(-1, aa), trips, "amax")
+    return float(trips.sum() / (lanes * top.sum()))
+
+
+def model_walks(device) -> dict:
+    """Phase 3, before the times: two models of the block walk at the main
+    path's full size, counted with the plain traversal and the wavefront
+    kernels' alive rows. Neither is a measurement of a kernel.
+
+    * Pair-loop efficiency: the pair tests the rays need over the pair-loop
+      slots their warps spend (``kernel_core.WORK["warp_slots"]``: 32 x the
+      real rows of each cluster that some ray of the warp enters), for the
+      primary kernel's warps (32 consecutive ray ids, 8 pixels x 4 samples
+      at AA 4) and for the megakernel's warps of 8 x 4 pixels and of the
+      parent's 32 x 1.
+    * Trip fill of the megakernel's depth loop: trips per (pixel, sample)
+      from the wavefront's live rows (one, plus one per bounce the ray
+      enters alive); for the parent's per-thread loop in 32 x 1 strips, a
+      warp runs until its busiest thread's sum over samples; for the
+      block-uniform loop, a 8 x 4 warp or a 16 x 8 block runs each sample
+      for its busiest pixel's trips. The block walk stages per block if
+      the block's fill is at least 90 % on both frames."""
+    import torch
+
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    out = {}
+    for name in ("glass_sphere", "large_mesh"):
+        s = scene_setup(name, {}, device)
+        cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+        mats = cset.mats.cpu().numpy()
+        pk = kc.prim_table(None, (0, 0), device)
+        aa = max(1, cfg.aa_samples)
+        n_px = cfg.width * cfg.height
+        n = n_px * aa
+        eff = {}
+        for label, run, slots, count in (
+            ("primary 32 rays", tw.primary_stage, kc.linear_slots(n), n),
+            ("megakernel 8x4", tm.megakernel_plain, tm.tile_slots(cfg.width, cfg.height), n_px),
+            ("megakernel 32x1", tm.megakernel_plain, kc.linear_slots(n_px), n_px),
+        ):
+            kc.reset_work()
+            run(cset, uni, mats, lights, cfg, cfg.height, *pk,
+                warps=kc.warp_of_rays(slots, count).to(device))
+            torch.cuda.synchronize()
+            w = dict(kc.WORK)
+            eff[label] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
+                              efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
+            log(f"  {name} pair-loop efficiency, {label} warps: {w['pair_tests']} pair tests / "
+                f"{w['warp_slots']} warp slots = {100 * eff[label]['efficiency']:.1f} %")
+        # Trips per (pixel, sample) from the wavefront kernels' alive rows.
+        state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+        trips = torch.ones(n, dtype=torch.float64, device=device)
+        alive = []
+        for d in range(1, cfg.max_depth):
+            live = state[kc.ROW_ALIVE] > 0
+            alive.append(int(live.sum()))
+            trips += live.to(torch.float64)
+            kw.bounce(state, cset, uni, mats, lights, cfg, d, *pk)
+        del state
+        trips = trips.reshape(n_px, aa)
+        per_pixel = trips.sum(dim=1)
+        warp_max = per_pixel.reshape(-1, 32).max(dim=1).values
+        tile = kc.warp_of_rays(tm.tile_slots(cfg.width, cfg.height), n_px).to(device)
+        fill = {
+            "per-thread 32x1": float(per_pixel.sum() / (32 * warp_max.sum())),
+            "warp 8x4": uniform_fill(trips, tile, 32),
+            "block 16x8": uniform_fill(trips, tile // 4, 128),
+        }
+        log(f"  {name} live rays entering bounces 1..: {alive}; modelled megakernel trip fill: "
+            + ", ".join(f"{k} {100 * v:.1f} %" for k, v in fill.items()))
+        out[name] = dict(pair_loop=eff, trip_fill=fill, alive_into_bounces=alive)
+        del cset
+        torch.cuda.empty_cache()
+    worst = min(m["trip_fill"]["block 16x8"] for m in out.values())
+    log(f"  block fill {100 * worst:.1f} % on the worse frame: "
+        + ("staging per block (the kernels' design)" if worst >= 0.9
+           else "below 90 %: per-warp staging would be the design"))
+    return out
 
 
 def time_kernels(device) -> list:
@@ -580,10 +754,8 @@ def drive_main_paths(device) -> tuple:
 
 def breakdown_and_plain(device, frames: dict) -> None:
     """Phase 5: per-stage kernel times of one wavefront frame (CUDA events
-    around each launch); a model of how evenly the megakernel's per-pixel
-    loops fill a warp, from the wavefront's live rows; and the plain
-    versions' frame times and images at the same size (or 512x512 when a
-    frame takes too long)."""
+    around each launch), and the plain versions' frame times and images at
+    the same size (or 512x512 when a frame takes too long)."""
     import torch
 
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -615,30 +787,6 @@ def breakdown_and_plain(device, frames: dict) -> None:
         log(f"  {name} stages (ms): primary {t[0]:.3f}, bounces "
             f"{', '.join(f'{x:.3f}' for x in t[1:-1])}, finalize {t[-1]:.3f}; "
             f"sum {busy:.3f} = {100 * busy / fr['ms']:.1f} % of the renderer's ms/frame")
-        # Live rays entering each bounce, from a second frame (host reads
-        # between launches would stretch the timed gaps above). A model,
-        # not a measurement of the megakernel: if its thread runs one
-        # bounce per sample and depth while the ray lives, and a warp of 32
-        # neighbouring pixels runs until its longest thread ends, these
-        # counts give its loop trips. It counts trips, not their cost.
-        state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
-        trips = torch.ones(state.shape[1], dtype=torch.int32, device=device)
-        alive = []
-        for d in range(1, cfg.max_depth):
-            live = state[12] > 0
-            alive.append(int(live.sum()))
-            trips += live.to(torch.int32)
-            kw.bounce(state, cset, uni, mats, lights, cfg, d, *pk)
-        per_pixel = trips.reshape(-1, max(1, cfg.aa_samples)).sum(dim=1).to(torch.float64)
-        warp_max = per_pixel.reshape(-1, 32).max(dim=1).values
-        fill = float(per_pixel.sum() / (32 * warp_max.sum()))
-        fr["alive_into_bounces"] = alive
-        fr["megakernel_modelled_warp_fill"] = fill
-        log(f"  {name} live rays entering bounces 1..: {alive}; modelled megakernel "
-            f"bounce trips per pixel: mean {float(per_pixel.mean()):.3f}, warp max mean "
-            f"{float(warp_max.mean()):.3f}, modelled warp fill {100 * fill:.1f} %")
-        del state, trips
-
         t0 = time.perf_counter()
         pimg, prays = tw.render_wavefront(cset, uni, lights, cfg, plain=True)
         torch.cuda.synchronize()
@@ -664,6 +812,32 @@ def breakdown_and_plain(device, frames: dict) -> None:
         torch.cuda.empty_cache()
     for fr in frames.values():
         del fr["image"]
+
+
+def ptxas_resources(ptxas: str) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
+    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...}."""
+    import re
+
+    names = {"primary_kernel": "primary", "bounce_kernel": "bounce",
+             "megakernel": "megakernel", "debug_kernel": "debug"}
+    out, cur = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
+        if m:
+            cur = names.get(m.group(2)[: int(m.group(1))])
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -695,12 +869,15 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    resources = ptxas_resources(ptxas)
+    check(set(resources) >= {"primary", "bounce", "megakernel", "debug"}, resources)
     check_no_jax()
 
     t0 = time.perf_counter()
     compare_small(device)
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    models = model_walks(device)
     kernels = time_kernels(device)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -711,9 +888,17 @@ def main() -> int:
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
+    from cosig_tpu_torch.kernels import binding
+
+    glass_k = scene_setup("glass_sphere", {}, "cpu")["cset"].k
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, k["name"], "was not launched on its path")
+        k.update(resources[k["name"]])
+        if k["name"] in ("primary", "megakernel"):
+            k["design"] = "block walk"
+            k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
+    log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -12,6 +12,13 @@
 // Bound: the two traversals (closest hit, then one any-hit shadow ray per
 // light), see traverse.cuh. Shading itself is a few hundred flops per
 // ray.
+//
+// bounce_core is templated on the walk: RayWalk (traverse.cuh, per ray:
+// the bounce kernel) or BlockWalk (traverse_tile.cuh, the block's rays
+// together: the primary kernel and the megakernel). Under the block walk
+// every thread of the block calls it, dead rays too: a dead ray's bounce
+// changes nothing (its colour gains +0, its count 0, its state stays), and
+// it enters no box, so both walks give the same bits.
 #pragma once
 
 #include "rng.cuh"
@@ -86,8 +93,9 @@ __device__ __forceinline__ void random_unit(float sx, float sy, float sz, float&
 
 // One bounce on a live ray (kernel_core.py:1089-1270). px/py/s are the RNG
 // seeds, depth the bounce index; is_last retires the ray after shading.
-__device__ __forceinline__ void bounce_core(const Frame& f, const Geometry& g,
-                                            RayState& st, float px, float py, float s,
+template <class Walk>
+__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
+                                            float px, float py, float s,
                                             float depth, bool is_last) {
   const float bg_r = f.u[U_BG], bg_g = f.u[U_BG + 1], bg_b = f.u[U_BG + 2];
   const float intensity = f.u[U_INTENSITY];
@@ -99,7 +107,7 @@ __device__ __forceinline__ void bounce_core(const Frame& f, const Geometry& g,
   bool alive = st.alive;
 
   st.count = st.count + (alive ? 1.0f : 0.0f);
-  const Hit h = trace_closest(g, make_ray(ox, oy, oz, dx, dy, dz));
+  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, alive);
   const float t = h.t, nx = h.nx, ny = h.ny, nz = h.nz;
 
   const bool miss = alive && !h.hit;
@@ -149,11 +157,8 @@ __device__ __forceinline__ void bounce_core(const Frame& f, const Geometry& g,
     if (f.flags & F_DIFFUSE) {
       const bool shadow_active = alive && (ndl > 0.0f);
       st.count = st.count + (shadow_active ? 1.0f : 0.0f);
-      const bool occluded =
-          shadow_active &&
-          trace_any(g, make_ray(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET, ldx,
-                                ldy, ldz),
-                    dist_l);
+      const bool occluded = walk.any(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
+                                     ldx, ldy, ldz, dist_l, shadow_active);
       const bool gate = !occluded && (ndl > 0.0f) && alive;
       float dr = cr * kd * ndl;
       float dg = cg * kd * ndl;

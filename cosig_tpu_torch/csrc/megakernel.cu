@@ -6,23 +6,29 @@
 // On the TPU a grid step owns a 32x32 pixel tile, keeps the ray state in
 // VMEM and skips a bounce when no ray of the tile is alive; here one
 // thread owns one pixel (the TPU kernel's lane) and keeps its ray,
-// attenuation and colour in registers, so no state goes to device memory
-// and a thread stops as soon as its own ray dies. The camera ray and the
-// bounce are the same device code as the wavefront kernels (camera.cuh,
-// bounce.cuh), so for power-of-two AA the two paths give the same bits;
-// the mean here is acc * f32(1/aa) as on the TPU (trace_pallas.py
-// :282-285), not the wavefront's division.
+// attenuation and colour in registers, so no state goes to device memory.
+// The camera ray and the bounce are the same device code as the wavefront
+// kernels (camera.cuh, bounce.cuh), so for power-of-two AA the two paths
+// give the same bits; the mean here is acc * f32(1/aa) as on the TPU
+// (trace_pallas.py:282-285), not the wavefront's division.
+//
+// Design: the megakernel's time is the traversal of its camera rays plus
+// a few bounces of the rays that survive (traverse.cuh's bound), so it
+// walks clusters as the primary kernel does, a block's rays together
+// (traverse_tile.cuh). A block covers 16 x 8 pixels, each warp 8 x 4, so
+// the rays that walk together are neighbours in both directions. The
+// sample and depth loops are block-uniform: the block leaves a sample's
+// depth loop when __syncthreads_or finds no live ray in it, the TPU's own
+// per-tile skip; a dead ray's bounce changes nothing, so this is exact.
+// Threads of a tile outside the width or the band take part inactive and
+// write nothing; as on the TPU, every row of the band is traced (no
+// in-image mask).
 //
 // debug_kernel replaces cosig_tpu/ops/trace_pallas.py _make_debug_kernel
 // (:438-513): one perspective centre ray per pixel, even under the
 // orthographic toggle (the reference's quirk), one closest-hit traversal,
-// then mode 1 depth t/100, mode 2 normal * 0.5 + 0.5, mode 3 hit/miss.
-//
-// Bound: the traversals, as for the wavefront kernels (traverse.cuh): the
-// pair and slab tests per ray, and 16 bytes of output per pixel.
-// This first version does nothing about the divergence of a per-pixel
-// loop: a warp runs until its longest path (sample x depth) ends, while
-// the threads whose rays died wait.
+// then mode 1 depth t/100, mode 2 normal * 0.5 + 0.5, mode 3 hit/miss. It
+// keeps the per-ray walk of traverse.cuh.
 //
 // Build: as wavefront.cu (cosig_tpu_torch/kernels/build.py), --fmad=false
 // and IEEE division and sqrt.
@@ -30,24 +36,35 @@
 #include <stdint.h>
 
 #include "camera.cuh"
+#include "traverse_tile.cuh"
 
 namespace cosig {
 
-constexpr int MEGA_THREADS = 128;
+constexpr int MEGA_THREADS = TILE_THREADS;
+// Megakernel tiles: a block of 16 x 8 pixels, four warps of 8 x 4.
+constexpr int TILE_W = 16, TILE_H = 8, WARP_W = 8, WARP_H = 4;
 
 __global__ void __launch_bounds__(MEGA_THREADS)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
                const float* __restrict__ prims, int n_sph, int n_box, int max_depth,
                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // pixel py_local * W + px
-  if (i >= f.n_rays) return;
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk walk;
+  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+
+  // Pixel of this thread: block (bx, by) of the band's 16 x 8 tiles, warp
+  // (w % 2, w / 2) of 8 x 4 in it, lane (l % 8, l / 8) in the warp.
+  const int tiles_x = (f.width + TILE_W - 1) / TILE_W;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int x = (blockIdx.x % tiles_x) * TILE_W + (w % 2) * WARP_W + l % WARP_W;
+  const int y = (blockIdx.x / tiles_x) * TILE_H + (w / 2) * WARP_H + l / WARP_W;
+  const bool in_tile = x < f.width && y < f.band;
   const int n = f.n_rays;
-  const float px = (float)(i % f.width);
+  const int i = y * f.width + x;  // pixel py_local * W + px
+  const float px = (float)x;
   // Global row: projection and RNG seeds stay those of the full frame.
-  // As on the TPU, every row of the band is traced (no in-image mask).
-  const float py = (float)(i / f.width) + f.u[U_ROW_OFF];
-  const Geometry g = make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box);
+  const float py = (float)y + f.u[U_ROW_OFF];
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   RayState st;
@@ -56,15 +73,17 @@ __global__ void __launch_bounds__(MEGA_THREADS)
     camera_ray(f, px, py, s_i, st);
     st.at_r = st.at_g = st.at_b = 1.0f;
     st.col_r = st.col_g = st.col_b = 0.0f;
-    st.alive = true;
+    st.alive = in_tile;
     // A dead ray's bounce is a no-op on the TPU as well: stopping is exact.
-    for (int depth = 0; depth < max_depth && st.alive; ++depth) {
-      bounce_core(f, g, st, px, py, (float)s_i, (float)depth, depth == max_depth - 1);
+    for (int depth = 0; depth < max_depth; ++depth) {
+      if (!__syncthreads_or(st.alive)) break;
+      bounce_core(f, walk, st, px, py, (float)s_i, (float)depth, depth == max_depth - 1);
     }
     acc_r = acc_r + st.col_r;
     acc_g = acc_g + st.col_g;
     acc_b = acc_b + st.col_b;
   }
+  if (!in_tile) return;
   const float inv_aa = 1.0f / (float)f.aa;  // == float32(1.0 / aa) for aa <= 64
   out[0 * (size_t)n + i] = acc_r * inv_aa;
   out[1 * (size_t)n + i] = acc_g * inv_aa;
@@ -129,14 +148,20 @@ __global__ void __launch_bounds__(MEGA_THREADS)
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). frame->n_rays
-// is the number of pixels, out f32 [4, n_rays]: rgb and the ray count.
+// is the number of pixels, frame->band * frame->width; out f32 [4, n_rays]:
+// rgb and the ray count.
 int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
                             int n_clusters, int k, int c_pad, const float* prims, int n_sph,
                             int n_box, int max_depth, float* out, void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
-  const int blocks = (n + cosig::MEGA_THREADS - 1) / cosig::MEGA_THREADS;
-  cosig::megakernel<<<blocks, cosig::MEGA_THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = ((frame->width + cosig::TILE_W - 1) / cosig::TILE_W) *
+                     ((frame->band + cosig::TILE_H - 1) / cosig::TILE_H);
+  const int smem = (int)cosig::tile_layout(k).total;
+  cudaError_t err = cudaFuncSetAttribute(cosig::megakernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cosig::megakernel<<<blocks, cosig::MEGA_THREADS, smem, (cudaStream_t)stream>>>(
       *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, max_depth, out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Per-ray cluster traversal: closest hit and any hit.
+// Per-ray cluster traversal (closest hit and any hit), and the per-pair
+// arithmetic that both walks share.
 //
 // Replaces the traversal that every TPU kernel inlines,
 // cosig_tpu/ops/kernel_core.py make_traverse (:200-1035). On the TPU a
@@ -6,14 +7,19 @@
 // the hit list in scalar memory and intersects each listed cluster's
 // (K, rays) pair grid on the vector unit. Here one thread walks one ray:
 // for every cluster it runs the slab test and, on a pass, the K pair
-// tests. What the result must keep from the TPU version is the per-pair
-// arithmetic, not the schedule:
+// tests. The bounce kernel and the debug kernel walk so; the primary
+// kernel and the megakernel walk a block's rays together
+// (traverse_tile.cuh) through the same box_pass, pair_test and epilogue,
+// which take their operands as values so that only the place they are
+// loaded from differs. What the result must keep from the TPU version is
+// the per-pair arithmetic, not the schedule:
 //
 //  * the slab test is NaN-conservative: min/max propagate NaN and the
 //    tests are inverted, so a NaN slab (0 * inf from a zero direction
 //    component on a box plane, or a NaN padding column) passes and the
 //    exact pair test decides (kernel_core.py:410-453). fminf/fmaxf drop
-//    NaN, hence nan_min/nan_max below;
+//    NaN, hence nan_min/nan_max below, and slab_min/slab_max, the same
+//    in one instruction, in the slab test;
 //  * the Plücker chain order of kernel_core.py:818-842, with the build's
 //    --fmad=false so nothing is contracted;
 //  * the winner is the lexicographic (t, gid) minimum over all valid
@@ -60,6 +66,21 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// The same minimum and maximum in one instruction each (PTX min.NaN /
+// max.NaN, sm_80 and later). Their NaN is PTX's canonical NaN, not
+// 0x7fc00000, so they serve only where a NaN is compared and never stored:
+// the slab test.
+__device__ __forceinline__ float slab_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float slab_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // jnp.sign: -1, 1, and x itself at +-0 and NaN.
@@ -116,49 +137,109 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, 
   return r;
 }
 
-// Slab test of the ray against cluster c (kernel_core.py:430-449): false
-// only when the ray cannot enter the box. tn is the entry distance, for
-// the shadow rays' clip.
-__device__ __forceinline__ bool box_pass(const Geometry& g, int c, const Ray& r,
-                                         float& tn) {
-  const float b0 = __ldg(g.aabb + 0 * g.c_pad + c);
-  const float b1 = __ldg(g.aabb + 1 * g.c_pad + c);
-  const float b2 = __ldg(g.aabb + 2 * g.c_pad + c);
-  const float b3 = __ldg(g.aabb + 3 * g.c_pad + c);
-  const float b4 = __ldg(g.aabb + 4 * g.c_pad + c);
-  const float b5 = __ldg(g.aabb + 5 * g.c_pad + c);
-  const float t0x = (b0 - r.ox) * r.idx;
-  const float t1x = (b3 - r.ox) * r.idx;
-  const float t0y = (b1 - r.oy) * r.idy;
-  const float t1y = (b4 - r.oy) * r.idy;
-  const float t0z = (b2 - r.oz) * r.idz;
-  const float t1z = (b5 - r.oz) * r.idz;
-  tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
+// A cluster box: min xyz, max xyz.
+struct Box {
+  float b0, b1, b2, b3, b4, b5;
+};
+
+// Box c from aabb [8, c_pad] through the read-only cache.
+__device__ __forceinline__ Box box_ldg(const Geometry& g, int c) {
+  Box b;
+  b.b0 = __ldg(g.aabb + 0 * g.c_pad + c);
+  b.b1 = __ldg(g.aabb + 1 * g.c_pad + c);
+  b.b2 = __ldg(g.aabb + 2 * g.c_pad + c);
+  b.b3 = __ldg(g.aabb + 3 * g.c_pad + c);
+  b.b4 = __ldg(g.aabb + 4 * g.c_pad + c);
+  b.b5 = __ldg(g.aabb + 5 * g.c_pad + c);
+  return b;
+}
+
+// Slab test of the ray against a cluster box (kernel_core.py:430-449):
+// false only when the ray cannot enter the box. tn is the entry distance,
+// for the shadow rays' clip.
+__device__ __forceinline__ bool box_pass(const Box& b, const Ray& r, float& tn) {
+  const float t0x = (b.b0 - r.ox) * r.idx;
+  const float t1x = (b.b3 - r.ox) * r.idx;
+  const float t0y = (b.b1 - r.oy) * r.idy;
+  const float t1y = (b.b4 - r.oy) * r.idy;
+  const float t0z = (b.b2 - r.oz) * r.idz;
+  const float t1z = (b.b5 - r.oz) * r.idz;
+  tn = slab_max(slab_max(slab_min(t0x, t1x), slab_min(t0y, t1y)), slab_min(t0z, t1z));
   const float tf =
-      nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
+      slab_min(slab_min(slab_max(t0x, t1x), slab_max(t0y, t1y)), slab_max(t0z, t1z));
   return !(tn > tf) && !(tf < 0.0f);
 }
 
-// Plücker / edge-volume pair test of the ray against geometry row p
+// The 22 constants of one geometry row that the pair test reads: the
+// plane normal and n.A, then the three edge volumes' d and w coefficients.
+struct PairRow {
+  float gnx, gny, gnz, nda;
+  float va[6], vb[6], vc[6];
+};
+
+// Row p (GEOM_COMPS floats) through the read-only cache.
+__device__ __forceinline__ PairRow row_ldg(const float* __restrict__ p) {
+  PairRow q;
+  q.gnx = __ldg(p + C_GN);
+  q.gny = __ldg(p + C_GN + 1);
+  q.gnz = __ldg(p + C_GN + 2);
+  q.nda = __ldg(p + C_NDA);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    q.va[j] = __ldg(p + C_VA + j);
+    q.vb[j] = __ldg(p + C_VB + j);
+    q.vc[j] = __ldg(p + C_VC + j);
+  }
+  return q;
+}
+
+// Plücker / edge-volume pair test of the ray against one geometry row
 // (kernel_core.py:818-842) -> validity, with t, vb, vc and 1/s for the
 // winner's barycentrics.
-__device__ __forceinline__ bool pair_test(const float* __restrict__ p, const Ray& r,
-                                          float& t, float& vb, float& vc,
-                                          float& inv_s) {
-  const float va = r.dx * __ldg(p + C_VA) + r.dy * __ldg(p + C_VA + 1) +
-                   r.dz * __ldg(p + C_VA + 2) + r.wx * __ldg(p + C_VA + 3) +
-                   r.wy * __ldg(p + C_VA + 4) + r.wz * __ldg(p + C_VA + 5);
-  vb = r.dx * __ldg(p + C_VB) + r.dy * __ldg(p + C_VB + 1) + r.dz * __ldg(p + C_VB + 2) +
-       r.wx * __ldg(p + C_VB + 3) + r.wy * __ldg(p + C_VB + 4) + r.wz * __ldg(p + C_VB + 5);
-  vc = r.dx * __ldg(p + C_VC) + r.dy * __ldg(p + C_VC + 1) + r.dz * __ldg(p + C_VC + 2) +
-       r.wx * __ldg(p + C_VC + 3) + r.wy * __ldg(p + C_VC + 4) + r.wz * __ldg(p + C_VC + 5);
-  const float gnx = __ldg(p + C_GN), gny = __ldg(p + C_GN + 1), gnz = __ldg(p + C_GN + 2);
-  const float s = r.dx * gnx + r.dy * gny + r.dz * gnz;
-  const float ndo = r.ox * gnx + r.oy * gny + r.oz * gnz;
+__device__ __forceinline__ bool pair_test(const PairRow& q, const Ray& r, float& t,
+                                          float& vb, float& vc, float& inv_s) {
+  const float va = r.dx * q.va[0] + r.dy * q.va[1] + r.dz * q.va[2] + r.wx * q.va[3] +
+                   r.wy * q.va[4] + r.wz * q.va[5];
+  vb = r.dx * q.vb[0] + r.dy * q.vb[1] + r.dz * q.vb[2] + r.wx * q.vb[3] + r.wy * q.vb[4] +
+       r.wz * q.vb[5];
+  vc = r.dx * q.vc[0] + r.dy * q.vc[1] + r.dz * q.vc[2] + r.wx * q.vc[3] + r.wy * q.vc[4] +
+       r.wz * q.vc[5];
+  const float s = r.dx * q.gnx + r.dy * q.gny + r.dz * q.gnz;
+  const float ndo = r.ox * q.gnx + r.oy * q.gny + r.oz * q.gnz;
   inv_s = 1.0f / s;
-  t = (__ldg(p + C_NDA) - ndo) * inv_s;
+  t = (q.nda - ndo) * inv_s;
   return (fabsf(s) >= EPSILON) && (va * s >= 0.0f) && (vb * s >= 0.0f) &&
          (vc * s >= 0.0f) && (t > EPSILON);
+}
+
+// The closest-hit fold's running winner: lexicographic (t, gid) minimum,
+// the winning row (c * K + k) and its barycentrics.
+struct Best {
+  float t, gid, u, v;
+  int row;
+};
+
+__device__ __forceinline__ Best no_hit() {
+  Best b;
+  b.t = INF;
+  b.gid = GID_PAD;
+  b.u = 0.0f;
+  b.v = 0.0f;
+  b.row = -1;
+  return b;
+}
+
+// One pair test folded into the winner.
+__device__ __forceinline__ void fold_pair(Best& b, const PairRow& q, float gid, const Ray& r,
+                                          int row) {
+  float t, vb, vc, inv_s;
+  if (pair_test(q, r, t, vb, vc, inv_s) && (t < b.t || (t == b.t && gid < b.gid))) {
+    b.t = t;
+    b.gid = gid;
+    b.row = row;
+    b.u = vb * inv_s;
+    b.v = vc * inv_s;
+  }
 }
 
 // Analytic primitive p against the ray (kernel_core.py:955-1018) ->
@@ -214,36 +295,19 @@ __device__ __forceinline__ bool prim_test(const Geometry& g, int p, const Ray& r
   return (t_en <= t_ex) && (t_ex > EPSILON) && (tp > EPSILON);
 }
 
-// Closest hit: t = INF, normal (0, 1, 0) and material -1 on a miss.
-__device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
-  float bt = INF, bgid = GID_PAD, bu = 0.0f, bv = 0.0f;
-  int brow = -1;
-  for (int c = 0; c < g.n_clusters; ++c) {
-    float tn;
-    if (!box_pass(g, c, r, tn)) continue;
-    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
-    for (int k = 0; k < g.k; ++k) {
-      const float* __restrict__ p = rows + k * GEOM_COMPS;
-      const float gid = __ldg(p + C_GID);
-      if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
-      float t, vb, vc, inv_s;
-      if (pair_test(p, r, t, vb, vc, inv_s) && (t < bt || (t == bt && gid < bgid))) {
-        bt = t;
-        bgid = gid;
-        brow = c * g.k + k;
-        bu = vb * inv_s;
-        bv = vc * inv_s;
-      }
-    }
-  }
+// After the cluster walk (either walk): the triangle winner's normal and
+// material, the analytic fold, then the shared epilogue. t = INF, normal
+// (0, 1, 0) and material -1 on a miss.
+__device__ __forceinline__ Hit finish_closest(const Geometry& g, const Ray& r, const Best& b) {
+  float bt = b.t, bgid = b.gid;
   // The triangle winner's interpolated normal, unnormalized.
   float nx = 0.0f, ny = 1.0f, nz = 0.0f, mat = -1.0f;
-  if (brow >= 0) {
-    const float* __restrict__ p = g.geom + (size_t)brow * GEOM_COMPS;
-    const float w = 1.0f - bu - bv;
-    nx = w * __ldg(p + C_N0) + bu * __ldg(p + C_N1) + bv * __ldg(p + C_N2);
-    ny = w * __ldg(p + C_N0 + 1) + bu * __ldg(p + C_N1 + 1) + bv * __ldg(p + C_N2 + 1);
-    nz = w * __ldg(p + C_N0 + 2) + bu * __ldg(p + C_N1 + 2) + bv * __ldg(p + C_N2 + 2);
+  if (b.row >= 0) {
+    const float* __restrict__ p = g.geom + (size_t)b.row * GEOM_COMPS;
+    const float w = 1.0f - b.u - b.v;
+    nx = w * __ldg(p + C_N0) + b.u * __ldg(p + C_N1) + b.v * __ldg(p + C_N2);
+    ny = w * __ldg(p + C_N0 + 1) + b.u * __ldg(p + C_N1 + 1) + b.v * __ldg(p + C_N2 + 1);
+    nz = w * __ldg(p + C_N0 + 2) + b.u * __ldg(p + C_N1 + 2) + b.v * __ldg(p + C_N2 + 2);
     mat = __ldg(p + C_MAT);
   }
   // Analytic fold: lexicographic (t, gid), the world normal the
@@ -281,27 +345,64 @@ __device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
   return h;
 }
 
-// Any hit: is some valid pair or primitive at t <= max_t
-// (kernel_core.py:843-860, :936-939)?
-// Boxes entered beyond max_t are skipped; the walk stops at the first
-// occluder.
-__device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float max_t) {
-  for (int c = 0; c < g.n_clusters; ++c) {
-    float tn;
-    if (!box_pass(g, c, r, tn) || tn > max_t) continue;
-    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
-    for (int k = 0; k < g.k; ++k) {
-      const float* __restrict__ p = rows + k * GEOM_COMPS;
-      if (__ldg(p + C_GID) >= GID_PAD) break;
-      float t, vb, vc, inv_s;
-      if (pair_test(p, r, t, vb, vc, inv_s) && t <= max_t) return true;
-    }
-  }
+// Any hit among the analytic primitives at t <= max_t, after a cluster
+// walk that found no occluder.
+__device__ __forceinline__ bool prims_occlude(const Geometry& g, const Ray& r, float max_t) {
   for (int q = 0; q < g.n_sph + g.n_box; ++q) {
     float tp, nxo, nyo, nzo;
     if (prim_test(g, q, r, tp, nxo, nyo, nzo) && tp <= max_t) return true;
   }
   return false;
 }
+
+// Closest hit, per ray.
+__device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
+  Best b = no_hit();
+  for (int c = 0; c < g.n_clusters; ++c) {
+    float tn;
+    if (!box_pass(box_ldg(g, c), r, tn)) continue;
+    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
+    for (int k = 0; k < g.k; ++k) {
+      const float* __restrict__ p = rows + k * GEOM_COMPS;
+      const float gid = __ldg(p + C_GID);
+      if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
+      fold_pair(b, row_ldg(p), gid, r, c * g.k + k);
+    }
+  }
+  return finish_closest(g, r, b);
+}
+
+// Any hit, per ray: is some valid pair or primitive at t <= max_t
+// (kernel_core.py:843-860, :936-939)?
+// Boxes entered beyond max_t are skipped; the walk stops at the first
+// occluder.
+__device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float max_t) {
+  for (int c = 0; c < g.n_clusters; ++c) {
+    float tn;
+    if (!box_pass(box_ldg(g, c), r, tn) || tn > max_t) continue;
+    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
+    for (int k = 0; k < g.k; ++k) {
+      const float* __restrict__ p = rows + k * GEOM_COMPS;
+      if (__ldg(p + C_GID) >= GID_PAD) break;
+      float t, vb, vc, inv_s;
+      if (pair_test(row_ldg(p), r, t, vb, vc, inv_s) && t <= max_t) return true;
+    }
+  }
+  return prims_occlude(g, r, max_t);
+}
+
+// The per-ray walk as the shading code takes it (bounce.cuh): the bounce
+// kernel's. A dead ray casts no shadow ray.
+struct RayWalk {
+  Geometry g;
+  __device__ __forceinline__ Hit closest(float ox, float oy, float oz, float dx, float dy,
+                                         float dz, bool /*active*/) {
+    return trace_closest(g, make_ray(ox, oy, oz, dx, dy, dz));
+  }
+  __device__ __forceinline__ bool any(float ox, float oy, float oz, float dx, float dy,
+                                      float dz, float max_t, bool active) {
+    return active && trace_any(g, make_ray(ox, oy, oz, dx, dy, dz), max_t);
+  }
+};
 
 }  // namespace cosig

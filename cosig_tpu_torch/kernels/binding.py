@@ -134,6 +134,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cosig_frame_bytes.argtypes = []
     lib.cosig_frame_bytes.restype = ctypes.c_int
+    lib.cosig_tile_smem_bytes.argtypes = [ctypes.c_int]
+    lib.cosig_tile_smem_bytes.restype = ctypes.c_int
     if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
         raise RuntimeError(
             f"Frame layout mismatch: C {lib.cosig_frame_bytes()} bytes, "
@@ -145,13 +147,17 @@ def library() -> ctypes.CDLL:
 def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
                  n_sph: int, n_box: int) -> None:
     """Raise unless the cluster set and the primitive table are what the
-    kernels read: contiguous float32 on ``dev``, of the layout they index."""
+    kernels read: contiguous float32 on ``dev``, of the layout they index,
+    with ``geom`` 16-byte aligned (the block walk copies each cluster's
+    rows with bulk async copies, which fault on other addresses)."""
     for name in ("geom", "aabb_t"):
         t = getattr(cset, name)
         if t.device != dev:
             raise ValueError(f"cset.{name} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"cset.{name} must be contiguous float32")
+    if cset.geom.data_ptr() % 16 != 0:
+        raise ValueError("cset.geom must start at a 16-byte aligned address")
     if cset.geom.dim() != 3 or cset.geom.shape[2] != GEOM_COMPS:
         raise ValueError(f"cset.geom must be [C, K, {GEOM_COMPS}], got {tuple(cset.geom.shape)}")
     if cset.aabb_t.dim() != 2 or cset.aabb_t.shape[0] != 8 \

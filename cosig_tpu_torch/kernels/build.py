@@ -28,8 +28,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("rng.cuh", "traverse.cuh", "bounce.cuh", "camera.cuh", "wavefront.cu",
-           "megakernel.cu")
+SOURCES = ("rng.cuh", "traverse.cuh", "traverse_tile.cuh", "bounce.cuh", "camera.cuh",
+           "wavefront.cu", "megakernel.cu")
 KERNEL_SOURCES = ("wavefront.cu", "megakernel.cu")  # one nvcc each, then one link
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

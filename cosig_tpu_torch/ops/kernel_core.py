@@ -88,13 +88,35 @@ _PAIR_CHUNK = 1 << 20
 # visits everything; its any-hit walk visits clusters, then rows, then
 # primitives in order and stops at the first occluder, so a shadow ray
 # counts up to that test and no further. chip_smoke.py turns the counts
-# into each kernel's bound.
-WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0}
+# into each kernel's bound. With a ray -> warp map (``warps``), also the
+# pair-loop slots the warps spend: a warp in which some ray (still
+# walking, for an any hit) enters a cluster runs its real rows on all 32
+# lanes, so each such (warp, cluster) counts 32 x the cluster's real rows.
+WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0}
 
 
 def reset_work() -> None:
     for key in WORK:
         WORK[key] = 0
+
+
+def linear_slots(n: int) -> torch.Tensor:
+    """Thread slot -> ray id of a kernel that gives thread i of its grid of
+    128-thread blocks ray i: -1 on the threads past the last ray."""
+    slots = torch.arange(-(-n // 128) * 128, dtype=torch.int64)
+    slots[n:] = -1
+    return slots
+
+
+def warp_of_rays(slots: torch.Tensor, n: int) -> torch.Tensor:
+    """Warp id [n] of each ray, from a thread slot -> ray id map (-1 on
+    empty slots) that holds every ray id once; raise if it does not."""
+    ids = slots[slots >= 0]
+    if ids.numel() != n or not torch.equal(torch.sort(ids).values, torch.arange(n)):
+        raise ValueError("the slot map is not a permutation of the ray ids")
+    warp = torch.empty(n, dtype=torch.int64)
+    warp[ids] = torch.nonzero(slots >= 0).squeeze(1) // 32
+    return warp
 
 
 def build_uniforms(params: FrameParams, row_offset: float = 0.0) -> np.ndarray:
@@ -191,7 +213,7 @@ def _ruv(sx, sy, sz):
 
 
 def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
-             max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0):
+             max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0, warps=None):
     """Closest hit (or, with ``any_hit``, occlusion at t <= max_t) of rays
     [N] against the cluster set and the analytic primitives -> ``(hit, t,
     nx, ny, nz, mat)``.
@@ -200,7 +222,9 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     is the winner's material (-1 on a miss). Any hit: ``hit`` is the
     occlusion flag and the other outputs are None. Inactive rays report a
     miss. ``prims`` is the [P, 22] table of :func:`prim_table` with its
-    first ``n_sph`` rows spheres and the next ``n_box`` boxes."""
+    first ``n_sph`` rows spheres and the next ``n_box`` boxes. ``warps``
+    ([N] warp id of each ray on the rays' device, or None) adds the warps'
+    pair-loop slots to ``WORK["warp_slots"]``."""
     n = ox.shape[0]
     dev = ox.device
     geom = cset.geom
@@ -257,6 +281,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             continue
         if not any_hit:
             WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
+        if warps is not None:
+            WORK["warp_slots"] += 32 * rows_real[c] * int(torch.unique(warps[rays]).numel())
         g = geom[c]  # [K, 36]
 
         def col(j):
@@ -413,7 +439,7 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
 def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
                 px, py, s, depth: int, is_last: bool,
-                prims=None, n_sph: int = 0, n_box: int = 0) -> None:
+                prims=None, n_sph: int = 0, n_box: int = 0, warps=None) -> None:
     """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
     kernel_core.py:1089-1270): count and trace the live rays, add the
     background on a miss, shade the hits (ambient, then per light a
@@ -424,7 +450,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     ``px``/``py``/``s`` are the RNG seed planes (read only with soft
     shadows or glossy); ``depth`` is the bounce index; ``is_last`` skips
     the secondary ray and retires every ray. ``prims``/``n_sph``/``n_box``
-    are the analytic primitives both traversals fold in (:func:`traverse`)."""
+    are the analytic primitives both traversals fold in, ``warps`` the ray ->
+    warp map whose pair-loop slots they count (:func:`traverse`)."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -439,7 +466,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     alive = state[ROW_ALIVE] > 0.0
 
     state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
-    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box)
+    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
     hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive, **pk)
 
     miss = alive & ~hit

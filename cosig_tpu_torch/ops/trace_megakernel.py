@@ -54,11 +54,33 @@ def _pixel_planes(cfg: StaticConfig, band: int, row_offset: float, dev):
     return px, py
 
 
+# The megakernel's tiles (csrc/megakernel.cu): a block of 16 x 8 pixels,
+# four warps of 8 x 4.
+TILE_W, TILE_H, WARP_W, WARP_H = 16, 8, 8, 4
+
+
+def tile_slots(width: int, band: int) -> torch.Tensor:
+    """Thread slot -> pixel id (py_local * W + px) of the megakernel, the
+    index math of csrc/megakernel.cu: block b covers tile (b % tiles_x,
+    b // tiles_x), warp w of it the 8 x 4 pixels at (w % 2, w // 2), lane
+    l pixel (l % 8, l // 8); -1 on threads outside the width or the band."""
+    tiles_x = -(-width // TILE_W)
+    tiles_y = -(-band // TILE_H)
+    t = torch.arange(tiles_x * tiles_y * 128, dtype=torch.int64)
+    b, w, lane = t // 128, (t % 128) // 32, t % 32
+    x = (b % tiles_x) * TILE_W + (w % 2) * WARP_W + lane % WARP_W
+    y = (b // tiles_x) * TILE_H + (w // 2) * WARP_H + lane // WARP_W
+    return torch.where((x < width) & (y < band), y * width + x, -1)
+
+
 def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                      lights: np.ndarray, cfg: StaticConfig, band: int,
-                     prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+                     prims: torch.Tensor, n_sph: int, n_box: int,
+                     warps=None) -> torch.Tensor:
     """Plain version of the megakernel -> f32 [4, band * W] (rgb mean, ray
-    count) on the cluster set's device."""
+    count) on the cluster set's device. ``warps``: an optional pixel ->
+    warp map whose pair-loop slots the traversals count
+    (:func:`kernel_core.traverse`)."""
     dev = cset.device
     u = [float(x) for x in uniforms]
     px, py = _pixel_planes(cfg, band, u[U_ROW_OFF], dev)
@@ -80,7 +102,7 @@ def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
             kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                                     px, py, s_plane, depth=depth,
                                     is_last=depth == cfg.max_depth - 1,
-                                    prims=prims, n_sph=n_sph, n_box=n_box)
+                                    prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
         acc_r = acc_r + state[9]
         acc_g = acc_g + state[10]
         acc_b = acc_b + state[11]

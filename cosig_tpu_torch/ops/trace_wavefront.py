@@ -64,10 +64,13 @@ def _seed_planes(rid: torch.Tensor, cfg: StaticConfig, row_offset: float):
 
 def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                   lights: np.ndarray, cfg: StaticConfig, band: int,
-                  prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+                  prims: torch.Tensor, n_sph: int, n_box: int,
+                  warps=None) -> torch.Tensor:
     """Plain version of the primary kernel -> state f32 [16, N] on the
     cluster set's device (trace_wavefront.py:317-434). ``prims`` is the
-    table of :func:`kernel_core.prim_table`."""
+    table of :func:`kernel_core.prim_table`; ``warps`` an optional ray ->
+    warp map whose pair-loop slots the traversals count
+    (:func:`kernel_core.traverse`)."""
     dev = cset.device
     n = num_rays(cfg, band)
     u = [float(x) for x in uniforms]
@@ -87,7 +90,7 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     state[ROW_ID] = rid.to(torch.float32)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=0, is_last=cfg.max_depth == 1,
-                            prims=prims, n_sph=n_sph, n_box=n_box)
+                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
     return state
 
 

@@ -5,6 +5,7 @@ C/Python mirror of the kernels' launch parameters."""
 import ctypes
 import pathlib
 import re
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -168,6 +169,21 @@ def test_wrappers_reject_other_devices(tiny):
         km.megakernel(cset, uni, mats, lights, cfg, 8, *pk)
     with pytest.raises(ValueError, match="no debug kernel"):
         km.debug(cset, uni, mats, lights, cfg, *pk)
+
+
+def test_check_inputs_rejects_misaligned_geom(tiny):
+    """The block walk copies cluster rows with bulk async copies, which need
+    16-byte aligned sources: a geom view that starts 4 bytes into its
+    storage is refused before any launch."""
+    cset = cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0]
+    pk = tkc.prim_table(None, (0, 0), "cpu")
+    binding.check_inputs(cset, torch.device("cpu"), *pk)
+    flat = torch.zeros(cset.geom.numel() + 4, dtype=torch.float32)
+    shifted = flat[1:1 + cset.geom.numel()].view(cset.geom.shape)
+    shifted.copy_(cset.geom)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        binding.check_inputs(replace(cset, geom=shifted), torch.device("cpu"), *pk)
 
 
 def test_nvcc_command_keeps_ieee_arithmetic():

@@ -12,6 +12,7 @@ from cosig_tpu.models import soa as jsoa
 from cosig_tpu.ops import intersect
 from cosig_tpu_torch.accel.clusters import cluster_set_from_arrays
 from cosig_tpu_torch.ops import kernel_core as tkc
+from cosig_tpu_torch.ops import trace_megakernel as ttm
 
 N_RAYS = 4096
 
@@ -163,7 +164,8 @@ def _numpy_walk_work(cset, o, d, max_t):
     """(slab, pair) tests of csrc/traverse.cuh's walks, ray by ray in numpy:
     closest hit tests every cluster and every real row of an entered one;
     any hit visits clusters and rows in order, skips boxes entered beyond
-    max_t, and stops at the first row with a valid t <= max_t."""
+    max_t, and stops at the first row with a valid t <= max_t. Also the
+    (ray, cluster) pairs each walk enters, [N, C] each."""
     geom = cset.geom.numpy()
     C, K = geom.shape[:2]
     b = cset.aabb_t.numpy()[:6, :C]
@@ -180,17 +182,19 @@ def _numpy_walk_work(cset, o, d, max_t):
     valid, t, *_ = _numpy_pairs(geom.reshape(-1, 36), o, d)
     occl = (valid & (t <= max_t[:, None])).reshape(-1, C, K) & real[None]
     closest = (len(o) * C, int((passed * real.sum(axis=1)[None]).sum()))
+    entered_any = np.zeros_like(passed)
     slabs = pairs = 0
     for n in range(len(o)):
         for c in range(C):
             slabs += 1
             if not passed[n, c] or tn[n, c] > max_t[n]:
                 continue
+            entered_any[n, c] = True
             rows = np.nonzero(occl[n, c])[0]
             pairs += int(rows[0]) + 1 if rows.size else int(real[c].sum())
             if rows.size:
                 break
-    return closest, (slabs, pairs)
+    return closest, (slabs, pairs), (passed, entered_any)
 
 
 def test_work_counts_follow_the_kernels_walk(case):
@@ -214,7 +218,99 @@ def test_work_counts_follow_the_kernels_walk(case):
     assert tkc.WORK["prim_tests"] == 0 and 0 < int(occ.sum()) < n
     o = torch.stack(planes[:3], 1).numpy()
     d = torch.stack(planes[3:], 1).numpy()
-    ref_closest, ref_any = _numpy_walk_work(cset, o, d, max_t.numpy())
+    ref_closest, ref_any, _ = _numpy_walk_work(cset, o, d, max_t.numpy())
     assert closest == ref_closest
     assert any_hit == ref_any
     assert any_hit[0] < closest[0] and any_hit[1] < closest[1]
+
+
+# The kernels' thread slot -> ray id maps at 512 rays: the primary kernel
+# (and the parent's megakernel) give thread i of the grid ray i, so a warp
+# is 32 consecutive ids; the megakernel's warps cover 8 x 4 pixels of a
+# 32 x 16 image.
+SLOT_MAPS = {
+    "primary": lambda n: tkc.linear_slots(n),
+    "megakernel 8x4": lambda n: ttm.tile_slots(32, n // 32),
+    "megakernel 32x1": lambda n: tkc.linear_slots(n),
+}
+
+
+@pytest.mark.parametrize("name", list(SLOT_MAPS))
+def test_warp_slots_follow_a_per_warp_walk(case, name):
+    """The plain traversal's pair-loop slot count (chip_smoke.py's model of
+    the kernels' pair-loop efficiency) equals a per-warp walk in numpy: 32 x
+    the real rows of each cluster, for every warp in which some ray (for an
+    any hit, some ray still walking) enters the cluster. Counts are
+    integers and must be equal."""
+    cset, planes, _ = case
+    n = 512
+    planes = [p[:n].contiguous() for p in planes]
+    active = torch.ones(n, dtype=torch.bool)
+    slots = SLOT_MAPS[name](n)
+    warps = tkc.warp_of_rays(slots, n)
+    tkc.reset_work()
+    _, t, *_ = tkc.traverse(cset, *planes, active, warps=warps)
+    closest = tkc.WORK["warp_slots"]
+    r = np.random.default_rng(5)
+    finite = torch.where(t < tkc.INF, t, torch.full_like(t, 20.0))
+    max_t = finite * torch.from_numpy(r.uniform(0.5, 1.5, n).astype(np.float32))
+    tkc.reset_work()
+    tkc.traverse(cset, *planes, active, max_t=max_t, any_hit=True, warps=warps)
+    any_hit = tkc.WORK["warp_slots"]
+
+    o = torch.stack(planes[:3], 1).numpy()
+    d = torch.stack(planes[3:], 1).numpy()
+    _, _, (passed, entered_any) = _numpy_walk_work(cset, o, d, max_t.numpy())
+    real = (cset.geom.numpy()[:, :, 35] != np.float32(2 ** 24)).sum(axis=1)
+    s = slots.numpy()
+    ref = []
+    for entered in (passed, entered_any):
+        total = 0
+        for w in range(len(s) // 32):
+            ids = s[32 * w:32 * (w + 1)]
+            ids = ids[ids >= 0]
+            if ids.size:
+                total += int(32 * (entered[ids].any(axis=0) * real).sum())
+        ref.append(total)
+    assert (closest, any_hit) == tuple(ref)
+    pairs = int((passed * real[None]).sum())
+    assert pairs <= closest and any_hit < closest
+
+
+@pytest.mark.parametrize("width,band", [(61, 37), (61, 21)])
+@pytest.mark.parametrize("name", ["primary", "megakernel 8x4", "megakernel 32x1"])
+def test_slot_maps_are_permutations(name, width, band):
+    """Each kernel's thread slot -> ray map holds every ray id once on a
+    ragged frame (61 x 37) and on a band of it (21 rows, as rendered with
+    rows=21, row_offset=9), with -1 only on threads past the image; the
+    primary's rays at AA 3. The megakernel's warps lie inside 8 x 4 pixel
+    boxes, its blocks inside 16 x 8."""
+    if name == "primary":
+        n = width * band * 3
+        slots = tkc.linear_slots(n)
+    elif name == "megakernel 8x4":
+        n = width * band
+        slots = ttm.tile_slots(width, band)
+    else:
+        n = width * band
+        slots = tkc.linear_slots(n)
+    s = slots.numpy()
+    assert len(s) % 128 == 0
+    ids = np.sort(s[s >= 0])
+    np.testing.assert_array_equal(ids, np.arange(n))
+    warps = tkc.warp_of_rays(slots, n).numpy()
+    assert warps.max() < len(s) // 32
+    if name == "megakernel 8x4":
+        x, y = s % width, s // width
+        for group, (bw, bh) in ((32, (8, 4)), (128, (16, 8))):
+            for g in range(len(s) // group):
+                sel = s[g * group:(g + 1) * group] >= 0
+                if sel.any():
+                    gx, gy = x[g * group:(g + 1) * group][sel], y[g * group:(g + 1) * group][sel]
+                    assert gx.max() - gx.min() < bw and gy.max() - gy.min() < bh
+    else:
+        np.testing.assert_array_equal(warps, np.arange(n) // 32)
+    bad = s.copy()
+    bad[0] = bad[1]
+    with pytest.raises(ValueError, match="permutation"):
+        tkc.warp_of_rays(torch.from_numpy(bad), n)
