@@ -9,27 +9,32 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. print the card's name and power limit and the torch version; build the
-   four kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
+   five kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
    all started at once), then rebuild them warm with the compiles one
    after another and in parallel, and print the three times and each
    kernel's registers and spills;
 2. render small frames with the kernels and with their plain PyTorch
    versions on the card and hold them to the tolerances below: the
-   wavefront (primary + bounce) and the megakernel on every case, the
-   megakernel against the wavefront kernels (bit-equal at AA 1 and 4),
-   the debug kernel in modes 1-3, and analytic spheres and boxes through
-   all four kernels; then the edges of the primary kernel's and the
-   megakernel's block walk (partial tiles, inactive threads, AA 3, a band
-   of rows, large_mesh's 64-row clusters, an analytic frame), bit for bit;
-3. print two models of the block walk at the main path's shapes (the
+   wavefront (primary, compaction, bounce) and the megakernel on every
+   case, the compaction kernel's list against the plain list at every
+   depth (as integers), the megakernel against the wavefront kernels
+   (bit-equal at AA 1 and 4), the debug kernel in modes 1-3, and analytic
+   spheres and boxes through every kernel; then the edges of the block
+   walk in every kernel (partial tiles, inactive threads, AA 3, a band of
+   rows, large_mesh's 64-row clusters and the same cut into two cull
+   passes, an analytic frame, a frame whose rays all die at depth 1), bit
+   for bit;
+3. print models of the block walk at the main path's shapes (the
    pair-loop efficiency of the kernels' warps, from the plain traversal's
-   count of warp slots; the trip fill of the megakernel's block-uniform
-   depth loop, from the wavefront's live rows), then time each kernel
-   against its plain version at the main path's shapes (glass_sphere,
-   1024x1024, depth 6, AA 4), and compute its bound from the work the
-   plain traversal counts at those shapes (what the kernel's walk tests,
-   shadow rays up to their first occluder) and the bytes it must move
-   (the bounce: a dead ray's alive flag only);
+   count of warp slots, for the bounce's warps in pixel order and in list
+   order too; the trip fill of the megakernel's block-uniform depth loop,
+   from the wavefront's live rows), then time each kernel against its
+   plain version at the main path's shapes (glass_sphere, 1024x1024, depth
+   6, AA 4; the bounce also at large_mesh's depths 1-3, and on an empty
+   list), with ``torch.sort`` beside the compaction kernel, and compute
+   each bound from the work the plain traversal counts at those shapes
+   (what the kernel's walk tests, shadow rays up to their first occluder)
+   and the bytes it must move;
 4. drive each path through ``Renderer`` with the launch counters reset
    just before it and read just after: the wavefront and the megakernel
    on glass_sphere (1024x1024, depth 6, AA 4) and large_mesh (2048x2048,
@@ -38,8 +43,9 @@ Phases (any failure raises and the script exits non-zero):
    wavefront's bit for bit, a debug frame, and analytic frames of
    glass_sphere and cosig_walls held to their plain versions; ms/frame
    with CUDA events;
-5. time each wavefront stage of one such frame, and time the plain
-   versions' frames at the same size against the kernels' images.
+5. time each wavefront stage (primary; per depth compaction and bounce;
+   finalize) over a few frames, and time the plain versions' frames at
+   the same size against the kernels' images.
 
 Near the end the script prints a JSON line of the models, a JSON line of
 per-frame numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
@@ -242,6 +248,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# A sleep queued on the card ahead of timed launches (~25 ms at the H100's
+# clock), long enough for the host to enqueue them all behind it.
+SLEEP_CYCLES = 50_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` on the card over ``reps`` runs: CUDA events around
+    the runs, queued behind a sleep kernel so that the host's time to launch
+    them (the wrappers' Python, ~0.1-0.2 ms a call) does not pace the card.
+    A run that waits for the card on the host is paced by it all the same
+    (the plain versions). ``cuda_ms`` times the same runs as the host paces
+    them, as a frame does."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def diff(a, b):
     """(bitwise equal, max |a-b|, rmse) over two tensors (NaN == NaN)."""
     import torch
@@ -336,11 +367,15 @@ def compare_small(device) -> None:
 
 def edge_cases(device) -> None:
     """The edges of the block walk, each held bit for bit to its plain
-    version on both backends: partial 16 x 8 tiles and partial blocks of
-    rays (61 x 37), inactive threads at every barrier, a non-power-of-two
-    AA, a band of rows (rows, row_offset); large_mesh, whose 64-row
-    clusters are listed many more times than the ring has stages and whose
-    secondary rays are incoherent; and the analytic cosig_walls frame."""
+    version on both backends and in the debug kernel: partial 16 x 8 tiles
+    and partial blocks of rays and of the bounce's list (61 x 37),
+    inactive threads at every barrier, a non-power-of-two AA, a band of
+    rows (rows, row_offset); large_mesh, whose 64-row clusters are listed
+    many more times than the ring has stages and whose secondary rays are
+    incoherent; the analytic cosig_walls frame; and the mixed scene, whose
+    one material neither reflects nor refracts, so every ray dies at depth
+    1 and the bounces get empty lists."""
+    compare_case(device, "mixed", dict(max_depth=3), False, exact=True, lists=[0, 0])
     cornell = dict(resolution_override=(61, 37), max_depth=3)
     for aa in (1, 3, 4):
         compare_case(device, "demo_cornell", dict(cornell, aa_samples=aa), False, exact=True)
@@ -371,13 +406,38 @@ def split_clusters(cset):
                       num_triangles=cset.num_triangles)
 
 
-def compare_case(device, name, kw, analytic, exact=False, band=None, split=False) -> None:
+def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
+    """The wavefront kernels' chain with the compaction kernel's list held
+    to compact_plain's at every depth, as integers -> the list lengths."""
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
+        cset, uni, lights, row_off, None, pk["prims"], pk["prim_counts"])
+    state = kw.primary(cset, uni, mats, lights, cfg, rows, prims, n_sph, n_box)
+    lengths = []
+    for d in range(1, cfg.max_depth):
+        idx, n_live = kw.compact(state)
+        idx_p, n_live_p = tw.compact_plain(state)
+        m = int(n_live)
+        check(m == int(n_live_p) and idx.dtype == idx_p.dtype
+              and bool((idx[:m] == idx_p[:m]).all()),
+              "compaction list differs from compact_plain's at depth", d, m, int(n_live_p))
+        lengths.append(m)
+        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, prims, n_sph, n_box)
+    return lengths
+
+
+def compare_case(device, name, kw, analytic, exact=False, band=None, split=False,
+                 lists=None) -> None:
     """One small frame: the wavefront kernels and the megakernel against
-    their plain versions (``exact``: bit for bit), the megakernel against
-    the wavefront kernels (the same bits at AA 1 and 4; at other AA the
-    wavefront's sample sum times float32(1/aa)), and on some frames the
-    debug kernel. ``band``: (rows, row_offset), rows inside the image;
-    ``split``: the scene's clusters cut in two (split_clusters)."""
+    their plain versions (``exact``: bit for bit), the compaction kernel's
+    list against the plain one at every depth (``lists``: the lengths it
+    must have), the megakernel against the wavefront kernels (the same bits
+    at AA 1 and 4; at other AA the wavefront's sample sum times
+    float32(1/aa)), and on some frames the debug kernel. ``band``: (rows,
+    row_offset), rows inside the image; ``split``: the scene's clusters cut
+    in two (split_clusters)."""
     import numpy as np
 
     from cosig_tpu_torch.models.soa import static_config
@@ -393,7 +453,7 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
     bk = dict(rows=rows, row_offset=row_off) if band else {}
     tag = tag_of(name, cfg, analytic) + (f" rows {row_off}..{row_off + rows - 1}" if band else "")
     log(f"compare {tag} (clusters={cset.num_clusters} k={cset.k})")
-    # Wavefront: primary + bounce kernels, state against the plain stages.
+    # Wavefront: primary, compaction and bounce kernels, state against the plain stages.
     st_k = tw.trace_state(cset, uni, lights, cfg, **bk, **pk)
     st_p = tw.trace_state(cset, uni, lights, cfg, plain=True, **bk, **pk)
     s_same, s_max, _ = diff(st_k, st_p)
@@ -402,6 +462,9 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
     hold("wavefront image", cfg, img_w, rays_w, *tw.finalize(st_p, cfg, rows), exact=exact)
     if exact:
         check(s_same, tag, "wavefront state not bit-equal to the plain stages", s_max)
+    lengths = check_lists(cset, uni, lights, cfg, rows, row_off, pk)
+    log(f"  compaction lists equal to the plain ones; live rays listed per depth: {lengths}")
+    check(lists is None or lengths == lists, tag, "list lengths", lengths, "expected", lists)
     # Megakernel against its plain version, and against the wavefront
     # kernels: the same device code, so the same bits at AA 1 and 4.
     img_m, rays_m = tm.render_clusters(cset, uni, lights, cfg, **bk, **pk)
@@ -423,7 +486,8 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
         same_s = diff(img_m, scaled)[0]
         log(f"  megakernel vs the wavefront kernels' sample sum x f32(1/{aa}): bitwise={same_s}")
         check(same_s and rays_m == rays_w, (tag, "megakernel vs wavefront sum x 1/aa"))
-    if not band and ((name in ("demo_cornell", "tiny") and cfg.max_depth > 1) or analytic):
+    if not band and ((name in ("demo_cornell", "tiny", "large_mesh") and cfg.max_depth > 1)
+                     or analytic):
         for mode in (1, 2, 3):
             dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=mode))
             img_d, rays_d = tm.render_debug(cset, uni, lights, dcfg, **pk)
@@ -467,7 +531,9 @@ def model_walks(device) -> dict:
       real rows of each cluster that some ray of the warp enters), for the
       primary kernel's warps (32 consecutive ray ids, 8 pixels x 4 samples
       at AA 4) and for the megakernel's warps of 8 x 4 pixels and of the
-      parent's 32 x 1.
+      parent's 32 x 1; and per depth for the bounce's warps in pixel order
+      (the parent's: 32 consecutive ray ids, dead lanes idle) and in list
+      order (32 consecutive entries of the compaction list).
     * Trip fill of the megakernel's depth loop: trips per (pixel, sample)
       from the wavefront's live rows (one, plus one per bounce the ray
       enters alive); for the parent's per-thread loop in 32 x 1 strips, a
@@ -506,15 +572,35 @@ def model_walks(device) -> dict:
                               efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
             log(f"  {name} pair-loop efficiency, {label} warps: {w['pair_tests']} pair tests / "
                 f"{w['warp_slots']} warp slots = {100 * eff[label]['efficiency']:.1f} %")
-        # Trips per (pixel, sample) from the wavefront kernels' alive rows.
+        # Trips per (pixel, sample) from the wavefront kernels' alive rows,
+        # and the bounce's pair-loop efficiency per depth in both orders.
         state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
         trips = torch.ones(n, dtype=torch.float64, device=device)
-        alive = []
+        alive, bounce_eff = [], []
+        pixel_warps = torch.arange(n, device=device) // 32
         for d in range(1, cfg.max_depth):
             live = state[kc.ROW_ALIVE] > 0
             alive.append(int(live.sum()))
             trips += live.to(torch.float64)
-            kw.bounce(state, cset, uni, mats, lights, cfg, d, *pk)
+            idx, n_live = kw.compact(state)
+            m = int(n_live)
+            list_warps = torch.zeros(n, dtype=torch.int64, device=device)
+            list_warps[idx[:m].long()] = torch.arange(m, device=device) // 32
+            row = {}
+            for order, warps in (("pixel order", pixel_warps), ("list order", list_warps)):
+                kc.reset_work()
+                tw.bounce_listed_stage(state.clone(), idx, n_live, cset, uni, mats, lights, cfg,
+                                       d, *pk, warps=warps)
+                torch.cuda.synchronize()
+                w = dict(kc.WORK)
+                row[order] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
+                                  efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
+            bounce_eff.append(dict(depth=d, live=m, **row))
+            log(f"  {name} bounce {d} ({m} live rays) pair-loop efficiency: pixel order "
+                f"{100 * row['pixel order']['efficiency']:.1f} %, list order "
+                f"{100 * row['list order']['efficiency']:.1f} %")
+            kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+        eff["bounce"] = bounce_eff
         del state
         trips = trips.reshape(n_px, aa)
         per_pixel = trips.sum(dim=1)
@@ -537,9 +623,23 @@ def model_walks(device) -> dict:
     return out
 
 
+def timed(fn):
+    """(result, ms) of one call of ``fn``, CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
 def time_kernels(device) -> list:
     """Phase 3: each kernel alone against its plain version on the same
-    inputs, at the main path's shapes (glass_sphere at full size)."""
+    inputs, at the main path's shapes: glass_sphere at full size for every
+    kernel, the bounce also on an empty list and at large_mesh's depths
+    1-3, on the wavefront chain's own states."""
     import torch
 
     from cosig_tpu_torch.kernels import megakernel as km
@@ -549,81 +649,161 @@ def time_kernels(device) -> list:
     from cosig_tpu_torch.ops import trace_megakernel as tm
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
+    wavefront_cu = "cosig_tpu_torch/csrc/wavefront.cu"
+    out = []
+
+    def measure(name, tag, run_k, run_p, nbytes, reps_k=5, reps_p=2) -> dict:
+        """Kernel against plain on one input; ``reps_p=0`` times the plain
+        version's one run that gives its result."""
+        res_k = run_k()
+        kc.reset_work()
+        res_p, first_ms = timed(run_p)
+        bound = work_bound(dict(kc.WORK), nbytes(res_k))
+        same, mx, _ = diff(res_k, res_p)
+        log(f"{name} kernel vs plain ({tag}): bitwise={same} max={mx:.3e}")
+        check(mx <= STATE_MAX, name, tag, mx)
+        ms = device_ms(run_k, reps_k)
+        paced_ms = cuda_ms(run_k, reps_k)
+        plain_ms = cuda_ms(run_p, reps_p) if reps_p else first_ms
+        log(f"  {name} ({tag}): {ms:.3f} ms on the card ({paced_ms:.3f} ms paced by the host), "
+            f"plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+            f"{bound['work']})")
+        return dict(name=name, at=tag, route="cuda", max_abs_err=mx, ms=ms,
+                    host_paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                    bound_by=bound["bound_by"], library_ms=None, work=bound["work"],
+                    result=res_k)
+
+    def bounce_measure(tag, cset, uni, mats, lights, cfg, depth, pk, state, geom_bytes,
+                       reps_p):
+        """The bounce kernel at ``depth`` on copies of ``state`` (the
+        kernel runs 1 + 2 x 5 times) with the compaction kernel's list. Its
+        bytes: the live rays' rows 0-11 and count (and id under soft shadows
+        or glossy) in, rows 0-13 out, and the list."""
+        idx, n_live = kw.compact(state)
+        live = int(n_live)
+        rows_in = 13 + int(cfg.enable_soft_shadows or cfg.enable_glossy)
+        nbytes = geom_bytes + 4 * live * (rows_in + 14 + 1) + 4
+        copies_k = [state.clone() for _ in range(11)]
+        copies_p = [state.clone() for _ in range(1 + reps_p)]
+
+        def run_k():
+            st = copies_k.pop()
+            kw.bounce(st, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk)
+            return st
+
+        def run_p():
+            st = copies_p.pop()
+            tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk)
+            return st
+
+        log(f"bounce input ({tag}): {live} of {state.shape[1]} rays alive")
+        rec = measure("bounce", tag, run_k, run_p, lambda st: nbytes, reps_p=reps_p)
+        rec["live"] = live
+        return rec
+
+    # ---- glass_sphere: every kernel ----
     s = scene_setup("glass_sphere", {}, device)
     cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
     mats = cset.mats.cpu().numpy()
-    prims, n_sph, n_box = kc.prim_table(None, (0, 0), device)
-    pk = (prims, n_sph, n_box)
+    pk = kc.prim_table(None, (0, 0), device)
     band = cfg.height
-    geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + prims.numel())
-    out = []
+    geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
+    glass = f"glass_sphere {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}"
 
-    def measure(name, source, replaces, run_k, run_p, nbytes, reps_k=5, reps_p=2):
-        res_k = run_k()
-        kc.reset_work()
-        res_p = run_p()
-        torch.cuda.synchronize()
-        bound = work_bound(dict(kc.WORK), nbytes(res_k))
-        same, mx, _ = diff(res_k, res_p)
-        log(f"{name} kernel vs plain (glass_sphere {cfg.width}x{cfg.height} "
-            f"d{cfg.max_depth} aa{cfg.aa_samples}): bitwise={same} max={mx:.3e}")
-        check(mx <= STATE_MAX, name, mx)
-        ms = cuda_ms(run_k, reps_k)
-        plain_ms = cuda_ms(run_p, reps_p)
-        log(f"  {name}: {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']}; {bound['work']})")
-        out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                        library_ms=None, work=bound["work"]))
-        return res_k
+    rec = measure("primary", glass, lambda: kw.primary(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda st: geom_bytes + 4 * st.numel())
+    st_k = rec.pop("result")
+    out.append(dict(rec, source=wavefront_cu, replaces="cosig_tpu/ops/trace_wavefront.py:293"))
 
-    st_k = measure(
-        "primary", "cosig_tpu_torch/csrc/wavefront.cu", "cosig_tpu/ops/trace_wavefront.py:293",
-        lambda: kw.primary(cset, uni, mats, lights, cfg, band, *pk),
-        lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk),
-        lambda st: geom_bytes + 4 * st.numel())
+    # Compaction of the primary's output, the list bounce 1 walks. Its
+    # bytes: the alive row, the live rays' three direction rows, the list.
+    n = st_k.shape[1]
+    alive = st_k[kc.ROW_ALIVE] > 0
+    live = int(alive.sum())
+    idx_k, nl_k = kw.compact(st_k)
+    idx_p, nl_p = tw.compact_plain(st_k)
+    same = int(nl_k) == int(nl_p) == live and bool((idx_k[:live] == idx_p[:live]).all())
+    log(f"compact kernel vs plain ({glass}, depth 1): {live} of {n} rays listed, equal={same}")
+    check(same, "compaction list differs from compact_plain's")
+    keys = torch.where(alive, (st_k[3] > 0).int() + 2 * (st_k[4] > 0).int()
+                       + 4 * (st_k[5] > 0).int(), 8)
+    kc.reset_work()
+    bound = work_bound(dict(kc.WORK), 4 * n + 12 * live + 4 * live + 4)
+    ms = device_ms(lambda: kw.compact(st_k), 20)
+    paced_ms = cuda_ms(lambda: kw.compact(st_k), 20)
+    plain_ms = cuda_ms(lambda: tw.compact_plain(st_k), 5)
+    library_ms = device_ms(lambda: torch.sort(keys, stable=True), 20)
+    log(f"  compact: {ms:.4f} ms on the card ({paced_ms:.4f} ms paced by the host), plain "
+        f"{plain_ms:.3f} ms, torch.sort(keys, stable=True) {library_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    out.append(dict(name="compact", at=f"{glass}, depth 1", route="cuda", source=wavefront_cu,
+                    replaces="cosig_tpu/ops/trace_wavefront.py:576 _compact_prefix "
+                             "(XLA, not Pallas)",
+                    max_abs_err=0.0, ms=ms, host_paced_ms=paced_ms, plain_ms=plain_ms,
+                    bound_ms=bound["bound_ms"],
+                    bound_by=bound["bound_by"], library_ms=library_ms, work=bound["work"],
+                    live=live))
+    del idx_k, idx_p, keys
 
-    # Bounce at depth 1 on the primary's output, each call on its own copy:
-    # measure() runs the kernel 1 + 5 times and the plain version 1 + 2.
-    # Its bytes: every ray's alive flag; a live ray's rows 0-11 and count
-    # (and its id, which seeds the RNG under soft shadows or glossy) in,
-    # rows 0-13 out (csrc/wavefront.cu bounce_kernel); a dead ray stops at
-    # its flag.
-    live = int((st_k[kc.ROW_ALIVE] > 0).sum())
-    rows_in = 13 + int(cfg.enable_soft_shadows or cfg.enable_glossy)
-    bounce_bytes = geom_bytes + 4 * st_k.shape[1] + 4 * live * (rows_in + 14)
-    log(f"bounce input: {live} of {st_k.shape[1]} rays alive")
-    copies_k = [st_k.clone() for _ in range(6)]
-    copies_p = [st_k.clone() for _ in range(3)]
+    rec = bounce_measure(f"{glass}, depth 1", cset, uni, mats, lights, cfg, 1, pk, st_k,
+                         geom_bytes, reps_p=2)
+    del rec["result"]
+    bounce = dict(rec, source=wavefront_cu, replaces="cosig_tpu/ops/trace_wavefront.py:439")
+    # An empty list over all N rays: the cost of the grid's empty blocks.
+    idx, _ = kw.compact(st_k)
+    empty = torch.zeros(1, dtype=torch.int32, device=device)
+    def run_empty():
+        kw.bounce(st_k, idx, empty, cset, uni, mats, lights, cfg, 1, *pk)
 
-    def bounce_k():
-        st = copies_k.pop()
-        kw.bounce(st, cset, uni, mats, lights, cfg, 1, *pk)
-        return st
+    bounce["empty_list_ms"] = device_ms(run_empty, 20)
+    bounce["empty_list_host_paced_ms"] = cuda_ms(run_empty, 20)
+    log(f"  bounce on an empty list over {n} rays: {bounce['empty_list_ms']:.4f} ms on the card "
+        f"({bounce['empty_list_host_paced_ms']:.4f} ms paced by the host)")
+    del st_k, idx
 
-    def bounce_p():
-        st = copies_p.pop()
-        tw.bounce_stage(st, cset, uni, mats, lights, cfg, 1, *pk)
-        return st
-
-    measure("bounce", "cosig_tpu_torch/csrc/wavefront.cu", "cosig_tpu/ops/trace_wavefront.py:439",
-            bounce_k, bounce_p, lambda st: bounce_bytes)
-    del st_k, copies_k, copies_p
-
-    measure("megakernel", "cosig_tpu_torch/csrc/megakernel.cu",
-            "cosig_tpu/ops/trace_pallas.py:132",
-            lambda: km.megakernel(cset, uni, mats, lights, cfg, band, *pk),
-            lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk),
-            lambda o: geom_bytes + 4 * o.numel())
-
+    rec = measure("megakernel", glass,
+                  lambda: km.megakernel(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda o: geom_bytes + 4 * o.numel())
+    del rec["result"]
+    megakernel = dict(rec, source="cosig_tpu_torch/csrc/megakernel.cu",
+                      replaces="cosig_tpu/ops/trace_pallas.py:132")
     dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=1))
-    measure("debug", "cosig_tpu_torch/csrc/megakernel.cu", "cosig_tpu/ops/trace_pallas.py:438",
-            lambda: km.debug(cset, uni, mats, lights, dcfg, *pk),
-            lambda: tm.debug_plain(cset, uni, mats, lights, dcfg, *pk),
-            lambda o: geom_bytes + 4 * o.numel(), reps_k=20, reps_p=5)
+    rec = measure("debug", f"{glass} mode 1", lambda: km.debug(cset, uni, mats, lights, dcfg, *pk),
+                  lambda: tm.debug_plain(cset, uni, mats, lights, dcfg, *pk),
+                  lambda o: geom_bytes + 4 * o.numel(), reps_k=20, reps_p=5)
+    del rec["result"]
+    debug = dict(rec, source="cosig_tpu_torch/csrc/megakernel.cu",
+                 replaces="cosig_tpu/ops/trace_pallas.py:438")
+    del cset
     torch.cuda.empty_cache()
-    return out
+
+    # ---- large_mesh: the bounce (and its list) at each depth of the chain ----
+    s = scene_setup("large_mesh", {}, device)
+    cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+    mats = cset.mats.cpu().numpy()
+    geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
+    state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+    deep = []
+    for d in range(1, cfg.max_depth):
+        tag = f"large_mesh {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}, depth {d}"
+        compact_ms = device_ms(lambda: kw.compact(state), 20)
+        rec = bounce_measure(tag, cset, uni, mats, lights, cfg, d, pk, state, geom_bytes,
+                             reps_p=0)
+        state = rec.pop("result")
+        deep.append(dict(rec, compact_ms=compact_ms))
+        log(f"  compact ({tag}): {compact_ms:.4f} ms")
+    bounce["large_mesh"] = deep
+    del state, cset
+    torch.cuda.empty_cache()
+    return out + [bounce, megakernel, debug]
+
+
+def wavefront_launches(max_depth: int) -> dict:
+    """Launches of one wavefront frame: the primary, then a compaction and
+    a bounce per depth."""
+    return dict(primary=1, compact=max_depth - 1, bounce=max_depth - 1)
 
 
 def drive(renderer, name, scene, settings, per_frame: dict) -> dict:
@@ -672,7 +852,7 @@ def drive_main_paths(device) -> tuple:
         binding.reset_counts()
         for name in ("glass_sphere", "large_mesh"):
             scene, settings = load(name)
-            per_frame = (dict(primary=1, bounce=settings.max_depth - 1)
+            per_frame = (wavefront_launches(settings.max_depth)
                          if backend == "wavefront" else dict(megakernel=1))
             fr = drive(renderer, name, scene, settings, per_frame)
             rec = RECORDS[name]
@@ -688,10 +868,12 @@ def drive_main_paths(device) -> tuple:
         got = read()
         log(f"  launches in the {backend} path: {got}")
         if backend == "wavefront":
-            check(got["primary"] > 0 and got["bounce"] > 0 and got["megakernel"] == 0, got)
-            launches.update(primary=got["primary"], bounce=got["bounce"])
+            check(got["primary"] > 0 and got["compact"] > 0 and got["bounce"] > 0
+                  and got["megakernel"] == 0, got)
+            launches.update(primary=got["primary"], compact=got["compact"], bounce=got["bounce"])
         else:
-            check(got["megakernel"] > 0 and got["primary"] == got["bounce"] == 0, got)
+            check(got["megakernel"] > 0 and got["primary"] == got["compact"] == got["bounce"] == 0,
+                  got)
             launches["megakernel"] = got["megakernel"]
         del renderer
         torch.cuda.empty_cache()
@@ -727,7 +909,7 @@ def drive_main_paths(device) -> tuple:
         for name in ("glass_sphere", "cosig_walls"):
             scene, settings = load(name)
             settings = settings.replace(analytic_primitives=True)
-            per_frame = (dict(primary=1, bounce=settings.max_depth - 1)
+            per_frame = (wavefront_launches(settings.max_depth)
                          if backend == "wavefront" else dict(megakernel=1))
             fr = drive(renderer, f"{name} analytic", scene, settings, per_frame)
             frames[f"{backend} {name} analytic"] = fr
@@ -735,7 +917,8 @@ def drive_main_paths(device) -> tuple:
         del renderer
     got = read()
     log(f"  launches in the analytic path: {got}")
-    check(got["primary"] > 0 and got["bounce"] > 0 and got["megakernel"] > 0, got)
+    check(got["primary"] > 0 and got["compact"] > 0 and got["bounce"] > 0
+          and got["megakernel"] > 0, got)
     for backend, name, fr in analytic:
         s = scene_setup(name, {}, device, analytic=True)
         render = tw.render_wavefront if backend == "wavefront" else tm.render_clusters
@@ -752,10 +935,12 @@ def drive_main_paths(device) -> tuple:
     return frames, launches
 
 
-def breakdown_and_plain(device, frames: dict) -> None:
-    """Phase 5: per-stage kernel times of one wavefront frame (CUDA events
-    around each launch), and the plain versions' frame times and images at
-    the same size (or 512x512 when a frame takes too long)."""
+def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
+    """Phase 5: per-stage kernel times of the wavefront frame (CUDA events
+    around each launch: the primary; per depth the compaction, then the
+    bounce; finalize), the mean over ``stage_frames`` frames, and the plain
+    versions' frame times and images at the same size (or 512x512 when a
+    frame takes too long)."""
     import torch
 
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -769,24 +954,34 @@ def breakdown_and_plain(device, frames: dict) -> None:
         cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
         mats = cset.mats.cpu().numpy()
         pk = kc.prim_table(None, (0, 0), device)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(cfg.max_depth + 2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
-        ev[1].record()
-        for d in range(1, cfg.max_depth):
-            kw.bounce(state, cset, uni, mats, lights, cfg, d, *pk)
-            ev[d + 1].record()
-        tw.finalize(state, cfg, cfg.height)
-        ev[-1].record()
-        torch.cuda.synchronize()
-        t = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+        steps = 2 * cfg.max_depth  # primary, (compact, bounce) per depth, finalize
+        sums = [0.0] * steps
+        for _ in range(stage_frames):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+            ev[1].record()
+            for d in range(1, cfg.max_depth):
+                idx, n_live = kw.compact(state)
+                ev[2 * d].record()
+                kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+                ev[2 * d + 1].record()
+            tw.finalize(state, cfg, cfg.height)
+            ev[-1].record()
+            torch.cuda.synchronize()
+            sums = [a + ev[i].elapsed_time(ev[i + 1]) for i, a in enumerate(sums)]
+            del state
+        t = [a / stage_frames for a in sums]
         busy = sum(t)
-        fr["stages_ms"] = dict(primary=t[0], bounces=t[1:-1], finalize=t[-1])
+        fr["stages_ms"] = dict(primary=t[0], compacts=t[1:-1:2], bounces=t[2:-1:2],
+                               finalize=t[-1], frames=stage_frames)
         fr["kernel_share"] = busy / fr["ms"]
-        log(f"  {name} stages (ms): primary {t[0]:.3f}, bounces "
-            f"{', '.join(f'{x:.3f}' for x in t[1:-1])}, finalize {t[-1]:.3f}; "
-            f"sum {busy:.3f} = {100 * busy / fr['ms']:.1f} % of the renderer's ms/frame")
+        log(f"  {name} stages (ms, mean of {stage_frames} frames): primary {t[0]:.3f}; "
+            "compact + bounce per depth "
+            + ", ".join(f"{c:.3f} + {b:.3f}" for c, b in zip(t[1:-1:2], t[2:-1:2]))
+            + f"; finalize {t[-1]:.3f}; sum {busy:.3f} = {100 * busy / fr['ms']:.1f} % of the "
+            "renderer's ms/frame")
         t0 = time.perf_counter()
         pimg, prays = tw.render_wavefront(cset, uni, lights, cfg, plain=True)
         torch.cuda.synchronize()
@@ -816,11 +1011,15 @@ def breakdown_and_plain(device, frames: dict) -> None:
 
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
-    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...}."""
+    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...};
+    the compaction kernel's three launches as "compact count", "compact
+    scan" and "compact scatter"."""
     import re
 
     names = {"primary_kernel": "primary", "bounce_kernel": "bounce",
-             "megakernel": "megakernel", "debug_kernel": "debug"}
+             "megakernel": "megakernel", "debug_kernel": "debug",
+             "compact_count_kernel": "compact count", "compact_scan_kernel": "compact scan",
+             "compact_scatter_kernel": "compact scatter"}
     out, cur = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
@@ -870,7 +1069,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     resources = ptxas_resources(ptxas)
-    check(set(resources) >= {"primary", "bounce", "megakernel", "debug"}, resources)
+    compact_parts = ("compact count", "compact scan", "compact scatter")
+    check(set(resources) >= {"primary", "bounce", "megakernel", "debug", *compact_parts},
+          resources)
     check_no_jax()
 
     t0 = time.perf_counter()
@@ -894,10 +1095,13 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, k["name"], "was not launched on its path")
+        if k["name"] == "compact":
+            k["design"] = "per-block octant counts, one-block scan, scatter; no atomics"
+            k["resources"] = {part: resources[part] for part in compact_parts}
+            continue
         k.update(resources[k["name"]])
-        if k["name"] in ("primary", "megakernel"):
-            k["design"] = "block walk"
-            k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
+        k["design"] = "block walk" + (" on the compaction list" if k["name"] == "bounce" else "")
+        k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"kernels": kernels}))

@@ -13,16 +13,14 @@
 // light), see traverse.cuh. Shading itself is a few hundred flops per
 // ray.
 //
-// bounce_core is templated on the walk: RayWalk (traverse.cuh, per ray:
-// the bounce kernel) or BlockWalk (traverse_tile.cuh, the block's rays
-// together: the primary kernel and the megakernel). Under the block walk
-// every thread of the block calls it, dead rays too: a dead ray's bounce
-// changes nothing (its colour gains +0, its count 0, its state stays), and
-// it enters no box, so both walks give the same bits.
+// bounce_core walks with BlockWalk (traverse_tile.cuh), the block's rays
+// together, so every thread of the block calls it, dead rays and threads
+// without a ray too: a dead ray's bounce changes nothing (its colour gains
+// +0, its count 0, its state stays) and it enters no box.
 #pragma once
 
 #include "rng.cuh"
-#include "traverse.cuh"
+#include "traverse_tile.cuh"
 
 namespace cosig {
 
@@ -93,8 +91,7 @@ __device__ __forceinline__ void random_unit(float sx, float sy, float sz, float&
 
 // One bounce on a live ray (kernel_core.py:1089-1270). px/py/s are the RNG
 // seeds, depth the bounce index; is_last retires the ray after shading.
-template <class Walk>
-__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
+__device__ __forceinline__ void bounce_core(const Frame& f, BlockWalk& walk, RayState& st,
                                             float px, float py, float s,
                                             float depth, bool is_last) {
   const float bg_r = f.u[U_BG], bg_g = f.u[U_BG + 1], bg_b = f.u[U_BG + 2];

@@ -27,8 +27,11 @@
 // debug_kernel replaces cosig_tpu/ops/trace_pallas.py _make_debug_kernel
 // (:438-513): one perspective centre ray per pixel, even under the
 // orthographic toggle (the reference's quirk), one closest-hit traversal,
-// then mode 1 depth t/100, mode 2 normal * 0.5 + 0.5, mode 3 hit/miss. It
-// keeps the per-ray walk of traverse.cuh.
+// then mode 1 depth t/100, mode 2 normal * 0.5 + 0.5, mode 3 hit/miss.
+// Its rays are camera rays, the coherent rays the block walk was built
+// for, so it walks as the megakernel does: 16 x 8 pixel blocks of 8 x 4
+// warps (the TPU kernel also tiles its pixels and culls per tile,
+// :453-491), threads outside the width or the band inactive.
 //
 // Build: as wavefront.cu (cosig_tpu_torch/kernels/build.py), --fmad=false
 // and IEEE division and sqrt.
@@ -44,6 +47,18 @@ constexpr int MEGA_THREADS = TILE_THREADS;
 // Megakernel tiles: a block of 16 x 8 pixels, four warps of 8 x 4.
 constexpr int TILE_W = 16, TILE_H = 8, WARP_W = 8, WARP_H = 4;
 
+// Pixel (x, y) of this thread, y within the band: block b covers tile
+// (b % tiles_x, b / tiles_x) of the band's 16 x 8 tiles, warp w of it the
+// 8 x 4 pixels at (w % 2, w / 2), lane l pixel (l % 8, l / 8) of those.
+// False outside the width or the band.
+__device__ __forceinline__ bool tile_pixel(const Frame& f, int& x, int& y) {
+  const int tiles_x = (f.width + TILE_W - 1) / TILE_W;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  x = (blockIdx.x % tiles_x) * TILE_W + (w % 2) * WARP_W + l % WARP_W;
+  y = (blockIdx.x / tiles_x) * TILE_H + (w / 2) * WARP_H + l / WARP_W;
+  return x < f.width && y < f.band;
+}
+
 __global__ void __launch_bounds__(MEGA_THREADS)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
@@ -53,13 +68,8 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   BlockWalk walk;
   walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
 
-  // Pixel of this thread: block (bx, by) of the band's 16 x 8 tiles, warp
-  // (w % 2, w / 2) of 8 x 4 in it, lane (l % 8, l / 8) in the warp.
-  const int tiles_x = (f.width + TILE_W - 1) / TILE_W;
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int x = (blockIdx.x % tiles_x) * TILE_W + (w % 2) * WARP_W + l % WARP_W;
-  const int y = (blockIdx.x / tiles_x) * TILE_H + (w / 2) * WARP_H + l / WARP_W;
-  const bool in_tile = x < f.width && y < f.band;
+  int x, y;
+  const bool in_tile = tile_pixel(f, x, y);
   const int n = f.n_rays;
   const int i = y * f.width + x;  // pixel py_local * W + px
   const float px = (float)x;
@@ -96,11 +106,16 @@ __global__ void __launch_bounds__(MEGA_THREADS)
                  const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
                  const float* __restrict__ prims, int n_sph, int n_box, int mode,
                  float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= f.n_rays) return;
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk walk;
+  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+
+  int x, y;
+  const bool in_tile = tile_pixel(f, x, y);
   const int n = f.n_rays;
-  const float px = (float)(i % f.width);
-  const float py = (float)(i / f.width) + f.u[U_ROW_OFF];
+  const int i = y * f.width + x;
+  const float px = (float)x;
+  const float py = (float)y + f.u[U_ROW_OFF];
   const float* cam = f.u + U_CAM;
   const float ocz = f.u[U_DIST];
   const float plane_h = f.u[U_PLANE_H];
@@ -120,8 +135,8 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   float dz = cam[8] * dcx + cam[9] * dcy + cam[10] * dcz;
   rsqrt3(dx, dy, dz);
 
-  const Geometry g = make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box);
-  const Hit h = trace_closest(g, make_ray(ox, oy, oz, dx, dy, dz));
+  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, in_tile);
+  if (!in_tile) return;
   float r, gr, b;
   if (mode == 1) {
     const float d = h.t / 100.0f;
@@ -143,6 +158,11 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   out[3 * (size_t)n + i] = 1.0f;
 }
 
+// Blocks of a launch over the band's 16 x 8 pixel tiles.
+inline int tile_blocks(const Frame& f) {
+  return ((f.width + TILE_W - 1) / TILE_W) * ((f.band + TILE_H - 1) / TILE_H);
+}
+
 }  // namespace cosig
 
 extern "C" {
@@ -153,27 +173,28 @@ extern "C" {
 int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
                             int n_clusters, int k, int c_pad, const float* prims, int n_sph,
                             int n_box, int max_depth, float* out, void* stream) {
-  const int n = frame->n_rays;
-  if (n <= 0) return 0;
-  const int blocks = ((frame->width + cosig::TILE_W - 1) / cosig::TILE_W) *
-                     ((frame->band + cosig::TILE_H - 1) / cosig::TILE_H);
+  if (frame->n_rays <= 0) return 0;
   const int smem = (int)cosig::tile_layout(k).total;
   cudaError_t err = cudaFuncSetAttribute(cosig::megakernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cosig::megakernel<<<blocks, cosig::MEGA_THREADS, smem, (cudaStream_t)stream>>>(
-      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, max_depth, out);
+  cosig::megakernel<<<cosig::tile_blocks(*frame), cosig::MEGA_THREADS, smem,
+                      (cudaStream_t)stream>>>(*frame, geom, aabb, n_clusters, k, c_pad, prims,
+                                              n_sph, n_box, max_depth, out);
   return (int)cudaGetLastError();
 }
 
 int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
                        int n_clusters, int k, int c_pad, const float* prims, int n_sph,
                        int n_box, int mode, float* out, void* stream) {
-  const int n = frame->n_rays;
-  if (n <= 0) return 0;
-  const int blocks = (n + cosig::MEGA_THREADS - 1) / cosig::MEGA_THREADS;
-  cosig::debug_kernel<<<blocks, cosig::MEGA_THREADS, 0, (cudaStream_t)stream>>>(
-      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, mode, out);
+  if (frame->n_rays <= 0) return 0;
+  const int smem = (int)cosig::tile_layout(k).total;
+  cudaError_t err = cudaFuncSetAttribute(cosig::debug_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cosig::debug_kernel<<<cosig::tile_blocks(*frame), cosig::MEGA_THREADS, smem,
+                        (cudaStream_t)stream>>>(*frame, geom, aabb, n_clusters, k, c_pad, prims,
+                                                n_sph, n_box, mode, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,16 @@
-// Per-ray cluster traversal (closest hit and any hit), and the per-pair
-// arithmetic that both walks share.
+// The per-ray and per-pair arithmetic of the cluster traversal (closest
+// hit and any hit): the slab test, the pair test, the (t, gid) fold and
+// the epilogue with the analytic fold.
 //
 // Replaces the traversal that every TPU kernel inlines,
 // cosig_tpu/ops/kernel_core.py make_traverse (:200-1035). On the TPU a
 // tile of 4096 rays culls all clusters in one vector slab test, compacts
 // the hit list in scalar memory and intersects each listed cluster's
-// (K, rays) pair grid on the vector unit. Here one thread walks one ray:
-// for every cluster it runs the slab test and, on a pass, the K pair
-// tests. The bounce kernel and the debug kernel walk so; the primary
-// kernel and the megakernel walk a block's rays together
-// (traverse_tile.cuh) through the same box_pass, pair_test and epilogue,
-// which take their operands as values so that only the place they are
-// loaded from differs. What the result must keep from the TPU version is
-// the per-pair arithmetic, not the schedule:
+// (K, rays) pair grid on the vector unit. Here every kernel walks a
+// thread block's rays together (traverse_tile.cuh, the schedule); the
+// functions below take their operands as values, so the walk decides
+// only where they are loaded from. What the result must keep from the
+// TPU version is the per-pair arithmetic, not the schedule:
 //
 //  * the slab test is NaN-conservative: min/max propagate NaN and the
 //    tests are inverted, so a NaN slab (0 * inf from a zero direction
@@ -24,7 +22,7 @@
 //    --fmad=false so nothing is contracted;
 //  * the winner is the lexicographic (t, gid) minimum over all valid
 //    pairs (kernel_core.py:861-902). That fold does not depend on visit
-//    order or clustering, so a per-ray walk picks the TPU's winner;
+//    order or clustering, so the block walk picks the TPU's winner;
 //  * normalization is 1/sqrt then multiply (kernel_core.py:137-140);
 //  * analytic spheres and boxes (the prims table of ops/analytic.py,
 //    passed as a device pointer beside the cluster set) fold in after the
@@ -38,13 +36,10 @@
 // The superblock level (sb_aabb_t, used on the TPU when C_pad > 512) is
 // only a culling shortcut; a flat loop over the C clusters is exact.
 //
-// Bound: the pair tests per ray — about 55 flops and 23 four-byte reads
-// from the cluster geometry per pair. The geometry is small (hundreds of
-// KB to a few MB) and read through the read-only cache (__ldg), so it
-// stays in L2; rays of a warp that enter the same cluster read the same
-// rows, which the cache serves as broadcasts. Padding rows sort last
-// within a cluster and can never hit, so the row loop stops at the first
-// one.
+// Bound: the pair tests per ray, about 55 fp32 operations each (see
+// traverse_tile.cuh for where their operands come from). Padding rows
+// sort last within a cluster and can never hit, so the row loop stops at
+// the first one.
 #pragma once
 
 namespace cosig {
@@ -177,22 +172,6 @@ struct PairRow {
   float va[6], vb[6], vc[6];
 };
 
-// Row p (GEOM_COMPS floats) through the read-only cache.
-__device__ __forceinline__ PairRow row_ldg(const float* __restrict__ p) {
-  PairRow q;
-  q.gnx = __ldg(p + C_GN);
-  q.gny = __ldg(p + C_GN + 1);
-  q.gnz = __ldg(p + C_GN + 2);
-  q.nda = __ldg(p + C_NDA);
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    q.va[j] = __ldg(p + C_VA + j);
-    q.vb[j] = __ldg(p + C_VB + j);
-    q.vc[j] = __ldg(p + C_VC + j);
-  }
-  return q;
-}
-
 // Plücker / edge-volume pair test of the ray against one geometry row
 // (kernel_core.py:818-842) -> validity, with t, vb, vc and 1/s for the
 // winner's barycentrics.
@@ -295,9 +274,9 @@ __device__ __forceinline__ bool prim_test(const Geometry& g, int p, const Ray& r
   return (t_en <= t_ex) && (t_ex > EPSILON) && (tp > EPSILON);
 }
 
-// After the cluster walk (either walk): the triangle winner's normal and
-// material, the analytic fold, then the shared epilogue. t = INF, normal
-// (0, 1, 0) and material -1 on a miss.
+// After the cluster walk: the triangle winner's normal and material, the
+// analytic fold, then the shared epilogue. t = INF, normal (0, 1, 0) and
+// material -1 on a miss.
 __device__ __forceinline__ Hit finish_closest(const Geometry& g, const Ray& r, const Best& b) {
   float bt = b.t, bgid = b.gid;
   // The triangle winner's interpolated normal, unnormalized.
@@ -354,55 +333,5 @@ __device__ __forceinline__ bool prims_occlude(const Geometry& g, const Ray& r, f
   }
   return false;
 }
-
-// Closest hit, per ray.
-__device__ __forceinline__ Hit trace_closest(const Geometry& g, const Ray& r) {
-  Best b = no_hit();
-  for (int c = 0; c < g.n_clusters; ++c) {
-    float tn;
-    if (!box_pass(box_ldg(g, c), r, tn)) continue;
-    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
-    for (int k = 0; k < g.k; ++k) {
-      const float* __restrict__ p = rows + k * GEOM_COMPS;
-      const float gid = __ldg(p + C_GID);
-      if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
-      fold_pair(b, row_ldg(p), gid, r, c * g.k + k);
-    }
-  }
-  return finish_closest(g, r, b);
-}
-
-// Any hit, per ray: is some valid pair or primitive at t <= max_t
-// (kernel_core.py:843-860, :936-939)?
-// Boxes entered beyond max_t are skipped; the walk stops at the first
-// occluder.
-__device__ __forceinline__ bool trace_any(const Geometry& g, const Ray& r, float max_t) {
-  for (int c = 0; c < g.n_clusters; ++c) {
-    float tn;
-    if (!box_pass(box_ldg(g, c), r, tn) || tn > max_t) continue;
-    const float* __restrict__ rows = g.geom + (size_t)c * g.k * GEOM_COMPS;
-    for (int k = 0; k < g.k; ++k) {
-      const float* __restrict__ p = rows + k * GEOM_COMPS;
-      if (__ldg(p + C_GID) >= GID_PAD) break;
-      float t, vb, vc, inv_s;
-      if (pair_test(row_ldg(p), r, t, vb, vc, inv_s) && t <= max_t) return true;
-    }
-  }
-  return prims_occlude(g, r, max_t);
-}
-
-// The per-ray walk as the shading code takes it (bounce.cuh): the bounce
-// kernel's. A dead ray casts no shadow ray.
-struct RayWalk {
-  Geometry g;
-  __device__ __forceinline__ Hit closest(float ox, float oy, float oz, float dx, float dy,
-                                         float dz, bool /*active*/) {
-    return trace_closest(g, make_ray(ox, oy, oz, dx, dy, dz));
-  }
-  __device__ __forceinline__ bool any(float ox, float oy, float oz, float dx, float dy,
-                                      float dz, float max_t, bool active) {
-    return active && trace_any(g, make_ray(ox, oy, oz, dx, dy, dz), max_t);
-  }
-};
 
 }  // namespace cosig

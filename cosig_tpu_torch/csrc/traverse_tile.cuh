@@ -1,5 +1,6 @@
 // Block-cooperative cluster walk: the closest hit and the any hit of the
-// 128 rays of a thread block, for the primary kernel and the megakernel.
+// 128 rays of a thread block, for every kernel (primary, bounce,
+// megakernel, debug).
 //
 // The counterpart of the TPU kernel's three-step traversal
 // (cosig_tpu/ops/kernel_core.py:215-242): the tile becomes the thread
@@ -18,8 +19,8 @@
 //  2. List. Warp 0 compacts the clusters that some lane enters into a list
 //     in ascending cluster order: the closest-hit fold does not need the
 //     order (the (t, gid) winner is order-free), but the any hit must stop
-//     at the occluder the per-ray walk stops at (kernel_core.WORK counts
-//     its pair tests so).
+//     at the occluder a walk in cluster order stops at (the plain
+//     kernel_core.traverse, whose WORK counts its pair tests so).
 //  3. Walk. Thread 0 keeps the next RING_STAGES listed clusters' rows in
 //     flight, K x 144 contiguous bytes each, one mbarrier per ring slot.
 //     A warp whose ballot word is 0 skips the cluster; otherwise its lanes
@@ -35,11 +36,11 @@
 // that ends the visit of its previous cluster, so no thread can fall two
 // phases behind.
 //
-// Bound: the pair tests, as for the per-ray walk. What this walk removes
-// is issue pressure: a pair test reads its row from 7 sixteen-byte
-// shared-memory words and the gid (8 loads, against 23 four-byte global
-// loads in the per-ray walk), a slab test 2 words instead of 6 loads, and
-// the rows arrive ahead of their use. The up-front cull
+// Bound: the pair tests. What this walk removes is issue pressure: a pair
+// test reads its row from 7 sixteen-byte shared-memory words and the gid
+// (8 loads, against 23 four-byte global loads in a walk of one ray per
+// thread through the read-only cache), a slab test 2 words instead of 6
+// loads, and the rows arrive ahead of their use. The up-front cull
 // runs a shadow ray's slab tests on every cluster of the pass, also those
 // after its first occluder, so the bound's count (kernel_core.WORK,
 // shadow rays up to their first occluder) stays a floor. The per-pair

@@ -1,16 +1,18 @@
-"""The kernel library's binding and the four kernels' launch counters.
+"""The kernel library's binding and the kernels' launch counters.
 
 The library (built by :mod:`cosig_tpu_torch.kernels.build`) holds the
-four kernels of ``csrc/`` behind plain C launchers; this module loads it
-with ctypes, mirrors ``struct Frame`` (their launch parameters), checks
-the tensors they read and launches them on the current stream.
+five kernels of ``csrc/`` (primary, compaction, bounce, megakernel,
+debug) behind plain C launchers; this module loads it with ctypes,
+mirrors ``struct Frame`` (their launch parameters), checks the tensors
+they read and launches them on the current stream.
 
-``LAUNCHES`` counts kernel launches per kernel (``primary``, ``bounce``,
-``megakernel``, ``debug``); each wrapper of
+``LAUNCHES`` counts kernel launches per kernel (``primary``, ``compact``,
+``bounce``, ``megakernel``, ``debug``); each wrapper of
 :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
-kernel, and plain runs on the CPU count nothing. :func:`reset_counts` sets
-all four to 0.
+kernel, and plain runs on the CPU count nothing. One ``compact`` is one
+call of the compaction kernel, which is three CUDA launches (count per
+block, scan, scatter). :func:`reset_counts` sets every counter to 0.
 """
 
 from __future__ import annotations
@@ -45,11 +47,11 @@ _FLAGS = (
     ("multi_light", 256),
 )
 
-LAUNCHES = {"primary": 0, "bounce": 0, "megakernel": 0, "debug": 0}
+LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "megakernel": 0, "debug": 0}
 
 
 def reset_counts() -> None:
-    """Set all four launch counters to 0."""
+    """Set every launch counter to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
@@ -115,7 +117,7 @@ def make_frame(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library (all four kernels)."""
+    """Build (if needed) and load the kernel library (all five kernels)."""
     path, _, _ = kbuild.build()
     lib = ctypes.CDLL(path)
     # frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box
@@ -123,19 +125,24 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(Frame), ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, extra in (
         ("cosig_primary_launch", []),  # state, stream
-        ("cosig_bounce_launch", []),
-        ("cosig_megakernel_launch", [ctypes.c_int]),  # max_depth, out, stream
-        ("cosig_debug_launch", [ctypes.c_int]),  # mode, out, stream
+        ("cosig_bounce_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_megakernel_launch", [i32]),  # max_depth, out, stream
+        ("cosig_debug_launch", [i32]),  # mode, out, stream
     ):
         fn = getattr(lib, name)
-        fn.argtypes = common + extra + [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = common + extra + [ptr, ptr]
+        fn.restype = i32
+    # state, n, counts, idx, n_live, stream
+    lib.cosig_compact_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr]
+    lib.cosig_compact_launch.restype = i32
+    for name in ("cosig_compact_scratch", "cosig_tile_smem_bytes"):
+        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).restype = i32
     lib.cosig_frame_bytes.argtypes = []
-    lib.cosig_frame_bytes.restype = ctypes.c_int
-    lib.cosig_tile_smem_bytes.argtypes = [ctypes.c_int]
-    lib.cosig_tile_smem_bytes.restype = ctypes.c_int
+    lib.cosig_frame_bytes.restype = i32
     if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
         raise RuntimeError(
             f"Frame layout mismatch: C {lib.cosig_frame_bytes()} bytes, "
@@ -172,24 +179,36 @@ def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
         )
 
 
-def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph: int,
-           n_box: int, out: torch.Tensor, *extra: int) -> None:
-    """Launch ``name`` on the current stream of ``out``'s device; raise if
-    the launch is refused. ``extra``: the launcher's int arguments between
-    the primitive counts and ``out``."""
+def _arg(x):
+    """A launcher argument: a tensor as its device pointer, an int as is."""
+    return ctypes.c_void_p(x.data_ptr()) if isinstance(x, torch.Tensor) else x
+
+
+def _call(name: str, dev: torch.device, *args) -> None:
+    """Call launcher ``name`` with ``args`` and the current stream of
+    ``dev``; raise if the launch is refused."""
     fn = getattr(library(), name)
-    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            ctypes.byref(frame),
-            ctypes.c_void_p(cset.geom.data_ptr()),
-            ctypes.c_void_p(cset.aabb_t.data_ptr()),
-            cset.num_clusters, cset.k, int(cset.aabb_t.shape[1]),
-            ctypes.c_void_p(prims.data_ptr()), n_sph, n_box,
-            *extra,
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(stream),
-        )
+        err = fn(*(_arg(a) for a in args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph: int,
+           n_box: int, out: torch.Tensor, *extra) -> None:
+    """Launch ``name`` on the current stream of ``out``'s device; raise if
+    the launch is refused. ``extra``: the launcher's arguments between the
+    primitive counts and ``out`` (ints, or tensors passed as pointers)."""
+    _call(name, out.device, ctypes.byref(frame), cset.geom, cset.aabb_t,
+          cset.num_clusters, cset.k, int(cset.aabb_t.shape[1]), prims, n_sph, n_box,
+          *extra, out)
+
+
+def launch_compact(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor) -> None:
+    """List the live rays of ``state`` into ``idx`` and ``n_live`` (the
+    compaction kernel's three launches), with scratch from ``torch.empty``."""
+    n = int(state.shape[1])
+    counts = torch.empty(library().cosig_compact_scratch(n), dtype=torch.int32,
+                         device=state.device)
+    _call("cosig_compact_launch", state.device, state, n, counts, idx, n_live)

@@ -1,9 +1,10 @@
 """Build the CUDA sources into a shared library at first use.
 
 ``nvcc`` compiles each kernel source of ``cosig_tpu_torch/csrc``
-(``wavefront.cu``: primary and bounce kernels; ``megakernel.cu``: the
-megakernel and the debug kernel; with their headers) for Hopper, one
-``nvcc`` per source, all started at once, and links the objects into
+(``wavefront.cu``: the primary, compaction and bounce kernels;
+``megakernel.cu``: the megakernel and the debug kernel; with their
+headers) for Hopper, one ``nvcc`` per source, all started at once, and
+links the objects into
 ``cosig_tpu_torch/build/libcosig_kernels_<hash>.so``, a plain C library
 that :mod:`cosig_tpu_torch.kernels.binding` binds with ctypes. The hash
 covers the sources and the flags, so an edited source builds anew and an

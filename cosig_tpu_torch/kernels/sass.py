@@ -4,7 +4,7 @@
 
 Disassembles each library (default: the one :mod:`cosig_tpu_torch.kernels.build`
 builds from this checkout) with the CUDA toolkit's ``cuobjdump -sass`` and
-finds, in each of the four kernels, the pair loops: the innermost loops
+finds, in each of the four ray kernels, the pair loops: the innermost loops
 (a backward branch and its target) whose body compares a gid with the
 padding gid 2^24 (``gid >= GID_PAD``, the row loop's break) and takes a
 reciprocal (``1 / s``, MUFU.RCP); and the block walk's cull loops: the
@@ -13,9 +13,10 @@ innermost loops that run slab tests (FMNMX) and store a warp ballot
 test), by class: loads from global memory, shared memory, the constant
 bank and the stack (spills), fp32 arithmetic and compares, and control
 flow. A loop the compiler unrolled holds several tests: the counts are
-divided by its reciprocals (its ballots). The per-ray walk has no cull
-loop of its own: its slab test shares the cluster loop with the pair
-loop. The script prints one JSON line per library.
+divided by its reciprocals (its ballots). Every kernel walks with the
+block walk; a library built before it had a per-ray walk, whose slab test
+shares the cluster loop with the pair loop, so it shows no cull loop. The
+script prints one JSON line per library.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def cuobjdump() -> str:
 
 
 def functions(sass: str) -> dict:
-    """{kernel label: [(address, opcode, operands), ...]} of the four kernels."""
+    """{kernel label: [(address, opcode, operands), ...]} of the four ray kernels."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : _ZN5cosig(\d+)(\w+)", line)

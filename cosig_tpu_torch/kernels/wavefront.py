@@ -1,12 +1,14 @@
-"""Wrappers of the two wavefront kernels.
+"""Wrappers of the three wavefront kernels.
 
-``primary`` and ``bounce`` take the tensors of one render stage. On a CUDA
-tensor they launch the hand-written kernel (``csrc/wavefront.cu``) on the
-current stream, without synchronising, count the launch in
-:data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and raise if the launch
-is refused; on a CPU tensor they run the plain PyTorch version
-(:mod:`cosig_tpu_torch.ops.trace_wavefront`) and count nothing. There is
-no fallback from a CUDA tensor to the plain version.
+``primary``, ``compact`` and ``bounce`` take the tensors of one render
+stage. On a CUDA tensor they launch the hand-written kernel
+(``csrc/wavefront.cu``) on the current stream, without synchronising,
+count the launch in :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and
+raise if the launch is refused; on a CPU tensor they run the plain
+PyTorch version (:mod:`cosig_tpu_torch.ops.trace_wavefront`) and count
+nothing. There is no fallback from a CUDA tensor to the plain version.
+A bounce stage is ``compact`` then ``bounce`` on its list: the list and
+its length stay on the device, so the host never waits for them.
 """
 
 from __future__ import annotations
@@ -40,14 +42,44 @@ def primary(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     return state
 
 
-def bounce(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
-           mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig, depth: int,
-           prims: torch.Tensor, n_sph: int, n_box: int) -> None:
-    """One bounce stage at ``depth`` (1 .. max_depth-1) on ``state`` in place."""
+def _check_state(state: torch.Tensor, per_row: int) -> None:
+    """Raise unless ``state`` is contiguous f32 [16, a multiple of ``per_row``]."""
+    if (state.dtype != torch.float32 or not state.is_contiguous() or state.dim() != 2
+            or state.shape[0] != STATE_ROWS or state.shape[1] % per_row != 0):
+        raise ValueError(
+            f"state must be contiguous float32 [{STATE_ROWS}, band * {per_row}], "
+            f"got {state.dtype} {tuple(state.shape)}"
+        )
+
+
+def compact(state: torch.Tensor) -> tuple:
+    """List the live rays of ``state`` f32 [16, N] -> ``(idx, n_live)``:
+    int32 [N] and int32 [1] on the state's device, ``idx[:n_live]`` the ids
+    of the rays with alive > 0 by direction octant, then by id (entries
+    past ``n_live`` are unspecified)."""
     dev = state.device
     if dev.type == "cpu":
-        trace_wavefront.bounce_stage(state, cset, uniforms, mats, lights, cfg, depth,
-                                     prims, n_sph, n_box)
+        return trace_wavefront.compact_plain(state)
+    if dev.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {dev}")
+    _check_state(state, 1)
+    idx = torch.empty(state.shape[1], dtype=torch.int32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    binding.launch_compact(state, idx, n_live)
+    binding.LAUNCHES["compact"] += 1
+    return idx, n_live
+
+
+def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
+           uniforms: np.ndarray, mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
+           depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
+    """One bounce stage at ``depth`` (1 .. max_depth-1) on the listed rays
+    ``idx[:n_live]`` of ``state``, in place (``idx``, ``n_live``: from
+    :func:`compact`)."""
+    dev = state.device
+    if dev.type == "cpu":
+        trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, uniforms, mats, lights,
+                                            cfg, depth, prims, n_sph, n_box)
         return
     if dev.type != "cuda":
         raise ValueError(f"no bounce kernel for device {dev}")
@@ -55,13 +87,14 @@ def bounce(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     if not 1 <= depth < cfg.max_depth:
         raise ValueError(f"bounce depth {depth} outside 1..{cfg.max_depth - 1}")
     per_row = cfg.width * max(1, cfg.aa_samples)
-    if (state.dtype != torch.float32 or not state.is_contiguous() or state.dim() != 2
-            or state.shape[0] != STATE_ROWS or state.shape[1] % per_row != 0):
-        raise ValueError(
-            f"state must be contiguous float32 [{STATE_ROWS}, band * {per_row}], "
-            f"got {state.dtype} {tuple(state.shape)}"
-        )
-    frame = binding.make_frame(cfg, uniforms, mats, lights, state.shape[1] // per_row, depth,
+    _check_state(state, per_row)
+    n = state.shape[1]
+    for name, t, shape in (("idx", idx, (n,)), ("n_live", n_live, (1,))):
+        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be contiguous int32 {list(shape)} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    frame = binding.make_frame(cfg, uniforms, mats, lights, n // per_row, depth,
                                depth == cfg.max_depth - 1)
-    binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state)
+    binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
     binding.LAUNCHES["bounce"] += 1

@@ -54,14 +54,14 @@ def _pixel_planes(cfg: StaticConfig, band: int, row_offset: float, dev):
     return px, py
 
 
-# The megakernel's tiles (csrc/megakernel.cu): a block of 16 x 8 pixels,
-# four warps of 8 x 4.
+# The tiles of the megakernel and the debug kernel (csrc/megakernel.cu): a
+# block of 16 x 8 pixels, four warps of 8 x 4.
 TILE_W, TILE_H, WARP_W, WARP_H = 16, 8, 8, 4
 
 
 def tile_slots(width: int, band: int) -> torch.Tensor:
-    """Thread slot -> pixel id (py_local * W + px) of the megakernel, the
-    index math of csrc/megakernel.cu: block b covers tile (b % tiles_x,
+    """Thread slot -> pixel id (py_local * W + px) of the megakernel and the
+    debug kernel, the index math of csrc/megakernel.cu: block b covers tile (b % tiles_x,
     b // tiles_x), warp w of it the 8 x 4 pixels at (w % 2, w // 2), lane
     l pixel (l % 8, l // 8); -1 on threads outside the width or the band."""
     tiles_x = -(-width // TILE_W)

@@ -1,13 +1,16 @@
 """Wavefront render: one primary stage, then one bounce stage per depth.
 
 Counterpart of :func:`cosig_tpu.ops.trace_wavefront.render_wavefront`
-(``trace_wavefront.py:756-1172``) in its shipped dispatch form
-(self-skip: the state stays in pixel order and dead rays do no work):
+(``trace_wavefront.py:756-1172``); its images are those of the shipped
+self-skip dispatch (``:955-1012``), its bounce dispatch the compaction
+form (``:1013-1129``), which gives the same bits there:
 
 1. the **primary stage** (``:317-434``) makes a camera ray for every
    (pixel, AA sample), writes the 16-row ray state and runs bounce 0;
-2. ``max_depth - 1`` **bounce stages** (``:994-1012``) each run one bounce
-   in place on every live ray;
+2. ``max_depth - 1`` **bounce stages** each list the live rays
+   (:func:`compact_plain`, the per-ray form of ``_compact_prefix``,
+   ``:576-617``) and run one bounce on each listed ray, writing it back in
+   place, so the state stays in pixel order (:func:`bounce_listed_stage`);
 3. **finalize** (``:1136-1172``) averages the AA samples into the image and
    sums the ray count.
 
@@ -16,8 +19,8 @@ with N = band * W * aa and no tile padding. The RNG seeds (px, py, s) are
 the JAX package's, so images agree; finalize is the exact inverse of the
 enumeration.
 
-The stage functions here are the plain PyTorch versions of the two CUDA
-kernels (``csrc/wavefront.cu``); :mod:`cosig_tpu_torch.kernels.wavefront`
+The stage functions here are the plain PyTorch versions of the three
+CUDA kernels (``csrc/wavefront.cu``); :mod:`cosig_tpu_torch.kernels.wavefront`
 dispatches between them by the device the state lives on.
 """
 
@@ -96,9 +99,12 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
 
 def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                  mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
-                 depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
-    """Plain version of the bounce kernel: one bounce at ``depth`` on
-    ``state`` in place (trace_wavefront.py:466-507)."""
+                 depth: int, prims: torch.Tensor, n_sph: int, n_box: int,
+                 warps=None) -> None:
+    """One bounce at ``depth`` on every column of ``state`` in place
+    (trace_wavefront.py:466-507), the self-skip form: a dead ray's bounce
+    changes nothing. ``warps``: an optional ray -> warp map of the
+    columns, whose pair-loop slots the traversals count."""
     if cfg.enable_soft_shadows or cfg.enable_glossy:
         rid = state[ROW_ID].to(torch.int64)
         px, py, s = _seed_planes(rid, cfg, float(uniforms[U_ROW_OFF]))
@@ -107,7 +113,38 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=depth,
                             is_last=depth == cfg.max_depth - 1,
-                            prims=prims, n_sph=n_sph, n_box=n_box)
+                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
+
+
+def compact_plain(state: torch.Tensor):
+    """Plain version of the compaction kernel -> ``(idx, n_live)``: int32
+    [N] and int32 [1] on the state's device. ``idx[:n_live]`` lists the
+    rays with alive > 0 by the key ``(dx > 0) + 2 (dy > 0) + 4 (dz > 0)``
+    (``_compact_prefix``'s, trace_wavefront.py:603-607, taken per ray), then
+    by id; the dead rays follow by id."""
+    alive = state[ROW_ALIVE] > 0.0
+    octant = ((state[3] > 0.0).to(torch.int32) + 2 * (state[4] > 0.0).to(torch.int32)
+              + 4 * (state[5] > 0.0).to(torch.int32))
+    keys = torch.where(alive, octant, 8)
+    idx = torch.argsort(keys, stable=True).to(torch.int32)
+    return idx, alive.sum().to(torch.int32).reshape(1)
+
+
+def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
+                        cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
+                        lights: np.ndarray, cfg: StaticConfig, depth: int,
+                        prims: torch.Tensor, n_sph: int, n_box: int, warps=None) -> None:
+    """Plain version of the bounce kernel: one bounce at ``depth`` on the
+    listed rays ``idx[:n_live]`` of ``state`` (from :func:`compact_plain`),
+    gathered, bounced and written back in place. Every live ray is listed
+    and a dead ray's bounce changes nothing, so this equals
+    :func:`bounce_stage` on the whole state bit for bit. ``warps``: an
+    optional ray id -> warp map [N] (:func:`kernel_core.traverse`)."""
+    ids = idx[:int(n_live.reshape(-1)[0])].to(torch.int64)
+    listed = state[:, ids]
+    bounce_stage(listed, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box,
+                 warps=None if warps is None else warps[ids])
+    state[:, ids] = listed
 
 
 def finalize(state: torch.Tensor, cfg: StaticConfig, band: int):
@@ -158,10 +195,13 @@ def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
-    primary, bounce = (primary_stage, bounce_stage) if plain else (kw.primary, kw.bounce)
+    primary, compact, bounce = ((primary_stage, compact_plain, bounce_listed_stage) if plain
+                                else (kw.primary, kw.compact, kw.bounce))
     state = primary(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box)
     for depth in range(1, cfg.max_depth):
-        bounce(state, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box)
+        idx, n_live = compact(state)
+        bounce(state, idx, n_live, cset, uniforms, mats, lights, cfg, depth, prims, n_sph,
+               n_box)
     return state
 
 

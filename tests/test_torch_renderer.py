@@ -136,7 +136,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
     for name in binding.LAUNCHES:
         binding.LAUNCHES[name] = 7
     binding.reset_counts()
-    assert binding.LAUNCHES == dict(primary=0, bounce=0, megakernel=0, debug=0)
+    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0)
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
@@ -148,7 +148,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
                       tkc.build_lights(params, False), cfg, plain=True)
         np.testing.assert_array_equal(a, b.numpy())
         r.render(tiny, st.replace(debug_mode=2))
-    assert binding.LAUNCHES == dict(primary=0, bounce=0, megakernel=0, debug=0)
+    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0)
 
 
 def test_wrappers_reject_other_devices(tiny):
@@ -163,8 +163,12 @@ def test_wrappers_reject_other_devices(tiny):
     with pytest.raises(ValueError, match="no primary kernel"):
         kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
     state = torch.zeros((16, 64), device="meta")
+    idx = torch.zeros(64, dtype=torch.int32, device="meta")
+    n_live = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no compaction kernel"):
+        kw.compact(state)
     with pytest.raises(ValueError, match="no bounce kernel"):
-        kw.bounce(state, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
     with pytest.raises(ValueError, match="no megakernel"):
         km.megakernel(cset, uni, mats, lights, cfg, 8, *pk)
     with pytest.raises(ValueError, match="no debug kernel"):
@@ -292,7 +296,7 @@ def test_kernels_match_plain_on_card(tiny, card):
     img_m, rays_m = ttm.render_clusters(cset, uni, lights, cfg)
     img_d, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)))
     counts = dict(binding.LAUNCHES)
-    assert counts == dict(primary=1, bounce=2, megakernel=1, debug=1)
+    assert counts == dict(primary=1, compact=2, bounce=2, megakernel=1, debug=1)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
     img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
     img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),
@@ -316,16 +320,44 @@ def test_wrappers_check_inputs_on_card(tiny, card):
     mats = cset.mats.cpu().numpy()
     pk = tkc.prim_table(None, (0, 0), card)
     state = kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
+    idx, n_live = kw.compact(state)
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state.double(), cset, uni, mats, lights, cfg, 1, *pk)
+        kw.compact(state.double())
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state[:, :-1].contiguous(), cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state.double(), idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
+    with pytest.raises(ValueError, match="state must be"):
+        kw.bounce(state[:, :-1].contiguous(), idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
+    with pytest.raises(ValueError, match="idx must be"):
+        kw.bounce(state, idx.long(), n_live, cset, uni, mats, lights, cfg, 1, *pk)
+    with pytest.raises(ValueError, match="n_live must be"):
+        kw.bounce(state, idx, n_live.cpu(), cset, uni, mats, lights, cfg, 1, *pk)
     with pytest.raises(ValueError, match="depth"):
-        kw.bounce(state, cset, uni, mats, lights, cfg, 2, *pk)
+        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, 2, *pk)
     with pytest.raises(ValueError, match="expected"):
-        kw.bounce(state, cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0],
+        kw.bounce(state, idx, n_live, cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0],
                   uni, mats, lights, cfg, 1, *pk)
     with pytest.raises(ValueError, match="prims"):
         km.megakernel(cset, uni, mats, lights, cfg, 8, pk[0].cpu(), 0, 0)
     with pytest.raises(ValueError, match="prims"):
         km.debug(cset, uni, mats, lights, cfg, pk[0], 2, 0)
+
+
+@pytest.mark.gpu
+def test_compaction_matches_plain_on_card(card):
+    """The compaction kernel's list equals the plain one as integers on
+    states over several blocks of the kernel's tiles: random liveness and
+    directions (zeros and NaN included), every ray dead, every ray alive."""
+    r = np.random.default_rng(3)
+    n = 5 * 2048 + 77
+    state = torch.from_numpy(r.normal(size=(16, n)).astype(np.float32))
+    state[3, ::7] = 0.0
+    state[4, ::11] = float("nan")
+    for alive in (r.random(n) < 0.3, np.zeros(n, bool), np.ones(n, bool)):
+        state[tkc.ROW_ALIVE] = torch.from_numpy(alive.astype(np.float32))
+        idx_p, n_p = ttw.compact_plain(state)
+        binding.reset_counts()
+        idx, n_live = kw.compact(state.to(card))
+        assert binding.LAUNCHES["compact"] == 1
+        m = int(n_live)
+        assert m == int(n_p) == int(alive.sum())
+        assert torch.equal(idx[:m].cpu(), idx_p[:m])

@@ -278,17 +278,18 @@ def test_warp_slots_follow_a_per_warp_walk(case, name):
 
 
 @pytest.mark.parametrize("width,band", [(61, 37), (61, 21)])
-@pytest.mark.parametrize("name", ["primary", "megakernel 8x4", "megakernel 32x1"])
+@pytest.mark.parametrize("name", ["primary", "megakernel 8x4", "megakernel 32x1", "debug 16x8"])
 def test_slot_maps_are_permutations(name, width, band):
     """Each kernel's thread slot -> ray map holds every ray id once on a
     ragged frame (61 x 37) and on a band of it (21 rows, as rendered with
     rows=21, row_offset=9), with -1 only on threads past the image; the
-    primary's rays at AA 3. The megakernel's warps lie inside 8 x 4 pixel
-    boxes, its blocks inside 16 x 8."""
+    primary's rays at AA 3. The warps of the megakernel and of the debug
+    kernel (the same tiling) lie inside 8 x 4 pixel boxes, their blocks
+    inside 16 x 8."""
     if name == "primary":
         n = width * band * 3
         slots = tkc.linear_slots(n)
-    elif name == "megakernel 8x4":
+    elif name in ("megakernel 8x4", "debug 16x8"):
         n = width * band
         slots = ttm.tile_slots(width, band)
     else:
@@ -300,7 +301,7 @@ def test_slot_maps_are_permutations(name, width, band):
     np.testing.assert_array_equal(ids, np.arange(n))
     warps = tkc.warp_of_rays(slots, n).numpy()
     assert warps.max() < len(s) // 32
-    if name == "megakernel 8x4":
+    if name in ("megakernel 8x4", "debug 16x8"):
         x, y = s % width, s // width
         for group, (bw, bh) in ((32, (8, 4)), (128, (16, 8))):
             for g in range(len(s) // group):
