@@ -45,7 +45,19 @@ Phases (any failure raises and the script exits non-zero):
    with CUDA events;
 5. time each wavefront stage (primary; per depth compaction and bounce;
    finalize) over a few frames, and time the plain versions' frames at
-   the same size against the kernels' images.
+   the same size against the kernels' images;
+6. the oracle path and the application layer on the card: glass_sphere
+   and large_mesh at bench.py's reduced size (256x256) through the
+   brute-force oracle (``backend="xla-brute"``), then through the
+   wavefront kernels and the megakernel, each held to the oracle (RMSE <
+   1e-5, printed beside the JAX package's record); large_mesh's BVH walk
+   (``"xla"``) against brute force; the oracle on the card against the
+   oracle on the CPU on one small frame with every effect; then the CLI
+   (``cosig_tpu_torch.cli.main``): a full-size render through the
+   wavefront kernels (its PNG equal to the Renderer's image, one primary
+   and five compaction and bounce launches), a turntable GIF, a preview
+   loop with no readback (frames/s), a chunked render interrupted and
+   resumed (equal to the unchunked oracle bit for bit) and ``info``.
 
 Near the end the script prints a JSON line of the models, a JSON line of
 per-frame numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
@@ -82,6 +94,16 @@ RECORDS = {
 RAYS_REL = 1e-4  # 0.01 %
 MEAN_ABS = 1e-4
 PLAIN_FRAME_LIMIT_S = 60.0
+
+# Phase 6. The JAX package's kernel images against its brute-force oracle
+# at bench.py's reduced size (bench_details.json "rmse_vs_oracle"), and
+# the port's gates: kernels against the oracle as the JAX backends hold
+# among themselves at depth >= 2 (tests/test_pallas.py:33-43); the BVH
+# walk against brute force as tests/test_bvh.py:93-95 holds it.
+ORACLE_SIDE = 256
+ORACLE_RECORDS = {"glass_sphere": 2.4518669761164347e-07, "large_mesh": 3.9810606722312514e-07}
+ORACLE_RMSE = 1e-5
+BVH_OFF_ABS, BVH_OFF_SHARE, BVH_RMSE = 1e-3, 0.005, 1e-3
 
 # The bound of a kernel: the larger of its float32 operations over the
 # H100 SXM's fp32 issue rate and its bytes (each input read once, each
@@ -1009,6 +1031,208 @@ def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
         del fr["image"]
 
 
+def timed_render(renderer, scene, settings):
+    """(image on the device, ms) of one ``render_to_device``, CUDA events
+    around it on the card."""
+    import torch
+
+    if renderer.device.type != "cuda":
+        t0 = time.perf_counter()
+        img = renderer.render_to_device(scene, settings)
+        return img, (time.perf_counter() - t0) * 1e3
+    return timed(lambda: renderer.render_to_device(scene, settings))
+
+
+def run_cli(args) -> str:
+    """``cosig_tpu_torch.cli.main(args)`` with its standard output captured;
+    it must exit 0."""
+    import contextlib
+    import io
+
+    from cosig_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    out = buf.getvalue()
+    for line in out.replace("\r", "\n").splitlines():
+        if line.strip() and not line.startswith(("frame ", "frames:", "chunks:")):
+            log(f"    | {line}")
+    check(rc == 0, "cli", args, "exited", rc)
+    return out
+
+
+def oracle_and_cli(device, workdir: str, side: int = ORACLE_SIDE, full_size: bool = True) -> dict:
+    """Phase 6: the oracle path and the application layer on ``device``
+    (``side``: the oracle frames' size; ``full_size``: the CLI render at
+    glass_sphere's own size, else at ``side``). Launch counts are checked
+    where the device is a card."""
+    import re
+
+    import numpy as np
+    import torch
+
+    import cosig_tpu_torch
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.render import renderer as renderer_mod
+    from cosig_tpu_torch.utils import gif, png
+
+    on_card = device.type == "cuda"
+    dev = "cuda" if on_card else "cpu"
+    out = {"oracle_side": side, "rmse_vs_oracle": {}}
+
+    # 1. The kernels against the brute-force oracle at the reduced size.
+    images = {}
+    for name in ("glass_sphere", "large_mesh"):
+        scene, settings = load(name)
+        small = settings.replace(resolution_override=(side, side))
+        oracle = cosig_tpu_torch.Renderer(device=dev, backend="xla-brute")
+        img_o, ms = timed_render(oracle, scene, small)  # with the soup's upload
+        check(bool(torch.isfinite(img_o).all()) and float(img_o.max()) > 0.05, name, "oracle image")
+        images[name] = img_o
+        rec = dict(oracle_ms=ms, oracle_rays=oracle.last_stats.rays_traced,
+                   triangles=oracle.last_stats.triangles, record=ORACLE_RECORDS[name])
+        for backend in ("wavefront", "megakernel"):
+            kernels = cosig_tpu_torch.Renderer(device=dev, backend=backend)
+            img_k = kernels.render_to_device(scene, small)
+            _, mx, rmse = diff(img_k, img_o)
+            rays = kernels.last_stats.rays_traced
+            rec[backend] = dict(rmse=rmse, max=mx, rays=rays)
+            log(f"  {name} {side}x{side} d{settings.max_depth} aa{settings.aa_samples}: "
+                f"{backend} rmse_vs_oracle {rmse:.3e} (JAX record {ORACLE_RECORDS[name]:.3e}), "
+                f"max {mx:.3e}, rays {rays} (oracle {rec['oracle_rays']})")
+            check(rmse < ORACLE_RMSE, name, backend, "rmse_vs_oracle", rmse)
+            check(abs(rays - rec["oracle_rays"]) <= RAYS_SLACK, name, backend, "rays", rays)
+        log(f"  {name} oracle (xla-brute) {side}x{side}: {ms:.1f} ms/frame, "
+            f"{rec['oracle_rays']} rays, {rec['triangles']} triangles")
+        out["rmse_vs_oracle"][name] = rec
+
+    # 2. The BVH walk against brute force on large_mesh (11,970 triangles).
+    scene, settings = load("large_mesh")
+    small = settings.replace(resolution_override=(side, side))
+    walk = cosig_tpu_torch.Renderer(device=dev, backend="xla")
+    img_w, ms = timed_render(walk, scene, small)  # with the BVH's build
+    check(walk._cached_xla[4] is not None, "the xla backend did not walk a BVH on large_mesh")
+    a, b = img_w.cpu().numpy(), images["large_mesh"].cpu().numpy()
+    off = float((np.abs(a - b).max(axis=2) > BVH_OFF_ABS).mean())
+    rmse = float(np.sqrt(((a.astype(np.float64) - b) ** 2).mean()))
+    log(f"  large_mesh BVH walk vs brute force {side}x{side}: {100 * off:.3f} % of pixels off by "
+        f"> {BVH_OFF_ABS}, rmse {rmse:.3e}; walk {ms:.1f} ms/frame")
+    check(off < BVH_OFF_SHARE and rmse < BVH_RMSE, "BVH walk vs brute force", off, rmse)
+    out["bvh_walk"] = dict(ms=ms, off_share=off, rmse=rmse)
+
+    # 3. The oracle on the card against the oracle on the CPU.
+    scene, _ = load("demo_cornell")
+    st = cosig_tpu_torch.RenderSettings(
+        resolution_override=(61, 37), max_depth=3, aa_samples=4, enable_soft_shadows=True,
+        light_size=5.0, enable_glossy=True, surface_roughness=0.05, enable_motion_blur=True,
+        shutter_speed=0.5)
+    img_d = cosig_tpu_torch.Renderer(device=dev, backend="xla").render(scene, st)
+    img_c = cosig_tpu_torch.Renderer(device="cpu", backend="xla").render(scene, st)
+    d = np.abs(img_d - img_c)
+    rmse = float(np.sqrt((d.astype(np.float64) ** 2).mean()))
+    n_diff = int((d.max(axis=2) > 0).sum())
+    log(f"  oracle on {dev} vs on the CPU (demo_cornell 61x37 d3 aa4, soft shadows, glossy, "
+        f"motion blur): max {d.max():.3e}, rmse {rmse:.3e}, {n_diff} of {61 * 37} pixels differ")
+    check(rmse < DEEP_RMSE and d.max() < DEEP_MAX, "oracle device vs CPU", rmse, d.max())
+    out["oracle_device_vs_cpu"] = dict(max=float(d.max()), rmse=rmse, pixels_differ=n_diff)
+
+    # 4. The CLI.
+    t_cli = time.perf_counter()
+    scene, settings = load("glass_sphere")
+    size = [] if full_size else ["--width", str(side), "--height", str(side)]
+    png_path = os.path.join(workdir, "glass.png")
+    binding.reset_counts()
+    text = run_cli(["render", "generated:glass_sphere", "-o", png_path, "--backend", "auto",
+                    "--device", dev, *size])
+    got = dict(binding.LAUNCHES)
+    want = dict(wavefront_launches(settings.max_depth), megakernel=0, debug=0)
+    log(f"  cli render launches: {got}")
+    if on_card:
+        check(got == want, "cli render launches", got, "expected", want)
+        check(f"[wavefront on {device}]" in text, "cli auto did not take the wavefront kernels")
+    st = settings if full_size else settings.replace(resolution_override=(side, side))
+    ref = cosig_tpu_torch.Renderer(device=dev, backend="wavefront").render(scene, st)
+    same = bool(np.array_equal(png.read_png(png_path), png.to_uint8(ref)))
+    log(f"  cli render PNG equal to to_uint8(Renderer.render): {same} ({ref.shape[1]}x{ref.shape[0]})")
+    check(same, "cli PNG differs from the renderer's image")
+    out["cli_launches"] = got
+
+    gif_path = os.path.join(workdir, "spin.gif")
+    run_cli(["turntable", "generated:glass_sphere", "-o", gif_path, "--width", str(side),
+             "--height", str(side), "--steps", "8", "--device", dev])
+    n_frames = gif.decode_gif_frame_count(gif_path)
+    check(n_frames == 8, "turntable GIF frames", n_frames)
+
+    calls = {"to_device": 0}
+    orig_to_device, orig_render = renderer_mod.Renderer.render_to_device, renderer_mod.Renderer.render
+
+    def counting(self, scene_, settings_):
+        calls["to_device"] += 1
+        return orig_to_device(self, scene_, settings_)
+
+    def forbidden(self, scene_, settings_):
+        raise SmokeFailure("the preview loop read a frame back")
+
+    renderer_mod.Renderer.render_to_device, renderer_mod.Renderer.render = counting, forbidden
+    binding.reset_counts()
+    try:
+        text = run_cli(["preview", "generated:glass_sphere", "--frames", "10", "--device", dev, *size])
+    finally:
+        renderer_mod.Renderer.render_to_device, renderer_mod.Renderer.render = (
+            orig_to_device, orig_render)
+    got = dict(binding.LAUNCHES)
+    fps = float(re.search(r"\(([0-9.]+) FPS avg\)", text).group(1))
+    log(f"  preview: {calls['to_device']} frames through render_to_device, launches {got}, "
+        f"{fps:.2f} frames/s on {card_line() if on_card else 'the CPU'}")
+    check(calls["to_device"] == 10, "preview frames", calls)
+    if on_card:
+        check(got == {k: 10 * v for k, v in want.items()}, "preview launches", got)
+    out["preview_fps"] = fps
+
+    # The chunked render: interrupted after its first band, resumed by the CLI.
+    ck = os.path.join(workdir, "chunks.npz")
+    oracle_img = images["glass_sphere"].cpu().numpy()
+
+    class Interrupt(Exception):
+        pass
+
+    def stop(frac):
+        raise Interrupt
+
+    small = settings.replace(resolution_override=(side, side))
+    try:
+        cosig_tpu_torch.Renderer(device=dev, backend="xla").render_chunked(
+            scene, small, rows_per_chunk=64, checkpoint=ck, progress=stop)
+    except Interrupt:
+        pass
+    check(int(np.load(ck)["done_rows"]) == 64, "checkpoint after the first band")
+    chunked = []
+    orig_chunked = renderer_mod.Renderer.render_chunked
+
+    def recording(self, *a, **k):
+        chunked.append(orig_chunked(self, *a, **k))
+        return chunked[-1]
+
+    renderer_mod.Renderer.render_chunked = recording
+    try:
+        run_cli(["render", "generated:glass_sphere", "-o", os.path.join(workdir, "chunked.png"),
+                 "--width", str(side), "--height", str(side), "--chunk-rows", "64",
+                 "--checkpoint", ck, "--device", dev, "--backend", "xla"])
+    finally:
+        renderer_mod.Renderer.render_chunked = orig_chunked
+    same = bool(np.array_equal(chunked[0], oracle_img)) and not os.path.exists(ck)
+    log(f"  chunked render resumed after the first of {side // 64} bands, equal to the unchunked "
+        f"xla render bit for bit: {same}")
+    check(same, "chunked render differs from the unchunked one")
+
+    text = run_cli(["info", "generated:large_mesh"])
+    check("tessellated triangles: 11970" in text, "cli info")
+    out["cli_s"] = time.perf_counter() - t_cli
+    log(f"  CLI commands: {out['cli_s']:.1f} s")
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...};
@@ -1087,6 +1311,12 @@ def main() -> int:
     t0 = time.perf_counter()
     breakdown_and_plain(device, frames)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        oracle = oracle_and_cli(device, workdir)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -1104,6 +1334,7 @@ def main() -> int:
         k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
+    log(json.dumps({"oracle": oracle}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -15,24 +15,31 @@ Layout mirrors :mod:`cosig_tpu`:
 * ``cosig_tpu_torch.accel``   — BVH and cluster structure (host build, torch tensors)
 * ``cosig_tpu_torch.ops``     — plain PyTorch versions of the device code
   and the wavefront, megakernel and debug renders, the analytic
-  primitive table
+  primitives, and the oracle path (``trace_xla``, ``bvh_traverse``,
+  ``intersect``, ``shade``, ``camera``)
 * ``cosig_tpu_torch.kernels`` — nvcc build, ctypes wrappers, launch counters
 * ``cosig_tpu_torch.csrc``    — the CUDA sources
-* ``cosig_tpu_torch.render``  — the Renderer front end
+* ``cosig_tpu_torch.render``  — the Renderer front end (backends ``auto``,
+  ``xla``, ``xla-brute``, ``wavefront``, ``megakernel``; ``render_chunked``)
+* ``cosig_tpu_torch.utils``   — PNG and GIF writers
+* ``cosig_tpu_torch.cli``     — the command line (``cosig-tpu-torch``)
 """
 
 __version__ = "0.1.0"
 
+from cosig_tpu_torch.models.preset import ScenePreset
 from cosig_tpu_torch.models.scene import SceneData
 from cosig_tpu_torch.models.settings import RenderSettings
 from cosig_tpu_torch.scene.parser import load_scene, parse_scene
-from cosig_tpu_torch.render.renderer import Renderer, RenderStats
+from cosig_tpu_torch.render.renderer import Renderer, RenderStats, estimate_rays
 
 __all__ = [
     "SceneData",
     "RenderSettings",
     "Renderer",
     "RenderStats",
+    "ScenePreset",
+    "estimate_rays",
     "load_scene",
     "parse_scene",
     "__version__",

@@ -45,6 +45,21 @@ class BVH:
     triangles: TriangleSoA  # reordered to match leaf references
     order: np.ndarray  # [T] i32: original index of each reordered triangle
 
+    @property
+    def num_nodes(self) -> int:
+        return int(self.node_min.shape[0])
+
+    def depth(self) -> int:
+        """Max tree depth (root = 1)."""
+        depth, stack = 0, [(0, 1)]
+        while stack:
+            node, d = stack.pop()
+            depth = max(depth, d)
+            if self.count[node] == 0 and self.num_nodes > 1:
+                left = int(self.left_or_first[node])
+                stack += [(left, d + 1), (left + 1, d + 1)]
+        return depth
+
 
 class _Node:
     __slots__ = ("bmin", "bmax", "left", "right", "start", "count")

@@ -6,23 +6,49 @@ holds numpy float32 values, and the builders keep the reference's
 override precedence (settings beat scene-file values; fallbacks fov 50,
 distance 30, 256x256, background (0.2, 0.2, 0.2)).
 
-The triangle soup itself comes from
-:func:`cosig_tpu_torch.scene.tessellate.extract_triangles`; the port never
-builds a device copy of it (the kernels read the cluster set only).
+:class:`SceneArrays` is the triangle soup and the material tables as
+tensors on one device (``soa.py:39-75,147-165``), which the oracle path
+(:mod:`cosig_tpu_torch.ops.trace_xla`) reads; the kernels read the
+cluster set instead.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from cosig_tpu_torch.models.scene import SceneData
 from cosig_tpu_torch.models.settings import RenderSettings
 from cosig_tpu_torch.scene import transforms as tf
+from cosig_tpu_torch.scene.tessellate import TriangleSoA, extract_triangles
 
 F32 = np.float32
+
+
+@dataclass(frozen=True)
+class SceneArrays:
+    """Geometry and materials, object space, as tensors on one device."""
+
+    tri_v0: torch.Tensor  # [T, 3] f32
+    tri_v1: torch.Tensor  # [T, 3]
+    tri_v2: torch.Tensor  # [T, 3]
+    tri_n0: torch.Tensor  # [T, 3]
+    tri_n1: torch.Tensor  # [T, 3]
+    tri_n2: torch.Tensor  # [T, 3]
+    tri_mat: torch.Tensor  # [T] int64
+    mat_color: torch.Tensor  # [M, 3] f32
+    mat_coeff: torch.Tensor  # [M, 5] f32: ambient, diffuse, specular, refraction, ior
+
+    @property
+    def num_triangles(self) -> int:
+        return int(self.tri_v0.shape[0])
+
+    @property
+    def num_materials(self) -> int:
+        return int(self.mat_color.shape[0])
 
 
 @dataclass(frozen=True)
@@ -76,6 +102,25 @@ def materials_host(scene: SceneData) -> Tuple[np.ndarray, np.ndarray]:
         mat_color = np.array([[1.0, 1.0, 1.0]], dtype=F32)
         mat_coeff = np.array([[0.1, 0.7, 0.0, 0.0, 1.0]], dtype=F32)
     return mat_color, mat_coeff
+
+
+def compile_scene(scene: SceneData, tris: Optional[TriangleSoA] = None,
+                  device="cpu") -> SceneArrays:
+    """Tessellate (unless ``tris`` is given) and put the soup and the
+    material tables on ``device``."""
+    if tris is None:
+        tris = extract_triangles(scene)
+    mat_color, mat_coeff = materials_host(scene)
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return SceneArrays(
+        tri_v0=put(tris.v0), tri_v1=put(tris.v1), tri_v2=put(tris.v2),
+        tri_n0=put(tris.n0), tri_n1=put(tris.n1), tri_n2=put(tris.n2),
+        tri_mat=put(tris.material, torch.int64),
+        mat_color=put(mat_color), mat_coeff=put(mat_coeff),
+    )
 
 
 def resolve_resolution(scene: SceneData, settings: RenderSettings) -> Tuple[int, int]:

@@ -26,7 +26,8 @@ reciprocal, which is not IEEE division. Square roots go through float64
 (``_sqrt``): PyTorch's vectorized float32 sqrt on the CPU is not always
 correctly rounded (an AVX-512 build misses by 1 ulp on some inputs;
 tests/test_torch_host.py counts them), while the float64 root rounded to
-float32 is, on every device.
+float32 is, on every device. Both helpers live in
+:mod:`cosig_tpu_torch.ops.intersect`, which the oracle path shares.
 """
 
 from __future__ import annotations
@@ -37,12 +38,10 @@ import torch
 from cosig_tpu_torch.accel.clusters import GID_PAD, ClusterSet
 from cosig_tpu_torch.models.soa import FrameParams, StaticConfig
 from cosig_tpu_torch.ops import rng
+from cosig_tpu_torch.ops.intersect import EPSILON, INF, _sign, _sqrt
+from cosig_tpu_torch.ops.shade import OFFSET
 
 F32 = np.float32
-
-INF = float(F32(3.402823466e38))  # FLT_MAX: the reference's "infinity"
-EPSILON = float(F32(1e-4))
-OFFSET = float(F32(1e-2))
 
 # Ray-state rows (f32 [16, N]): 0-2 origin, 3-5 direction, 6-8
 # attenuation, 9-11 accumulated color, 12 alive, 13 rays-traced count,
@@ -153,17 +152,6 @@ def build_lights(params: FrameParams, multi_light: bool) -> np.ndarray:
     return np.concatenate([pos, rgb, pad], axis=1).astype(F32)
 
 
-def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """IEEE ``a / b`` for a Python scalar ``b`` on any device (see module
-    docstring)."""
-    return torch.div(a, torch.full_like(a, b))
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt on any device (see module docstring)."""
-    return torch.sqrt(x.double()).float()
-
-
 def _pow32(x):
     x2 = x * x
     x4 = x2 * x2
@@ -192,20 +180,6 @@ def prim_table(prims, prim_counts, device):
             f"for counts {(n_sph, n_box)}"
         )
     return prims, n_sph, n_box
-
-
-def _sign(x):
-    """jnp.sign: -1, 1, and x itself at 0 and NaN (torch.sign maps NaN to 0)."""
-    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
-
-
-def _ruv(sx, sy, sz):
-    """random_unit_vector on planes (compute:124-131)."""
-    h0, _, h2 = rng.hash33(sx, sy, sz)
-    z = h2 * 2.0 - 1.0
-    a = h0 * rng.TWO_PI
-    r = _sqrt(torch.maximum(torch.zeros_like(z), 1.0 - z * z))
-    return r * torch.cos(a), r * torch.sin(a), z
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +470,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
         lpy = torch.full_like(ox, float(lights[li, 1]))
         lpz = torch.full_like(ox, float(lights[li, 2]))
         if cfg.enable_soft_shadows:
-            jx, jy, jz = _ruv(px + s * 9.0, py + s * 4.0 + depth_f, s)
+            jx, jy, jz = rng.random_unit_vector_planes(px + s * 9.0, py + s * 4.0 + depth_f, s)
             lpx = lpx + jx * light_size
             lpy = lpy + jy * light_size
             lpz = lpz + jz * light_size
@@ -584,7 +558,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                       hz + nz * OFFSET)
 
     if cfg.enable_glossy:
-        gx, gy, gz = _ruv(px + s * 55.0 + depth_f, py + s * 22.0,
+        gx, gy, gz = rng.random_unit_vector_planes(px + s * 55.0 + depth_f, py + s * 22.0,
                           torch.full_like(ox, 13.0) * depth_f)
         ndx = ndx + gx * roughness
         ndy = ndy + gy * roughness

@@ -3,13 +3,16 @@
 
 The hash is plain float32 arithmetic on the pixel and sample indices, so
 it is ported exactly: the same operations in the same order give the same
-bits as the JAX package and as ``csrc/rng.cuh``.
+bits as the JAX package and as ``csrc/rng.cuh``. Only the sine and cosine
+of :func:`random_unit_vector` may differ in the last bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cosig_tpu_torch.ops.intersect import _sqrt
 
 
 def _f(x) -> float:
@@ -49,3 +52,18 @@ def hash33(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor):
     y = y + d
     z = z + d
     return _frac((x + y) * z), _frac((x + x) * y), _frac((y + x) * x)
+
+
+def random_unit_vector_planes(sx, sy, sz):
+    """compute:124-131 — a point on the unit sphere from a 3D seed, as three
+    planes (x, y, z) the shape of the seeds."""
+    h0, _, h2 = hash33(sx, sy, sz)
+    z = h2 * 2.0 - 1.0
+    a = h0 * TWO_PI
+    r = _sqrt(torch.maximum(torch.zeros_like(z), 1.0 - z * z))
+    return r * torch.cos(a), r * torch.sin(a), z
+
+
+def random_unit_vector(sx, sy, sz):
+    """:func:`random_unit_vector_planes` stacked -> [*seed_shape, 3]."""
+    return torch.stack(random_unit_vector_planes(sx, sy, sz), dim=-1)

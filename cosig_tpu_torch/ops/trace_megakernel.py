@@ -37,9 +37,9 @@ from cosig_tpu_torch.ops.kernel_core import (
     U_DIST,
     U_PLANE_H,
     U_ROW_OFF,
-    _div,
     _rsqrt3,
 )
+from cosig_tpu_torch.ops.intersect import _div
 from cosig_tpu_torch.ops.trace_wavefront import frame_inputs
 
 F32 = np.float32

@@ -38,8 +38,8 @@ from cosig_tpu_torch.ops.kernel_core import (
     ROW_ID,
     STATE_ROWS,
     U_ROW_OFF,
-    _div,
 )
+from cosig_tpu_torch.ops.intersect import _div
 
 F32 = np.float32
 

@@ -1,25 +1,39 @@
-"""Render front end: scene and cluster caching, settings precedence, timing.
+"""Render front end: scene and acceleration caching, backend choice,
+settings precedence, timing, the chunked render.
 
 Counterpart of :class:`cosig_tpu.render.renderer.Renderer`
-(``renderer.py:64-246``) for its two kernel paths. ``Renderer(device,
-backend)`` renders on that device: ``"cuda"`` launches the CUDA kernels,
-``"cpu"`` runs their plain PyTorch versions. ``backend`` picks the path:
-``"wavefront"`` (one primary and ``max_depth - 1`` bounce stages, the JAX
-package's ``backend="wavefront"``) or ``"megakernel"`` (one kernel for the
-frame, its ``backend="pallas"``). On either, ``debug_mode`` 1/2/3 renders
-through the debug kernel (``renderer.py:158-161,182-186``), and
-``analytic_primitives`` clusters the mesh without its spheres and boxes
-and folds those in analytically (``renderer.py:121-169``). Nothing else
-is chosen for the caller — a CUDA renderer on a machine without a GPU
-raises.
+(``renderer.py:64-317``). ``Renderer(device, backend)`` renders on that
+device; ``backend`` picks the path:
 
-The cluster set and the primitive table are cached per scene object and
-analytic mode (``renderer.py:84-98,230-241``), so camera or settings
-changes never rebuild or re-upload geometry.
+* ``"wavefront"`` (the default; the JAX package's ``"wavefront"``): one
+  primary and ``max_depth - 1`` compaction and bounce stages;
+* ``"megakernel"`` (the JAX package's ``"pallas"``): one kernel a frame;
+* ``"xla"``: the oracle path of plain PyTorch operations
+  (:mod:`cosig_tpu_torch.ops.trace_xla`), switching to the per-ray BVH
+  walk above 4096 triangles (``renderer.py:198-215``);
+* ``"xla-brute"``: the oracle path with the brute-force closest hit at any
+  size — the exact test oracle (the BVH walk breaks equal-t ties by visit
+  order, not soup order);
+* ``"auto"``: ``"wavefront"`` on ``device="cuda"`` (the kernels), ``"xla"``
+  on ``device="cpu"``, the counterpart of ``renderer.py:100-108``.
+
+On ``"cuda"`` the two kernel paths launch the CUDA kernels and the oracle
+path runs its PyTorch operations on the card; on ``"cpu"`` the kernel
+paths run the kernels' plain PyTorch versions. ``debug_mode`` 1/2/3 and
+``analytic_primitives`` work on every backend. The device is never chosen
+for the caller: a CUDA renderer on a machine without a GPU raises.
+
+Geometry is cached per scene object and analytic mode
+(``renderer.py:84-98,230-241``): the cluster set and primitive table for
+the kernels, the triangle soup (and the BVH or the analytic tables) for
+the oracle path, so camera or settings changes never rebuild or re-upload
+geometry.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -30,12 +44,15 @@ import torch
 from cosig_tpu_torch.accel.clusters import build_clusters
 from cosig_tpu_torch.models.scene import SceneData
 from cosig_tpu_torch.models.settings import RenderSettings
-from cosig_tpu_torch.models.soa import frame_params, materials_host, static_config
-from cosig_tpu_torch.ops import kernel_core, trace_megakernel, trace_wavefront
-from cosig_tpu_torch.ops.analytic import pack_prims_host
+from cosig_tpu_torch.models.soa import compile_scene, frame_params, materials_host, static_config
+from cosig_tpu_torch.ops import bvh_traverse, kernel_core, trace_megakernel, trace_wavefront, trace_xla
+from cosig_tpu_torch.ops.analytic import closest_hit_analytic, compile_analytic, pack_prims_host
 from cosig_tpu_torch.scene.tessellate import extract_triangles
 
-BACKENDS = ("wavefront", "megakernel")
+log = logging.getLogger("cosig_tpu_torch.render")
+
+BACKENDS = ("auto", "xla", "xla-brute", "wavefront", "megakernel")
+BVH_ABOVE_TRIANGLES = 4096  # the oracle path walks a BVH above this many triangles
 
 
 @dataclass
@@ -54,7 +71,7 @@ class RenderStats:
 
 
 class Renderer:
-    """Stateful front end with scene and cluster-set caching."""
+    """Stateful front end with scene and acceleration caching."""
 
     def __init__(self, device="cuda", backend: str = "wavefront"):
         if backend not in BACKENDS:
@@ -69,12 +86,23 @@ class Renderer:
             raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
         self.device = dev
         self.backend = backend
-        # (scene, analytic, cluster set, primitive table, (n_sph, n_box))
+        # Kernel paths: (scene, analytic, cluster set, primitive table, (n_sph, n_box)).
         self._cached: Optional[tuple] = None
+        # Oracle path: [scene, analytic, triangle soup, SceneArrays,
+        # AnalyticPrims (analytic) or the BVH (once a frame has walked it) or None].
+        self._cached_xla: Optional[list] = None
         self.last_stats = RenderStats()
 
     def invalidate_cache(self) -> None:
         self._cached = None
+        self._cached_xla = None
+
+    def resolve_backend(self) -> str:
+        """The backend a frame runs: ``auto`` is the kernels' wavefront on
+        the card and the oracle path on the CPU."""
+        if self.backend != "auto":
+            return self.backend
+        return "wavefront" if self.device.type == "cuda" else "xla"
 
     def _geometry_for(self, scene: SceneData, analytic: bool = False):
         """(cluster set, primitive table, (n_sph, n_box)) on the renderer's
@@ -92,32 +120,72 @@ class Renderer:
             self._cached = (scene, analytic, cset, prims, (n_sph, n_box))
         return self._cached[2:]
 
+    def _arrays_for(self, scene: SceneData, analytic: bool = False) -> list:
+        """The oracle path's geometry on the renderer's device, cached per
+        (scene, analytic): the mesh without its spheres and boxes and their
+        instance tables (analytic), else the whole mesh."""
+        c = self._cached_xla
+        if c is None or c[0] is not scene or c[1] != analytic:
+            tris = extract_triangles(scene, include_primitives=not analytic)
+            arrays = compile_scene(scene, tris, device=self.device)
+            extra = compile_analytic(scene, device=self.device) if analytic else None
+            self._cached_xla = c = [scene, analytic, tris, arrays, extra]
+        return c
+
+    def _render_xla(self, scene, params, cfg, backend, analytic):
+        """The oracle path's frame -> (image, rays, triangles)."""
+        c = self._arrays_for(scene, analytic)
+        arrays = c[3]
+        if analytic:
+            prims = c[4]
+
+            def ch(s, o, d):
+                return closest_hit_analytic(s, prims, o, d)
+
+            img, rays = trace_xla.render_image(arrays, params, cfg, closest_hit=ch, with_rays=True)
+        elif (backend == "xla" and arrays.num_triangles > BVH_ABOVE_TRIANGLES
+              and cfg.debug_mode == 0):
+            # Large scenes: the per-ray BVH walk (O(log T)) instead of the
+            # O(T) brute-force scan; "xla-brute" opts out.
+            if c[4] is None:
+                c[4] = bvh_traverse.build_bvh_device(c[2], device=self.device)
+            img, rays = bvh_traverse.render_bvh(arrays, c[4], params, cfg, with_rays=True)
+        else:
+            img, rays = trace_xla.render_image(arrays, params, cfg, with_rays=True)
+        return img, rays, arrays.num_triangles
+
     def render_to_device(self, scene: SceneData, settings: RenderSettings) -> torch.Tensor:
         """Returns the framebuffer [H, W, 3] f32 on the renderer's device
         (row 0 = bottom), without a copy to the host."""
         params = frame_params(scene, settings)
         cfg = static_config(scene, settings)
-        uniforms = kernel_core.build_uniforms(params)
-        lights = kernel_core.build_lights(params, cfg.multi_light)
-        cset, prims, prim_counts = self._geometry_for(scene, settings.analytic_primitives)
-        kw = dict(device=self.device, prims=prims, prim_counts=prim_counts)
+        backend = self.resolve_backend()
+        analytic = settings.analytic_primitives
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        if cfg.debug_mode != 0:
-            img, rays = trace_megakernel.render_debug(cset, uniforms, lights, cfg, **kw)
-        elif self.backend == "megakernel":
-            img, rays = trace_megakernel.render_clusters(cset, uniforms, lights, cfg, **kw)
+        if backend in ("xla", "xla-brute"):
+            img, rays, triangles = self._render_xla(scene, params, cfg, backend, analytic)
         else:
-            img, rays = trace_wavefront.render_wavefront(cset, uniforms, lights, cfg, **kw)
+            uniforms = kernel_core.build_uniforms(params)
+            lights = kernel_core.build_lights(params, cfg.multi_light)
+            cset, prims, prim_counts = self._geometry_for(scene, analytic)
+            kw = dict(device=self.device, prims=prims, prim_counts=prim_counts)
+            if cfg.debug_mode != 0:
+                img, rays = trace_megakernel.render_debug(cset, uniforms, lights, cfg, **kw)
+            elif backend == "megakernel":
+                img, rays = trace_megakernel.render_clusters(cset, uniforms, lights, cfg, **kw)
+            else:
+                img, rays = trace_wavefront.render_wavefront(cset, uniforms, lights, cfg, **kw)
+            triangles = cset.num_triangles
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = (time.perf_counter() - t0) * 1e3
         self.last_stats = RenderStats(
             width=cfg.width,
             height=cfg.height,
-            triangles=cset.num_triangles,
+            triangles=triangles,
             render_ms=dt,
             rays_traced=rays,
         )
@@ -126,3 +194,64 @@ class Renderer:
     def render(self, scene: SceneData, settings: RenderSettings) -> np.ndarray:
         """Render and copy to the host -> [H, W, 3] f32 numpy, row 0 bottom."""
         return self.render_to_device(scene, settings).cpu().numpy()
+
+    def render_chunked(self, scene: SceneData, settings: RenderSettings,
+                       rows_per_chunk: int = 64, checkpoint: Optional[str] = None,
+                       progress=None) -> np.ndarray:
+        """Resumable render in bands of ``rows_per_chunk`` rows, each through
+        the oracle path (brute-force closest hit) on the renderer's device,
+        with an optional on-disk checkpoint (``renderer.py:248-304``).
+
+        Interrupt at any point; running again with the same ``checkpoint``
+        path resumes after the last finished band, and the checkpoint is
+        removed when the frame is done. Returns [H, W, 3] f32 numpy."""
+        arrays = self._arrays_for(scene)[3]
+        params = frame_params(scene, settings)
+        cfg = static_config(scene, settings)
+        h, w = cfg.height, cfg.width
+
+        img = np.zeros((h, w, 3), np.float32)
+        done_rows = 0
+        if checkpoint and os.path.exists(checkpoint):
+            data = np.load(checkpoint)
+            if tuple(data["shape"]) == (h, w) and int(data["depth"]) == cfg.max_depth:
+                img = data["img"]
+                done_rows = int(data["done_rows"])
+                log.info("resuming chunked render at row %d/%d", done_rows, h)
+
+        t0 = time.perf_counter()
+        rays = 0
+        while done_rows < h:
+            rows = min(rows_per_chunk, h - done_rows)
+            band, band_rays = trace_xla.render_image(arrays, params, cfg, row_offset=done_rows,
+                                                     rows=rows, with_rays=True)
+            img[done_rows:done_rows + rows] = band.cpu().numpy()
+            rays += band_rays
+            done_rows += rows
+            if checkpoint:
+                # Through a file handle: np.savez(path) appends ".npz" to a
+                # bare path, which would break the resume lookup.
+                with open(checkpoint, "wb") as f:
+                    np.savez(f, img=img, done_rows=done_rows, shape=(h, w), depth=cfg.max_depth)
+            if progress:
+                progress(done_rows / h)
+        if checkpoint and os.path.exists(checkpoint):
+            os.remove(checkpoint)
+        self.last_stats = RenderStats(width=w, height=h, triangles=arrays.num_triangles,
+                                      render_ms=(time.perf_counter() - t0) * 1e3,
+                                      rays_traced=rays)
+        return img
+
+    def save_png(self, img, path: str) -> None:
+        from cosig_tpu_torch.utils.png import write_png
+
+        if isinstance(img, torch.Tensor):
+            img = img.cpu().numpy()
+        write_png(path, np.asarray(img))
+
+
+def estimate_rays(cfg) -> int:
+    """Upper bound on the rays of a frame: W*H*AA*depth*(1 primary or
+    secondary + 1 shadow). The renderer reports the live count."""
+    shadow = 1 if cfg.enable_diffuse else 0
+    return cfg.width * cfg.height * cfg.aa_samples * cfg.max_depth * (1 + shadow)

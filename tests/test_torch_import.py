@@ -23,8 +23,13 @@ import cosig_tpu_torch.kernels.build
 import cosig_tpu_torch.kernels.wavefront
 import cosig_tpu_torch.kernels.megakernel
 import cosig_tpu_torch.ops.trace_megakernel
+import cosig_tpu_torch.ops.trace_xla
+import cosig_tpu_torch.ops.bvh_traverse
 import cosig_tpu_torch.scene.generate
+import cosig_tpu_torch.utils.gif
+import cosig_tpu_torch.cli
 import chip_smoke
+import tempfile, os
 
 scene = cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE)
 st = cosig_tpu_torch.RenderSettings(resolution_override=(16, 12), max_depth=2, aa_samples=2)
@@ -36,6 +41,14 @@ for backend in ("wavefront", "megakernel"):
     m = cosig_tpu_torch.Renderer(device="cpu", backend=backend)
     a = m.render(scene, st.replace(analytic_primitives=True, debug_mode=2))
     assert a.shape == (12, 16, 3) and np.isfinite(a).all()
+x = cosig_tpu_torch.Renderer(device="cpu", backend="xla")
+xi = x.render(scene, st)
+assert xi.shape == (12, 16, 3) and np.isfinite(xi).all() and x.last_stats.rays_traced >= 16 * 12
+with tempfile.TemporaryDirectory() as tmp:
+    out = os.path.join(tmp, "cli.png")
+    rc = cosig_tpu_torch.cli.main(["render", "generated:large_mesh", "-o", out, "--width", "12",
+                                   "--height", "8", "--depth", "2", "--device", "cpu"])
+    assert rc == 0 and os.path.getsize(out) > 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_pkg = sorted(m for m in sys.modules
@@ -59,8 +72,9 @@ def test_port_imports_and_renders_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("OK "), out.stdout
-    assert int(out.stdout.split()[1]) >= 16 * 12 * 2
+    last = out.stdout.splitlines()[-1]  # the CLI prints its own lines first
+    assert last.startswith("OK "), out.stdout
+    assert int(last.split()[1]) >= 16 * 12 * 2
 
 
 # jax itself, any module of the JAX package (cosig_tpu, cosig_tpu.*) and

@@ -184,8 +184,10 @@ def test_renderer_megakernel_equals_plain_call():
     assert cosig_tpu_torch.Renderer(device="cpu").backend == "wavefront"
 
 
-@pytest.mark.parametrize("backend", ["pallas", "auto", "xla", ""])
+@pytest.mark.parametrize("backend", ["pallas", "cuda", "xla_brute", ""])
 def test_unknown_backend_raises(backend):
+    """"pallas" is the JAX package's name (the CLI maps it); "auto" and
+    "xla" are backends of the port since the oracle path came."""
     with pytest.raises(ValueError, match="unknown backend"):
         cosig_tpu_torch.Renderer(device="cpu", backend=backend)
 
