@@ -21,9 +21,13 @@ Phases (any failure raises and the script exits non-zero):
    (bit-equal at AA 1 and 4), the debug kernel in modes 1-3, and analytic
    spheres and boxes through every kernel; then the edges of the block
    walk in every kernel (partial tiles, inactive threads, AA 3, a band of
-   rows, large_mesh's 64-row clusters and the same cut into two cull
-   passes, an analytic frame, a frame whose rays all die at depth 1), bit
-   for bit;
+   rows, large_mesh's 64-row clusters and the same cut two ways, into two
+   cull passes, and four ways, c_pad 1024, into four, an analytic frame, a
+   frame whose rays all die at depth 1), bit for bit; then the compaction
+   kernel on synthetic states (``compact_states``: N from 1 to 2^24 - 1,
+   every ray dead, alive in one octant or in all eight, NaN and signed
+   zero directions), its list and length equal to the plain ones as
+   integers, and equal on a second run;
 3. print models of the block walk at the main path's shapes (the
    pair-loop efficiency of the kernels' warps, from the plain traversal's
    count of warp slots, for the bounce's warps in pixel order and in list
@@ -31,21 +35,26 @@ Phases (any failure raises and the script exits non-zero):
    from the wavefront's live rows), then time each kernel against its
    plain version at the main path's shapes (glass_sphere, 1024x1024, depth
    6, AA 4; the bounce also at large_mesh's depths 1-3, and on an empty
-   list), with ``torch.sort`` beside the compaction kernel, and compute
+   list), with ``torch.sort`` beside the compaction kernel and its CUDA
+   launches per call counted from torch.profiler's device activity, and compute
    each bound from the work the plain traversal counts at those shapes
    (what the kernel's walk tests, shadow rays up to their first occluder)
    and the bytes it must move;
 4. drive each path through ``Renderer`` with the launch counters reset
    just before it and read just after: the wavefront and the megakernel
-   on glass_sphere (1024x1024, depth 6, AA 4) and large_mesh (2048x2048,
+   on the five bench configurations at their full size (diffuse_sphere
+   256x256 depth 1, cosig_walls 512x512 depth 1, mirror_sphere 512x512
+   depth 3, glass_sphere 1024x1024 depth 6 AA 4, large_mesh 2048x2048
    depth 4) against the JAX package's recorded rays and image means
    (bench_details.json) and the megakernel's frames against the
    wavefront's bit for bit, a debug frame, and analytic frames of
    glass_sphere and cosig_walls held to their plain versions; ms/frame
    with CUDA events;
 5. time each wavefront stage (primary; per depth compaction and bounce;
-   finalize) over a few frames, and time the plain versions' frames at
-   the same size against the kernels' images;
+   finalize) over a few frames, the first apart from the rest, with the
+   device allocations of each stage, then each launch of one frame on the
+   device with torch.profiler, and time the plain versions' frames at the
+   same size against the kernels' images;
 6. the oracle path and the application layer on the card: glass_sphere
    and large_mesh at bench.py's reduced size (256x256) through the
    brute-force oracle (``backend="xla-brute"``), then through the
@@ -85,9 +94,12 @@ RAYS_SLACK = 8
 # One stage's state against its plain version at the main path's shapes.
 STATE_MAX = 1e-3
 
-# The JAX package's records for the two bench configurations
+# The JAX package's records for the five bench configurations
 # (bench_details.json): rays traced and image mean, per frame.
 RECORDS = {
+    "diffuse_sphere": {"rays": 130884, "mean": 0.567826},
+    "cosig_walls": {"rays": 687877, "mean": 0.652392},
+    "mirror_sphere": {"rays": 548578, "mean": 0.383861},
     "glass_sphere": {"rays": 8847840, "mean": 0.425855},
     "large_mesh": {"rays": 13689416, "mean": 0.404119},
 }
@@ -405,25 +417,32 @@ def edge_cases(device) -> None:
                      band=(21, 9))
     compare_case(device, "large_mesh", dict(resolution_override=(128, 96), max_depth=4), False,
                  exact=True)
-    # More clusters than one pass of the block walk's cull (TILE_C = 256).
-    compare_case(device, "large_mesh", dict(resolution_override=(128, 96), max_depth=4), False,
-                 exact=True, split=True)
+    # More clusters than one pass of the block walk's cull (TILE_C = 256):
+    # 442 clusters (c_pad 512), then 884 (c_pad 1024, past one superblock
+    # of 512, four cull passes).
+    for ways in (2, 4):
+        compare_case(device, "large_mesh", dict(resolution_override=(128, 96), max_depth=4),
+                     False, exact=True, split=ways)
     compare_case(device, "cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True,
                  exact=True)
 
 
-def split_clusters(cset):
-    """The cluster set with each cluster cut into two of half the rows, each
-    half under its whole cluster's box (a superset, so still exact): twice
-    the clusters, for a walk over more clusters than one cull pass holds.
-    Padding rows stay last in every half."""
+def split_clusters(cset, ways: int = 2):
+    """The cluster set with each cluster cut into ``ways`` clusters of
+    k / ways rows, each part under its whole cluster's box (a superset, so
+    still exact; the rows keep their order, so each row keeps its index
+    into the flat geometry): ``ways`` times the clusters, for a walk over
+    more clusters than one cull pass holds. Padding rows stay last in every
+    part; c_pad is the next multiple of 512."""
     import torch
 
     c, k = cset.num_clusters, cset.k
-    geom = cset.geom.reshape(2 * c, k // 2, cset.geom.shape[2]).contiguous()
-    c_pad = -(-2 * c // 512) * 512
+    if k % ways:
+        raise ValueError(f"k = {k} does not split {ways} ways")
+    geom = cset.geom.reshape(ways * c, k // ways, cset.geom.shape[2]).contiguous()
+    c_pad = -(-ways * c // 512) * 512
     aabb = torch.full((8, c_pad), float("nan"), dtype=torch.float32, device=cset.device)
-    aabb[:, :2 * c] = cset.aabb_t[:, :c].repeat_interleave(2, dim=1)
+    aabb[:, :ways * c] = cset.aabb_t[:, :c].repeat_interleave(ways, dim=1)
     return type(cset)(geom=geom, aabb_t=aabb, sb_aabb_t=cset.sb_aabb_t, mats=cset.mats,
                       num_triangles=cset.num_triangles)
 
@@ -450,7 +469,7 @@ def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
     return lengths
 
 
-def compare_case(device, name, kw, analytic, exact=False, band=None, split=False,
+def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
                  lists=None) -> None:
     """One small frame: the wavefront kernels and the megakernel against
     their plain versions (``exact``: bit for bit), the compaction kernel's
@@ -459,7 +478,7 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
     at AA 1 and 4; at other AA the wavefront's sample sum times
     float32(1/aa)), and on some frames the debug kernel. ``band``: (rows,
     row_offset), rows inside the image; ``split``: the scene's clusters cut
-    in two (split_clusters)."""
+    that many ways (split_clusters)."""
     import numpy as np
 
     from cosig_tpu_torch.models.soa import static_config
@@ -468,13 +487,14 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
 
     s = scene_setup(name, kw, device, analytic)
     cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-    if split:
-        cset = split_clusters(cset)
+    if split > 1:
+        cset = split_clusters(cset, split)
     pk = dict(prims=s["prims"], prim_counts=s["prim_counts"])
     rows, row_off = band if band else (cfg.height, 0)
     bk = dict(rows=rows, row_offset=row_off) if band else {}
     tag = tag_of(name, cfg, analytic) + (f" rows {row_off}..{row_off + rows - 1}" if band else "")
-    log(f"compare {tag} (clusters={cset.num_clusters} k={cset.k})")
+    log(f"compare {tag} (clusters={cset.num_clusters} k={cset.k} "
+        f"c_pad={cset.aabb_t.shape[1]})")
     # Wavefront: primary, compaction and bounce kernels, state against the plain stages.
     st_k = tw.trace_state(cset, uni, lights, cfg, **bk, **pk)
     st_p = tw.trace_state(cset, uni, lights, cfg, plain=True, **bk, **pk)
@@ -516,6 +536,123 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=False
             hold(f"debug mode {mode}", dcfg, img_d, rays_d,
                  *tm.render_debug(cset, uni, lights, dcfg, plain=True, **pk), exact=exact)
             check(rays_d == cfg.width * cfg.height, (tag, rays_d))
+
+
+# The compaction kernel's smallest block range (csrc/wavefront.cu: 16
+# warps of a chunk of 32 rays each) and the largest band the wavefront
+# takes (trace_wavefront.num_rays: fewer than 2^24 rays).
+COMPACT_MIN_RANGE = 512
+COMPACT_MAX_N = 2**24 - 1
+
+
+def compact_states(device, extra_sizes=(), seed: int = 0):
+    """Synthetic states f32 [16, N] on ``device`` for the compaction kernel,
+    made from ``seed`` with numpy, one at a time -> yields (name, state).
+    Mixed states (40 % dead: alive 0, -0, -1 or NaN; live directions
+    random, a tenth of their components +0, -0 or NaN) at N = 1, 31, 2047,
+    2049, one past the smallest block range, each of ``extra_sizes`` and
+    2^24 - 1 (1.07 GB); then at N = 4099: every ray dead, every ray alive
+    in one octant, every ray alive in all eight octants, and directions
+    drawn from NaN, +0, -0 and +-1 only. Rows the compaction does not read
+    are 0."""
+    import numpy as np
+    import torch
+
+    from cosig_tpu_torch.ops.kernel_core import ROW_ALIVE
+
+    rng = np.random.default_rng(seed)
+
+    def state(alive, dirs):
+        st = torch.zeros((16, alive.shape[0]), dtype=torch.float32, device=device)
+        st[ROW_ALIVE] = torch.from_numpy(alive).to(device)
+        st[3:6] = torch.from_numpy(dirs).to(device)
+        return st
+
+    def mixed(n):
+        alive = np.where(rng.random(n, dtype=np.float32) < 0.6, np.float32(1.0),
+                         rng.choice(np.array([0.0, -0.0, -1.0, np.nan], np.float32), n))
+        dirs = rng.standard_normal((3, n), dtype=np.float32)
+        odd = rng.random((3, n), dtype=np.float32) < 0.1
+        dirs[odd] = rng.choice(np.array([0.0, -0.0, np.nan], np.float32), int(odd.sum()))
+        return state(alive, dirs)
+
+    for n in (1, 31, 2047, 2049, COMPACT_MIN_RANGE + 1, *extra_sizes, COMPACT_MAX_N):
+        yield f"mixed N={n}", mixed(n)
+    n = 4099
+    dirs = rng.standard_normal((3, n), dtype=np.float32)
+    yield "every ray dead", state(
+        rng.choice(np.array([0.0, -0.0, -1.0, np.nan], np.float32), n), dirs)
+    signs = np.array([1.0, -1.0, 1.0], np.float32)[:, None]  # octant 1 + 4 = 5
+    yield "every ray alive in one octant", state(np.ones(n, np.float32),
+                                                 np.abs(dirs) * signs + 0.5 * signs)
+    octant = rng.integers(0, 8, n)
+    bits = np.stack([(octant >> a) & 1 for a in range(3)]).astype(np.float32)
+    yield "every ray alive in all eight octants", state(np.ones(n, np.float32),
+                                                        (np.abs(dirs) + 0.5) * (2 * bits - 1))
+    yield "directions NaN, +0, -0", state(
+        np.ones(n, np.float32),
+        rng.choice(np.array([np.nan, 0.0, -0.0, 1.0, -1.0], np.float32), (3, n)))
+
+
+def check_compaction_states(device) -> list:
+    """The compaction kernel on compact_states: its list and n_live equal
+    compact_plain's as integers, and a second run on the same state gives
+    the same list, on every state -> per state (name, N, live, blocks, rays
+    per block)."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    blocks, rays = binding.compact_grid(4 * 1024 * 1024, device)
+    check(binding.compact_grid(COMPACT_MIN_RANGE + 1, device) == (2, COMPACT_MIN_RANGE),
+          "the smallest block range is not", COMPACT_MIN_RANGE)
+    out = []
+    for name, st in compact_states(device, extra_sizes=(blocks * rays + 1,)):
+        n = st.shape[1]
+        idx, n_live = kw.compact(st)
+        idx2, n_live2 = kw.compact(st)
+        idx_p, n_live_p = tw.compact_plain(st)
+        m = int(n_live)
+        same = (m == int(n_live_p) and idx.dtype == idx_p.dtype == torch.int32
+                and bool((idx[:m] == idx_p[:m]).all()))
+        again = int(n_live2) == m and bool((idx2[:m] == idx[:m]).all())
+        grid = binding.compact_grid(n, device)
+        log(f"  compaction {name}: {m} of {n} rays listed, equal to compact_plain={same}, "
+            f"second run equal={again}; grid {grid[0]} blocks x {grid[1]} rays")
+        check(same and again, "compaction of", name, m, int(n_live_p))
+        out.append(dict(state=name, n=n, live=m, blocks=grid[0], rays_per_block=grid[1]))
+        del st, idx, idx2, idx_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def cuda_activity(fn) -> list:
+    """The device activities (kernels, copies, sets) of one ``fn()`` from
+    torch.profiler's CUDA activity -> [(name, start us, ms)] by start. A
+    first run of ``fn`` under the profiler is its warm-up step and is not
+    read: without it the tracer can miss the first launch. The step's own
+    span on the device timeline ("ProfilerStep#n") is not an activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = []
+
+    def read(prof):
+        acts.extend((e.name, e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=read) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sorted(acts, key=lambda a: a[1])
 
 
 def work_bound(work: dict, nbytes: int) -> dict:
@@ -664,6 +801,7 @@ def time_kernels(device) -> list:
     1-3, on the wavefront chain's own states."""
     import torch
 
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import megakernel as km
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.models.soa import static_config
@@ -752,20 +890,29 @@ def time_kernels(device) -> list:
                        + 4 * (st_k[5] > 0).int(), 8)
     kc.reset_work()
     bound = work_bound(dict(kc.WORK), 4 * n + 12 * live + 4 * live + 4)
+    # The CUDA launches of one call, from the profiler's device activity.
+    acts = cuda_activity(lambda: kw.compact(st_k))
+    log(f"  one kw.compact call on the card: {len(acts)} device activities "
+        + ", ".join(f"{a[0][:40]} {a[2]:.4f} ms" for a in acts))
+    check(len(acts) == 1 and "compact_kernel" in acts[0][0],
+          "kw.compact is not one CUDA launch:", [a[0] for a in acts])
     ms = device_ms(lambda: kw.compact(st_k), 20)
     paced_ms = cuda_ms(lambda: kw.compact(st_k), 20)
     plain_ms = cuda_ms(lambda: tw.compact_plain(st_k), 5)
     library_ms = device_ms(lambda: torch.sort(keys, stable=True), 20)
-    log(f"  compact: {ms:.4f} ms on the card ({paced_ms:.4f} ms paced by the host), plain "
-        f"{plain_ms:.3f} ms, torch.sort(keys, stable=True) {library_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    grid = binding.compact_grid(n, device)
+    log(f"  compact: {ms:.4f} ms on the card ({paced_ms:.4f} ms paced by the host; profiler "
+        f"{acts[0][2]:.4f} ms), plain {plain_ms:.3f} ms, torch.sort(keys, stable=True) "
+        f"{library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); grid "
+        f"{grid[0]} blocks x {grid[1]} rays")
     out.append(dict(name="compact", at=f"{glass}, depth 1", route="cuda", source=wavefront_cu,
                     replaces="cosig_tpu/ops/trace_wavefront.py:576 _compact_prefix "
                              "(XLA, not Pallas)",
                     max_abs_err=0.0, ms=ms, host_paced_ms=paced_ms, plain_ms=plain_ms,
                     bound_ms=bound["bound_ms"],
                     bound_by=bound["bound_by"], library_ms=library_ms, work=bound["work"],
-                    live=live))
+                    live=live, cuda_launches_per_call=len(acts), profiler_ms=acts[0][2],
+                    grid_blocks=grid[0], rays_per_block=grid[1]))
     del idx_k, idx_p, keys
 
     rec = bounce_measure(f"{glass}, depth 1", cset, uni, mats, lights, cfg, 1, pk, st_k,
@@ -811,11 +958,13 @@ def time_kernels(device) -> list:
     for d in range(1, cfg.max_depth):
         tag = f"large_mesh {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}, depth {d}"
         compact_ms = device_ms(lambda: kw.compact(state), 20)
+        compact_paced_ms = cuda_ms(lambda: kw.compact(state), 20)
         rec = bounce_measure(tag, cset, uni, mats, lights, cfg, d, pk, state, geom_bytes,
                              reps_p=0)
         state = rec.pop("result")
-        deep.append(dict(rec, compact_ms=compact_ms))
-        log(f"  compact ({tag}): {compact_ms:.4f} ms")
+        deep.append(dict(rec, compact_ms=compact_ms, compact_host_paced_ms=compact_paced_ms))
+        log(f"  compact ({tag}): {compact_ms:.4f} ms on the card ({compact_paced_ms:.4f} ms "
+            "paced by the host)")
     bounce["large_mesh"] = deep
     del state, cset
     torch.cuda.empty_cache()
@@ -872,7 +1021,7 @@ def drive_main_paths(device) -> tuple:
     for backend in ("wavefront", "megakernel"):
         renderer = cosig_tpu_torch.Renderer(device="cuda", backend=backend)
         binding.reset_counts()
-        for name in ("glass_sphere", "large_mesh"):
+        for name in RECORDS:
             scene, settings = load(name)
             per_frame = (wavefront_launches(settings.max_depth)
                          if backend == "wavefront" else dict(megakernel=1))
@@ -901,7 +1050,7 @@ def drive_main_paths(device) -> tuple:
         torch.cuda.empty_cache()
     # Full size, AA 4 and 1: the megakernel runs the wavefront kernels'
     # camera and bounce device code, so its frames are the same bits.
-    for name in ("glass_sphere", "large_mesh"):
+    for name in RECORDS:
         w, m = frames[f"wavefront {name}"], frames[f"megakernel {name}"]
         same = bool(np.array_equal(w["image"], m["image"]))
         log(f"  {name} megakernel vs wavefront kernels at full size: bitwise={same} "
@@ -959,16 +1108,23 @@ def drive_main_paths(device) -> tuple:
 
 def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
     """Phase 5: per-stage kernel times of the wavefront frame (CUDA events
-    around each launch: the primary; per depth the compaction, then the
-    bounce; finalize), the mean over ``stage_frames`` frames, and the plain
-    versions' frame times and images at the same size (or 512x512 when a
-    frame takes too long)."""
+    around each launch as the host paces them: the primary; per depth the
+    compaction, then the bounce; finalize) in each of ``stage_frames``
+    frames, the first frame after phase 4's ``empty_cache`` apart from the
+    rest, with the caching allocator's device allocations (``cudaMalloc``)
+    per stage; then the device time of each launch of one more frame from
+    torch.profiler's CUDA activity, which no host pacing enters; then the
+    plain versions' frame times and images at the same size (or 512x512
+    when a frame takes too long)."""
     import torch
 
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_megakernel as tm
     from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    def device_allocs() -> int:
+        return int(torch.cuda.memory_stats(device).get("num_device_alloc", -1))
 
     for name in ("glass_sphere", "large_mesh"):
         fr = frames[f"wavefront {name}"]
@@ -977,33 +1133,73 @@ def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
         mats = cset.mats.cpu().numpy()
         pk = kc.prim_table(None, (0, 0), device)
         steps = 2 * cfg.max_depth  # primary, (compact, bounce) per depth, finalize
-        sums = [0.0] * steps
-        for _ in range(stage_frames):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-            torch.cuda.synchronize()
-            ev[0].record()
+
+        def frame(mark=lambda: None):
             state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
-            ev[1].record()
+            mark()
             for d in range(1, cfg.max_depth):
                 idx, n_live = kw.compact(state)
-                ev[2 * d].record()
+                mark()
                 kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
-                ev[2 * d + 1].record()
+                mark()
             tw.finalize(state, cfg, cfg.height)
-            ev[-1].record()
+            mark()
+
+        per_frame, allocs, host = [], [], []
+        for _ in range(stage_frames):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+            counts, clock = [device_allocs()], [time.perf_counter()]
+
+            def mark():
+                ev[len(counts)].record()
+                counts.append(device_allocs())
+                clock.append(time.perf_counter())
+
             torch.cuda.synchronize()
-            sums = [a + ev[i].elapsed_time(ev[i + 1]) for i, a in enumerate(sums)]
-            del state
-        t = [a / stage_frames for a in sums]
+            ev[0].record()
+            frame(mark)
+            torch.cuda.synchronize()
+            per_frame.append([ev[i].elapsed_time(ev[i + 1]) for i in range(steps)])
+            allocs.append([b - a for a, b in zip(counts, counts[1:])])
+            host.append([1e3 * (b - a) for a, b in zip(clock, clock[1:])])
+        t = [sum(f[i] for f in per_frame) / stage_frames for i in range(steps)]
         busy = sum(t)
+        later = [sum(f[i] for f in per_frame[1:]) / (stage_frames - 1) for i in range(steps)]
         fr["stages_ms"] = dict(primary=t[0], compacts=t[1:-1:2], bounces=t[2:-1:2],
-                               finalize=t[-1], frames=stage_frames)
+                               finalize=t[-1], frames=stage_frames,
+                               per_frame=per_frame, later_frames_mean=later,
+                               host_ms_per_stage=host, device_allocs_per_stage=allocs)
         fr["kernel_share"] = busy / fr["ms"]
         log(f"  {name} stages (ms, mean of {stage_frames} frames): primary {t[0]:.3f}; "
             "compact + bounce per depth "
             + ", ".join(f"{c:.3f} + {b:.3f}" for c, b in zip(t[1:-1:2], t[2:-1:2]))
             + f"; finalize {t[-1]:.3f}; sum {busy:.3f} = {100 * busy / fr['ms']:.1f} % of the "
             "renderer's ms/frame")
+        for i, (row, h) in enumerate(zip(per_frame, host)):
+            log(f"    frame {i}: events " + ", ".join(f"{x:.4f}" for x in row)
+                + "; host " + ", ".join(f"{x:.4f}" for x in h))
+        log(f"    later frames' mean: " + ", ".join(f"{x:.4f}" for x in later))
+        log(f"    device allocations per stage, by frame: {allocs}")
+        # One more frame under the profiler: each launch's device time.
+        acts = cuda_activity(frame)
+        kern = [a for a in acts if "cosig" in a[0]]
+        pick = [a[2] for a in kern]
+        span = (acts[-1][1] + 1e3 * acts[-1][2] - acts[0][1]) / 1e3
+        fr["profiler_ms"] = dict(
+            primary=pick[0], compacts=pick[1:-1:2], bounces=pick[2::2],
+            other=sum(a[2] for a in acts if "cosig" not in a[0]), span=span,
+            busy_share=sum(a[2] for a in acts) / span,
+            kernels=[a[0].split("(")[0] for a in kern])
+        check(len(kern) == 2 * cfg.max_depth - 1 and "primary_kernel" in kern[0][0]
+              and all("compact_kernel" in a[0] for a in kern[1::2])
+              and all("bounce_kernel" in a[0] for a in kern[2::2]),
+              name, "profiled frame's activities", [a[0] for a in acts])
+        p = fr["profiler_ms"]
+        log(f"    profiler, one frame's device times: primary {p['primary']:.4f}; compact + "
+            "bounce per depth " + ", ".join(f"{c:.4f} + {b:.4f}" for c, b in
+                                            zip(p["compacts"], p["bounces"]))
+            + f"; other {p['other']:.4f} ({len(acts) - len(kern)} activities); span "
+            f"{span:.3f} ms, busy {100 * p['busy_share']:.1f} %")
         t0 = time.perf_counter()
         pimg, prays = tw.render_wavefront(cset, uni, lights, cfg, plain=True)
         torch.cuda.synchronize()
@@ -1235,15 +1431,11 @@ def oracle_and_cli(device, workdir: str, side: int = ORACLE_SIDE, full_size: boo
 
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
-    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...};
-    the compaction kernel's three launches as "compact count", "compact
-    scan" and "compact scatter"."""
+    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...}."""
     import re
 
     names = {"primary_kernel": "primary", "bounce_kernel": "bounce",
-             "megakernel": "megakernel", "debug_kernel": "debug",
-             "compact_count_kernel": "compact count", "compact_scan_kernel": "compact scan",
-             "compact_scatter_kernel": "compact scatter"}
+             "megakernel": "megakernel", "debug_kernel": "debug", "compact_kernel": "compact"}
     out, cur = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
@@ -1293,13 +1485,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     resources = ptxas_resources(ptxas)
-    compact_parts = ("compact count", "compact scan", "compact scatter")
-    check(set(resources) >= {"primary", "bounce", "megakernel", "debug", *compact_parts},
-          resources)
+    check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug"}, resources)
     check_no_jax()
 
     t0 = time.perf_counter()
     compare_small(device)
+    states = check_compaction_states(device)
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     models = model_walks(device)
@@ -1325,11 +1516,14 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, k["name"], "was not launched on its path")
-        if k["name"] == "compact":
-            k["design"] = "per-block octant counts, one-block scan, scatter; no atomics"
-            k["resources"] = {part: resources[part] for part in compact_parts}
-            continue
         k.update(resources[k["name"]])
+        if k["name"] == "compact":
+            k["design"] = ("one cooperative launch: key bytes in shared memory, one grid "
+                           "barrier, offsets from the per-block counts in every block; no "
+                           "atomics")
+            k["smem_bytes"] = k["rays_per_block"]
+            k["synthetic_states"] = states
+            continue
         k["design"] = "block walk" + (" on the compaction list" if k["name"] == "bounce" else "")
         k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
     log(json.dumps({"models": models}))

@@ -7,19 +7,21 @@
 // (camera.cuh: stratified jitter, perspective or orthographic, motion
 // blur), the 16-row state and bounce 0.
 //
-// The compaction kernel (compact_count_kernel, compact_scan_kernel and
-// compact_scatter_kernel, three launches behind one launcher) replaces
-// cosig_tpu/ops/trace_wavefront.py _compact_prefix (:576-617, XLA, not
-// Pallas), the blocked dispatch's gather of the live rays, per ray instead
-// of per 128-ray group (a TPU gather-cost device): it lists the ids of the
-// rays with alive > 0 ordered by the direction octant (dx > 0) + 2 (dy >
-// 0) + 4 (dz > 0), the JAX key, then by id. Each block of COMPACT_TILE
-// rays counts its live rays per octant with warp ballots; one block scans
-// the counts octant-major into each (octant, block) offset and the list
-// length; each block then writes its live ids at offset + rank, the rank
-// a ballot prefix within the warp plus the warp prefix within the block.
-// No atomics, so the list is the same on every run. Bound: bytes (the
-// alive row, the live rays' direction rows, the list).
+// compact_kernel replaces cosig_tpu/ops/trace_wavefront.py _compact_prefix
+// (:576-617, XLA, not Pallas), the blocked dispatch's gather of the live
+// rays, per ray instead of per 128-ray group (a TPU gather-cost device): it
+// lists the ids of the rays with alive > 0 ordered by the direction octant
+// (dx > 0) + 2 (dy > 0) + 4 (dz > 0), the JAX key, then by id, and writes
+// the list length to the device. It is bound by bytes: the alive row, the
+// live rays' direction rows and the list, about 4 N + 16 live bytes, a few
+// microseconds at the card's memory rate. So it is one launch that reads
+// the state once: a cooperative grid of resident blocks, each owning one
+// contiguous range of rays, keeps one key byte per ray in shared memory
+// between its count and its scatter, with one grid barrier between them
+// for the per-block counts; every block then derives its offsets from the
+// counts itself, with no second barrier and no atomics, so the list is the
+// same on every run. A launch the card refuses is an error, never a
+// fallback.
 //
 // bounce_kernel replaces cosig_tpu/ops/trace_wavefront.py
 // _make_bounce_kernel (:439-564) in its blocked form (:1013-1129): one
@@ -57,6 +59,7 @@
 // --fmad=false (cosig_tpu_torch/kernels/build.py). --fmad=false and IEEE
 // division and sqrt (no --use_fast_math) keep the results bit-equal to
 // the plain PyTorch version.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -130,125 +133,167 @@ __global__ void __launch_bounds__(THREADS)
 // ---- compaction ----
 
 constexpr int OCTANTS = 8;  // keys 0-7; a dead ray's key is OCTANTS
-constexpr int COMPACT_THREADS = 256;
+constexpr int COMPACT_THREADS = 512;
 constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
-constexpr int COMPACT_ITEMS = 8;  // rays per thread
-constexpr int COMPACT_TILE = COMPACT_THREADS * COMPACT_ITEMS;  // rays per block
-constexpr int SCAN_THREADS = 1024;
+constexpr int COMPACT_UNROLL = 4;  // chunks of 32 rays whose loads a warp issues together
+constexpr int COMPACT_MAX_PER_SM = 2048 / COMPACT_THREADS;
 
-// Key of ray i: its direction octant if it is alive, else OCTANTS.
-__device__ __forceinline__ int ray_key(const float* __restrict__ state, int n, int i) {
-  if (i >= n || !(state[ROW_ALIVE * (size_t)n + i] > 0.0f)) return OCTANTS;
-  return (state[3 * (size_t)n + i] > 0.0f ? 1 : 0) + (state[4 * (size_t)n + i] > 0.0f ? 2 : 0) +
-         (state[5 * (size_t)n + i] > 0.0f ? 4 : 0);
-}
-
-// The keys of this thread's rays: round r of a block covers rays base + r
-// * COMPACT_THREADS + threadIdx.x, so (round, warp, lane) ascends with the
-// ray id. All loads are issued before any is used.
-__device__ __forceinline__ void block_keys(const float* __restrict__ state, int n,
-                                           int (&key)[COMPACT_ITEMS]) {
-  const int base = blockIdx.x * COMPACT_TILE + threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < COMPACT_ITEMS; ++r) key[r] = ray_key(state, n, base + r * COMPACT_THREADS);
-}
-
-// 1. counts[o * blocks + b]: the live rays of octant o in block b's tile.
+// One launch on a cooperative grid whose blocks are all resident. Block b
+// owns rays [b * range, (b + 1) * range), range = COMPACT_WARPS * span *
+// 32; warp w of it owns `span` consecutive chunks of 32 rays, so (block,
+// warp, chunk, lane) ascends with the ray id.
+//  1. Each warp reads its rays' alive row, and the three direction rows of
+//     the live ones, once; it keeps each ray's key byte in shared memory and
+//     counts its keys per octant (16-bit fields of two registers per lane,
+//     summed over the warp at the end). Thread o < 8 writes the block's
+//     count of octant o to counts[o * blocks + b].
+//  2. One grid barrier. Every block then reads the [8, blocks] counts (from
+//     L2) and computes the same octant starts and its own offset per octant
+//     (the counts of the blocks before it), then each warp's from the warp
+//     counts; block 0 writes n_live.
+//  3. Each warp walks its key bytes again and writes each live ray's id at
+//     its warp's next slot for the ray's octant plus its rank among the
+//     chunk's lanes of that octant (a match of the key's bits over three
+//     ballots).
+// No atomics beyond the barrier's own, so the list is the same on every run.
 __global__ void __launch_bounds__(COMPACT_THREADS)
-    compact_count_kernel(const float* __restrict__ state, int n, int* __restrict__ counts) {
-  __shared__ int cnt[COMPACT_WARPS][OCTANTS];
-  const int lane = threadIdx.x & 31;
-  int key[COMPACT_ITEMS];
-  block_keys(state, n, key);
-  int mine = 0;  // lane o < OCTANTS: the warp's live rays of octant o
+    compact_kernel(const float* __restrict__ state, int n, int span, int* __restrict__ counts,
+                   int* __restrict__ idx, int* __restrict__ n_live) {
+  extern __shared__ unsigned char keys[];  // [COMPACT_WARPS * span * 32]
+  __shared__ int warp_cnt[COMPACT_WARPS][OCTANTS];
+  __shared__ int next[COMPACT_WARPS][OCTANTS];  // each warp's next list slot per octant
+  __shared__ int total[OCTANTS], before[OCTANTS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * (COMPACT_WARPS * span * 32);  // the block's first ray
+  const int own = warp * span * 32;  // the warp's first key byte
+
+  // 1. Keys and counts.
+  const float* __restrict__ alive_row = state + ROW_ALIVE * (size_t)n;
+  unsigned long long lo = 0ull, hi = 0ull;  // octants 0-3 and 4-7, 16 bits each
+  for (int c0 = 0; c0 < span; c0 += COMPACT_UNROLL) {
+    float a[COMPACT_UNROLL], dx[COMPACT_UNROLL], dy[COMPACT_UNROLL], dz[COMPACT_UNROLL];
 #pragma unroll
-  for (int r = 0; r < COMPACT_ITEMS; ++r) {
+    for (int u = 0; u < COMPACT_UNROLL; ++u) {
+      const int i = first + own + (c0 + u) * 32 + lane;
+      a[u] = (c0 + u < span && i < n) ? alive_row[i] : 0.0f;
+    }
 #pragma unroll
-    for (int o = 0; o < OCTANTS; ++o) {
-      const int c = __popc(__ballot_sync(FULL_MASK, key[r] == o));
-      if (lane == o) mine += c;
+    for (int u = 0; u < COMPACT_UNROLL; ++u) {
+      const int i = first + own + (c0 + u) * 32 + lane;
+      dx[u] = dy[u] = dz[u] = 0.0f;
+      if (a[u] > 0.0f) {  // NaN is not alive
+        dx[u] = state[3 * (size_t)n + i];
+        dy[u] = state[4 * (size_t)n + i];
+        dz[u] = state[5 * (size_t)n + i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < COMPACT_UNROLL; ++u) {
+      if (c0 + u >= span) break;
+      const int key = a[u] > 0.0f ? (dx[u] > 0.0f ? 1 : 0) + (dy[u] > 0.0f ? 2 : 0) +
+                                        (dz[u] > 0.0f ? 4 : 0)
+                                  : OCTANTS;
+      keys[own + (c0 + u) * 32 + lane] = (unsigned char)key;
+      const unsigned long long one = 1ull << (16 * (key & 3));
+      if (key < 4) lo += one;
+      else if (key < OCTANTS) hi += one;
     }
   }
-  if (lane < OCTANTS) cnt[threadIdx.x >> 5][lane] = mine;
+#pragma unroll
+  for (int o = 0; o < OCTANTS; ++o) {
+    const unsigned v = (unsigned)(((o < 4 ? lo : hi) >> (16 * (o & 3))) & 0xffffull);
+    const unsigned s = __reduce_add_sync(FULL_MASK, v);
+    if (lane == 0) warp_cnt[warp][o] = (int)s;
+  }
   __syncthreads();
   if (threadIdx.x < OCTANTS) {
-    int total = 0;
-    for (int w = 0; w < COMPACT_WARPS; ++w) total += cnt[w][threadIdx.x];
-    counts[threadIdx.x * gridDim.x + blockIdx.x] = total;
+    int t = 0;
+    for (int w = 0; w < COMPACT_WARPS; ++w) t += warp_cnt[w][threadIdx.x];
+    counts[threadIdx.x * gridDim.x + blockIdx.x] = t;
+  }
+
+  // 2. Offsets, after every block's counts.
+  cooperative_groups::this_grid().sync();
+  if (warp < OCTANTS) {
+    int t = 0, b = 0;
+    for (int blk = lane; blk < (int)gridDim.x; blk += 32) {
+      const int c = __ldcg(counts + warp * gridDim.x + blk);
+      t += c;
+      if (blk < (int)blockIdx.x) b += c;
+    }
+    t = __reduce_add_sync(FULL_MASK, t);
+    b = __reduce_add_sync(FULL_MASK, b);
+    if (lane == 0) {
+      total[warp] = t;
+      before[warp] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < COMPACT_WARPS * OCTANTS) {
+    const int w = threadIdx.x / OCTANTS, o = threadIdx.x % OCTANTS;
+    int pos = before[o];
+    for (int q = 0; q < o; ++q) pos += total[q];
+    for (int v = 0; v < w; ++v) pos += warp_cnt[v][o];
+    next[w][o] = pos;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int s = 0;
+    for (int o = 0; o < OCTANTS; ++o) s += total[o];
+    *n_live = s;
+  }
+  __syncthreads();
+
+  // 3. Scatter from the key bytes.
+  int* __restrict__ mine = next[warp];
+  const unsigned earlier = (1u << lane) - 1u;
+  for (int c = 0; c < span; ++c) {
+    const int l = own + c * 32 + lane;
+    const int key = keys[l];
+    const unsigned live = __ballot_sync(FULL_MASK, key < OCTANTS);
+    if (live == 0u) continue;  // the same in every lane
+    const unsigned b0 = __ballot_sync(FULL_MASK, key & 1), b1 = __ballot_sync(FULL_MASK, key & 2),
+                   b2 = __ballot_sync(FULL_MASK, key & 4);
+    // The live lanes whose key equals this lane's.
+    const unsigned same = live & ((key & 1) ? b0 : ~b0) & ((key & 2) ? b1 : ~b1) &
+                          ((key & 4) ? b2 : ~b2);
+    if (key < OCTANTS) idx[mine[key] + __popc(same & earlier)] = first + l;
+    __syncwarp();
+    if (key < OCTANTS && (same >> lane) == 1u) mine[key] += __popc(same);  // the key's last lane
+    __syncwarp();
   }
 }
 
-// 2. One block: counts[0 .. m) -> their exclusive prefix sums, in place,
-// and the list length (the sum of all) in *n_live.
-__global__ void __launch_bounds__(SCAN_THREADS)
-    compact_scan_kernel(int* __restrict__ counts, int m, int* __restrict__ n_live) {
-  __shared__ int warp_sum[SCAN_THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (m + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(m, (int)threadIdx.x * per), hi = min(m, lo + per);
-  int sum = 0;
-  for (int e = lo; e < hi; ++e) sum += counts[e];
-  int x = sum;  // inclusive scan over the warp
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sum[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, w, d);
-      if (lane >= d) w += y;
-    }
-    warp_sum[lane] = w;
-  }
-  __syncthreads();
-  int run = x - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
-  for (int e = lo; e < hi; ++e) {
-    const int c = counts[e];
-    counts[e] = run;
-    run += c;
-  }
-  if (threadIdx.x == SCAN_THREADS - 1) *n_live = run;
-}
+// The compaction's grid for n > 0 rays on the current device: the most
+// blocks a multiprocessor holds at once, times the multiprocessors, cut to
+// what n needs; span = chunks of 32 rays per warp; smem = the key bytes.
+struct CompactGrid {
+  int blocks, span, smem;
+};
 
-// 3. Each live ray's id at its octant's offset for the block plus its rank
-// among the block's earlier rays of that octant: the block's earlier rounds
-// (`next`), the warp's earlier warps in this round, its earlier lanes.
-__global__ void __launch_bounds__(COMPACT_THREADS)
-    compact_scatter_kernel(const float* __restrict__ state, int n,
-                           const int* __restrict__ offsets, int* __restrict__ idx) {
-  __shared__ int cnt[2][COMPACT_WARPS][OCTANTS];  // by round parity
-  __shared__ int next[OCTANTS];  // the block's next list slot per octant
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int key[COMPACT_ITEMS];
-  block_keys(state, n, key);
-  if (threadIdx.x < OCTANTS) next[threadIdx.x] = offsets[threadIdx.x * gridDim.x + blockIdx.x];
-  const int base = blockIdx.x * COMPACT_TILE + threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < COMPACT_ITEMS; ++r) {
-    int(*c)[OCTANTS] = cnt[r & 1];
-    unsigned mine = 0u;  // the ballot of this lane's octant
-#pragma unroll
-    for (int o = 0; o < OCTANTS; ++o) {
-      const unsigned b = __ballot_sync(FULL_MASK, key[r] == o);
-      if (lane == o) c[warp][o] = __popc(b);
-      if (key[r] == o) mine = b;
+cudaError_t compact_grid(int n, CompactGrid& g) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int chunks = (n + 31) / 32;
+  for (int per_sm = COMPACT_MAX_PER_SM; per_sm >= 1; --per_sm) {
+    const int warps = per_sm * sms * COMPACT_WARPS;
+    g.span = (chunks + warps - 1) / warps;
+    const int range = COMPACT_WARPS * g.span;  // chunks per block
+    g.blocks = (chunks + range - 1) / range;
+    g.smem = range * 32;
+    if (cudaFuncSetAttribute(compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g.smem) != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next, smaller try may fit
+      continue;
     }
-    __syncthreads();  // the counts, and `next` from the round before
-    if (key[r] < OCTANTS) {
-      int pos = next[key[r]] + __popc(mine & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) pos += c[w][key[r]];
-      idx[pos] = base + r * COMPACT_THREADS;
-    }
-    __syncthreads();  // every thread has read `next`
-    if (threadIdx.x < OCTANTS) {
-      for (int w = 0; w < COMPACT_WARPS; ++w) next[threadIdx.x] += c[w][threadIdx.x];
-    }
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, compact_kernel,
+                                                        COMPACT_THREADS, g.smem);
+    if (err != cudaSuccess) return err;
+    if (resident >= per_sm) return cudaSuccess;
   }
+  return cudaErrorCooperativeLaunchTooLarge;
 }
 
 // ---- bounce ----
@@ -330,27 +375,36 @@ int cosig_primary_launch(const cosig::Frame* frame, const float* geom, const flo
   return (int)cudaGetLastError();
 }
 
-// Scratch ints the compaction of n rays needs (the per-block counts).
-int cosig_compact_scratch(int n) {
-  return cosig::OCTANTS * ((n + cosig::COMPACT_TILE - 1) / cosig::COMPACT_TILE);
+// The compaction's grid for n rays: blocks and rays per block (0 and 0
+// for n <= 0); returns a CUDA error (0 = it fits). Its launch needs
+// 8 x blocks ints of scratch (the per-block octant counts).
+int cosig_compact_grid(int n, int* blocks, int* range) {
+  *blocks = *range = 0;
+  if (n <= 0) return 0;
+  cosig::CompactGrid g;
+  const cudaError_t err = cosig::compact_grid(n, g);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = g.blocks;
+  *range = cosig::COMPACT_WARPS * g.span * 32;
+  return 0;
 }
 
 // List the live rays of state f32 [16, n] into idx[0 .. *n_live), by
-// octant then id; three launches on `stream`. counts: cosig_compact_scratch(n)
-// ints of scratch.
-int cosig_compact_launch(const float* state, int n, int* counts, int* idx, int* n_live,
-                         void* stream) {
-  if (n <= 0) return (int)cudaMemsetAsync(n_live, 0, sizeof(int), (cudaStream_t)stream);
-  const int blocks = (n + cosig::COMPACT_TILE - 1) / cosig::COMPACT_TILE;
+// octant then id: one cooperative launch on `stream`. counts: scratch of
+// `scratch` ints, at least 8 x the blocks of cosig_compact_grid(n).
+int cosig_compact_launch(const float* state, int n, int* counts, int scratch, int* idx,
+                         int* n_live, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  cosig::compact_count_kernel<<<blocks, cosig::COMPACT_THREADS, 0, s>>>(state, n, counts);
-  cudaError_t err = cudaGetLastError();
+  if (n <= 0) return (int)cudaMemsetAsync(n_live, 0, sizeof(int), s);
+  cosig::CompactGrid g;
+  cudaError_t err = cosig::compact_grid(n, g);
   if (err != cudaSuccess) return (int)err;
-  cosig::compact_scan_kernel<<<1, cosig::SCAN_THREADS, 0, s>>>(counts, cosig::OCTANTS * blocks,
-                                                               n_live);
-  err = cudaGetLastError();
+  if (scratch < cosig::OCTANTS * g.blocks) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&state, (void*)&n, (void*)&g.span, (void*)&counts, (void*)&idx,
+                  (void*)&n_live};
+  err = cudaLaunchCooperativeKernel((const void*)cosig::compact_kernel, dim3(g.blocks),
+                                    dim3(cosig::COMPACT_THREADS), args, (size_t)g.smem, s);
   if (err != cudaSuccess) return (int)err;
-  cosig::compact_scatter_kernel<<<blocks, cosig::COMPACT_THREADS, 0, s>>>(state, n, counts, idx);
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@ they read and launches them on the current stream.
 :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
 kernel, and plain runs on the CPU count nothing. One ``compact`` is one
-call of the compaction kernel, which is three CUDA launches (count per
-block, scan, scatter). :func:`reset_counts` sets every counter to 0.
+call of the compaction kernel, which is one cooperative CUDA launch.
+:func:`reset_counts` sets every counter to 0.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ F32 = np.float32
 
 MAX_MATS = 64  # csrc/bounce.cuh
 MAX_LIGHTS = 16
+OCTANTS = 8  # csrc/wavefront.cu: the compaction's keys
 
 # Flag bits of csrc/bounce.cuh (StaticConfig toggles).
 _FLAGS = (
@@ -135,12 +136,14 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = common + extra + [ptr, ptr]
         fn.restype = i32
-    # state, n, counts, idx, n_live, stream
-    lib.cosig_compact_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr]
+    # state, n, counts, scratch ints, idx, n_live, stream
+    lib.cosig_compact_launch.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr]
     lib.cosig_compact_launch.restype = i32
-    for name in ("cosig_compact_scratch", "cosig_tile_smem_bytes"):
-        getattr(lib, name).argtypes = [i32]
-        getattr(lib, name).restype = i32
+    # n, &blocks, &range
+    lib.cosig_compact_grid.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.cosig_compact_grid.restype = i32
+    lib.cosig_tile_smem_bytes.argtypes = [i32]
+    lib.cosig_tile_smem_bytes.restype = i32
     lib.cosig_frame_bytes.argtypes = []
     lib.cosig_frame_bytes.restype = i32
     if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
@@ -205,10 +208,22 @@ def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph
           *extra, out)
 
 
+def compact_grid(n: int, dev: torch.device) -> tuple:
+    """(blocks, rays per block) of the compaction kernel's cooperative grid
+    for ``n`` rays on ``dev``; raise if no grid fits."""
+    blocks, rays = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = library().cosig_compact_grid(n, ctypes.byref(blocks), ctypes.byref(rays))
+    if err != 0:
+        raise RuntimeError(f"cosig_compact_grid failed: CUDA error {err}")
+    return blocks.value, rays.value
+
+
 def launch_compact(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor) -> None:
     """List the live rays of ``state`` into ``idx`` and ``n_live`` (the
-    compaction kernel's three launches), with scratch from ``torch.empty``."""
+    compaction kernel's one cooperative launch), with the per-block octant
+    counts' scratch from ``torch.empty``; raise if the launch is refused."""
     n = int(state.shape[1])
-    counts = torch.empty(library().cosig_compact_scratch(n), dtype=torch.int32,
-                         device=state.device)
-    _call("cosig_compact_launch", state.device, state, n, counts, idx, n_live)
+    ints = OCTANTS * compact_grid(n, state.device)[0]
+    counts = torch.empty(max(1, ints), dtype=torch.int32, device=state.device)
+    _call("cosig_compact_launch", state.device, state, n, counts, ints, idx, n_live)

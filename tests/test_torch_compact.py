@@ -93,6 +93,58 @@ def test_compaction_list_is_a_stable_partition_by_octant(rays):
     assert kw.compact(state)[0].tolist() == idx.tolist()  # the CPU wrapper runs the plain list
 
 
+def _keys(state: np.ndarray) -> np.ndarray:
+    """The compaction key per ray in numpy: the octant if alive, else 8."""
+    octant = ((state[3] > 0).astype(np.int8) + 2 * (state[4] > 0).astype(np.int8)
+              + 4 * (state[5] > 0).astype(np.int8))
+    return np.where(state[tkc.ROW_ALIVE] > 0, octant, 8).astype(np.int8)
+
+
+def test_compaction_states_cover_each_case():
+    """chip_smoke.compact_states, the card phase's inputs, run on the CPU:
+    each state's list (the CPU wrapper, twice, and compact_plain) is the
+    numpy stable order of its keys, and the states hold every case the
+    card phase claims: N = 1, 31, 2047, 2049, one past the smallest block
+    range and 2^24 - 1; every ray dead; every ray alive in one octant and
+    in all eight; NaN, +0 and -0 directions."""
+    seen = {}
+    for name, state in chip_smoke.compact_states("cpu"):
+        n = state.shape[1]
+        idx, n_live = kw.compact(state)
+        idx2, n_live2 = kw.compact(state)
+        idx_p, n_live_p = ttw.compact_plain(state)
+        m = int(n_live)
+        keys = _keys(state.numpy())
+        order = np.argsort(keys, kind="stable")
+        assert m == int(n_live_p) == int((keys < 8).sum()), name
+        np.testing.assert_array_equal(idx[:m].numpy(), order[:m], err_msg=name)
+        assert torch.equal(idx, idx_p) and torch.equal(idx, idx2) and int(n_live2) == m
+        d = state[3:6][:, state[tkc.ROW_ALIVE] > 0]
+        seen[name] = dict(
+            n=n, live=m, octants=set(np.unique(keys[keys < 8]).tolist()),
+            nan=bool(torch.isnan(d).any()),
+            pos_zero=bool(((d == 0) & ~torch.signbit(d)).any()),
+            neg_zero=bool(((d == 0) & torch.signbit(d)).any()),
+            dead_alive=state[tkc.ROW_ALIVE].numpy()[keys == 8])
+        del state, idx, idx2, idx_p
+    sizes = {v["n"] for k, v in seen.items() if k.startswith("mixed")}
+    assert sizes >= {1, 31, 2047, 2049, chip_smoke.COMPACT_MIN_RANGE + 1,
+                     chip_smoke.COMPACT_MAX_N}
+    assert chip_smoke.COMPACT_MAX_N == 2**24 - 1
+    dead = seen["every ray dead"]
+    assert dead["live"] == 0 and dead["n"] > chip_smoke.COMPACT_MIN_RANGE
+    a = dead["dead_alive"]  # alive 0, -0, negative and NaN all count as dead
+    assert np.isnan(a).any() and (a < 0).any() and (a == 0).any()
+    one = seen["every ray alive in one octant"]
+    assert one["live"] == one["n"] and len(one["octants"]) == 1
+    eight = seen["every ray alive in all eight octants"]
+    assert eight["live"] == eight["n"] and eight["octants"] == set(range(8))
+    zeros = seen["directions NaN, +0, -0"]
+    assert zeros["live"] == zeros["n"] and zeros["nan"] and zeros["pos_zero"] and zeros["neg_zero"]
+    big = seen[f"mixed N={chip_smoke.COMPACT_MAX_N}"]
+    assert 0 < big["live"] < big["n"] and big["octants"] == set(range(8)) and big["nan"]
+
+
 def _frame(name, effects):
     scene = (cosig_tpu_torch.parse_scene(chip_smoke.TINY_SCENE) if name == "tiny"
              else cosig_tpu_torch.load_scene("scenes/demo_cornell.txt"))
@@ -184,3 +236,24 @@ def test_render_through_lists_matches_jax_wavefront(monkeypatch):
     assert float(np.sqrt(((img - ref) ** 2).mean())) < 1e-5
     assert np.abs(img - ref).max() < 1e-3
     assert abs(rays - float(jrays)) <= 8
+
+
+def test_compact_variants_rewrite_the_kernel_constants():
+    """The variant timer (kernels/compact_variants.py) finds the compaction
+    kernel's three grid constants in wavefront.cu and replaces each, so its
+    variants differ from the kernel only where it says."""
+    import pathlib
+
+    from cosig_tpu_torch.kernels import build as kbuild
+    from cosig_tpu_torch.kernels import compact_variants as cv
+
+    text = (pathlib.Path(kbuild.CSRC_DIR) / "wavefront.cu").read_text()
+    out = cv.variant_source(text, 1024, "1", 8)
+    for line in ("constexpr int COMPACT_THREADS = 1024;", "constexpr int COMPACT_UNROLL = 8;",
+                 "constexpr int COMPACT_MAX_PER_SM = 1;"):
+        assert line in out
+    assert not any(line in out for line in cv.CONSTANTS)
+    assert out.count("\n") == text.count("\n")
+    assert cv.variant_source(text, 512, "2048 / COMPACT_THREADS", 4) == text
+    with pytest.raises(ValueError, match="no longer holds"):
+        cv.variant_source(text.replace(cv.CONSTANTS[1], ""), 512, "1", 4)

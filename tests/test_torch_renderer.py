@@ -345,7 +345,7 @@ def test_wrappers_check_inputs_on_card(tiny, card):
 @pytest.mark.gpu
 def test_compaction_matches_plain_on_card(card):
     """The compaction kernel's list equals the plain one as integers on
-    states over several blocks of the kernel's tiles: random liveness and
+    states over several blocks of the kernel's grid: random liveness and
     directions (zeros and NaN included), every ray dead, every ray alive."""
     r = np.random.default_rng(3)
     n = 5 * 2048 + 77
@@ -361,3 +361,38 @@ def test_compaction_matches_plain_on_card(card):
         m = int(n_live)
         assert m == int(n_p) == int(alive.sum())
         assert torch.equal(idx[:m].cpu(), idx_p[:m])
+
+
+@pytest.mark.parametrize("refused", ["grid", "launch"])
+def test_refused_compaction_raises(monkeypatch, refused):
+    """A compaction whose cooperative grid does not fit, or whose launch the
+    card refuses (cudaErrorCooperativeLaunchTooLarge, 720), raises; nothing
+    falls back to the plain list. A stand-in library takes the CUDA calls."""
+    import contextlib
+    import types
+
+    calls = []
+
+    def grid(n, blocks, rays):
+        blocks._obj.value, rays._obj.value = 3, 512
+        return 720 if refused == "grid" else 0
+
+    def launch(*args):
+        calls.append(args)
+        return 720
+
+    fake = types.SimpleNamespace(cosig_compact_grid=grid, cosig_compact_launch=launch)
+    monkeypatch.setattr(binding, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(ttw, "compact_plain", lambda *a: pytest.fail("fell back"))
+    state = torch.zeros((16, 1500), dtype=torch.float32)
+    idx = torch.empty(1500, dtype=torch.int32)
+    n_live = torch.empty(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        binding.launch_compact(state, idx, n_live)
+    if refused == "launch":
+        assert len(calls) == 1 and calls[0][1] == 1500 and calls[0][3] == 3 * binding.OCTANTS
+    else:
+        assert not calls

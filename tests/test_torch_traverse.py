@@ -315,3 +315,28 @@ def test_slot_maps_are_permutations(name, width, band):
     bad[0] = bad[1]
     with pytest.raises(ValueError, match="permutation"):
         tkc.warp_of_rays(torch.from_numpy(bad), n)
+
+
+@pytest.mark.parametrize("ways", [2, 4])
+def test_split_clusters_render_bit_equal(ways):
+    """large_mesh's 221 clusters of 64 rows cut 2 ways (442 clusters, c_pad
+    512) and 4 ways (884 clusters of 16 rows, c_pad 1024, past one
+    superblock of 512): every part lies under its whole cluster's box and
+    keeps its rows' flat indices and gids, so the plain wavefront's state,
+    image and ray count equal the unsplit render's bit for bit."""
+    import chip_smoke
+    from cosig_tpu_torch.ops import trace_wavefront as ttw
+
+    s = chip_smoke.scene_setup("large_mesh", dict(resolution_override=(40, 30), max_depth=4),
+                               "cpu")
+    cset = s["cset"]
+    split = chip_smoke.split_clusters(cset, ways)
+    assert split.num_clusters == ways * cset.num_clusters and split.k == cset.k // ways
+    assert split.aabb_t.shape[1] == {2: 512, 4: 1024}[ways]
+    args = (s["uni"], s["lights"], s["cfg"])
+    whole = ttw.trace_state(cset, *args)
+    parts = ttw.trace_state(split, *args)
+    assert torch.equal(whole, parts)
+    img_w, rays_w = ttw.finalize(whole, s["cfg"], s["cfg"].height)
+    img_p, rays_p = ttw.finalize(parts, s["cfg"], s["cfg"].height)
+    assert torch.equal(img_w, img_p) and rays_w == rays_p > 0
