@@ -66,10 +66,29 @@ Phases (any failure raises and the script exits non-zero):
    wavefront kernels (its PNG equal to the Renderer's image, one primary
    and five compaction and bounce launches), a turntable GIF, a preview
    loop with no readback (frames/s), a chunked render interrupted and
-   resumed (equal to the unchunked oracle bit for bit) and ``info``.
+   resumed (equal to the unchunked oracle bit for bit) and ``info``;
+7. the row-band sharding (``cosig_tpu_torch.parallel.sharding``), the
+   megakernel's ``render_chain`` and the native host builders, with the
+   launch counters read around each sharded run: (a) the tiny scene at
+   32x24 and 32x50 (AA 1 and 4), depth 2, in n = 1, 2, 4, 8 bands on
+   ``[cuda:0] * n`` through the oracle, wavefront and megakernel sharded
+   functions, each bit-equal to its single render with equal rays and
+   within 1e-5 (oracle) and 1e-3 (kernels) of the single oracle; (b)
+   glass_sphere in 2, 3 and 4 wavefront bands, bit-equal to the single
+   frame, 8,847,840 rays; (c) large_mesh at 2048x2048, depth 4, AA 4 (2^24
+   camera rays, which one wavefront band refuses) in 2 and 4 bands,
+   bit-equal to each other and to the megakernel's unbanded frame, its
+   ms/frame, each of 4 bands alone, and at AA 1 in 2 bands (13,689,414
+   rays); (d) ``render_chain``
+   on glass_sphere at k = 1 and 4 (the single frame's image, k times its
+   rays, ms/frame from the slope); (e) the native library built from the
+   repository's sources: BVH nodes and LZW bytes equal to the Python
+   builders', the library loaded after a Renderer's build, and the host's
+   seconds per new scene and per 36-frame 512x512 turntable GIF.
 
 Near the end the script prints a JSON line of the models, a JSON line of
-per-frame numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
+per-frame numbers, a JSON line of the oracle's and one of phase 7's
+numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
 last line, the result ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
 prints no result.
@@ -1429,6 +1448,318 @@ def oracle_and_cli(device, workdir: str, side: int = ORACLE_SIDE, full_size: boo
     return out
 
 
+# Phase 7. The sharded renders against the single ones: JAX's
+# dryrun_multichip bounds against the single oracle (__graft_entry__.py:165
+# for the oracle path, :180 and :190 for the kernels); glass_sphere's
+# record (bench_details.json); large_mesh's rays at AA 1 as the port has
+# traced them on the card since its first slice (the JAX record is
+# 13,689,416, RECORDS).
+SHARD_XLA_MAX = 1e-5
+SHARD_KERNEL_MAX = 1e-3
+LARGE_MESH_AA1_RAYS = 13689414
+TURNTABLE_STEPS, TURNTABLE_SIDE = 36, 512
+
+
+def _launched(before: dict) -> dict:
+    from cosig_tpu_torch.kernels import binding
+
+    return {k: binding.LAUNCHES[k] - before[k] for k in binding.LAUNCHES}
+
+
+def _expect_launches(device, got: dict, want: dict, *what) -> None:
+    """On a card, the launches of a run equal ``want`` (counter -> launches,
+    the others 0); plain runs count nothing."""
+    if device.type == "cuda":
+        want = {k: want.get(k, 0) for k in got}
+        check(got == want, *what, "launches", got, "expected", want)
+
+
+def _sharded_wavefront_launches(cfg, n: int) -> dict:
+    from cosig_tpu_torch.parallel import sharding
+
+    bands = len(sharding.band_offsets(cfg.height, sharding.wavefront_band(cfg, n), n))
+    return {k: v * bands for k, v in wavefront_launches(cfg.max_depth).items()}
+
+
+def shard_small(device) -> dict:
+    """Phase 7a: dryrun_multichip's frame (the tiny scene, 32 x 24, depth
+    2) and the padding case (32 x 50, at AA 1 and AA 4) in n bands on
+    ``[device] * n``, n = 1, 2, 4, 8, through the three sharded functions:
+    each bit-equal to its single render with equal rays, and within the
+    dryrun's bounds of the single oracle."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.models.soa import compile_scene, frame_params
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+    from cosig_tpu_torch.ops import trace_xla
+    from cosig_tpu_torch.parallel import sharding
+
+    out = {}
+    for w, h, aa in ((32, 24, 1), (32, 50, 1), (32, 50, 4)):
+        s = scene_setup("tiny", dict(resolution_override=(w, h), max_depth=2, aa_samples=aa),
+                        device)
+        cfg, args = s["cfg"], (s["cset"], s["uni"], s["lights"], s["cfg"])
+        arrays = compile_scene(s["scene"], device=device)
+        params = frame_params(s["scene"], s["settings"])
+        oracle = trace_xla.render_image(arrays, params, cfg)
+        single = {"wavefront": tw.render_wavefront(*args), "megakernel": tm.render_clusters(*args)}
+        tag = f"tiny {w}x{h} d2 aa{aa}"
+        for n in (1, 2, 4, 8):
+            devs = sharding.make_mesh(devices=[device] * n)
+            img = sharding.render_sharded(arrays, params, cfg, devs)
+            same, mx, _ = diff(img, oracle)
+            check(same and mx <= SHARD_XLA_MAX, tag, n, "sharded oracle", mx)
+            res = {"xla_max": mx}
+            for path, fn in (("wavefront", sharding.render_sharded_wavefront),
+                             ("megakernel", sharding.render_sharded_megakernel)):
+                before = dict(binding.LAUNCHES)
+                img, rays = fn(*args, devs)
+                got = _launched(before)
+                same, _, _ = diff(img, single[path][0])
+                _, mx, _ = diff(img, oracle)
+                check(same and rays == single[path][1], tag, n, path,
+                      "sharded differs from its single render", rays, single[path][1])
+                check(mx < SHARD_KERNEL_MAX, tag, n, path, "against the single oracle", mx)
+                want = (_sharded_wavefront_launches(cfg, n) if path == "wavefront" else
+                        dict(megakernel=len(sharding.band_offsets(
+                            h, sharding.megakernel_band(s["cset"], h, n), n))))
+                _expect_launches(device, got, want, tag, n, path)
+                res[path] = dict(max_vs_oracle=mx, rays=rays, launches=got)
+            out[f"{tag} n{n}"] = res
+            log(f"  {tag} in {n} bands: oracle bit-equal, max {res['xla_max']:.1e}; wavefront "
+                f"and megakernel bit-equal to their single renders, rays "
+                f"{res['wavefront']['rays']} / {res['megakernel']['rays']}, max vs oracle "
+                f"{res['wavefront']['max_vs_oracle']:.2e} / "
+                f"{res['megakernel']['max_vs_oracle']:.2e}")
+        del arrays, oracle, single
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+    return out
+
+
+def _ms(device, fn, reps: int) -> float:
+    """ms per call of ``fn`` as a user waits for it (each call ends by
+    reading the rays on the host): CUDA events on a card, else the host clock."""
+    if device.type == "cuda":
+        return cuda_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def shard_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phases 7b-7d: glass_sphere in 2, 3 and 4 wavefront bands; large_mesh
+    at 2048 x 2048 AA 4 (2^24 camera rays, which one wavefront band refuses)
+    in 2 and 4 bands against the megakernel's unbanded frame, and at AA 1
+    in 2 bands; ``render_chain`` on glass_sphere at k = 1 and 4.
+    ``full_size=False`` cuts the frames to 128 x 128 (CPU rehearsal)."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+    from cosig_tpu_torch.parallel import sharding
+
+    cut = {} if full_size else dict(resolution_override=(128, 128))
+    out = {"card": card}
+
+    # 7b. glass_sphere, 1024 x 1024, d6, AA 4.
+    g = scene_setup("glass_sphere", cut, device)
+    gargs = (g["cset"], g["uni"], g["lights"], g["cfg"])
+    single, single_rays = tw.render_wavefront(*gargs)
+    if full_size:
+        check(single_rays == RECORDS["glass_sphere"]["rays"], "glass single rays", single_rays)
+    for n in (2, 3, 4):
+        before = dict(binding.LAUNCHES)
+        img, rays = sharding.render_sharded_wavefront(*gargs, [device] * n)
+        got = _launched(before)
+        same, _, _ = diff(img, single)
+        check(same and rays == single_rays, "glass_sphere wavefront in", n, "bands", rays)
+        _expect_launches(device, got, _sharded_wavefront_launches(g["cfg"], n), "glass", n)
+        out[f"glass_sphere wavefront n{n}"] = dict(rays=rays, launches=got)
+        log(f"  [{card}] {tag_of('glass_sphere', g['cfg'])} wavefront in {n} bands of "
+            f"{sharding.wavefront_band(g['cfg'], n)} rows: bit-equal to the single frame, "
+            f"rays {rays} (record {RECORDS['glass_sphere']['rays']}), launches {got}")
+
+    # 7d. render_chain on glass_sphere: the last image is the single
+    # frame's, the rays k times its; per-frame time from the slope.
+    mega, mega_rays = tm.render_clusters(*gargs)
+    before = dict(binding.LAUNCHES)
+    chain = {}
+    for k in (1, 4):
+        img, rays = tm.render_chain(*gargs, k=k)
+        same, _, _ = diff(img, mega)
+        check(same and rays == k * mega_rays, "render_chain k", k, rays, mega_rays)
+        chain[k] = [_ms(device, lambda: tm.render_chain(*gargs, k=k), 1) for _ in range(3)]
+    got = _launched(before)
+    _expect_launches(device, got, dict(megakernel=5 + 3 * 5), "render_chain")
+    t1, t4 = sorted(chain[1])[1], sorted(chain[4])[1]
+    out["render_chain"] = dict(k1_ms=chain[1], k4_ms=chain[4], slope_ms=(t4 - t1) / 3,
+                               rays_k4=4 * mega_rays, launches=got)
+    log(f"  [{card}] render_chain glass_sphere: k=1 {t1:.3f} ms, k=4 {t4:.3f} ms (medians of "
+        f"3), {(t4 - t1) / 3:.3f} ms/frame from the slope; last image bit-equal to a single "
+        f"frame, rays 4 x {mega_rays}")
+    del g, gargs, single, mega, img
+
+    # 7c. large_mesh at 2048 x 2048, d4: AA 4 (one band of 2^24 rays is
+    # refused) in 2 and 4 bands, then AA 1 in 2 bands.
+    m = scene_setup("large_mesh", dict(cut, aa_samples=4), device)
+    margs = (m["cset"], m["uni"], m["lights"], m["cfg"])
+    if full_size:
+        try:
+            tw.render_wavefront(*margs)
+        except ValueError as e:
+            log(f"  large_mesh 2048x2048 d4 aa4 in one wavefront band: refused ({e})")
+        else:
+            check(False, "one wavefront band of 2^24 rays was not refused")
+    before = dict(binding.LAUNCHES)
+    img2, rays2 = sharding.render_sharded_wavefront(*margs, [device] * 2)
+    img4, rays4 = sharding.render_sharded_wavefront(*margs, [device] * 4)
+    got = _launched(before)
+    same, _, _ = diff(img2, img4)
+    check(same and rays2 == rays4, "large_mesh aa4: 2 bands differ from 4 bands", rays2, rays4)
+    want = {k: _sharded_wavefront_launches(m["cfg"], 2)[k]
+            + _sharded_wavefront_launches(m["cfg"], 4)[k] for k in ("primary", "compact",
+                                                                     "bounce")}
+    _expect_launches(device, got, want, "large_mesh aa4 bands")
+    mega, mega_rays = tm.render_clusters(*margs)
+    same_mega, mx, _ = diff(img2, mega)
+    check(same_mega and rays2 == mega_rays, "large_mesh aa4 bands vs the megakernel", mx,
+          rays2, mega_rays)
+    del mega
+    ms2 = _ms(device, lambda: sharding.render_sharded_wavefront(*margs, [device] * 2), 3)
+    ms_mega = _ms(device, lambda: tm.render_clusters(*margs), 3)
+    band_rays = sharding.wavefront_band(m["cfg"], 2) * m["cfg"].width * 4
+    # Each of 4 bands alone: on 4 cards the slowest one sets the frame.
+    bands4 = {}
+    for path, render, band in (
+            ("wavefront", tw.render_wavefront, sharding.wavefront_band(m["cfg"], 4)),
+            ("megakernel", tm.render_clusters,
+             sharding.megakernel_band(m["cset"], m["cfg"].height, 4))):
+        bands4[path] = [_ms(device, lambda: render(*margs, rows=band, row_offset=off), 3)
+                        for off in sharding.band_offsets(m["cfg"].height, band, 4)]
+    out["large_mesh aa4"] = dict(rays=rays2, band_rays=band_rays, ms_2_bands=ms2,
+                                 mrays_s=rays2 / (ms2 * 1e3), megakernel_ms=ms_mega,
+                                 launches=got, mean=float(img2.double().mean()),
+                                 ms_each_of_4_bands=bands4)
+    log(f"  [{card}] {tag_of('large_mesh', m['cfg'])}: wavefront in 2 bands ({band_rays} rays "
+        f"a band) and in 4 bit-equal, rays {rays2}, mean {float(img2.double().mean()):.6f}; "
+        f"bit-equal to the megakernel's unbanded frame; 2 bands {ms2:.3f} ms/frame "
+        f"({rays2 / (ms2 * 1e3):.1f} Mrays/s), megakernel {ms_mega:.3f} ms/frame; launches {got}")
+    log(f"  [{card}] large_mesh aa4, each of 4 bands alone (ms): wavefront "
+        f"{', '.join(f'{t:.3f}' for t in bands4['wavefront'])}; megakernel "
+        f"{', '.join(f'{t:.3f}' for t in bands4['megakernel'])}")
+    del img2, img4, margs, m
+    m = scene_setup("large_mesh", cut, device)
+    margs = (m["cset"], m["uni"], m["lights"], m["cfg"])
+    single, single_rays = tw.render_wavefront(*margs)
+    img, rays = sharding.render_sharded_wavefront(*margs, [device] * 2)
+    same, _, _ = diff(img, single)
+    check(same and rays == single_rays, "large_mesh aa1 in 2 bands", rays, single_rays)
+    if full_size:
+        check(rays == LARGE_MESH_AA1_RAYS, "large_mesh aa1 rays", rays)
+    out["large_mesh aa1 n2"] = dict(rays=rays)
+    log(f"  [{card}] {tag_of('large_mesh', m['cfg'])} wavefront in 2 bands: bit-equal to the "
+        f"single frame, rays {rays}")
+    del single, img, margs, m
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def native_host(device, card: str, workdir: str, full_size: bool = True) -> dict:
+    """Phase 7e: the native host builders built from the repository's
+    sources (``use_native="native"``): BVH nodes equal to the Python
+    builder's on the five bench scenes and demo_cornell, LZW bytes equal to
+    ``lzw_compress_py``'s, the native library loaded after a Renderer's
+    build; the host's seconds per new scene (tessellation, BVH native and
+    Python, clusters) and per 36-frame turntable GIF at 512 x 512 (native
+    and Python encoders). ``full_size=False`` renders the turntable at 64 x
+    64 (CPU rehearsal)."""
+    import numpy as np
+
+    import cosig_tpu_torch
+    from cosig_tpu_torch.accel.bvh import build_bvh
+    from cosig_tpu_torch.accel.clusters import build_clusters
+    from cosig_tpu_torch.models.soa import materials_host
+    from cosig_tpu_torch.native import loader
+    from cosig_tpu_torch.scene.generate import CONFIGS
+    from cosig_tpu_torch.scene.tessellate import extract_triangles
+    from cosig_tpu_torch.utils import gif
+
+    t0 = time.perf_counter()
+    path = loader.build(force=True)
+    host = "host times on the card machine's CPU" if device.type == "cuda" else "host times"
+    out = {"card": card, "host": host, "build_s": time.perf_counter() - t0,
+           "library": os.path.basename(path), "scenes": {}}
+    log(f"  native library built from {', '.join(loader.SOURCES)} in {out['build_s']:.2f} s")
+
+    def secs(fn, reps=3):
+        best = None
+        for _ in range(reps):
+            t = time.perf_counter()
+            res = fn()
+            dt = time.perf_counter() - t
+            best = dt if best is None else min(best, dt)
+        return res, best
+
+    for name in [*CONFIGS, "demo_cornell"]:
+        scene, _ = load(name)
+        tris, t_tess = secs(lambda: extract_triangles(scene))
+        row = dict(triangles=tris.count, tessellate_s=t_tess)
+        for leaf in (4, 256):
+            nat, t_nat = secs(lambda: build_bvh(tris, leaf, use_native="native"))
+            py, t_py = secs(lambda: build_bvh(tris, leaf, use_native="python"), 1)
+            for f in ("node_min", "node_max", "left_or_first", "count", "order"):
+                a, b = np.asarray(getattr(nat, f)), np.asarray(getattr(py, f))
+                check(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+                      name, "leaf", leaf, "native BVH", f, "differs from the Python builder's")
+            row[f"bvh{leaf}_native_s"], row[f"bvh{leaf}_python_s"] = t_nat, t_py
+        if name in CONFIGS:
+            mats = np.concatenate(materials_host(scene), axis=1)
+            _, row["clusters_s"] = secs(lambda: build_clusters(tris, mats))
+        out["scenes"][name] = row
+        log(f"  [{card}; {host}] {name}: {tris.count} triangles, "
+            f"tessellate {t_tess:.4f} s, BVH (leaf 4) native {row['bvh4_native_s']:.4f} s / "
+            f"Python {row['bvh4_python_s']:.4f} s, BVH (leaf 256) native "
+            f"{row['bvh256_native_s']:.4f} s / Python {row['bvh256_python_s']:.4f} s"
+            + (f", clusters {row['clusters_s']:.4f} s" if "clusters_s" in row else "")
+            + "; nodes equal to the Python builder's")
+
+    renderer = cosig_tpu_torch.Renderer(device=device)
+    scene, settings = load("glass_sphere")
+    renderer._geometry_for(scene)
+    check(loader.loaded(), "the Renderer's host build did not load the native library")
+
+    side = TURNTABLE_SIDE if full_size else 64
+    small = settings.replace(resolution_override=(side, side))
+    t = time.perf_counter()
+    frames = gif.turntable_frames(renderer, scene, small, steps=TURNTABLE_STEPS)
+    render_s = time.perf_counter() - t
+    data = [gif.quantize(f).tobytes() for f in frames]
+    enc = {}
+    for mode in ("native", "python"):
+        t = time.perf_counter()
+        enc[mode] = [gif.lzw_compress(d, use_native=mode) for d in data]
+        out[f"gif_encode_{mode}_s"] = time.perf_counter() - t
+    check(enc["native"] == enc["python"], "native LZW bytes differ from lzw_compress_py's")
+    gif_path = os.path.join(workdir, "turntable.gif")
+    t = time.perf_counter()
+    gif.save_gif(frames, gif_path)
+    out["save_gif_s"] = time.perf_counter() - t
+    check(gif.decode_gif_frame_count(gif_path) == TURNTABLE_STEPS, "turntable GIF frames")
+    out.update(turntable_render_s=render_s, turntable_side=side,
+               gif_bytes=os.path.getsize(gif_path))
+    log(f"  [{card}; {host}] turntable of {TURNTABLE_STEPS} "
+        f"frames at {side}x{side}: LZW encode (quantized frames, one after another) native "
+        f"{out['gif_encode_native_s']:.3f} s, Python {out['gif_encode_python_s']:.3f} s, bytes "
+        f"equal; save_gif (quantize + encode in its thread pool + write, native) "
+        f"{out['save_gif_s']:.3f} s; rendering the frames {render_s:.3f} s")
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...}."""
@@ -1508,6 +1839,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         oracle = oracle_and_cli(device, workdir)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase7 = dict(small=shard_small(device), frames=shard_frames(device, card),
+                      native=native_host(device, card, workdir))
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -1529,6 +1865,7 @@ def main() -> int:
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"oracle": oracle}))
+    log(json.dumps({"phase7": phase7}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

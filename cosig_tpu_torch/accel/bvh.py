@@ -13,9 +13,10 @@ Parity reference: ``Assets/Services/BVH/BVHBuilder.cs``:
 Output is SoA numpy, from which :mod:`cosig_tpu_torch.accel.clusters`
 derives the flat cluster structure the kernels walk.
 
-The port's copy of :mod:`cosig_tpu.accel.bvh` with its Python builder
-only (``_build_python``): the JAX package's optional C++ builder gives
-the same nodes and order, and the port compiles nothing on the host.
+The port's copy of :mod:`cosig_tpu.accel.bvh`. :func:`build_bvh` runs
+the C++ builder of :mod:`cosig_tpu_torch.native` where it builds and
+loads, else the Python builder (``_build_python``); both give the same
+nodes and order bit for bit.
 """
 
 from __future__ import annotations
@@ -69,8 +70,25 @@ class _Node:
         self.start = self.count = 0
 
 
-def build_bvh(tris: TriangleSoA, max_leaf: int = MAX_TRIANGLES_PER_LEAF) -> BVH:
-    """Build the flattened BVH; algorithmic twin of BVHBuilder.Build (:76-95)."""
+def build_bvh(tris: TriangleSoA, max_leaf: int = MAX_TRIANGLES_PER_LEAF,
+              use_native: str = "auto") -> BVH:
+    """Build the flattened BVH; algorithmic twin of BVHBuilder.Build (:76-95).
+
+    ``use_native``: ``"auto"`` runs the C++ builder and falls back to the
+    Python one if the native library cannot be built or loaded (the
+    loader logs that once); ``"native"`` raises
+    :class:`cosig_tpu_torch.native.loader.NativeError` instead;
+    ``"python"`` runs the Python builder. An empty soup gets the Python
+    builder's one empty leaf in every mode."""
+    from cosig_tpu_torch.native import bvh_native, loader
+
+    def native():  # the C++ builder takes no empty soup
+        return bvh_native.build(tris, max_leaf) if tris.count else _build_python(tris, max_leaf)
+
+    return loader.dispatch(use_native, native, lambda: _build_python(tris, max_leaf))
+
+
+def _build_python(tris: TriangleSoA, max_leaf: int) -> BVH:
     t = tris.count
     if t == 0:
         return BVH(

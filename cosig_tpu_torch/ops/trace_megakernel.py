@@ -10,6 +10,8 @@ what it does.
   ``acc * float32(1/aa)`` as on the TPU (``:282-285``), where the
   wavefront divides by aa; so the two renders give the same bits when aa
   is a power of two, and differ by that one rounding otherwise.
+* :func:`render_chain` queues the same frame k times, the counterpart of
+  ``trace_pallas.render_chain``.
 * :func:`render_debug` shoots one perspective centre ray per pixel, even
   under the orthographic toggle, and shows depth (mode 1), normals (mode
   2) or hit/miss (mode 3) (``trace_pallas.py:438-513``).
@@ -149,29 +151,64 @@ def debug_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     return torch.stack([*rgb, torch.ones_like(px)])
 
 
-def _image(out: torch.Tensor, width: int, band: int):
-    """[4, band * W] kernel output -> (image [band, W, 3], rays summed in int64)."""
+def _image(out: torch.Tensor, width: int, band: int, counted: int, rays_on_device: bool):
+    """[4, band * W] kernel output -> (image [band, W, 3], rays of the first
+    ``counted`` rows summed in int64: an int, or with ``rays_on_device``
+    an int64 tensor on the output's device)."""
     img = out[:3].reshape(3, band, width).permute(1, 2, 0).contiguous()
-    return img, int(out[3].to(torch.int64).sum())
+    rays = out[3, :counted * width].to(torch.int64).sum()
+    return img, (rays if rays_on_device else int(rays))
 
 
 def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                     cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
-                    device=None, plain: bool = False, prims=None, prim_counts=(0, 0)):
+                    device=None, plain: bool = False, prims=None, prim_counts=(0, 0),
+                    rays_on_device: bool = False):
     """Render through the megakernel -> ``(img [rows, W, 3] f32 on device,
     rays traced)``. Arguments as in
     :func:`cosig_tpu_torch.ops.trace_wavefront.render_wavefront`: a band of
-    global rows, ``plain=True`` for the plain version on any device, and
-    the analytic primitives. Unlike the wavefront, rows of a band past the
-    image are traced like the others, as on the TPU."""
+    global rows, ``plain=True`` for the plain version on any device, the
+    analytic primitives, and the ray count as a device tensor. Unlike the
+    wavefront, rows of a band past the image are traced like the others,
+    as on the TPU; their rays are not counted, so a frame cut into bands
+    counts the rays of the frame (the TPU's sharded render counts them,
+    ``trace_pallas.py:597-598`` summing a band's rows up to the global
+    height)."""
     from cosig_tpu_torch.kernels import megakernel as km
 
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
     run = megakernel_plain if plain else km.megakernel
+    counted = max(0, min(band, cfg.height - int(row_offset)))
     return _image(run(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box),
-                  cfg.width, band)
+                  cfg.width, band, counted, rays_on_device)
+
+
+def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                 cfg: StaticConfig, k: int):
+    """Render the same frame ``k`` times through the megakernel on the
+    cluster set's device, queued with no host read in between -> ``(last
+    image [H, W, 3], total rays of the k frames as an int)``; the
+    counterpart of ``trace_pallas.py:612-636``. The inputs are prepared once.
+
+    Timing two chain lengths and taking the slope gives the device time
+    per frame without the host's wait at the end. The JAX version threads
+    a zero that depends on the previous image into each frame, so that XLA
+    cannot hoist the loop-invariant render out of its scan; PyTorch runs
+    each call as it comes, so nothing of the kind is needed here."""
+    from cosig_tpu_torch.kernels import megakernel as km
+
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
+        cset, uniforms, lights, 0, None, None, (0, 0))
+    total = None
+    for _ in range(k):
+        img, rays = _image(km.megakernel(cset, uniforms, mats, lights, cfg, cfg.height, prims,
+                                         n_sph, n_box), cfg.width, cfg.height, cfg.height, True)
+        total = rays if total is None else total + rays
+    return img, int(total)
 
 
 def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
@@ -187,4 +224,4 @@ def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
         cset, uniforms, lights, 0, device, prims, prim_counts)
     run = debug_plain if plain else km.debug
     return _image(run(cset, uniforms, mats, lights, cfg, prims, n_sph, n_box),
-                  cfg.width, cfg.height)
+                  cfg.width, cfg.height, cfg.height, False)

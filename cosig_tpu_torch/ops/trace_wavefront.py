@@ -147,12 +147,13 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
     state[:, ids] = listed
 
 
-def finalize(state: torch.Tensor, cfg: StaticConfig, band: int):
+def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: bool = False):
     """AA mean and untile -> (image [band, W, 3], rays traced).
 
     The samples of a pixel are consecutive ids; they are summed in sample
     order and divided by aa. The ray count is summed in int64 (a float32
-    sum drops integers above 2^24)."""
+    sum drops integers above 2^24): an int, or with ``rays_on_device`` an
+    int64 tensor on the state's device, which the host does not wait for."""
     aa = max(1, cfg.aa_samples)
     colors = state[9:12].reshape(3, band, cfg.width, aa)
     acc = colors[..., 0]
@@ -161,8 +162,8 @@ def finalize(state: torch.Tensor, cfg: StaticConfig, band: int):
     if aa > 1:
         acc = _div(acc, float(aa))
     img = acc.permute(1, 2, 0).contiguous()
-    rays = int(state[ROW_COUNT].to(torch.int64).sum())
-    return img, rays
+    rays = state[ROW_COUNT].to(torch.int64).sum()
+    return img, (rays if rays_on_device else int(rays))
 
 
 def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
@@ -208,7 +209,7 @@ def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
 def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                      cfg: StaticConfig, rows: int | None = None,
                      row_offset: int = 0, device=None, plain: bool = False,
-                     prims=None, prim_counts=(0, 0)):
+                     prims=None, prim_counts=(0, 0), rays_on_device: bool = False):
     """Render -> ``(img [rows, W, 3] f32 on device, rays traced)``.
 
     ``uniforms``/``lights`` come from :func:`kernel_core.build_uniforms` /
@@ -219,7 +220,11 @@ def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     dispatching by device (the kernels' reference on the card).
     ``prims``/``prim_counts``: the analytic sphere/box table of
     :func:`cosig_tpu_torch.ops.analytic.pack_prims_host` and its
-    (n_sph, n_box), folded into every traversal."""
+    (n_sph, n_box), folded into every traversal. ``rays_on_device``: the
+    ray count as an int64 tensor on the device, so that the host can queue
+    more work before it reads the count (:func:`finalize`). Rows of a band
+    past the image start dead: they are traced by no ray and count none."""
     state = trace_state(cset, uniforms, lights, cfg, rows, row_offset, device, plain,
                         prims, prim_counts)
-    return finalize(state, cfg, state.shape[1] // (cfg.width * max(1, cfg.aa_samples)))
+    return finalize(state, cfg, state.shape[1] // (cfg.width * max(1, cfg.aa_samples)),
+                    rays_on_device)

@@ -13,10 +13,11 @@ Parity reference: ``Assets/Services/GifGenerator.cs``:
 * per-frame compression parallelism: the reference's Task.Run +
   Parallel.For becomes concurrent.futures (SURVEY.md section 2, item 3).
 
-The port's copy of :mod:`cosig_tpu.utils.gif`. Its LZW encoder is the
-pure-Python one, the JAX package's specification of the format; that
-package's optional C++ encoder (``cosig_tpu/native``) gives the same
-bytes and is not ported.
+The port's copy of :mod:`cosig_tpu.utils.gif`. :func:`lzw_compress` runs
+the C++ encoder of :mod:`cosig_tpu_torch.native` where it builds and
+loads, else :func:`lzw_compress_py`, the specification of the format;
+both give the same bytes. The C++ call releases the interpreter lock, so
+``save_gif``'s thread pool encodes frames in parallel with it.
 """
 
 from __future__ import annotations
@@ -105,7 +106,16 @@ def lzw_compress_py(data: bytes, min_code_size: int = 8) -> bytes:
     return bytes(out)
 
 
-lzw_compress = lzw_compress_py
+def lzw_compress(data: bytes, min_code_size: int = 8, use_native: str = "auto") -> bytes:
+    """LZW-compress palette indices. ``use_native`` as in
+    :func:`cosig_tpu_torch.accel.bvh.build_bvh`: ``"auto"`` runs the C++
+    encoder and falls back to :func:`lzw_compress_py`, ``"native"``
+    raises if the library is unavailable, ``"python"`` runs the Python
+    encoder."""
+    from cosig_tpu_torch.native import gif_native, loader
+
+    return loader.dispatch(use_native, lambda: gif_native.compress(data, min_code_size),
+                           lambda: lzw_compress_py(data, min_code_size))
 
 
 # ---------------------------------------------------------------------------

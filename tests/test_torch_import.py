@@ -28,6 +28,10 @@ import cosig_tpu_torch.ops.bvh_traverse
 import cosig_tpu_torch.scene.generate
 import cosig_tpu_torch.utils.gif
 import cosig_tpu_torch.cli
+import cosig_tpu_torch.parallel.sharding
+import cosig_tpu_torch.native.loader
+import cosig_tpu_torch.native.bvh_native
+import cosig_tpu_torch.native.gif_native
 import chip_smoke
 import tempfile, os
 
@@ -49,6 +53,21 @@ with tempfile.TemporaryDirectory() as tmp:
     rc = cosig_tpu_torch.cli.main(["render", "generated:large_mesh", "-o", out, "--width", "12",
                                    "--height", "8", "--depth", "2", "--device", "cpu"])
     assert rc == 0 and os.path.getsize(out) > 0
+from cosig_tpu_torch.parallel import sharding
+from cosig_tpu_torch.native import loader
+cset, prims, counts = m._geometry_for(scene)
+sst = st.replace(analytic_primitives=False, debug_mode=0)
+from cosig_tpu_torch.models.soa import frame_params, static_config
+from cosig_tpu_torch.ops import kernel_core
+params, cfg = frame_params(scene, sst), static_config(scene, sst)
+simg, srays = sharding.render_sharded_megakernel(
+    cset, kernel_core.build_uniforms(params), kernel_core.build_lights(params, cfg.multi_light),
+    cfg, sharding.make_mesh(devices=["cpu"] * 2))
+assert simg.shape == (12, 16, 3) and srays >= 16 * 12 * 2
+from cosig_tpu_torch.accel.bvh import build_bvh
+from cosig_tpu_torch.scene.tessellate import extract_triangles
+assert build_bvh(extract_triangles(scene), use_native="native").num_nodes > 1
+assert loader.loaded()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 jax_pkg = sorted(m for m in sys.modules
@@ -89,6 +108,9 @@ _JAX_MODULES = re.compile(
 def test_port_sources_import_no_jax_module():
     files = sorted((ROOT / "cosig_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "cosig_tpu_torch").as_posix() for p in files[:-1]}
+    assert {"parallel/sharding.py", "native/loader.py", "native/bvh_native.py",
+            "native/gif_native.py"} <= names
     for path in files:
         src = path.read_text()
         m = _JAX_MODULES.search(src)
@@ -97,6 +119,17 @@ def test_port_sources_import_no_jax_module():
                 "    from __graft_entry__ import _tiny_scene", "import jax.numpy as jnp"):
         assert _JAX_MODULES.search(bad), bad
     assert not _JAX_MODULES.search("from cosig_tpu_torch.ops import kernel_core")
+
+
+def test_native_sources_are_the_ports_own():
+    """The C++ host builders are the port's copies, built from its own
+    directory: they name no file of the JAX package's native module."""
+    sources = sorted((ROOT / "cosig_tpu_torch" / "native" / "src").glob("*.cc"))
+    assert [p.name for p in sources] == ["bvh.cc", "gif_lzw.cc"]
+    for path in sources + sorted((ROOT / "cosig_tpu_torch" / "native").glob("*.py")):
+        text = path.read_text()
+        assert "cosig_tpu/native" not in text and "cosig_tpu/" not in text.replace(
+            "cosig_tpu_torch/", ""), path.name
 
 
 def test_cuda_renderer_raises_without_gpu(monkeypatch):

@@ -132,6 +132,27 @@ def test_band_bit_equal_full_frame(effects):
     assert band_rays == rays
 
 
+def test_render_chain_matches_single_and_jax_chain():
+    """``render_chain`` (tests/test_pallas.py:121 for the JAX one): k frames
+    queued in a row give the single frame's image bit for bit and k times
+    its rays; the JAX chain of k frames in interpret mode gives the same
+    image within the depth >= 2 tolerances and the same rays within 8 a
+    frame."""
+    st = cosig_tpu.RenderSettings(resolution_override=(32, 32), max_depth=2)
+    (jcs, params, cfg), port = _setup("tiny", st)
+    cset, uni, lights, tcfg = port
+    img1, rays1 = _mega(port)
+    img3, rays3 = ttm.render_chain(cset, uni, lights, tcfg, k=3)
+    assert torch.equal(img3, torch.from_numpy(img1)) and rays3 == 3 * rays1
+    assert isinstance(rays3, int)
+    ref, jrays = trace_pallas.render_chain(jcs, params, cfg, k=3, interpret=True)
+    ref = np.asarray(ref)
+    assert _rmse(img3.numpy(), ref) < 1e-5 and np.abs(img3.numpy() - ref).max() < 1e-3
+    assert abs(rays3 - float(jrays)) <= 8 * 3
+    with pytest.raises(ValueError, match="k must be"):
+        ttm.render_chain(cset, uni, lights, tcfg, k=0)
+
+
 @pytest.mark.parametrize("aa", [1, 4, 3])
 def test_megakernel_plain_vs_wavefront_plain(aa):
     """Same camera rays and the same bounce code, so the same per-sample
