@@ -22,8 +22,11 @@ Phases (any failure raises and the script exits non-zero):
    spheres and boxes through every kernel; then the edges of the block
    walk in every kernel (partial tiles, inactive threads, AA 3, a band of
    rows, large_mesh's 64-row clusters and the same cut two ways, into two
-   cull passes, and four ways, c_pad 1024, into four, an analytic frame, a
-   frame whose rays all die at depth 1), bit for bit; then the compaction
+   cull passes, and four ways, c_pad 1024, into four and two superblocks,
+   an analytic frame, a frame whose rays all die at depth 1), bit for
+   bit, with the pre-filters of the block walk on (the superblock cull in
+   every kernel, the frustum cull in the primary, the debug kernel and the
+   megakernel's depth 0); then the compaction
    kernel on synthetic states (``compact_states``: N from 1 to 2^24 - 1,
    every ray dead, alive in one octant or in all eight, NaN and signed
    zero directions), its list and length equal to the plain ones as
@@ -84,14 +87,35 @@ Phases (any failure raises and the script exits non-zero):
    rays, ms/frame from the slope); (e) the native library built from the
    repository's sources: BVH nodes and LZW bytes equal to the Python
    builders', the library loaded after a Renderer's build, and the host's
-   seconds per new scene and per 36-frame 512x512 turntable GIF.
+   seconds per new scene and per 36-frame 512x512 turntable GIF;
+8. the dense knot (``dense_knot``: large_mesh's configuration with a knot
+   of 256,000 triangles, 2,355 clusters of k = 128 in c_pad 2560, five
+   superblocks): the host build, the block walk's shared memory and blocks
+   per multiprocessor at k = 128 in both builds of each ray kernel (with
+   and without the superblock cull), the kernels against their plain
+   versions at 128x128 bit for bit (lists equal at every depth), the
+   knot's clusters split 32 ways (75,360 clusters, past the 65,536 that
+   sb_aabb_t's 128 superblocks cover, so every kernel takes its flat
+   build) bit for bit at 16x8, depth 1, both paths at
+   2048x2048 depth 4 through the Renderer with the launch counters read
+   around each (ms/frame, Mrays/s, the megakernel bit-equal to the
+   wavefront, each launch's device time), and both paths against
+   the BVH-walk oracle at 256x256 (RMSE < 1e-5).
 
 Near the end the script prints a JSON line of the models, a JSON line of
-per-frame numbers, a JSON line of the oracle's and one of phase 7's
-numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
+per-frame numbers, a JSON line each of the oracle's, phase 7's and phase
+8's numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
 last line, the result ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
 prints no result.
+
+    python3 chip_smoke.py --time-kernels [TREE]
+
+runs only phase 3's kernel times (``time_kernels``) of the checkout TREE
+(default: this one), with that checkout's own ``chip_smoke.py`` and
+package, and prints one line ``TIMES {"tree": ..., "card": ...,
+"primary": ms, ..., "bounce large_mesh": [ms per depth]}``. Run it once per
+tree, each in a process of its own, parent and change in turns (README.md).
 """
 
 from __future__ import annotations
@@ -148,13 +172,19 @@ BVH_OFF_ABS, BVH_OFF_SHARE, BVH_RMSE = 1e-3, 0.005, 1e-3
 # subtracts, 6 multiplies, 10 min/max and 2 compares; a pair test 55
 # (three 6-term edge volumes, two 3-term dots, a reciprocal, t and 9
 # compares); an analytic primitive about 70 (the 3x4 object transform,
-# then the quadratic or the slabs). Shading adds a few hundred per ray and
-# is left out, so the bound is a floor.
+# then the quadratic or the slabs); a pre-filter test of a hull against a
+# box (traverse.cuh frustum_pass: a block's hull against a cluster or a
+# superblock box, or one ray's against a superblock box) about 75 (per
+# axis 2 subtracts, 4 multiplies, 8 min/max, the zero-straddle select and
+# the NaN and face rules). Shading adds a few hundred per ray and the
+# block's hull reduction (13 values through 5 shuffle steps a pass) a few
+# hundred per thread and pass; both are left out, so the bound is a floor.
 PEAK_F32_OPS = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_SLAB = 24
 FLOPS_PER_PAIR = 55
 FLOPS_PER_PRIM = 70
+FLOPS_PER_FRUSTUM = 75
 
 # The small scene of the JAX package's entry module (__graft_entry__.py),
 # carried here as text so this script needs nothing of that package: one
@@ -337,11 +367,36 @@ def diff(a, b):
     return same, float(d.max()), float(d.pow(2).mean().sqrt())
 
 
+# Phase 8's scene: large_mesh with a denser knot, 3200 x 40 x 2 triangles
+# (scene/generate.py _torus_knot_mesh), about the mesh size users load.
+DENSE_SEGS, DENSE_SIDES = 3200, 40
+DENSE_TRIANGLES = 256770
+DENSE_CLUSTERS, DENSE_K, DENSE_C_PAD = 2355, 128, 2560
+
+
+def dense_knot():
+    """(scene, settings) of phase 8: large_mesh's configuration (2048x2048,
+    depth 4, camera, materials, ground, glass sphere, light) with the knot
+    tessellated at DENSE_SEGS x DENSE_SIDES, built with the port's own
+    scene/generate.py."""
+    from cosig_tpu_torch.models.scene import TrianglesMesh
+    from cosig_tpu_torch.scene.generate import CONFIGS, _torus_knot_mesh
+
+    scene, settings = CONFIGS["large_mesh"]()
+    meshes = scene.triangle_meshes
+    i = max(range(len(meshes)), key=lambda m: len(meshes[m].triangles))  # the knot
+    meshes[i] = TrianglesMesh(transformation_index=meshes[i].transformation_index,
+                              triangles=_torus_knot_mesh(1, segs=DENSE_SEGS, sides=DENSE_SIDES))
+    return scene, settings
+
+
 def load(name: str):
     """(scene, settings) of a named scene, with the port's own modules."""
     import cosig_tpu_torch
     from cosig_tpu_torch.scene.generate import CONFIGS
 
+    if name == "dense_knot":
+        return dense_knot()
     if name == "demo_cornell":
         here = os.path.dirname(os.path.abspath(__file__))
         return (cosig_tpu_torch.load_scene(os.path.join(here, "scenes", "demo_cornell.txt")),
@@ -452,8 +507,12 @@ def split_clusters(cset, ways: int = 2):
     still exact; the rows keep their order, so each row keeps its index
     into the flat geometry): ``ways`` times the clusters, for a walk over
     more clusters than one cull pass holds. Padding rows stay last in every
-    part; c_pad is the next multiple of 512."""
+    part; c_pad is the next multiple of 512, and the superblock unions are
+    built anew from the split boxes (two superblocks at 4 ways on
+    large_mesh)."""
     import torch
+
+    from cosig_tpu_torch.accel.clusters import superblock_aabbs
 
     c, k = cset.num_clusters, cset.k
     if k % ways:
@@ -462,7 +521,8 @@ def split_clusters(cset, ways: int = 2):
     c_pad = -(-ways * c // 512) * 512
     aabb = torch.full((8, c_pad), float("nan"), dtype=torch.float32, device=cset.device)
     aabb[:, :ways * c] = cset.aabb_t[:, :c].repeat_interleave(ways, dim=1)
-    return type(cset)(geom=geom, aabb_t=aabb, sb_aabb_t=cset.sb_aabb_t, mats=cset.mats,
+    sb = torch.from_numpy(superblock_aabbs(aabb.cpu().numpy())).to(cset.device)
+    return type(cset)(geom=geom, aabb_t=aabb, sb_aabb_t=sb, mats=cset.mats,
                       num_triangles=cset.num_triangles)
 
 
@@ -489,7 +549,7 @@ def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
 
 
 def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
-                 lists=None) -> None:
+                 lists=None) -> dict:
     """One small frame: the wavefront kernels and the megakernel against
     their plain versions (``exact``: bit for bit), the compaction kernel's
     list against the plain one at every depth (``lists``: the lengths it
@@ -497,7 +557,8 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
     at AA 1 and 4; at other AA the wavefront's sample sum times
     float32(1/aa)), and on some frames the debug kernel. ``band``: (rows,
     row_offset), rows inside the image; ``split``: the scene's clusters cut
-    that many ways (split_clusters)."""
+    that many ways (split_clusters). Returns the plain wavefront's and
+    megakernel's seconds."""
     import numpy as np
 
     from cosig_tpu_torch.models.soa import static_config
@@ -516,7 +577,9 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
         f"c_pad={cset.aabb_t.shape[1]})")
     # Wavefront: primary, compaction and bounce kernels, state against the plain stages.
     st_k = tw.trace_state(cset, uni, lights, cfg, **bk, **pk)
+    t0 = time.perf_counter()
     st_p = tw.trace_state(cset, uni, lights, cfg, plain=True, **bk, **pk)
+    plain_s = {"wavefront": time.perf_counter() - t0}
     s_same, s_max, _ = diff(st_k, st_p)
     log(f"  wavefront state: bitwise={s_same} max={s_max:.3e}")
     img_w, rays_w = tw.finalize(st_k, cfg, rows)
@@ -529,8 +592,10 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
     # Megakernel against its plain version, and against the wavefront
     # kernels: the same device code, so the same bits at AA 1 and 4.
     img_m, rays_m = tm.render_clusters(cset, uni, lights, cfg, **bk, **pk)
-    hold("megakernel", cfg, img_m, rays_m,
-         *tm.render_clusters(cset, uni, lights, cfg, plain=True, **bk, **pk), exact=exact)
+    t0 = time.perf_counter()
+    plain_m = tm.render_clusters(cset, uni, lights, cfg, plain=True, **bk, **pk)
+    plain_s["megakernel"] = time.perf_counter() - t0
+    hold("megakernel", cfg, img_m, rays_m, *plain_m, exact=exact)
     same, mx, _ = diff(img_m, img_w)
     log(f"  megakernel vs wavefront kernels: bitwise={same} max={mx:.3e} "
         f"rays {rays_m} / {rays_w}")
@@ -547,7 +612,8 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
         same_s = diff(img_m, scaled)[0]
         log(f"  megakernel vs the wavefront kernels' sample sum x f32(1/{aa}): bitwise={same_s}")
         check(same_s and rays_m == rays_w, (tag, "megakernel vs wavefront sum x 1/aa"))
-    if not band and ((name in ("demo_cornell", "tiny", "large_mesh") and cfg.max_depth > 1)
+    if not band and ((name in ("demo_cornell", "tiny", "large_mesh", "dense_knot")
+                      and cfg.max_depth > 1)
                      or analytic):
         for mode in (1, 2, 3):
             dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=mode))
@@ -555,6 +621,7 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
             hold(f"debug mode {mode}", dcfg, img_d, rays_d,
                  *tm.render_debug(cset, uni, lights, dcfg, plain=True, **pk), exact=exact)
             check(rays_d == cfg.width * cfg.height, (tag, rays_d))
+    return plain_s
 
 
 # The compaction kernel's smallest block range (csrc/wavefront.cu: 16
@@ -647,30 +714,40 @@ def check_compaction_states(device) -> list:
     return out
 
 
-def cuda_activity(fn) -> list:
+def cuda_activity(fn, tries: int = 3) -> list:
     """The device activities (kernels, copies, sets) of one ``fn()`` from
     torch.profiler's CUDA activity -> [(name, start us, ms)] by start. A
     first run of ``fn`` under the profiler is its warm-up step and is not
     read: without it the tracer can miss the first launch. The step's own
-    span on the device timeline ("ProfilerStep#n") is not an activity."""
+    span on the device timeline ("ProfilerStep#n") is not an activity.
+    The tracer now and then returns an empty trace of a call that launched
+    a kernel: a trace with no CUDA activity at all is taken again, up to
+    ``tries`` traces. A trace with any activity goes to the callers'
+    checks as it is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    acts = []
+    for _ in range(tries):
+        acts = []
 
-    def read(prof):
-        acts.extend((e.name, e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3)
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
+        def read(prof):
+            acts.extend((e.name, e.time_range.start,
+                         (e.time_range.end - e.time_range.start) / 1e3)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith("ProfilerStep"))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=read) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=read) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if acts:
+            break
+        log("  torch.profiler's trace held no CUDA activity: traced again")
     return sorted(acts, key=lambda a: a[1])
 
 
@@ -678,7 +755,8 @@ def work_bound(work: dict, nbytes: int) -> dict:
     """Bound of one kernel call from the plain traversal's counted work and
     the bytes it must move."""
     flops = (FLOPS_PER_SLAB * work["slab_tests"] + FLOPS_PER_PAIR * work["pair_tests"]
-             + FLOPS_PER_PRIM * work["prim_tests"])
+             + FLOPS_PER_PRIM * work["prim_tests"]
+             + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
     op_ms = flops / PEAK_F32_OPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(op_ms, byte_ms),
@@ -1760,9 +1838,188 @@ def native_host(device, card: str, workdir: str, full_size: bool = True) -> dict
     return out
 
 
+# Phase 8. The dense knot (dense_knot): a scene whose own cluster set
+# passes 512 clusters, so every kernel runs the superblock cull on five
+# superblocks, at k = 128 (the block walk's largest shared memory). The
+# kernels against their plain versions at DENSE_PLAIN_SIDE, both paths
+# against the BVH-walk oracle at ORACLE_SIDE, and full-size frames.
+DENSE_PLAIN_SIDE = 128
+DENSE_SUPERBLOCKS = 5
+DENSE_FLAT_SPLIT = 32  # 75,360 clusters of 4 rows: past MAX_CLUSTERS
+
+
+def dense_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phase 8 on the dense knot: (a) the host build and the cluster set
+    (DENSE_TRIANGLES triangles, DENSE_CLUSTERS clusters of k = 128 in
+    c_pad 2560), the block walk's shared memory and blocks per
+    multiprocessor at that k; (b) the kernels against their plain versions
+    at DENSE_PLAIN_SIDE, bit for bit, the compaction lists equal at every
+    depth, the plain wavefront frame inside PLAIN_FRAME_LIMIT_S; (c) both
+    paths at 2048 x 2048, depth 4, through the Renderer, the launch
+    counters set to 0 before each path and read after it: ms/frame, Mrays/s,
+    the megakernel bit-equal to the wavefront, and each launch's device
+    time (dense_launch_times); (d) both paths against the BVH-walk
+    oracle (``backend="xla"``) at ORACLE_SIDE, RMSE < ORACLE_RMSE.
+    ``full_size=False`` cuts (b) to 32 x 32, (c) to 64 x 64 and (d) to 48 x 48
+    (CPU rehearsal)."""
+    import numpy as np
+
+    import cosig_tpu_torch
+    from cosig_tpu_torch.accel.clusters import CULL_BLOCK, MAX_CLUSTERS
+    from cosig_tpu_torch.kernels import binding
+
+    check(DENSE_FLAT_SPLIT * DENSE_CLUSTERS > MAX_CLUSTERS, "the split set is not past",
+          MAX_CLUSTERS)
+    on_card = device.type == "cuda"
+    dev = "cuda" if on_card else "cpu"
+    out = {"card": card}
+    scene, settings = dense_knot()
+    if not full_size:
+        settings = settings.replace(resolution_override=(64, 64))
+
+    # 8a. The host build and the cluster set.
+    renderers = {b: cosig_tpu_torch.Renderer(device=dev, backend=b)
+                 for b in ("wavefront", "megakernel")}
+    t0 = time.perf_counter()
+    cset = renderers["wavefront"]._geometry_for(scene)[0]
+    build_s = time.perf_counter() - t0
+    sb = cset.sb_aabb_t[:6].cpu().numpy()
+    n_sb = int(np.isfinite(sb).all(axis=0).sum())
+    shape = dict(triangles=cset.num_triangles, clusters=cset.num_clusters, k=cset.k,
+                 c_pad=int(cset.aabb_t.shape[1]), superblocks=n_sb, host_build_s=build_s)
+    check(shape["triangles"] == DENSE_TRIANGLES and shape["clusters"] == DENSE_CLUSTERS
+          and shape["k"] == DENSE_K and shape["c_pad"] == DENSE_C_PAD
+          and n_sb == DENSE_SUPERBLOCKS, "dense knot cluster set", shape)
+    if on_card:
+        shape["smem_bytes"] = binding.library().cosig_tile_smem_bytes(cset.k)
+        # The build each launch picks here (with the superblock cull) and
+        # the one a scene of at most 512 clusters launches, at the same k.
+        shape["blocks_per_sm"] = {
+            build: {name: binding.occupancy(name, n, cset.k, device)
+                    for name in ("primary", "bounce", "megakernel", "debug")}
+            for build, n in (("superblocks", cset.num_clusters), ("flat", CULL_BLOCK))}
+    out["cluster_set"] = shape
+    log(f"  dense knot: {shape['triangles']} triangles, {shape['clusters']} clusters of "
+        f"k = {shape['k']}, c_pad {shape['c_pad']}, {n_sb} superblocks; host build "
+        f"{build_s:.2f} s (tessellation, BVH, clusters); block walk "
+        f"{shape.get('smem_bytes', 'n/a')} B of shared memory a block, blocks per "
+        f"multiprocessor {shape.get('blocks_per_sm', 'n/a')}")
+
+    # 8b. The kernels against their plain versions at a cut size.
+    side = DENSE_PLAIN_SIDE if full_size else 32
+    t0 = time.perf_counter()
+    plain_s = compare_case(device, "dense_knot", dict(resolution_override=(side, side)), False,
+                           exact=True)
+    out["plain"] = dict(side=side, plain_s=plain_s, compare_s=time.perf_counter() - t0)
+    log(f"  dense knot {side}x{side}: kernels bit-equal to their plain versions; plain frames "
+        f"{plain_s['wavefront']:.1f} s (wavefront), {plain_s['megakernel']:.1f} s (megakernel)")
+    check(plain_s["wavefront"] <= PLAIN_FRAME_LIMIT_S, "plain dense knot frame",
+          plain_s["wavefront"])
+    # Past the superblocks sb_aabb_t holds: the flat build of every kernel.
+    t0 = time.perf_counter()
+    flat_s = compare_case(device, "dense_knot", dict(resolution_override=(16, 8), max_depth=1),
+                          False, exact=True, split=DENSE_FLAT_SPLIT)
+    out["plain_flat"] = dict(clusters=DENSE_FLAT_SPLIT * DENSE_CLUSTERS, side=(16, 8),
+                             plain_s=flat_s, compare_s=time.perf_counter() - t0)
+    log(f"  dense knot split {DENSE_FLAT_SPLIT} ways ({DENSE_FLAT_SPLIT * DENSE_CLUSTERS} "
+        f"clusters, no superblock cull) 16x8 d1: kernels bit-equal to their plain versions; "
+        f"plain frames {flat_s['wavefront']:.1f} s, {flat_s['megakernel']:.1f} s")
+
+    # 8c. Full-size frames on both paths.
+    frames = {}
+    for backend, per_frame in (("wavefront", wavefront_launches(settings.max_depth)),
+                               ("megakernel", dict(megakernel=1))):
+        renderer = renderers[backend]
+        renderer._geometry_for(scene)
+        binding.reset_counts()
+        fr = drive(renderer, "dense_knot", scene, settings, per_frame)
+        fr["launches"] = dict(binding.LAUNCHES)
+        if on_card:
+            check(all(fr["launches"][k] > 0 for k in per_frame), backend, fr["launches"])
+        frames[backend] = fr
+        log(f"  [{card}] dense knot {backend} {settings.resolution_override or '2048x2048'} "
+            f"d{settings.max_depth}: {fr['ms']:.3f} ms/frame, {fr['mrays_s']:.2f} Mrays/s, "
+            f"rays {fr['rays']}, mean {fr['mean']:.6f}; launches {fr['launches']}")
+    if on_card:
+        out["device_ms"] = dense_launch_times(device, renderers["wavefront"], scene, settings)
+        log(f"  [{card}] dense knot device ms per launch: "
+            + ", ".join(f"{n} {v:.4f}" for n, v in out["device_ms"].items()))
+    w, m = frames["wavefront"], frames["megakernel"]
+    same = bool(np.array_equal(w["image"], m["image"]))
+    log(f"  dense knot megakernel vs wavefront at full size: bitwise={same} rays "
+        f"{m['rays']} / {w['rays']}")
+    check(same and m["rays"] == w["rays"], "dense knot megakernel vs wavefront")
+    for fr in frames.values():
+        del fr["image"]
+    out["frames"] = frames
+
+    # 8d. Both paths against the BVH-walk oracle.
+    oside = ORACLE_SIDE if full_size else 48
+    small = settings.replace(resolution_override=(oside, oside))
+    walk = cosig_tpu_torch.Renderer(device=dev, backend="xla")
+    img_o, ms = timed_render(walk, scene, small)  # with the BVH's build
+    check(walk._cached_xla[4] is not None, "the xla backend did not walk a BVH")
+    rays_o = walk.last_stats.rays_traced
+    rec = dict(side=oside, oracle_ms=ms, oracle_rays=rays_o)
+    for backend, renderer in renderers.items():
+        img_k = renderer.render_to_device(scene, small)
+        _, mx, rmse = diff(img_k, img_o)
+        rays = renderer.last_stats.rays_traced
+        rec[backend] = dict(rmse=rmse, max=mx, rays=rays)
+        log(f"  dense knot {oside}x{oside} d{settings.max_depth}: {backend} vs the BVH-walk "
+            f"oracle rmse {rmse:.3e}, max {mx:.3e}, rays {rays} (oracle {rays_o}, "
+            f"{ms:.1f} ms/frame)")
+        check(rmse < ORACLE_RMSE, "dense knot", backend, "rmse vs the oracle", rmse)
+        check(abs(rays - rays_o) <= RAYS_REL * rays_o, "dense knot", backend, "rays", rays)
+    out["oracle"] = rec
+    del renderers, walk, cset
+    if on_card:
+        import torch
+
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_launch_times(device, renderer, scene, settings) -> dict:
+    """Each kernel launch of one dense-knot frame on the card: the primary,
+    then per depth the compaction and the bounce on that depth's state
+    (copies made ahead, so the timed runs see the same input), and the
+    megakernel, each timed with CUDA events behind a sleep (device_ms).
+    Not torch.profiler: on these 50-90 ms frames its traces held 2 to 6 of
+    a frame's 7 launches (PERF.md)."""
+    from cosig_tpu_torch.kernels import megakernel as km
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.models.soa import frame_params, static_config
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    cset, prims, counts = renderer._geometry_for(scene)
+    params = frame_params(scene, settings)
+    cfg = static_config(scene, settings)
+    uni, lights, mats, pr, n_sph, n_box = tw.frame_inputs(
+        cset, kc.build_uniforms(params), kc.build_lights(params, cfg.multi_light), 0, None,
+        prims, counts)
+    pk = (pr, n_sph, n_box)
+    out = {"primary": device_ms(lambda: kw.primary(cset, uni, mats, lights, cfg, cfg.height,
+                                                    *pk), 3)}
+    state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+    for d in range(1, cfg.max_depth):
+        out[f"compact {d}"] = device_ms(lambda: kw.compact(state), 10)
+        idx, n_live = kw.compact(state)
+        copies = [state.clone() for _ in range(3)]
+        out[f"bounce {d}"] = device_ms(
+            lambda: kw.bounce(copies.pop(), idx, n_live, cset, uni, mats, lights, cfg, d, *pk), 3)
+        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+        del copies
+    out["megakernel"] = device_ms(
+        lambda: km.megakernel(cset, uni, mats, lights, cfg, cfg.height, *pk), 3)
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
-    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b}, ...}."""
+    {"primary": {"registers": r, "spill_stores": b, "spill_loads": b,
+    "superblocks": {the same of the build with the superblock cull}}, ...}."""
     import re
 
     names = {"primary_kernel": "primary", "bounce_kernel": "bounce",
@@ -1771,28 +2028,61 @@ def ptxas_resources(ptxas: str) -> dict:
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
         if m:
-            cur = names.get(m.group(2)[: int(m.group(1))])
-            if cur:
-                out[cur] = {}
+            name = names.get(m.group(2)[: int(m.group(1))])
+            cur = None
+            if name:
+                cur = out.setdefault(name, {})
+                if m.group(2)[int(m.group(1)):].startswith("ILb1E"):  # built with <true>
+                    cur = cur.setdefault("superblocks", {})
             continue
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        if m and "spill_stores" not in cur:  # later lines are called functions'
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[cur]["registers"] = int(m.group(1))
+            cur["registers"] = int(m.group(1))
     return out
 
 
-def main() -> int:
+def time_tree(tree: str) -> int:
+    """``--time-kernels``: phase 3's kernel times of the checkout ``tree``,
+    from its own ``chip_smoke.py`` and package, as one ``TIMES`` line."""
+    import importlib
+
+    import torch
+
+    tree = os.path.abspath(tree)
+    if not os.path.isfile(os.path.join(tree, "chip_smoke.py")):
+        print(f"chip_smoke: no chip_smoke.py in {tree}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    smoke = importlib.import_module("chip_smoke")
+    rows = smoke.time_kernels(torch.device("cuda", 0))
+    out = {"tree": tree, "card": smoke.card_line()}
+    for r in rows:
+        out[r["name"]] = r["ms"]
+        if r["name"] == "bounce":
+            out["bounce large_mesh"] = [x["ms"] for x in r["large_mesh"]]
+            out["bounce empty"] = r["empty_list_ms"]
+    print("TIMES " + json.dumps(out), flush=True)
+    return 0
+
+
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
+    if argv[:1] == ["--time-kernels"] and len(argv) <= 2:
+        return time_tree(argv[1] if len(argv) == 2 else here)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}\n{__doc__}", file=sys.stderr)
+        return 2
     sys.path.insert(0, here)
     try:
         from cosig_tpu_torch.kernels import build as kbuild
@@ -1844,14 +2134,22 @@ def main() -> int:
         phase7 = dict(small=shard_small(device), frames=shard_frames(device, card),
                       native=native_host(device, card, workdir))
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase8 = dense_frames(device, card)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
 
     glass_k = scene_setup("glass_sphere", {}, "cpu")["cset"].k
+    dense_launches = {}
+    for fr in phase8["frames"].values():
+        dense_launches.update({n: c for n, c in fr["launches"].items() if c})
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, k["name"], "was not launched on its path")
+        if k["name"] != "debug":
+            k["dense_knot_launches"] = dense_launches[k["name"]]
         k.update(resources[k["name"]])
         if k["name"] == "compact":
             k["design"] = ("one cooperative launch: key bytes in shared memory, one grid "
@@ -1866,6 +2164,7 @@ def main() -> int:
     log(json.dumps({"frames": frames}))
     log(json.dumps({"oracle": oracle}))
     log(json.dumps({"phase7": phase7}))
+    log(json.dumps({"phase8": phase8}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1876,4 +2175,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,12 +5,13 @@ Counterpart of :func:`cosig_tpu.accel.clusters.build_clusters`
 (:mod:`cosig_tpu_torch.accel.bvh`) is cut into leaves of at most ``k``
 triangles; leaves are chunked, packed and become *clusters*, each padded
 to exactly ``k`` rows of precomputed Plücker constants. The kernels test
-a ray against every cluster box and run the exact pair test on the
-clusters it may enter.
+a ray against the cluster boxes (after two exact pre-filters: the
+superblock unions and, for coherent rays, the packet's bounding frustum)
+and run the exact pair test on the clusters it may enter.
 
-Kept from the JAX build, bit for bit: the auto-k rule, leaf chunking and
-packing, gid-sorted rows, the inflated boxes, the NaN padding columns and
-the superblock unions. Dropped: the sub-cluster boxes (``sub_aabb_t``,
+Kept from the JAX build, bit for bit: the auto-k rule and the explicit
+``k``, leaf chunking and packing, gid-sorted rows, the inflated boxes,
+the NaN padding columns and the superblock unions. Dropped: the sub-cluster boxes (``sub_aabb_t``,
 never read by the traversal) and the TPU matrix-unit operands
 (``geom_mx``/``gatt``).
 
@@ -60,6 +61,7 @@ AUTO_K_MAX_C = 256  # auto rule: double k while the cut is wider than this
 
 CULL_BLOCK = 512  # clusters per superblock
 MAX_SUPERBLOCKS = 128  # sb_aabb_t width
+MAX_CLUSTERS = MAX_SUPERBLOCKS * CULL_BLOCK  # 65,536: the most that sb_aabb_t covers
 
 # The JAX package's default cut (its COSIG_LEAF_MULT / COSIG_CLUSTER_PACK /
 # COSIG_PACK_SA sweep knobs at their defaults): stop the median split at
@@ -115,7 +117,18 @@ def cluster_set_from_arrays(geom, aabb_t, sb_aabb_t, mats) -> ClusterSet:
     )
 
 
-def _superblock_aabbs(aabb_t: np.ndarray) -> np.ndarray:
+def superblocks(n_clusters: int) -> int:
+    """Superblocks the walks over ``n_clusters`` clusters test: none up to
+    one superblock (the JAX kernel's ``n_blocks == 1``), one per CULL_BLOCK
+    clusters up to MAX_SUPERBLOCKS, and none past MAX_CLUSTERS, where
+    ``sb_aabb_t`` holds no box for the rest and the walk is flat, which is
+    exact (the JAX build drops the superblocks past 128). The kernels pick
+    their build by the same rule (csrc/traverse.cuh ``superblocks``)."""
+    n_sb = -(-n_clusters // CULL_BLOCK)
+    return n_sb if 1 < n_sb <= MAX_SUPERBLOCKS else 0
+
+
+def superblock_aabbs(aabb_t: np.ndarray) -> np.ndarray:
     """Union AABBs of CULL_BLOCK-cluster superblocks -> [8, 128] (NaN pad)."""
     c_pad = aabb_t.shape[1]
     n_sb = -(-c_pad // CULL_BLOCK)
@@ -182,16 +195,24 @@ def _cut(tris: TriangleSoA, k: int):
     return bvh, chunks
 
 
-def build_clusters(tris: TriangleSoA, mats_host: np.ndarray) -> ClusterSet:
+def build_clusters(tris: TriangleSoA, mats_host: np.ndarray, k: int | None = None) -> ClusterSet:
     """Build the cluster structure on the host -> ClusterSet on the CPU.
 
     ``mats_host``: [M, 8] material table (color rgb + the five coefficients,
-    see :func:`cosig_tpu_torch.models.soa.materials_host`). The cluster
-    size follows the JAX package's auto rule: start at DEFAULT_K and double
-    while the cut has more than AUTO_K_MAX_C clusters, up to 128."""
+    see :func:`cosig_tpu_torch.models.soa.materials_host`). ``k``: the
+    cluster size; ``None`` follows the JAX package's auto rule: start at
+    DEFAULT_K and double while the cut has more than AUTO_K_MAX_C clusters,
+    up to 128. Raises ``ValueError`` on a ``k`` that is not a positive int.
+    ``sb_aabb_t`` holds the first MAX_SUPERBLOCKS superblocks, as the JAX
+    build's; a cut of more than MAX_CLUSTERS clusters is walked flat
+    (:func:`superblocks`)."""
+    if k is not None and (not isinstance(k, int) or k <= 0):
+        raise ValueError(f"cluster size k must be a positive int or None (auto); got {k!r}")
     mats = torch.from_numpy(np.ascontiguousarray(mats_host, F32).copy())
     t = tris.count
-    k = DEFAULT_K
+    auto_k = k is None
+    if auto_k:
+        k = DEFAULT_K
     if t == 0:
         geom = np.zeros((1, k, GEOM_COMPS), F32)
         geom[:, :, GID] = GID_PAD
@@ -199,18 +220,21 @@ def build_clusters(tris: TriangleSoA, mats_host: np.ndarray) -> ClusterSet:
         return ClusterSet(
             geom=torch.from_numpy(geom),
             aabb_t=torch.from_numpy(aabb_t),
-            sb_aabb_t=torch.from_numpy(_superblock_aabbs(aabb_t)),
+            sb_aabb_t=torch.from_numpy(superblock_aabbs(aabb_t)),
             mats=mats,
             num_triangles=0,
         )
 
     bvh, chunks = _cut(tris, k)
-    while len(chunks) > AUTO_K_MAX_C and k < 128:
+    while auto_k and len(chunks) > AUTO_K_MAX_C and k < 128:
         k *= 2
         bvh, chunks = _cut(tris, k)
-    log.info("clusters: k=%d cut=%d (tris=%d)", k, len(chunks), t)
+    log.info("clusters: k=%d%s cut=%d (tris=%d)", k, " (auto)" if auto_k else "", len(chunks), t)
 
     c = len(chunks)
+    if c > MAX_CLUSTERS:
+        log.info("clusters: %d > %d, past the superblocks sb_aabb_t holds: no superblock cull, "
+                 "the walks are flat", c, MAX_CLUSTERS)
     c_pad = -(-c // 128) * 128
     if c_pad > CULL_BLOCK:
         c_pad = -(-c // CULL_BLOCK) * CULL_BLOCK
@@ -251,7 +275,7 @@ def build_clusters(tris: TriangleSoA, mats_host: np.ndarray) -> ClusterSet:
     return ClusterSet(
         geom=torch.from_numpy(geom),
         aabb_t=torch.from_numpy(aabb_t),
-        sb_aabb_t=torch.from_numpy(_superblock_aabbs(aabb_t)),
+        sb_aabb_t=torch.from_numpy(superblock_aabbs(aabb_t)),
         mats=mats,
         num_triangles=t,
     )

@@ -90,10 +90,13 @@ __device__ __forceinline__ void random_unit(float sx, float sy, float sz, float&
 }
 
 // One bounce on a live ray (kernel_core.py:1089-1270). px/py/s are the RNG
-// seeds, depth the bounce index; is_last retires the ray after shading.
-__device__ __forceinline__ void bounce_core(const Frame& f, BlockWalk& walk, RayState& st,
+// seeds, depth the bounce index; is_last retires the ray after shading;
+// frustum (the same in every thread) runs the block walk's frustum
+// pre-cull in both traversals, for coherent rays.
+template <class Walk>
+__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
                                             float px, float py, float s,
-                                            float depth, bool is_last) {
+                                            float depth, bool is_last, bool frustum) {
   const float bg_r = f.u[U_BG], bg_g = f.u[U_BG + 1], bg_b = f.u[U_BG + 2];
   const float intensity = f.u[U_INTENSITY];
   const float light_size = f.u[U_LIGHT_SIZE];
@@ -104,7 +107,7 @@ __device__ __forceinline__ void bounce_core(const Frame& f, BlockWalk& walk, Ray
   bool alive = st.alive;
 
   st.count = st.count + (alive ? 1.0f : 0.0f);
-  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, alive);
+  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, alive, frustum);
   const float t = h.t, nx = h.nx, ny = h.ny, nz = h.nz;
 
   const bool miss = alive && !h.hit;
@@ -155,7 +158,7 @@ __device__ __forceinline__ void bounce_core(const Frame& f, BlockWalk& walk, Ray
       const bool shadow_active = alive && (ndl > 0.0f);
       st.count = st.count + (shadow_active ? 1.0f : 0.0f);
       const bool occluded = walk.any(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
-                                     ldx, ldy, ldz, dist_l, shadow_active);
+                                     ldx, ldy, ldz, dist_l, shadow_active, frustum);
       const bool gate = !occluded && (ndl > 0.0f) && alive;
       float dr = cr * kd * ndl;
       float dg = cg * kd * ndl;

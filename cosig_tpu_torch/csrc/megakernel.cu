@@ -59,14 +59,17 @@ __device__ __forceinline__ bool tile_pixel(const Frame& f, int& x, int& y) {
   return x < f.width && y < f.band;
 }
 
+template <bool SB>
 __global__ void __launch_bounds__(MEGA_THREADS)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-               const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+               const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+               int n_clusters, int k, int c_pad,
                const float* __restrict__ prims, int n_sph, int n_box, int max_depth,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk walk;
-  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
 
   int x, y;
   const bool in_tile = tile_pixel(f, x, y);
@@ -87,7 +90,10 @@ __global__ void __launch_bounds__(MEGA_THREADS)
     // A dead ray's bounce is a no-op on the TPU as well: stopping is exact.
     for (int depth = 0; depth < max_depth; ++depth) {
       if (!__syncthreads_or(st.alive)) break;
-      bounce_core(f, walk, st, px, py, (float)s_i, (float)depth, depth == max_depth - 1);
+      // Depth 0 traces the coherent camera rays: frustum pre-cull on
+      // (trace_pallas.py:187-198,272); later depths the superblock cull only.
+      bounce_core(f, walk, st, px, py, (float)s_i, (float)depth, depth == max_depth - 1,
+                  depth == 0);
     }
     acc_r = acc_r + st.col_r;
     acc_g = acc_g + st.col_g;
@@ -101,14 +107,17 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   out[3 * (size_t)n + i] = st.count;
 }
 
+template <bool SB>
 __global__ void __launch_bounds__(MEGA_THREADS)
     debug_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-                 const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+                 const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                 int n_clusters, int k, int c_pad,
                  const float* __restrict__ prims, int n_sph, int n_box, int mode,
                  float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk walk;
-  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
 
   int x, y;
   const bool in_tile = tile_pixel(f, x, y);
@@ -135,7 +144,7 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   float dz = cam[8] * dcx + cam[9] * dcy + cam[10] * dcz;
   rsqrt3(dx, dy, dz);
 
-  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, in_tile);
+  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, in_tile, true);  // trace_pallas.py:480-490
   if (!in_tile) return;
   float r, gr, b;
   if (mode == 1) {
@@ -167,35 +176,51 @@ inline int tile_blocks(const Frame& f) {
 
 extern "C" {
 
+// Blocks of the megakernel (which 0) or the debug kernel (1), in the
+// build their launch picks for n_clusters clusters (with or without the
+// superblock cull), that one multiprocessor holds at once with the block
+// walk's shared memory for clusters of k rows,
+// after the same raise of the kernel's dynamic shared-memory limit as its
+// launch; minus the CUDA error if refused.
+int cosig_megakernel_occupancy(int which, int n_clusters, int k) {
+  const int smem = (int)cosig::tile_layout(k).total;
+  const bool sb = cosig::superblocks(n_clusters) > 0;
+  if (which == 0) {
+    return cosig::walk_occupancy(sb ? cosig::megakernel<true> : cosig::megakernel<false>, smem);
+  }
+  return cosig::walk_occupancy(sb ? cosig::debug_kernel<true> : cosig::debug_kernel<false>,
+                               smem);
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). frame->n_rays
 // is the number of pixels, frame->band * frame->width; out f32 [4, n_rays]:
 // rgb and the ray count.
 int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
-                            int n_clusters, int k, int c_pad, const float* prims, int n_sph,
-                            int n_box, int max_depth, float* out, void* stream) {
+                            const float* sb_aabb, int n_clusters, int k, int c_pad,
+                            const float* prims, int n_sph, int n_box, int max_depth, float* out,
+                            void* stream) {
   if (frame->n_rays <= 0) return 0;
-  const int smem = (int)cosig::tile_layout(k).total;
-  cudaError_t err = cudaFuncSetAttribute(cosig::megakernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cosig::megakernel<<<cosig::tile_blocks(*frame), cosig::MEGA_THREADS, smem,
-                      (cudaStream_t)stream>>>(*frame, geom, aabb, n_clusters, k, c_pad, prims,
-                                              n_sph, n_box, max_depth, out);
-  return (int)cudaGetLastError();
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::megakernel<true>
+                                                         : cosig::megakernel<false>;
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
+                                 (int)cosig::tile_layout(k).total, (cudaStream_t)stream, *frame,
+                                 geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
+                                 max_depth, out);
 }
 
 int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
-                       int n_clusters, int k, int c_pad, const float* prims, int n_sph,
-                       int n_box, int mode, float* out, void* stream) {
+                       const float* sb_aabb, int n_clusters, int k, int c_pad,
+                       const float* prims, int n_sph, int n_box, int mode, float* out,
+                       void* stream) {
   if (frame->n_rays <= 0) return 0;
-  const int smem = (int)cosig::tile_layout(k).total;
-  cudaError_t err = cudaFuncSetAttribute(cosig::debug_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cosig::debug_kernel<<<cosig::tile_blocks(*frame), cosig::MEGA_THREADS, smem,
-                        (cudaStream_t)stream>>>(*frame, geom, aabb, n_clusters, k, c_pad, prims,
-                                                n_sph, n_box, mode, out);
-  return (int)cudaGetLastError();
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::debug_kernel<true>
+                                                         : cosig::debug_kernel<false>;
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
+                                 (int)cosig::tile_layout(k).total, (cudaStream_t)stream, *frame,
+                                 geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
+                                 mode, out);
 }
 
 }  // extern "C"

@@ -33,8 +33,15 @@
 //    a primitive loses an equal-t tie to a triangle. The world normal stays
 //    unnormalized until the shared epilogue.
 //
-// The superblock level (sb_aabb_t, used on the TPU when C_pad > 512) is
-// only a culling shortcut; a flat loop over the C clusters is exact.
+// Two pre-filters run before the slab test, as on the TPU: the superblock
+// cull (kernel_core.py:545-590: with 513 to 65,536 clusters, the union
+// boxes of sb_aabb_t, one per 512 clusters) and, for coherent packets, the
+// bounding-frustum cull (kernel_core.py:455-517: a packet's hull of
+// origins and directions against a box by interval arithmetic). Both go
+// through frustum_pass below, the superblock cull of incoherent rays with
+// a hull of one ray. Each is exact: it passes every box that some ray of
+// the hull passes in box_pass, so the lists the walk builds, and every
+// result, stay those of the flat walk; only the slab tests it runs fall.
 //
 // Bound: the pair tests per ray, about 55 fp32 operations each (see
 // traverse_tile.cuh for where their operands come from). Padding rows
@@ -83,20 +90,41 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
+constexpr int SB_CLUSTERS = 512;      // clusters per superblock (accel/clusters.py CULL_BLOCK)
+constexpr int MAX_SUPERBLOCKS = 128;  // sb_aabb_t's width
+
+// Superblocks a walk over n clusters tests: none up to one superblock
+// (kernel_core.py:542, n_blocks == 1), one per 512 clusters up to
+// MAX_SUPERBLOCKS, and none past them, where sb_aabb_t holds no box for
+// the rest: such a scene takes the flat walk, which is exact (the JAX
+// build drops the superblocks past 128, clusters.py:207-222).
+__host__ __device__ inline int superblocks(int n_clusters) {
+  const int n_sb = (n_clusters + SB_CLUSTERS - 1) / SB_CLUSTERS;
+  return n_sb > 1 && n_sb <= MAX_SUPERBLOCKS ? n_sb : 0;
+}
+
+// Whether a walk over n_clusters clusters may launch with these superblock
+// boxes: a walk that tests superblocks needs their boxes.
+inline bool superblocks_ok(int n_clusters, const float* sb_aabb) {
+  return superblocks(n_clusters) == 0 || sb_aabb != nullptr;
+}
+
 struct Geometry {
   const float* __restrict__ geom;   // [C, K, GEOM_COMPS]
   const float* __restrict__ aabb;   // [8, c_pad]: min xyz, max xyz, pad
+  const float* __restrict__ sb_aabb;  // [8, MAX_SUPERBLOCKS]: superblock unions
   const float* __restrict__ prims;  // [>= n_sph + n_box, PRIM_COLS], spheres first
   int n_clusters, k, c_pad, n_sph, n_box;
 };
 
 __device__ __forceinline__ Geometry make_geometry(const float* geom, const float* aabb,
-                                                  int n_clusters, int k, int c_pad,
-                                                  const float* prims, int n_sph,
+                                                  const float* sb_aabb, int n_clusters, int k,
+                                                  int c_pad, const float* prims, int n_sph,
                                                   int n_box) {
   Geometry g;
   g.geom = geom;
   g.aabb = aabb;
+  g.sb_aabb = sb_aabb;
   g.prims = prims;
   g.n_clusters = n_clusters;
   g.k = k;
@@ -149,6 +177,18 @@ __device__ __forceinline__ Box box_ldg(const Geometry& g, int c) {
   return b;
 }
 
+// Superblock s's union box from sb_aabb [8, MAX_SUPERBLOCKS].
+__device__ __forceinline__ Box sb_box_ldg(const Geometry& g, int s) {
+  Box b;
+  b.b0 = __ldg(g.sb_aabb + 0 * MAX_SUPERBLOCKS + s);
+  b.b1 = __ldg(g.sb_aabb + 1 * MAX_SUPERBLOCKS + s);
+  b.b2 = __ldg(g.sb_aabb + 2 * MAX_SUPERBLOCKS + s);
+  b.b3 = __ldg(g.sb_aabb + 3 * MAX_SUPERBLOCKS + s);
+  b.b4 = __ldg(g.sb_aabb + 4 * MAX_SUPERBLOCKS + s);
+  b.b5 = __ldg(g.sb_aabb + 5 * MAX_SUPERBLOCKS + s);
+  return b;
+}
+
 // Slab test of the ray against a cluster box (kernel_core.py:430-449):
 // false only when the ray cannot enter the box. tn is the entry distance,
 // for the shadow rays' clip.
@@ -163,6 +203,81 @@ __device__ __forceinline__ bool box_pass(const Box& b, const Ray& r, float& tn) 
   const float tf =
       slab_min(slab_min(slab_max(t0x, t1x), slab_max(t0y, t1y)), slab_max(t0z, t1z));
   return !(tn > tf) && !(tf < 0.0f);
+}
+
+// The hull of a packet's rays (kernel_core.py:455-474): per axis the
+// origin interval, the direction interval and 1/d over it (rlo = 1/dhi,
+// rhi = 1/dlo, IEEE divisions), whether some ray's 1/d is infinite (zinf)
+// and whether some ray's d is NaN or infinite (wild); and the largest
+// max_t (+inf for a closest hit). The plain version is
+// cosig_tpu_torch/ops/kernel_core.py packet_hulls.
+struct Hull {
+  float olo[3], ohi[3], dlo[3], dhi[3], rlo[3], rhi[3];
+  float mt;
+  bool zinf[3], wild[3];
+};
+
+// One ray as a hull: the superblock cull's per-ray test.
+__device__ __forceinline__ Hull ray_hull(const Ray& r, float max_t) {
+  Hull h;
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+  const float id[3] = {r.idx, r.idy, r.idz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    h.olo[a] = h.ohi[a] = o[a];
+    h.dlo[a] = h.dhi[a] = d[a];
+    h.rlo[a] = h.rhi[a] = id[a];
+    h.zinf[a] = isinf(id[a]);
+    h.wild[a] = !isfinite(d[a]);
+  }
+  h.mt = max_t;
+  return h;
+}
+
+// The bounding-frustum test (kernel_core.py:476-517) of a hull against a
+// box, operation for operation as cosig_tpu_torch/ops/kernel_core.py
+// frustum_flags: false only when no ray of the hull can pass box_pass (and
+// the any hit's tn <= max_t) on the box. Per axis, float rounding is
+// monotone, so each ray's fl(fl(b - o) * fl(1/d)) lies between the hull's
+// corner products, and an axis whose direction interval holds zero is
+// unconstrained. Three rules keep it a superset where a ray's slab turns
+// NaN, which box_pass lets through: an axis with a NaN or infinite
+// direction (wild), a NaN box bound or origin (s_lo or s_hi NaN), or an
+// infinite 1/d (zinf) with the origin interval meeting the box's range on
+// that axis (0 * inf on a face at a ray's origin) passes the box; and the
+// test takes box_pass's form from -inf / +inf (the TPU version starts at 0
+// and FLT_MAX, which drops a ray whose slabs are all +inf). NaN passes.
+// About 70 operations.
+__device__ __forceinline__ bool frustum_pass(const Hull& h, const Box& b) {
+  const float bmin[3] = {b.b0, b.b1, b.b2}, bmax[3] = {b.b3, b.b4, b.b5};
+  float entry = 0.0f, exit = 0.0f;
+  bool over = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float s_lo = bmin[a] - h.ohi[a];
+    const float s_hi = bmax[a] - h.olo[a];
+    const float p1 = s_lo * h.rlo[a];
+    const float p2 = s_lo * h.rhi[a];
+    const float p3 = s_hi * h.rlo[a];
+    const float p4 = s_hi * h.rhi[a];
+    float t_lo = slab_min(slab_min(p1, p2), slab_min(p3, p4));
+    float t_hi = slab_max(slab_max(p1, p2), slab_max(p3, p4));
+    if (!(h.dlo[a] > 0.0f || h.dhi[a] < 0.0f)) {  // the interval holds zero (or NaN)
+      t_lo = -INFINITY;
+      t_hi = INFINITY;
+    }
+    entry = a == 0 ? t_lo : slab_max(entry, t_lo);
+    exit = a == 0 ? t_hi : slab_min(exit, t_hi);
+    over = over || h.wild[a] || s_lo != s_lo || s_hi != s_hi ||
+           (h.zinf[a] && !(h.olo[a] > bmax[a]) && !(h.ohi[a] < bmin[a]));
+  }
+  return over || (!(entry > exit) && !(exit < 0.0f) && !(entry > h.mt));
+}
+
+// One ray's superblock test, the per-ray form of frustum_pass. Not
+// inlined: it runs once per superblock and walk.
+static __device__ __noinline__ bool ray_enters(Ray r, float max_t, Box b) {
+  return frustum_pass(ray_hull(r, max_t), b);
 }
 
 // The 22 constants of one geometry row that the pair test reads: the

@@ -10,17 +10,32 @@
 // mbarriers. Every thread of the block calls a walk, each with its own ray
 // and an `active` flag; inactive threads take part in every barrier.
 //
+//  0. Pre-filters (traverse.cuh frustum_pass; kernel_core.py:455-590),
+//     at the start of each pass of TILE_C clusters. With 513 to 65,536
+//     clusters (traverse.cuh superblocks(); the kernels' builds with SB,
+//     which their launches pick for such scenes), at the first pass of
+//     each superblock of 512 the block tests the superblock's union box (sb_aabb): in frustum mode the
+//     block's hull against it, else every ray's own one-ray hull, OR-ed
+//     with a block barrier; a superblock no ray enters skips both its
+//     passes. In frustum mode (coherent rays: the primary's camera and
+//     shadow rays, the megakernel at depth 0, the debug kernel) the block
+//     reduces the hull of its rays still walking (warp shuffles, then
+//     shared memory) and skips the pass when none walks; each thread tests
+//     clusters tid and tid + 128 of the pass against the hull, and warp 0
+//     lists the clusters that pass in ascending order.
 //  1. Cull. The boxes sit in shared memory as [c][8] (two 16-byte words
 //     per box), staged once per block when the scene has at most TILE_C
 //     clusters, else once per pass of TILE_C. Each active ray runs
-//     box_pass on every cluster of the pass; a warp ballot stores which
-//     lanes enter it, one word per (cluster, warp). The any hit also
-//     applies the tn > max_t skip here.
+//     box_pass on every cluster of the pass that step 0 lets through; a
+//     warp ballot stores which lanes enter it, one word per (cluster,
+//     warp). The any hit also applies the tn > max_t skip here.
 //  2. List. Warp 0 compacts the clusters that some lane enters into a list
 //     in ascending cluster order: the closest-hit fold does not need the
 //     order (the (t, gid) winner is order-free), but the any hit must stop
 //     at the occluder a walk in cluster order stops at (the plain
-//     kernel_core.traverse, whose WORK counts its pair tests so).
+//     kernel_core.traverse, whose WORK counts its pair tests so). Step 0
+//     passes a superset of the boxes some lane enters, so the list is the
+//     flat walk's, cluster for cluster.
 //  3. Walk. Thread 0 keeps the next RING_STAGES listed clusters' rows in
 //     flight, K x 144 contiguous bytes each, one mbarrier per ring slot.
 //     A warp whose ballot word is 0 skips the cluster; otherwise its lanes
@@ -63,11 +78,16 @@ constexpr int RING_STAGES = 3;   // clusters in flight
 constexpr int ROW_BYTES = GEOM_COMPS * 4;  // 144 = 9 sixteen-byte words
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+constexpr int HULL_SLOTS = 16;  // a warp's partial hull: 13 floats and the flag bits
+
 // Dynamic shared memory of a walk over clusters of k rows: the ring, the
 // boxes [TILE_C][8], the ballots [TILE_C][TILE_WARPS], the list, the
-// mbarriers and the list length. Every offset is a multiple of 16.
+// frustum candidates (the clusters of a pass the block's hull passes, in
+// order) and their flag words, the warps' partial hulls
+// [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers and the two
+// list lengths. Every offset is a multiple of 16.
 struct TileLayout {
-  unsigned ring, boxes, ballots, list, bars, count, total;
+  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int k) {
@@ -76,7 +96,11 @@ __host__ __device__ inline TileLayout tile_layout(int k) {
   l.boxes = (unsigned)(RING_STAGES * k * ROW_BYTES);
   l.ballots = l.boxes + TILE_C * 32;
   l.list = l.ballots + TILE_C * TILE_WARPS * 4;
-  l.bars = l.list + TILE_C * 4;
+  l.cand = l.list + TILE_C * 4;
+  l.pre = l.cand + TILE_C * 4;
+  l.partial = l.pre + 16 * ((TILE_C / 32 * 4 + 15) / 16);
+  l.hull = l.partial + TILE_WARPS * HULL_SLOTS * 4;
+  l.bars = l.hull + 16 * (((unsigned)sizeof(Hull) + 4 + 15) / 16);
   l.count = l.bars + 16 * ((RING_STAGES * 8 + 15) / 16);
   l.total = l.count + 16;
   return l;
@@ -151,16 +175,24 @@ __device__ __forceinline__ PairRow row_smem(const float4* p) {
   return q;
 }
 
+// SB: the walk runs the superblock cull. Every ray kernel is built both
+// ways and its launch picks SB = (superblocks(n_clusters) > 0), so that a
+// scene of at most 512 clusters (or past 65,536, where the walk is flat)
+// runs none of its code: present but unused, it cost the bounce 2-3 %
+// (PERF.md).
+template <bool SB>
 struct BlockWalk {
   Geometry g;
   unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(g.k)
   unsigned seq;  // bulk copies issued so far; the same in every thread
+  bool sb_open;  // some ray of the block enters the current superblock; the same in every thread
 
   // Every thread of the block, once, before the first walk.
   __device__ __forceinline__ void init(const Geometry& geo, unsigned char* base) {
     g = geo;
     smem = base;
     seq = 0;
+    sb_open = true;
     if (threadIdx.x == 0) {
       for (int s = 0; s < RING_STAGES; ++s) mbar_init(smem_u32(smem + lay().bars + 8 * s), 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -181,6 +213,87 @@ struct BlockWalk {
   }
   __device__ __forceinline__ int* list() const {
     return reinterpret_cast<int*>(smem + lay().list);
+  }
+  __device__ __forceinline__ int* count() const {
+    return reinterpret_cast<int*>(smem + lay().count);
+  }
+  __device__ __forceinline__ Hull* hull() const {
+    return reinterpret_cast<Hull*>(smem + lay().hull);
+  }
+
+  // The block's hull of the rays with `in` set, into shared memory ->
+  // whether some ray is in (the same in every thread). Each warp reduces
+  // its lanes with shuffles (min and max that keep NaN, so a NaN ray
+  // makes a NaN hull, which passes), lane 0 stores the warp's partial
+  // hull, then thread f < 14 combines field f over the warps; the
+  // threads that combine a direction bound also take its reciprocal.
+  // Every thread of the block calls it.
+  __device__ __forceinline__ bool block_hull(const Ray& r, bool in, float max_t) {
+    float v[13];
+    const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+    const float id[3] = {r.idx, r.idy, r.idz};
+    unsigned bits = in ? 64u : 0u;  // bits 0-2 zinf, 3-5 wild, 6 some ray is in
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      v[a] = in ? o[a] : INFINITY;       // olo
+      v[3 + a] = in ? o[a] : -INFINITY;  // ohi
+      v[6 + a] = in ? d[a] : INFINITY;   // dlo
+      v[9 + a] = in ? d[a] : -INFINITY;  // dhi
+      if (in && isinf(id[a])) bits |= 1u << a;
+      if (in && !isfinite(d[a])) bits |= 8u << a;
+    }
+    v[12] = in ? max_t : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 13; ++i) {
+        const float w = __shfl_xor_sync(FULL_MASK, v[i], off);
+        v[i] = (i < 3 || (i >= 6 && i < 9)) ? nan_min(v[i], w) : nan_max(v[i], w);
+      }
+    }
+    bits = __reduce_or_sync(FULL_MASK, bits);
+    float* part = reinterpret_cast<float*>(smem + lay().partial);
+    __syncthreads();  // every thread is done with the previous hull
+    if (lane() == 0) {
+#pragma unroll
+      for (int i = 0; i < 13; ++i) part[warp() * HULL_SLOTS + i] = v[i];
+      part[warp() * HULL_SLOTS + 13] = __uint_as_float(bits);
+    }
+    __syncthreads();
+    const int f = threadIdx.x;
+    if (f < 13) {
+      const bool is_min = f < 3 || (f >= 6 && f < 9);
+      float x = part[f];
+      for (int w = 1; w < TILE_WARPS; ++w) {
+        x = is_min ? nan_min(x, part[w * HULL_SLOTS + f]) : nan_max(x, part[w * HULL_SLOTS + f]);
+      }
+      Hull* h = hull();
+      const int a = f % 3;
+      if (f < 3) {
+        h->olo[a] = x;
+      } else if (f < 6) {
+        h->ohi[a] = x;
+      } else if (f < 9) {
+        h->dlo[a] = x;
+        h->rhi[a] = 1.0f / x;
+      } else if (f < 12) {
+        h->dhi[a] = x;
+        h->rlo[a] = 1.0f / x;
+      } else {
+        h->mt = x;
+      }
+    } else if (f == 13) {
+      unsigned b = 0u;
+      for (int w = 0; w < TILE_WARPS; ++w) b |= __float_as_uint(part[w * HULL_SLOTS + 13]);
+      Hull* h = hull();
+      for (int a = 0; a < 3; ++a) {
+        h->zinf[a] = (b >> a) & 1u;
+        h->wild[a] = (b >> (3 + a)) & 1u;
+      }
+      count()[2] = (int)(b >> 6);
+    }
+    __syncthreads();
+    return count()[2] != 0;
   }
 
   // Boxes c0 .. c0 + TILE_C - 1 of aabb [8, c_pad] into [c][8].
@@ -206,18 +319,83 @@ struct BlockWalk {
     mbar_wait(smem_u32(smem + lay().bars + 8 * (q % RING_STAGES)), (q / RING_STAGES) & 1u);
   }
 
-  // Steps 1 and 2 on clusters c0 .. c0 + n - 1 -> the list length.
-  template <bool ANY>
-  __device__ __forceinline__ int cull(const Ray& r, bool enter, float max_t, int c0, int n) {
+  // Step 0 on clusters c0 .. c0 + n - 1 of the rays with `enter` set: the
+  // pre-filters, then the boxes of the pass staged -> the candidates' count
+  // (cand[0 .. count) in frustum mode, else all n), or -1 when the block
+  // skips the pass; the same in every thread. Inlined: as a call (which
+  // puts the walk's state on the stack) the primary, the megakernel and
+  // the debug kernel timed 6-16 % slower than with the inlined form's few
+  // more registers and spilled bytes (PERF.md).
+  __device__ __forceinline__ int prefilter(const Ray& r, bool enter, float max_t, bool frustum,
+                                           int c0, int n) {
+    // A block with no ray to walk skips the pass (walking can only stop, so
+    // a later pass has none either); without the frustum cull it is left to
+    // the superblock test and the per-warp vote below, as in the flat walk.
+    if (frustum && !block_hull(r, enter, max_t)) return -1;
+    if (SB && c0 % SB_CLUSTERS == 0) {
+      const Box sb = sb_box_ldg(g, c0 / SB_CLUSTERS);
+      sb_open = frustum ? frustum_pass(*hull(), sb)
+                        : __syncthreads_or(enter && ray_enters(r, max_t, sb));
+    }
+    if (SB && !sb_open) return -1;
     if (g.n_clusters > TILE_C) {
       __syncthreads();  // the previous pass has read its boxes
       stage_boxes(c0);
       __syncthreads();
     }
+    if (!frustum) return n;
+    const float4* bx = boxes();
+    int* cand = reinterpret_cast<int*>(smem + lay().cand);
+    unsigned* pre = reinterpret_cast<unsigned*>(smem + lay().pre);
+    const Hull& h = *hull();
+#pragma unroll
+    for (int q = 0; q < TILE_C / TILE_THREADS; ++q) {
+      const int c = q * TILE_THREADS + threadIdx.x;
+      bool f = false;
+      if (c < n) {
+        const float4 lo = bx[2 * c], hi = bx[2 * c + 1];
+        Box b;
+        b.b0 = lo.x;
+        b.b1 = lo.y;
+        b.b2 = lo.z;
+        b.b3 = hi.x;
+        b.b4 = hi.y;
+        b.b5 = hi.z;
+        f = frustum_pass(h, b);
+      }
+      const unsigned w = __ballot_sync(FULL_MASK, f);
+      if (lane() == 0) pre[c >> 5] = w;
+    }
+    __syncthreads();
+    if (warp() == 0) {
+      int m = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int c = base + lane();
+        const bool f = c < n && ((pre[base >> 5] >> lane()) & 1u);
+        const unsigned fb = __ballot_sync(FULL_MASK, f);
+        if (f) cand[m + __popc(fb & ((1u << lane()) - 1u))] = c;
+        m += __popc(fb);
+      }
+      if (lane() == 0) count()[1] = m;
+    }
+    __syncthreads();
+    return count()[1];
+  }
+
+  // Steps 0 to 2 on clusters c0 .. c0 + n - 1 of the rays with `enter`
+  // set -> the list length (the same in every thread).
+  template <bool ANY>
+  __device__ __forceinline__ int cull(const Ray& r, bool enter, float max_t, bool frustum,
+                                      int c0, int n) {
+    const int m0 = prefilter(r, enter, max_t, frustum, c0, n);
+    if (m0 < 0) return 0;
+    const float4* bx = boxes();
+    const int* cand = reinterpret_cast<const int*>(smem + lay().cand);
+    // 1. The per-ray slab test of each candidate.
     unsigned* bal = ballots();
     if (__any_sync(FULL_MASK, enter)) {
-      const float4* bx = boxes();
-      for (int c = 0; c < n; ++c) {
+      for (int j = 0; j < m0; ++j) {
+        const int c = frustum ? cand[j] : j;
         const float4 lo = bx[2 * c], hi = bx[2 * c + 1];
         Box b;
         b.b0 = lo.x;
@@ -233,17 +411,19 @@ struct BlockWalk {
         if (lane() == 0) bal[c * TILE_WARPS + warp()] = w;
       }
     } else {
-      for (int c = lane(); c < n; c += 32) bal[c * TILE_WARPS + warp()] = 0u;
+      for (int j = lane(); j < m0; j += 32) bal[(frustum ? cand[j] : j) * TILE_WARPS + warp()] = 0u;
     }
     __syncthreads();
+    // 2. The list, in ascending cluster order.
     int* lst = list();
-    int* count = reinterpret_cast<int*>(smem + lay().count);
     if (warp() == 0) {
       int m = 0;
-      for (int base = 0; base < n; base += 32) {
-        const int c = base + lane();
+      for (int base = 0; base < m0; base += 32) {
+        const int j = base + lane();
         bool f = false;
-        if (c < n) {
+        int c = 0;
+        if (j < m0) {
+          c = frustum ? cand[j] : j;
           const uint4 w = *reinterpret_cast<const uint4*>(bal + c * TILE_WARPS);
           f = (w.x | w.y | w.z | w.w) != 0u;
         }
@@ -251,21 +431,23 @@ struct BlockWalk {
         if (f) lst[m + __popc(fb & ((1u << lane()) - 1u))] = c;
         m += __popc(fb);
       }
-      if (lane() == 0) *count = m;
+      if (lane() == 0) count()[0] = m;
     }
     __syncthreads();
-    return *count;
+    return count()[0];
   }
 
   // Closest hit of every thread's ray; inactive threads get a miss.
+  // `frustum` (the same in every thread): run the frustum pre-cull.
   __device__ __forceinline__ Hit closest(float ox, float oy, float oz, float dx, float dy,
-                                         float dz, bool active) {
+                                         float dz, bool active, bool frustum) {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     Best b = no_hit();
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
+    sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<false>(r, active, 0.0f, c0, n);
+      const int m = cull<false>(r, active, INFINITY, frustum, c0, n);
       const int* lst = list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
@@ -300,16 +482,18 @@ struct BlockWalk {
     return finish_closest(g, r, b);
   }
 
-  // Any hit of every thread's ray at t <= max_t; false for inactive threads.
+  // Any hit of every thread's ray at t <= max_t; false for inactive
+  // threads. The pre-filters of each pass take the rays still walking.
   __device__ __forceinline__ bool any(float ox, float oy, float oz, float dx, float dy,
-                                      float dz, float max_t, bool active) {
+                                      float dz, float max_t, bool active, bool frustum) {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     bool walking = active;  // active and no occluder found yet
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
+    sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       if (c0 > 0 && !__syncthreads_or(walking)) break;
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<true>(r, walking, max_t, c0, n);
+      const int m = cull<true>(r, walking, max_t, frustum, c0, n);
       const int* lst = list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
@@ -360,5 +544,30 @@ struct BlockWalk {
     return active && (!walking || prims_occlude(g, r, max_t));
   }
 };
+
+// Launch `kernel` (a ray kernel's instantiation) on a grid of `blocks`
+// blocks of TILE_THREADS with `smem` bytes of dynamic shared memory on
+// `stream`, after raising its limit to that -> the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_walk(Kernel kernel, int blocks, int smem, cudaStream_t stream, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, TILE_THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Blocks of `kernel` that one multiprocessor holds at once with `smem`
+// bytes of dynamic shared memory, after the same raise of its limit as its
+// launch; minus the CUDA error if refused.
+template <typename Kernel>
+int walk_occupancy(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TILE_THREADS, smem);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
+}
 
 }  // namespace cosig

@@ -99,14 +99,17 @@ __device__ __forceinline__ void store(float* __restrict__ state, int n, int i,
   state[ROW_COUNT * (size_t)n + i] = st.count;
 }
 
+template <bool SB>
 __global__ void __launch_bounds__(THREADS)
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-                   const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                   int n_clusters, int k, int c_pad,
                    const float* __restrict__ prims, int n_sph, int n_box,
                    float* __restrict__ state) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk walk;
-  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = f.n_rays;
@@ -123,7 +126,9 @@ __global__ void __launch_bounds__(THREADS)
   st.count = 0.0f;
   st.alive = in_range && py < (float)f.height;  // rows of the band past the image are dead
 
-  bounce_core(f, walk, st, px, py, s, 0.0f, f.is_last != 0);
+  // Camera rays and their shadow rays are coherent: frustum pre-cull on
+  // (trace_wavefront.py:412-424).
+  bounce_core(f, walk, st, px, py, s, 0.0f, f.is_last != 0, true);
   if (!in_range) return;
   store(state, n, i, st);
   state[ROW_ID * (size_t)n + i] = (float)i;
@@ -323,17 +328,20 @@ __device__ __forceinline__ RayState load(const float* __restrict__ state, int n,
   return st;
 }
 
+template <bool SB>
 __global__ void __launch_bounds__(THREADS)
     bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-                  const float* __restrict__ aabb, int n_clusters, int k, int c_pad,
+                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                  int n_clusters, int k, int c_pad,
                   const float* __restrict__ prims, int n_sph, int n_box,
                   const int* __restrict__ idx, const int* __restrict__ n_live,
                   float* __restrict__ state) {
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk walk;
-  walk.init(make_geometry(geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box), tile_smem);
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
 
   const int n = f.n_rays;
   const int j = blockIdx.x * THREADS + threadIdx.x;
@@ -345,7 +353,8 @@ __global__ void __launch_bounds__(THREADS)
   if (listed && (f.flags & (F_SOFT_SHADOWS | F_GLOSSY))) {
     seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
   }
-  bounce_core(f, walk, st, px, py, s, (float)f.depth, f.is_last != 0);
+  // Bounce rays are incoherent: superblock cull only (trace_wavefront.py:459).
+  bounce_core(f, walk, st, px, py, s, (float)f.depth, f.is_last != 0, false);
   if (listed) store(state, n, i, st);
 }
 
@@ -359,20 +368,37 @@ int cosig_frame_bytes() { return (int)sizeof(cosig::Frame); }
 // Dynamic shared memory of a block walk over clusters of k rows.
 int cosig_tile_smem_bytes(int k) { return (int)cosig::tile_layout(k).total; }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Blocks of the primary (which 0) or the bounce kernel (1), in the
+// build their launch picks for n_clusters clusters (with or without the
+// superblock cull), that one multiprocessor holds at once with the block
+// walk's shared memory for clusters of k rows,
+// after the same raise of the kernel's dynamic shared-memory limit as its
+// launch; minus the CUDA error if refused.
+int cosig_wavefront_occupancy(int which, int n_clusters, int k) {
+  const int smem = (int)cosig::tile_layout(k).total;
+  const bool sb = cosig::superblocks(n_clusters) > 0;
+  if (which == 0) {
+    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true> : cosig::primary_kernel<false>,
+                                 smem);
+  }
+  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true> : cosig::bounce_kernel<false>,
+                               smem);
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 = launched). sb_aabb:
+// the cluster set's sb_aabb_t f32 [8, 128].
 int cosig_primary_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
-                         int n_clusters, int k, int c_pad, const float* prims, int n_sph,
-                         int n_box, float* state, void* stream) {
+                         const float* sb_aabb, int n_clusters, int k, int c_pad,
+                         const float* prims, int n_sph, int n_box, float* state, void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const int smem = (int)cosig::tile_layout(k).total;
-  cudaError_t err = cudaFuncSetAttribute(cosig::primary_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cosig::primary_kernel<<<blocks, cosig::THREADS, smem, (cudaStream_t)stream>>>(
-      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, state);
-  return (int)cudaGetLastError();
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::primary_kernel<true>
+                                                         : cosig::primary_kernel<false>;
+  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
+                                 k, c_pad, prims, n_sph, n_box, state);
 }
 
 // The compaction's grid for n rays: blocks and rays per block (0 and 0
@@ -411,19 +437,18 @@ int cosig_compact_launch(const float* state, int n, int* counts, int scratch, in
 // One bounce on the listed rays idx[0 .. *n_live) of state f32 [16, n_rays],
 // on a grid for all n_rays (the list length is read on the device only).
 int cosig_bounce_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
-                        int n_clusters, int k, int c_pad, const float* prims, int n_sph,
-                        int n_box, const int* idx, const int* n_live, float* state,
-                        void* stream) {
+                        const float* sb_aabb, int n_clusters, int k, int c_pad,
+                        const float* prims, int n_sph, int n_box, const int* idx,
+                        const int* n_live, float* state, void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const int smem = (int)cosig::tile_layout(k).total;
-  cudaError_t err = cudaFuncSetAttribute(cosig::bounce_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cosig::bounce_kernel<<<blocks, cosig::THREADS, smem, (cudaStream_t)stream>>>(
-      *frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live, state);
-  return (int)cudaGetLastError();
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::bounce_kernel<true>
+                                                         : cosig::bounce_kernel<false>;
+  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
+                                 k, c_pad, prims, n_sph, n_box, idx, n_live, state);
 }
 
 }  // extern "C"

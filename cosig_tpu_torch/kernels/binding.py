@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from cosig_tpu_torch.accel.clusters import GEOM_COMPS, ClusterSet
+from cosig_tpu_torch.accel.clusters import GEOM_COMPS, MAX_SUPERBLOCKS, ClusterSet
 from cosig_tpu_torch.kernels import build as kbuild
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import camera, trace_wavefront
@@ -121,9 +121,9 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library (all five kernels)."""
     path, _, _ = kbuild.build()
     lib = ctypes.CDLL(path)
-    # frame, geom, aabb, n_clusters, k, c_pad, prims, n_sph, n_box
+    # frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box
     common = [
-        ctypes.POINTER(Frame), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(Frame), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -144,6 +144,9 @@ def library() -> ctypes.CDLL:
     lib.cosig_compact_grid.restype = i32
     lib.cosig_tile_smem_bytes.argtypes = [i32]
     lib.cosig_tile_smem_bytes.restype = i32
+    for name in ("cosig_wavefront_occupancy", "cosig_megakernel_occupancy"):
+        getattr(lib, name).argtypes = [i32, i32, i32]  # which, n_clusters, k
+        getattr(lib, name).restype = i32
     lib.cosig_frame_bytes.argtypes = []
     lib.cosig_frame_bytes.restype = i32
     if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
@@ -159,8 +162,10 @@ def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
     """Raise unless the cluster set and the primitive table are what the
     kernels read: contiguous float32 on ``dev``, of the layout they index,
     with ``geom`` 16-byte aligned (the block walk copies each cluster's
-    rows with bulk async copies, which fault on other addresses)."""
-    for name in ("geom", "aabb_t"):
+    rows with bulk async copies, which fault on other addresses), the
+    superblock boxes ``sb_aabb_t`` [8, 128] (every kernel's superblock
+    cull reads them)."""
+    for name in ("geom", "aabb_t", "sb_aabb_t"):
         t = getattr(cset, name)
         if t.device != dev:
             raise ValueError(f"cset.{name} is on {t.device}, expected {dev}")
@@ -173,6 +178,9 @@ def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
     if cset.aabb_t.dim() != 2 or cset.aabb_t.shape[0] != 8 \
             or cset.aabb_t.shape[1] < cset.geom.shape[0]:
         raise ValueError(f"cset.aabb_t must be [8, >= C], got {tuple(cset.aabb_t.shape)}")
+    if tuple(cset.sb_aabb_t.shape) != (8, MAX_SUPERBLOCKS):
+        raise ValueError(f"cset.sb_aabb_t must be [8, {MAX_SUPERBLOCKS}], "
+                         f"got {tuple(cset.sb_aabb_t.shape)}")
     if (prims.device != dev or prims.dtype != torch.float32 or not prims.is_contiguous()
             or prims.dim() != 2 or prims.shape[1] != 22
             or prims.shape[0] < n_sph + n_box or min(n_sph, n_box) < 0):
@@ -203,9 +211,30 @@ def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph
     """Launch ``name`` on the current stream of ``out``'s device; raise if
     the launch is refused. ``extra``: the launcher's arguments between the
     primitive counts and ``out`` (ints, or tensors passed as pointers)."""
-    _call(name, out.device, ctypes.byref(frame), cset.geom, cset.aabb_t,
+    _call(name, out.device, ctypes.byref(frame), cset.geom, cset.aabb_t, cset.sb_aabb_t,
           cset.num_clusters, cset.k, int(cset.aabb_t.shape[1]), prims, n_sph, n_box,
           *extra, out)
+
+
+_OCCUPANCY = {"primary": ("cosig_wavefront_occupancy", 0),
+              "bounce": ("cosig_wavefront_occupancy", 1),
+              "megakernel": ("cosig_megakernel_occupancy", 0),
+              "debug": ("cosig_megakernel_occupancy", 1)}
+
+
+def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device) -> int:
+    """Blocks of ray kernel ``kernel`` (primary, bounce, megakernel, debug),
+    in the build its launch picks for ``n_clusters`` clusters (with the
+    superblock cull where :func:`~cosig_tpu_torch.accel.clusters.superblocks`
+    is above 0), that one multiprocessor of ``dev`` holds at once with the
+    block walk's shared memory for clusters of ``k`` rows; raise if the card
+    refuses that shared memory."""
+    name, which = _OCCUPANCY[kernel]
+    with torch.cuda.device(dev):
+        blocks = getattr(library(), name)(which, n_clusters, k)
+    if blocks <= 0:
+        raise RuntimeError(f"{kernel} kernel at k = {k}: CUDA error {-blocks}")
+    return blocks
 
 
 def compact_grid(n: int, dev: torch.device) -> tuple:

@@ -48,12 +48,15 @@ def cuobjdump() -> str:
 
 
 def functions(sass: str) -> dict:
-    """{kernel label: [(address, opcode, operands), ...]} of the four ray kernels."""
+    """{kernel label: [(address, opcode, operands), ...]} of the four ray
+    kernels, each in its builds without and with the superblock cull."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : _ZN5cosig(\d+)(\w+)", line)
         if m:
             cur = KERNELS.get(m.group(2)[: int(m.group(1))])
+            if cur and m.group(2)[int(m.group(1)):].startswith("ILb1E"):
+                cur += " (superblocks)"  # the build with the superblock cull
             if cur:
                 out[cur] = []
             continue

@@ -16,6 +16,10 @@ operations are IEEE (everything but sin/cos):
 * the Plücker chain order follows ``:818-842``;
 * the winner is the lexicographic (t, gid) minimum over all valid pairs
   (``:861-902``) — independent of clustering and visit order;
+* two pre-filters of the slab cull, the superblock cull (``:545-590``) and,
+  for coherent packets, the bounding-frustum cull (``:455-517``), are exact:
+  each passes a superset of what the per-ray slab test passes
+  (:func:`frustum_flags`), so they change only how many slab tests run;
 * normalization is ``1/sqrt`` then multiply (``:137-140``);
 * analytic spheres and boxes (``analytic_primitives``) fold in after the
   cluster walk with tie ids above every triangle's (``:931-1018``).
@@ -35,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cosig_tpu_torch.accel.clusters import GID_PAD, ClusterSet
+from cosig_tpu_torch.accel.clusters import CULL_BLOCK, GID_PAD, ClusterSet, superblocks
 from cosig_tpu_torch.models.soa import FrameParams, StaticConfig
 from cosig_tpu_torch.ops import rng
 from cosig_tpu_torch.ops.intersect import EPSILON, INF, _sign, _sqrt
@@ -81,17 +85,26 @@ GID_SPH = float(F32(2.0 ** 24 + 2))
 _PAIR_CHUNK = 1 << 20
 
 # Work entered by the plain traversal since the last reset_work(): ray x
-# cluster slab tests, ray x triangle pair tests on the clusters a ray
-# enters (padding rows excluded), and ray x analytic-primitive tests —
-# the tests csrc/traverse.cuh runs on the same rays. Its closest-hit walk
-# visits everything; its any-hit walk visits clusters, then rows, then
-# primitives in order and stops at the first occluder, so a shadow ray
-# counts up to that test and no further. chip_smoke.py turns the counts
-# into each kernel's bound. With a ray -> warp map (``warps``), also the
-# pair-loop slots the warps spend: a warp in which some ray (still
+# cluster slab tests (on the clusters the pre-filters pass), ray x
+# triangle pair tests on the clusters a ray enters (padding rows
+# excluded), ray x analytic-primitive tests, and with a ray -> block map
+# (``packets``) the pre-filters' tests: block x cluster frustum tests and
+# superblock tests (block x superblock in frustum mode, ray x superblock
+# otherwise) — the tests csrc/traverse_tile.cuh runs on the same rays. Its
+# closest-hit walk visits everything; its any-hit walk visits clusters,
+# then rows, then primitives in order and stops at the first occluder, so a
+# shadow ray counts up to that test and no further. chip_smoke.py turns the
+# counts into each kernel's bound. With a ray -> warp map (``warps``), also
+# the pair-loop slots the warps spend: a warp in which some ray (still
 # walking, for an any hit) enters a cluster runs its real rows on all 32
 # lanes, so each such (warp, cluster) counts 32 x the cluster's real rows.
-WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0}
+WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
+        "frustum_tests": 0, "superblock_tests": 0}
+
+# The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
+# block walk together, and its cull takes TILE_C clusters a pass.
+BLOCK_RAYS = 128
+TILE_C = 256
 
 
 def reset_work() -> None:
@@ -116,6 +129,140 @@ def warp_of_rays(slots: torch.Tensor, n: int) -> torch.Tensor:
     warp = torch.empty(n, dtype=torch.int64)
     warp[ids] = torch.nonzero(slots >= 0).squeeze(1) // 32
     return warp
+
+
+def linear_packets(n: int) -> torch.Tensor:
+    """Block id [n] of each ray of a kernel that gives thread i of its grid
+    of 128-thread blocks ray i (the primary kernel; the bounce kernel over
+    its list)."""
+    return torch.arange(n, dtype=torch.int64) // BLOCK_RAYS
+
+
+# ---------------------------------------------------------------------------
+# The slab cull's exact pre-filters
+
+
+def _pack_reduce(packets, n_packets, vals, fill, reduce):
+    """Per-packet min or max (``reduce``: "amin" / "amax") of ``vals`` [M]
+    whose packets are ``packets`` [M] -> [n_packets], ``fill`` for an empty
+    packet; NaN if any value of the packet is NaN."""
+    out = torch.full((n_packets,), fill, dtype=vals.dtype, device=vals.device)
+    out = out.scatter_reduce(0, packets, vals, reduce)
+    return torch.where(_pack_any(packets, n_packets, torch.isnan(vals)), float("nan"), out)
+
+
+def _pack_any(packets, n_packets, flags):
+    """Per-packet OR of ``flags`` [M, ...] -> bool [n_packets, ...] (in
+    int32: PyTorch's CUDA scatter takes no bool)."""
+    out = torch.zeros((n_packets,) + tuple(flags.shape[1:]), dtype=torch.int32,
+                      device=flags.device)
+    idx = packets.reshape((-1,) + (1,) * (flags.dim() - 1)).expand_as(flags)
+    return out.scatter_reduce(0, idx, flags.to(torch.int32), "amax") > 0
+
+
+def _hull(olo, ohi, dlo, dhi, zinf, wild, mt, live) -> dict:
+    """A hull from its per-axis bounds ([3, P] each) -> the dict that
+    :func:`frustum_flags` reads: the bounds, 1/d over the direction
+    interval (``rlo`` = 1/dhi, ``rhi`` = 1/dlo, IEEE divisions), ``uni``
+    (the interval lies on one side of zero), ``zinf`` (some ray's 1/d is
+    infinite), ``wild`` (some ray's d is NaN or infinite), ``mt`` [P] and
+    ``live`` [P] (the packet has an active ray)."""
+    return dict(olo=olo, ohi=ohi, dlo=dlo, dhi=dhi,
+                rlo=torch.reciprocal(dhi), rhi=torch.reciprocal(dlo),
+                uni=(dlo > 0.0) | (dhi < 0.0), zinf=zinf, wild=wild, mt=mt, live=live)
+
+
+def packet_hulls(packets, n_packets, active, ox, oy, oz, dx, dy, dz, max_t=None) -> dict:
+    """Per packet, the hull of its active rays (cosig_tpu/ops/kernel_core.py:455-474):
+    the origin and direction intervals per axis, the largest ``max_t``
+    (+inf without one), and the two flags that keep the frustum test exact
+    where a ray's own slab test turns NaN (:func:`frustum_flags`).
+    ``packets`` [N]: each ray's packet in ``[0, n_packets)``."""
+    pk = packets[active]
+    inf = float("inf")
+    lo, hi, zinf, wild = [], [], [], []
+    for o, d in ((ox, dx), (oy, dy), (oz, dz)):
+        oa, da = o[active], d[active]
+        lo.append(torch.stack([_pack_reduce(pk, n_packets, oa, inf, "amin"),
+                               _pack_reduce(pk, n_packets, da, inf, "amin")]))
+        hi.append(torch.stack([_pack_reduce(pk, n_packets, oa, -inf, "amax"),
+                               _pack_reduce(pk, n_packets, da, -inf, "amax")]))
+        zinf.append(_pack_any(pk, n_packets, torch.isinf(torch.reciprocal(da))))
+        wild.append(_pack_any(pk, n_packets, ~torch.isfinite(da)))
+    lo, hi = torch.stack(lo), torch.stack(hi)  # [3, 2, P]: origin, direction
+    if max_t is None:
+        mt = torch.full((n_packets,), inf, dtype=ox.dtype, device=ox.device)
+    else:
+        mt = _pack_reduce(pk, n_packets, max_t[active], -inf, "amax")
+    return _hull(lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1], torch.stack(zinf), torch.stack(wild),
+                 mt, _pack_any(pk, n_packets, torch.ones_like(pk, dtype=torch.bool)))
+
+
+def ray_hulls(active, ox, oy, oz, dx, dy, dz, max_t=None) -> dict:
+    """Each ray as a hull of its own ([N] packets of one ray): the per-ray
+    form of the test, the superblock cull's."""
+    o, d = torch.stack([ox, oy, oz]), torch.stack([dx, dy, dz])
+    mt = torch.full_like(ox, float("inf")) if max_t is None else max_t
+    return _hull(o, o, d, d, torch.isinf(torch.reciprocal(d)), ~torch.isfinite(d), mt, active)
+
+
+def frustum_flags(h: dict, boxes: torch.Tensor) -> torch.Tensor:
+    """Hulls [P] (:func:`packet_hulls`) against boxes ``boxes`` [>= 6, W]
+    (rows min xyz, max xyz) -> [P, W] bool: False only where no ray of the
+    hull can pass the box's slab test.
+
+    The interval arithmetic of cosig_tpu/ops/kernel_core.py:476-517,
+    operation for operation: per axis the entry and exit distances over the
+    origin interval times the 1/d interval (float rounding is monotone, so
+    every ray's own products lie between the corners'), an axis whose
+    direction interval holds zero (-0 included) unconstrained; NaN passes.
+    Three changes make it a superset of the per-ray slab test of every ray
+    of the hull, which the JAX version is not quite: (1) the slab test's
+    own form, entry <= exit, exit >= 0, entry <= max_t, from -inf and +inf
+    (the JAX version starts at 0 and FLT_MAX, so it drops a ray whose
+    max_t is negative or whose slabs are all +inf); (2) an axis on which
+    some ray's 1/d is infinite passes the box when the origin interval
+    meets the box's range there — that ray's slab is 0 * inf = NaN, which
+    passes, on a face at its origin; (3) an axis with a NaN or infinite
+    direction, or a NaN box or origin, passes."""
+    inf = float("inf")
+    entry = exit_ = over = None
+    for a in range(3):
+        bmin, bmax = boxes[a][None, :], boxes[a + 3][None, :]
+        olo, ohi = h["olo"][a][:, None], h["ohi"][a][:, None]
+        rlo, rhi = h["rlo"][a][:, None], h["rhi"][a][:, None]
+        s_lo = bmin - ohi
+        s_hi = bmax - olo
+        p1 = s_lo * rlo
+        p2 = s_lo * rhi
+        p3 = s_hi * rlo
+        p4 = s_hi * rhi
+        t_lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+        t_hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+        uni = h["uni"][a][:, None]
+        t_lo = torch.where(uni, t_lo, -inf)
+        t_hi = torch.where(uni, t_hi, inf)
+        entry = t_lo if entry is None else torch.maximum(entry, t_lo)
+        exit_ = t_hi if exit_ is None else torch.minimum(exit_, t_hi)
+        o_a = (h["wild"][a][:, None] | torch.isnan(s_lo) | torch.isnan(s_hi)
+               | (h["zinf"][a][:, None] & ~(olo > bmax) & ~(ohi < bmin)))
+        over = o_a if over is None else over | o_a
+    mt = h["mt"][:, None]
+    return over | (~(entry > exit_) & ~(exit_ < 0.0) & ~(entry > mt))
+
+
+def superblock_flags(packets, n_packets, active, ox, oy, oz, dx, dy, dz, sb_boxes,
+                     max_t=None) -> torch.Tensor:
+    """Per-ray test of the superblock boxes ``sb_boxes`` [>= 6, S] OR-ed
+    over each packet's active rays -> [n_packets, S] bool: the superblock
+    cull of rays that are not coherent (cosig_tpu/ops/kernel_core.py:568-572).
+    A ray's test is :func:`frustum_flags` of its own hull, the slab test of
+    a union box with the rule that keeps it a superset of the ray's slab
+    test on every cluster box inside the union: where the ray's 1/d is
+    infinite and its origin lies in the union's range, a cluster's face may
+    sit at the origin, whose NaN slab passes, so the union passes."""
+    flags = frustum_flags(ray_hulls(active, ox, oy, oz, dx, dy, dz, max_t), sb_boxes)
+    return _pack_any(packets, n_packets, flags & active[:, None])
 
 
 def build_uniforms(params: FrameParams, row_offset: float = 0.0) -> np.ndarray:
@@ -187,7 +334,8 @@ def prim_table(prims, prim_counts, device):
 
 
 def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
-             max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0, warps=None):
+             max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0, warps=None,
+             packets=None, frustum=False):
     """Closest hit (or, with ``any_hit``, occlusion at t <= max_t) of rays
     [N] against the cluster set and the analytic primitives -> ``(hit, t,
     nx, ny, nz, mat)``.
@@ -198,7 +346,20 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     miss. ``prims`` is the [P, 22] table of :func:`prim_table` with its
     first ``n_sph`` rows spheres and the next ``n_box`` boxes. ``warps``
     ([N] warp id of each ray on the rays' device, or None) adds the warps'
-    pair-loop slots to ``WORK["warp_slots"]``."""
+    pair-loop slots to ``WORK["warp_slots"]``.
+
+    ``packets`` ([N] thread block of each ray on the rays' device, or None)
+    runs the kernels' pre-filters before the per-ray slab test, as their
+    block walk does (csrc/traverse_tile.cuh): with superblocks to test
+    (:func:`~cosig_tpu_torch.accel.clusters.superblocks`: 513 to 65,536
+    clusters), at the first cull pass of each superblock a block tests the
+    superblock's union box (:func:`superblock_flags`, or with ``frustum``
+    its hull's :func:`frustum_flags`) and skips the superblock's clusters
+    when no ray enters it; with ``frustum``, at each pass of TILE_C
+    clusters the block's hull of the rays still walking is tested against
+    every box of the pass, and only the boxes it passes get the per-ray
+    test. Both are exact, so the outputs do not depend on ``packets`` or
+    ``frustum``; only the counted slab tests fall."""
     n = ox.shape[0]
     dev = ox.device
     geom = cset.geom
@@ -206,9 +367,11 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     aabb = cset.aabb_t
     rows_real = (geom[:, :, _GID] != float(GID_PAD)).sum(dim=1).tolist()
     if not any_hit:
-        n_active = int(active.sum())
-        WORK["slab_tests"] += n_active * C
-        WORK["prim_tests"] += n_active * (n_sph + n_box)
+        WORK["prim_tests"] += int(active.sum()) * (n_sph + n_box)
+    n_packets = int(packets.max()) + 1 if packets is not None and n > 0 else 0
+    n_sb = superblocks(C)
+    rays6 = (ox, oy, oz, dx, dy, dz)
+    mt_hull = max_t if any_hit else None
     idx = torch.reciprocal(dx)
     idy = torch.reciprocal(dy)
     idz = torch.reciprocal(dz)
@@ -226,11 +389,34 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         best_u = torch.zeros(n, dtype=torch.float32, device=dev)
         best_v = torch.zeros(n, dtype=torch.float32, device=dev)
 
+    sb_open = None  # [n_packets] blocks that enter the current superblock
     for c in range(C):
         if any_hit:
             # An occluded ray's walk has stopped: it tests no more clusters.
             active = active & ~occ
-            WORK["slab_tests"] += int(active.sum())
+        tested = active
+        if n_packets:
+            if c % TILE_C == 0:
+                # A cull pass: blocks without a ray still walking skip it.
+                live = _pack_any(packets[active], n_packets, active[active])
+                if frustum:
+                    hull = packet_hulls(packets, n_packets, active, *rays6, max_t=mt_hull)
+                if n_sb and c % CULL_BLOCK == 0:
+                    sb_box = cset.sb_aabb_t[:6, c // CULL_BLOCK:c // CULL_BLOCK + 1]
+                    if frustum:
+                        sb_open = frustum_flags(hull, sb_box)[:, 0]
+                        WORK["superblock_tests"] += int(live.sum())
+                    else:
+                        sb_open = superblock_flags(packets, n_packets, active, *rays6, sb_box,
+                                                   max_t=mt_hull)[:, 0]
+                        WORK["superblock_tests"] += int(active.sum())
+                entered = live if sb_open is None else live & sb_open
+                if frustum:
+                    width = min(TILE_C, C - c)
+                    pass_fl = frustum_flags(hull, aabb[:6, c:c + width]) & entered[:, None]
+                    WORK["frustum_tests"] += int(entered.sum()) * width
+            tested = active & (pass_fl[:, c % TILE_C] if frustum else entered)[packets]
+        WORK["slab_tests"] += int(tested.sum())
         b = aabb[:6, c]
         # Per-ray slab cull, NaN-conservative (cosig_tpu/ops/kernel_core.py:430-449).
         t0x = (b[0] - ox) * idx
@@ -247,7 +433,7 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
             torch.maximum(t0z, t1z),
         )
-        boxhit = ~(tn > tf) & ~(tf < 0.0) & active
+        boxhit = ~(tn > tf) & ~(tf < 0.0) & tested
         if max_t is not None:
             boxhit = boxhit & ~(tn > max_t)
         rays = torch.nonzero(boxhit).squeeze(1)
@@ -413,7 +599,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
 def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
                 px, py, s, depth: int, is_last: bool,
-                prims=None, n_sph: int = 0, n_box: int = 0, warps=None) -> None:
+                prims=None, n_sph: int = 0, n_box: int = 0, warps=None,
+                packets=None, frustum: bool = False) -> None:
     """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
     kernel_core.py:1089-1270): count and trace the live rays, add the
     background on a miss, shade the hits (ambient, then per light a
@@ -425,7 +612,10 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     shadows or glossy); ``depth`` is the bounce index; ``is_last`` skips
     the secondary ray and retires every ray. ``prims``/``n_sph``/``n_box``
     are the analytic primitives both traversals fold in, ``warps`` the ray ->
-    warp map whose pair-loop slots they count (:func:`traverse`)."""
+    warp map whose pair-loop slots they count, ``packets`` the ray -> block
+    map of the kernel's block walk and ``frustum`` whether the block's
+    frustum pre-cull runs, for the closest hit and the shadow rays alike
+    (:func:`traverse`)."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -440,7 +630,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     alive = state[ROW_ALIVE] > 0.0
 
     state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
-    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
+    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
+              frustum=frustum)
     hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive, **pk)
 
     miss = alive & ~hit

@@ -75,6 +75,12 @@ def tile_slots(width: int, band: int) -> torch.Tensor:
     return torch.where((x < width) & (y < band), y * width + x, -1)
 
 
+def tile_packets(width: int, band: int) -> torch.Tensor:
+    """Block id [band * W] of each pixel of the megakernel and the debug
+    kernel (:func:`tile_slots`)."""
+    return kernel_core.warp_of_rays(tile_slots(width, band), band * width) // 4
+
+
 def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                      lights: np.ndarray, cfg: StaticConfig, band: int,
                      prims: torch.Tensor, n_sph: int, n_box: int,
@@ -82,10 +88,13 @@ def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     """Plain version of the megakernel -> f32 [4, band * W] (rgb mean, ray
     count) on the cluster set's device. ``warps``: an optional pixel ->
     warp map whose pair-loop slots the traversals count
-    (:func:`kernel_core.traverse`)."""
+    (:func:`kernel_core.traverse`). The traversals run the kernel's
+    pre-filters on its 16 x 8 pixel blocks, the frustum cull at depth 0
+    (JAX: trace_pallas.py:187-198,272)."""
     dev = cset.device
     u = [float(x) for x in uniforms]
     px, py = _pixel_planes(cfg, band, u[U_ROW_OFF], dev)
+    packets = tile_packets(cfg.width, band).to(dev)
     aa = max(1, cfg.aa_samples)
     acc_r = torch.zeros_like(px)
     acc_g = torch.zeros_like(px)
@@ -104,7 +113,8 @@ def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
             kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                                     px, py, s_plane, depth=depth,
                                     is_last=depth == cfg.max_depth - 1,
-                                    prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
+                                    prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
+                                    packets=packets, frustum=depth == 0)
         acc_r = acc_r + state[9]
         acc_g = acc_g + state[10]
         acc_b = acc_b + state[11]
@@ -115,7 +125,9 @@ def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
 def debug_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cfg: StaticConfig, prims: torch.Tensor,
                 n_sph: int, n_box: int) -> torch.Tensor:
-    """Plain version of the debug kernel -> f32 [4, H * W] (rgb, count 1)."""
+    """Plain version of the debug kernel -> f32 [4, H * W] (rgb, count 1),
+    its traversal with the kernel's pre-filters on 16 x 8 pixel blocks, the
+    frustum cull among them (JAX: trace_pallas.py:480-490)."""
     del mats, lights  # the debug views read geometry only
     dev = cset.device
     u = [float(x) for x in uniforms]
@@ -138,6 +150,7 @@ def debug_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     hit, t, nx, ny, nz, _ = kernel_core.traverse(
         cset, ox, oy, oz, dx, dy, dz, torch.ones_like(px, dtype=torch.bool),
         prims=prims, n_sph=n_sph, n_box=n_box,
+        packets=tile_packets(cfg.width, cfg.height).to(dev), frustum=True,
     )
     if cfg.debug_mode == 1:
         d = _div(t, 100.0)

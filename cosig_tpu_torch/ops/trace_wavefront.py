@@ -73,7 +73,9 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     cluster set's device (trace_wavefront.py:317-434). ``prims`` is the
     table of :func:`kernel_core.prim_table`; ``warps`` an optional ray ->
     warp map whose pair-loop slots the traversals count
-    (:func:`kernel_core.traverse`)."""
+    (:func:`kernel_core.traverse`). Both traversals run the kernel's
+    pre-filters on its blocks of 128 consecutive rays, the frustum cull
+    among them (JAX: trace_wavefront.py:412-424)."""
     dev = cset.device
     n = num_rays(cfg, band)
     u = [float(x) for x in uniforms]
@@ -93,18 +95,22 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     state[ROW_ID] = rid.to(torch.float32)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=0, is_last=cfg.max_depth == 1,
-                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
+                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
+                            packets=kernel_core.linear_packets(n).to(dev), frustum=True)
     return state
 
 
 def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                  mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
                  depth: int, prims: torch.Tensor, n_sph: int, n_box: int,
-                 warps=None) -> None:
+                 warps=None, packets=None) -> None:
     """One bounce at ``depth`` on every column of ``state`` in place
     (trace_wavefront.py:466-507), the self-skip form: a dead ray's bounce
     changes nothing. ``warps``: an optional ray -> warp map of the
-    columns, whose pair-loop slots the traversals count."""
+    columns, whose pair-loop slots the traversals count; ``packets``: an
+    optional ray -> block map, whose superblock cull the traversals run
+    (bounce rays are incoherent: no frustum cull, as
+    trace_wavefront.py:459)."""
     if cfg.enable_soft_shadows or cfg.enable_glossy:
         rid = state[ROW_ID].to(torch.int64)
         px, py, s = _seed_planes(rid, cfg, float(uniforms[U_ROW_OFF]))
@@ -113,7 +119,8 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=depth,
                             is_last=depth == cfg.max_depth - 1,
-                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps)
+                            prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
+                            packets=packets)
 
 
 def compact_plain(state: torch.Tensor):
@@ -139,11 +146,14 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
     gathered, bounced and written back in place. Every live ray is listed
     and a dead ray's bounce changes nothing, so this equals
     :func:`bounce_stage` on the whole state bit for bit. ``warps``: an
-    optional ray id -> warp map [N] (:func:`kernel_core.traverse`)."""
+    optional ray id -> warp map [N] (:func:`kernel_core.traverse`). The
+    kernel's blocks are 128 consecutive entries of the list, whose
+    superblock cull the traversals run."""
     ids = idx[:int(n_live.reshape(-1)[0])].to(torch.int64)
     listed = state[:, ids]
     bounce_stage(listed, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box,
-                 warps=None if warps is None else warps[ids])
+                 warps=None if warps is None else warps[ids],
+                 packets=kernel_core.linear_packets(ids.numel()).to(state.device))
     state[:, ids] = listed
 
 
