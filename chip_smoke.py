@@ -100,12 +100,30 @@ Phases (any failure raises and the script exits non-zero):
    2048x2048 depth 4 through the Renderer with the launch counters read
    around each (ms/frame, Mrays/s, the megakernel bit-equal to the
    wavefront, each launch's device time), and both paths against
-   the BVH-walk oracle at 256x256 (RMSE < 1e-5).
+   the BVH-walk oracle at 256x256 (RMSE < 1e-5);
+9. the Renderer's frames on the card, each one replay of a CUDA graph
+   (``cosig_tpu_torch.ops.frame_graph``), against the eager frames (one
+   launch per stage from the host) on the same cluster set
+   (``graph_frames``): bit for bit, image and rays, on the five bench
+   configurations on both paths, debug modes 1-3, the analytic mixed
+   scene and the dense knot; an 8-frame orbit of the preview's camera
+   path on one capture; two renderers on two scenes interleaved;
+   ``render_chain`` at k = 2 and 12 (k times the rays, ms/frame from the
+   slope); and eager against graph in turns: ms/frame, the host's ms to
+   queue a frame, the device's busy share in torch.profiler, each graph's
+   capture time and pool bytes.
+
+Up to phase 8 every Renderer frame on the card is a graph replay too
+(each frame's launch counts include one ``graph``; the first frame of a
+new configuration also its capture's eager warm-up frame); the kernels'
+checks against their plain versions (phases 2, 3, 5) launch them
+eagerly.
 
 Near the end the script prints a JSON line of the models, a JSON line of
-per-frame numbers, a JSON line each of the oracle's, phase 7's and phase
-8's numbers, a JSON line of per-kernel numbers, the card's name and power limit, and, as the
-last line, the result ``{"ok": true, "device": {...}}``. Without a CUDA
+per-frame numbers, a JSON line each of the oracle's and phases 7's, 8's
+and 9's numbers, a JSON line of per-kernel numbers, the card's name and
+power limit, and, as the last line, the result ``{"ok": true, "device":
+{...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
 prints no result.
 
@@ -523,18 +541,20 @@ def split_clusters(cset, ways: int = 2):
     aabb[:, :ways * c] = cset.aabb_t[:, :c].repeat_interleave(ways, dim=1)
     sb = torch.from_numpy(superblock_aabbs(aabb.cpu().numpy())).to(cset.device)
     return type(cset)(geom=geom, aabb_t=aabb, sb_aabb_t=sb, mats=cset.mats,
-                      num_triangles=cset.num_triangles)
+                      num_triangles=cset.num_triangles, mats_host=cset.mats_host)
 
 
 def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
     """The wavefront kernels' chain with the compaction kernel's list held
     to compact_plain's at every depth, as integers -> the list lengths."""
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
     uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
         cset, uni, lights, row_off, None, pk["prims"], pk["prim_counts"])
-    state = kw.primary(cset, uni, mats, lights, cfg, rows, prims, n_sph, n_box)
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
+    state = kw.primary(cset, fb, cfg, rows, prims, n_sph, n_box)
     lengths = []
     for d in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state)
@@ -544,7 +564,7 @@ def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
               and bool((idx[:m] == idx_p[:m]).all()),
               "compaction list differs from compact_plain's at depth", d, m, int(n_live_p))
         lengths.append(m)
-        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, prims, n_sph, n_box)
+        kw.bounce(state, idx, n_live, cset, fb, cfg, d, prims, n_sph, n_box)
     return lengths
 
 
@@ -714,7 +734,7 @@ def check_compaction_states(device) -> list:
     return out
 
 
-def cuda_activity(fn, tries: int = 3) -> list:
+def cuda_activity(fn, tries: int = 3, calls: dict | None = None) -> list:
     """The device activities (kernels, copies, sets) of one ``fn()`` from
     torch.profiler's CUDA activity -> [(name, start us, ms)] by start. A
     first run of ``fn`` under the profiler is its warm-up step and is not
@@ -723,7 +743,9 @@ def cuda_activity(fn, tries: int = 3) -> list:
     The tracer now and then returns an empty trace of a call that launched
     a kernel: a trace with no CUDA activity at all is taken again, up to
     ``tries`` traces. A trace with any activity goes to the callers'
-    checks as it is."""
+    checks as it is. ``calls``: filled with the count of each CUDA runtime
+    call on the host (``cudaGraphLaunch``, ``cudaLaunchKernel``, ...) in
+    the same step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -737,6 +759,11 @@ def cuda_activity(fn, tries: int = 3) -> list:
                         for e in prof.events()
                         if e.device_type == DeviceType.CUDA
                         and not e.name.startswith("ProfilerStep"))
+            if calls is not None:
+                calls.clear()
+                for e in prof.events():
+                    if e.device_type == DeviceType.CPU and e.name.startswith("cuda"):
+                        calls[e.name] = calls.get(e.name, 0) + 1
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -799,6 +826,7 @@ def model_walks(device) -> dict:
       the block's fill is at least 90 % on both frames."""
     import torch
 
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_megakernel as tm
@@ -808,7 +836,8 @@ def model_walks(device) -> dict:
     for name in ("glass_sphere", "large_mesh"):
         s = scene_setup(name, {}, device)
         cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-        mats = cset.mats.cpu().numpy()
+        mats = cset.mats_host
+        fb = binding.frame_buffer(cset.device, uni, mats, lights)
         pk = kc.prim_table(None, (0, 0), device)
         aa = max(1, cfg.aa_samples)
         n_px = cfg.width * cfg.height
@@ -830,7 +859,7 @@ def model_walks(device) -> dict:
                 f"{w['warp_slots']} warp slots = {100 * eff[label]['efficiency']:.1f} %")
         # Trips per (pixel, sample) from the wavefront kernels' alive rows,
         # and the bounce's pair-loop efficiency per depth in both orders.
-        state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+        state = kw.primary(cset, fb, cfg, cfg.height, *pk)
         trips = torch.ones(n, dtype=torch.float64, device=device)
         alive, bounce_eff = [], []
         pixel_warps = torch.arange(n, device=device) // 32
@@ -855,7 +884,7 @@ def model_walks(device) -> dict:
             log(f"  {name} bounce {d} ({m} live rays) pair-loop efficiency: pixel order "
                 f"{100 * row['pixel order']['efficiency']:.1f} %, list order "
                 f"{100 * row['list order']['efficiency']:.1f} %")
-            kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+            kw.bounce(state, idx, n_live, cset, fb, cfg, d, *pk)
         eff["bounce"] = bounce_eff
         del state
         trips = trips.reshape(n_px, aa)
@@ -938,6 +967,7 @@ def time_kernels(device) -> list:
         or glossy) in, rows 0-13 out, and the list."""
         idx, n_live = kw.compact(state)
         live = int(n_live)
+        fb = binding.frame_buffer(cset.device, uni, mats, lights)
         rows_in = 13 + int(cfg.enable_soft_shadows or cfg.enable_glossy)
         nbytes = geom_bytes + 4 * live * (rows_in + 14 + 1) + 4
         copies_k = [state.clone() for _ in range(11)]
@@ -945,7 +975,7 @@ def time_kernels(device) -> list:
 
         def run_k():
             st = copies_k.pop()
-            kw.bounce(st, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk)
+            kw.bounce(st, idx, n_live, cset, fb, cfg, depth, *pk)
             return st
 
         def run_p():
@@ -961,13 +991,14 @@ def time_kernels(device) -> list:
     # ---- glass_sphere: every kernel ----
     s = scene_setup("glass_sphere", {}, device)
     cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-    mats = cset.mats.cpu().numpy()
+    mats = cset.mats_host
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
     pk = kc.prim_table(None, (0, 0), device)
     band = cfg.height
     geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
     glass = f"glass_sphere {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}"
 
-    rec = measure("primary", glass, lambda: kw.primary(cset, uni, mats, lights, cfg, band, *pk),
+    rec = measure("primary", glass, lambda: kw.primary(cset, fb, cfg, band, *pk),
                   lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk),
                   lambda st: geom_bytes + 4 * st.numel())
     st_k = rec.pop("result")
@@ -1020,7 +1051,7 @@ def time_kernels(device) -> list:
     idx, _ = kw.compact(st_k)
     empty = torch.zeros(1, dtype=torch.int32, device=device)
     def run_empty():
-        kw.bounce(st_k, idx, empty, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(st_k, idx, empty, cset, fb, cfg, 1, *pk)
 
     bounce["empty_list_ms"] = device_ms(run_empty, 20)
     bounce["empty_list_host_paced_ms"] = cuda_ms(run_empty, 20)
@@ -1029,14 +1060,14 @@ def time_kernels(device) -> list:
     del st_k, idx
 
     rec = measure("megakernel", glass,
-                  lambda: km.megakernel(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda: km.megakernel(cset, fb, cfg, band, *pk),
                   lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk),
                   lambda o: geom_bytes + 4 * o.numel())
     del rec["result"]
     megakernel = dict(rec, source="cosig_tpu_torch/csrc/megakernel.cu",
                       replaces="cosig_tpu/ops/trace_pallas.py:132")
     dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=1))
-    rec = measure("debug", f"{glass} mode 1", lambda: km.debug(cset, uni, mats, lights, dcfg, *pk),
+    rec = measure("debug", f"{glass} mode 1", lambda: km.debug(cset, fb, dcfg, *pk),
                   lambda: tm.debug_plain(cset, uni, mats, lights, dcfg, *pk),
                   lambda o: geom_bytes + 4 * o.numel(), reps_k=20, reps_p=5)
     del rec["result"]
@@ -1048,9 +1079,10 @@ def time_kernels(device) -> list:
     # ---- large_mesh: the bounce (and its list) at each depth of the chain ----
     s = scene_setup("large_mesh", {}, device)
     cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-    mats = cset.mats.cpu().numpy()
+    mats = cset.mats_host
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
     geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
-    state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+    state = kw.primary(cset, fb, cfg, cfg.height, *pk)
     deep = []
     for d in range(1, cfg.max_depth):
         tag = f"large_mesh {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}, depth {d}"
@@ -1074,19 +1106,35 @@ def wavefront_launches(max_depth: int) -> dict:
     return dict(primary=1, compact=max_depth - 1, bounce=max_depth - 1)
 
 
+def graph_launches(per_frame: dict, frames: int, captures: int) -> dict:
+    """Launches of ``frames`` Renderer frames on the card that captured
+    ``captures`` graphs, each frame's kernels ``per_frame`` (counter name
+    -> launches): a capture's warm-up frame runs the kernels eagerly, and
+    every frame is one replay of them (``graph``)."""
+    out = {k: v * (frames + captures) for k, v in per_frame.items()}
+    out["graph"] = frames
+    return out
+
+
 def drive(renderer, name, scene, settings, per_frame: dict) -> dict:
-    """A warm-up frame and 5 timed frames through ``renderer``; each frame
-    must launch exactly ``per_frame`` (counter name -> launches)."""
+    """A warm-up frame and 5 timed frames through ``renderer``; on the card
+    each frame must be one replay of the renderer's graph, launching
+    exactly the kernels ``per_frame`` (counter name -> launches), and the
+    first frame after a change of the graph's key also its capture's
+    warm-up frame. Plain frames on the CPU count nothing."""
     import numpy as np
 
     from cosig_tpu_torch.kernels import binding
 
     def frame():
-        before = dict(binding.LAUNCHES)
+        before, graph = dict(binding.LAUNCHES), renderer._graph
         img = renderer.render_to_device(scene, settings)
         after = dict(binding.LAUNCHES)
         got = {k: after[k] - before[k] for k in after}
-        want = {k: per_frame.get(k, 0) for k in after}
+        want = {}
+        if renderer.device.type == "cuda":
+            want = graph_launches(per_frame, 1, int(renderer._graph is not graph))
+        want = {k: want.get(k, 0) for k in after}
         check(got == want, name, renderer.backend, "launches per frame", got, "expected", want)
         return img
 
@@ -1215,6 +1263,7 @@ def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
     when a frame takes too long)."""
     import torch
 
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_megakernel as tm
@@ -1227,17 +1276,17 @@ def breakdown_and_plain(device, frames: dict, stage_frames: int = 5) -> None:
         fr = frames[f"wavefront {name}"]
         s = scene_setup(name, {}, device)
         cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-        mats = cset.mats.cpu().numpy()
+        fb = binding.frame_buffer(cset.device, uni, cset.mats_host, lights)
         pk = kc.prim_table(None, (0, 0), device)
         steps = 2 * cfg.max_depth  # primary, (compact, bounce) per depth, finalize
 
         def frame(mark=lambda: None):
-            state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+            state = kw.primary(cset, fb, cfg, cfg.height, *pk)
             mark()
             for d in range(1, cfg.max_depth):
                 idx, n_live = kw.compact(state)
                 mark()
-                kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+                kw.bounce(state, idx, n_live, cset, fb, cfg, d, *pk)
                 mark()
             tw.finalize(state, cfg, cfg.height)
             mark()
@@ -1439,8 +1488,9 @@ def oracle_and_cli(device, workdir: str, side: int = ORACLE_SIDE, full_size: boo
     text = run_cli(["render", "generated:glass_sphere", "-o", png_path, "--backend", "auto",
                     "--device", dev, *size])
     got = dict(binding.LAUNCHES)
-    want = dict(wavefront_launches(settings.max_depth), megakernel=0, debug=0)
-    log(f"  cli render launches: {got}")
+    per_frame = wavefront_launches(settings.max_depth)
+    want = {k: 0 for k in got} | graph_launches(per_frame, 1, 1)
+    log(f"  cli render launches (one capture, one replay): {got}")
     if on_card:
         check(got == want, "cli render launches", got, "expected", want)
         check(f"[wavefront on {device}]" in text, "cli auto did not take the wavefront kernels")
@@ -1479,8 +1529,9 @@ def oracle_and_cli(device, workdir: str, side: int = ORACLE_SIDE, full_size: boo
     log(f"  preview: {calls['to_device']} frames through render_to_device, launches {got}, "
         f"{fps:.2f} frames/s on {card_line() if on_card else 'the CPU'}")
     check(calls["to_device"] == 10, "preview frames", calls)
-    if on_card:
-        check(got == {k: 10 * v for k, v in want.items()}, "preview launches", got)
+    if on_card:  # the orbit's camera changes replay one graph
+        want = {k: 0 for k in got} | graph_launches(per_frame, 10, 1)
+        check(got == want, "preview launches", got, "expected", want)
     out["preview_fps"] = fps
 
     # The chunked render: interrupted after its first band, resumed by the CLI.
@@ -1672,7 +1723,9 @@ def shard_frames(device, card: str, full_size: bool = True) -> dict:
         check(same and rays == k * mega_rays, "render_chain k", k, rays, mega_rays)
         chain[k] = [_ms(device, lambda: tm.render_chain(*gargs, k=k), 1) for _ in range(3)]
     got = _launched(before)
-    _expect_launches(device, got, dict(megakernel=5 + 3 * 5), "render_chain")
+    # Each call captures its graph after one eager frame, then replays it k times.
+    _expect_launches(device, got, dict(megakernel=4 * (1 + 1) + 4 * (1 + 4), graph=4 * 1 + 4 * 4),
+                     "render_chain")
     t1, t4 = sorted(chain[1])[1], sorted(chain[4])[1]
     out["render_chain"] = dict(k1_ms=chain[1], k4_ms=chain[4], slope_ms=(t4 - t1) / 3,
                                rays_k4=4 * mega_rays, launches=got)
@@ -1987,6 +2040,7 @@ def dense_launch_times(device, renderer, scene, settings) -> dict:
     megakernel, each timed with CUDA events behind a sleep (device_ms).
     Not torch.profiler: on these 50-90 ms frames its traces held 2 to 6 of
     a frame's 7 launches (PERF.md)."""
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import megakernel as km
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.models.soa import frame_params, static_config
@@ -2000,19 +2054,291 @@ def dense_launch_times(device, renderer, scene, settings) -> dict:
         cset, kc.build_uniforms(params), kc.build_lights(params, cfg.multi_light), 0, None,
         prims, counts)
     pk = (pr, n_sph, n_box)
-    out = {"primary": device_ms(lambda: kw.primary(cset, uni, mats, lights, cfg, cfg.height,
-                                                    *pk), 3)}
-    state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
+    out = {"primary": device_ms(lambda: kw.primary(cset, fb, cfg, cfg.height, *pk), 3)}
+    state = kw.primary(cset, fb, cfg, cfg.height, *pk)
     for d in range(1, cfg.max_depth):
         out[f"compact {d}"] = device_ms(lambda: kw.compact(state), 10)
         idx, n_live = kw.compact(state)
         copies = [state.clone() for _ in range(3)]
         out[f"bounce {d}"] = device_ms(
-            lambda: kw.bounce(copies.pop(), idx, n_live, cset, uni, mats, lights, cfg, d, *pk), 3)
-        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+            lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d, *pk), 3)
+        kw.bounce(state, idx, n_live, cset, fb, cfg, d, *pk)
         del copies
-    out["megakernel"] = device_ms(
-        lambda: km.megakernel(cset, uni, mats, lights, cfg, cfg.height, *pk), 3)
+    out["megakernel"] = device_ms(lambda: km.megakernel(cset, fb, cfg, cfg.height, *pk), 3)
+    return out
+
+
+# Phase 9: the Renderer's frames on the card are CUDA-graph replays
+# (cosig_tpu_torch/ops/frame_graph.py), held to the eager frames bit for
+# bit and timed against them in turns.
+GRAPH_TURN_FRAMES = 10  # frames per timed turn (the dense knot: 4)
+ORBIT_FRAMES, ORBIT_DEG = 8, 10.0  # the CLI preview's camera path (--orbit 10)
+CHAIN_KS = (2, 12)
+
+
+TRACE_TRIES = 4
+
+
+def traced(fn, kernels: int, calls: dict | None = None) -> tuple:
+    """(activities, traces taken) of one ``fn()`` from ``cuda_activity``,
+    traced again (up to TRACE_TRIES traces) while the trace holds fewer
+    than ``kernels`` launches of the port's kernels: torch.profiler's
+    trace of a frame of a few ms now and then loses its first activities
+    (PERF.md)."""
+    for tries in range(1, TRACE_TRIES + 1):
+        acts = cuda_activity(fn, calls=calls)
+        if sum("cosig" in a[0] for a in acts) == kernels:
+            break
+    return acts, tries
+
+
+def busy(acts, kernels: int) -> tuple:
+    """(device busy share, span ms) of a frame's activities: the sum of
+    their times over the span from the first start to the last end;
+    (None, None) when the trace lost any of the frame's ``kernels``."""
+    if sum("cosig" in a[0] for a in acts) != kernels:
+        return None, None
+    span = (max(a[1] + 1e3 * a[2] for a in acts) - acts[0][1]) / 1e3
+    return sum(a[2] for a in acts) / span, span
+
+
+def graph_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phase 9 on the card: (a) Renderer frames (one replay of the
+    renderer's cached graph each) bit-equal to the eager frames
+    (``render_wavefront`` / ``render_clusters`` / ``render_debug``, one
+    launch per stage from the host) on the same cluster set, image and
+    rays: the five bench configurations on both kernel paths, debug modes
+    1-3, the analytic mixed scene and the dense knot, each with its
+    capture time and pool bytes; (b) an 8-frame orbit of the preview's
+    camera path, every frame equal to its eager frame, one capture; (c)
+    two renderers on two scenes interleaved, every kept frame equal to its
+    eager frame; (d) ``Renderer.render_chain`` and both modules'
+    ``render_chain`` at k = 2 and 12: k times the frame's rays, the
+    frame's image, ms/frame from the slope; (e) eager against graph in
+    turns (eager, graph, graph, eager): ms/frame as the host waits for it,
+    the host's ms to queue a frame, the device's busy share of one frame
+    and its activities in torch.profiler (one ``cudaGraphLaunch`` a graph
+    frame and at most one device-to-host copy, the ray count; the busy
+    share only from a trace that holds every kernel launch of the frame).
+    ``full_size=False`` cuts every frame to 96 x 96 and the dense knot out
+    (a first check on the card)."""
+    import torch
+
+    import cosig_tpu_torch
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.models.soa import frame_params, static_config
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    check(device.type == "cuda", "phase 9 runs on a card")
+    out = {"card": card}
+
+    def inputs(renderer, scene, settings):
+        params = frame_params(scene, settings)
+        cfg = static_config(scene, settings)
+        cset, prims, counts = renderer._geometry_for(scene, settings.analytic_primitives)
+        return (cset, kc.build_uniforms(params), kc.build_lights(params, cfg.multi_light), cfg,
+                dict(prims=prims, prim_counts=counts))
+
+    def eager(renderer, scene, settings, rays_on_device=False):
+        """The renderer's frame as eager launches, on its cluster set."""
+        cset, uni, lights, cfg, pk = inputs(renderer, scene, settings)
+        path = renderer.kernel_path(cfg)
+        if path == "debug":
+            return tm.render_debug(cset, uni, lights, cfg, **pk)
+        render = tm.render_clusters if path == "megakernel" else tw.render_wavefront
+        return render(cset, uni, lights, cfg, rays_on_device=rays_on_device, **pk)
+
+    def held(tag, img_g, rays_g, renderer, scene, settings) -> None:
+        img_e, rays_e = eager(renderer, scene, settings)
+        same = torch.equal(img_g, img_e)
+        check(same and rays_g == rays_e, tag, "replayed frame differs from the eager frame",
+              diff(img_g, img_e), rays_g, rays_e)
+
+    def sized(settings):
+        return settings if full_size else settings.replace(resolution_override=(96, 96))
+
+    renderers = {b: cosig_tpu_torch.Renderer(device="cuda", backend=b)
+                 for b in ("wavefront", "megakernel")}
+
+    # (a) Bit-equality, with each capture's time and pool.
+    cases = [(name, {}, backend) for name in RECORDS for backend in renderers]
+    cases += [("glass_sphere", dict(debug_mode=m), "wavefront") for m in (1, 2, 3)]
+    cases += [("mixed", dict(analytic_primitives=True, max_depth=3), b) for b in renderers]
+    if full_size:
+        cases += [("dense_knot", {}, b) for b in renderers]
+    equal = {}
+    for name, kw, backend in cases:
+        renderer = renderers[backend]
+        scene, settings = load(name)
+        settings = sized(settings.replace(**kw))
+        before, graph = dict(binding.LAUNCHES), renderer._graph
+        img = renderer.render_to_device(scene, settings)
+        rays = renderer.last_stats.rays_traced
+        got = {k: binding.LAUNCHES[k] - before[k] for k in before}
+        g = renderer._graph[2]
+        check(renderer._graph is not graph and got["graph"] == 1, name, "did not capture", got)
+        tag = f"{tag_of(name, static_config(scene, settings), 'analytic_primitives' in kw)}"
+        tag += f" {g.path}" + (f" mode {kw['debug_mode']}" if "debug_mode" in kw else "")
+        held(tag, img, rays, renderer, scene, settings)
+        again = renderer.render_to_device(scene, settings)
+        check(renderer._graph[2] is g and torch.equal(again, img)
+              and renderer.last_stats.rays_traced == rays, tag, "second replay differs")
+        equal[tag] = dict(bitwise=True, rays=rays, capture_s=g.capture_s,
+                          pool_bytes=g.pool_bytes, replay_launches=g.launches)
+        log(f"  [{card}] {tag}: replay bit-equal to the eager frame, rays {rays}; capture "
+            f"{g.capture_s * 1e3:.1f} ms, pool {g.pool_bytes} B, a replay launches "
+            f"{ {k: v for k, v in g.launches.items() if v} }")
+    out["equal"] = equal
+
+    # (b) The preview's orbit: camera changes replay one graph.
+    renderer = renderers["wavefront"]
+    scene, settings = load("glass_sphere")
+    settings = sized(settings)
+    renderer.render_to_device(scene, settings)
+    g = renderer._graph[2]
+    frames = []
+    for i in range(ORBIT_FRAMES):
+        s_i = settings.replace(camera_rotation_override=(0.0, 0.0, i * ORBIT_DEG))
+        frames.append((renderer.render_to_device(scene, s_i), renderer.last_stats.rays_traced,
+                       s_i))
+    check(renderer._graph[2] is g, "a camera change captured a new graph")
+    for i, (img, rays, s_i) in enumerate(frames):
+        held(f"orbit frame {i}", img, rays, renderer, scene, s_i)
+    check(not torch.equal(frames[0][0], frames[1][0]), "the orbit's frames are all alike")
+    out["orbit"] = dict(frames=ORBIT_FRAMES, deg=ORBIT_DEG, captures=1,
+                        rays=[f[1] for f in frames])
+    log(f"  [{card}] {ORBIT_FRAMES}-frame orbit ({ORBIT_DEG} deg a frame): one capture, "
+        "every replay bit-equal to its eager frame")
+    del frames
+
+    # (c) Two renderers on two scenes, interleaved, every frame kept.
+    pair = [(cosig_tpu_torch.Renderer(device="cuda", backend="wavefront"), *load("mirror_sphere")),
+            (cosig_tpu_torch.Renderer(device="cuda", backend="megakernel"), *load("cosig_walls"))]
+    kept = []
+    for i in range(4):
+        for r, sc, st in pair:
+            st = sized(st).replace(camera_rotation_override=(0.0, 5.0 * i, 3.0 * i))
+            kept.append((r, sc, st, r.render_to_device(sc, st), r.last_stats.rays_traced))
+    for i, (r, sc, st, img, rays) in enumerate(kept):
+        held(f"interleaved frame {i}", img, rays, r, sc, st)
+    out["interleaved"] = dict(renderers=2, frames=len(kept))
+    log(f"  [{card}] two renderers interleaved on mirror_sphere and cosig_walls: "
+        f"{len(kept)} kept frames, each bit-equal to its eager frame")
+    del kept, pair
+
+    # (d) render_chain: k frames, k times the rays, the frame's image.
+    chains = {}
+    for backend, renderer in renderers.items():
+        scene, settings = load("glass_sphere")
+        settings = sized(settings)
+        single = renderer.render_to_device(scene, settings)
+        rays1 = renderer.last_stats.rays_traced
+        ms = {}
+        for k in CHAIN_KS:
+            img, rays = renderer.render_chain(scene, settings, k)
+            check(torch.equal(img, single) and rays == k * rays1, backend, "render_chain k", k,
+                  rays, rays1)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                renderer.render_chain(scene, settings, k)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[k] = sorted(times)[1]
+        cset, uni, lights, cfg, pk = inputs(renderer, scene, settings)
+        module = tm.render_chain if backend == "megakernel" else tw.render_chain
+        img, rays = module(cset, uni, lights, cfg, 2, **pk)
+        check(torch.equal(img, single) and rays == 2 * rays1, backend, "module render_chain")
+        lo, hi = CHAIN_KS
+        chains[backend] = dict(ms={str(k): v for k, v in ms.items()}, rays=rays1,
+                               slope_ms=(ms[hi] - ms[lo]) / (hi - lo))
+        log(f"  [{card}] glass_sphere {backend} render_chain: k={lo} {ms[lo]:.3f} ms, "
+            f"k={hi} {ms[hi]:.3f} ms (medians of 3), {chains[backend]['slope_ms']:.4f} ms/frame "
+            f"from the slope; images and k x {rays1} rays as the single frame's")
+    out["render_chain"] = chains
+
+    # (e) Eager against graph, in turns on this card.
+    reps = GRAPH_TURN_FRAMES
+    timed_cases = [(name, b) for name in RECORDS for b in renderers]
+    if full_size:
+        timed_cases += [("dense_knot", b) for b in renderers]
+    times = {}
+    for name, backend in timed_cases:
+        renderer = renderers[backend]
+        scene, settings = load(name)
+        settings = sized(settings)
+        renderer.render_to_device(scene, settings)  # capture
+        g = renderer._graph[2]
+        cset, uni, lights, cfg, pk = inputs(renderer, scene, settings)
+        n = 4 if name == "dense_knot" else reps
+
+        def eager_frame():
+            return eager(renderer, scene, settings)
+
+        def graph_frame():
+            return renderer.render_to_device(scene, settings)
+
+        def wall(fn) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        def queue(fn) -> float:
+            """The host's ms to queue one frame (no read), then the wait."""
+            total = 0.0
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                total += time.perf_counter() - t0
+                torch.cuda.synchronize()
+            return total * 1e3 / n
+
+        eager_frame(), graph_frame()
+        turns = [("eager", wall(eager_frame)), ("graph", wall(graph_frame)),
+                 ("graph", wall(graph_frame)), ("eager", wall(eager_frame))]
+        host_e = queue(lambda: eager(renderer, scene, settings, rays_on_device=True))
+        host_g = queue(lambda: g.replay(uni, lights))
+        want = sum(v for k, v in g.launches.items() if k != "graph")
+        calls = {}
+        acts_g, tries_g = traced(graph_frame, want, calls)
+        acts_e, tries_e = traced(eager_frame, want)
+        check(calls.get("cudaGraphLaunch", 0) == 1, name, backend, "graph launches", calls)
+        to_host = [a for a in acts_g if "DtoH" in a[0]]
+        check(len(to_host) <= 1, name, backend, "device-to-host copies in a graph frame",
+              to_host)
+        share_g, span_g = busy(acts_g, want)
+        share_e, span_e = busy(acts_e, want)
+        # The replay's copies of its outputs: the image's is the longest
+        # device-to-device copy of the frame.
+        copy_ms = max((a[2] for a in acts_g if "DtoD" in a[0]), default=None)
+        ms_e = [t for w, t in turns if w == "eager"]
+        ms_g = [t for w, t in turns if w == "graph"]
+        tag = f"{backend} {tag_of(name, cfg)}"
+        times[tag] = dict(eager_ms=ms_e, graph_ms=ms_g, host_ms_eager=host_e, host_ms_graph=host_g,
+                          busy_eager=share_e, busy_graph=share_g, span_eager_ms=span_e,
+                          span_graph_ms=span_g, traces_eager=tries_e, traces_graph=tries_g,
+                          frames_per_turn=n, graph_runtime_calls=calls, kernels=want,
+                          image_copy_ms=copy_ms,
+                          capture_s=g.capture_s, pool_bytes=g.pool_bytes)
+
+        def pct(share, span):
+            return "not measured" if share is None else f"{100 * share:.1f} % of {span:.3f} ms"
+
+        log(f"  [{card}] {tag}: ms/frame eager {ms_e[0]:.3f} / {ms_e[1]:.3f}, graph "
+            f"{ms_g[0]:.3f} / {ms_g[1]:.3f}; host ms to queue a frame eager {host_e:.3f}, graph "
+            f"{host_g:.3f}; device busy eager {pct(share_e, span_e)} ({tries_e} traces), graph "
+            f"{pct(share_g, span_g)} ({tries_g}); the image's copy {copy_ms} ms; pool "
+            f"{g.pool_bytes} B, capture {g.capture_s * 1e3:.1f} ms; runtime calls of a graph "
+            f"frame {calls}")
+    out["times"] = times
+    del renderers
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2137,6 +2463,9 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     phase8 = dense_frames(device, card)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase9 = graph_frames(device, card)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -2165,6 +2494,7 @@ def main(argv: list) -> int:
     log(json.dumps({"oracle": oracle}))
     log(json.dumps({"phase7": phase7}))
     log(json.dumps({"phase8": phase8}))
+    log(json.dumps({"phase9": phase9}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

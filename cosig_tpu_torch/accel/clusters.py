@@ -20,13 +20,14 @@ Layout (same as the JAX package, so the two can share one structure):
 * ``geom [C, K, GEOM_COMPS]`` f32 — per-triangle constants (columns below);
 * ``aabb_t [8, C_pad]`` f32 — rows min.xyz / max.xyz, NaN padding columns;
 * ``sb_aabb_t [8, 128]`` f32 — unions of CULL_BLOCK-cluster superblocks;
-* ``mats [M, 8]`` f32 — color rgb, ambient, diffuse, specular, refraction, ior.
+* ``mats [M, 8]`` f32 — color rgb, ambient, diffuse, specular, refraction, ior
+  (and ``mats_host``, the same table in numpy).
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -78,6 +79,14 @@ class ClusterSet:
     sb_aabb_t: torch.Tensor  # [8, 128] f32
     mats: torch.Tensor  # [M, 8] f32
     num_triangles: int
+    # The material table on the host, kept beside ``mats`` (on any device)
+    # so that a frame packs its materials without a copy from the device.
+    mats_host: np.ndarray = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.mats_host is None:
+            object.__setattr__(self, "mats_host",
+                               np.ascontiguousarray(self.mats.detach().cpu().numpy(), F32))
 
     @property
     def num_clusters(self) -> int:

@@ -213,9 +213,10 @@ def cmd_preview(args) -> int:
 
     The reference's realtime path binds the render texture and never reads
     a frame back (RayTracer.cs:76-82): every frame goes through
-    ``render_to_device`` and stays on the device, and one scalar read after
-    the loop waits for the last frame. ``--save-dir`` copies the frames to
-    the host after the loop."""
+    ``render_to_device`` and stays on the device (on the card, one replay
+    of the renderer's cached CUDA graph with the frame's camera; the host
+    reads only its ray count). ``--save-dir`` copies the frames to the
+    host after the loop."""
     from cosig_tpu_torch.utils.png import write_png
 
     scene, base = _load_scene_arg(args.scene)
@@ -229,7 +230,6 @@ def cmd_preview(args) -> int:
         s = settings.replace(camera_rotation_override=(rot[0], rot[1], rot[2] + i * args.orbit))
         frames_dev.append(renderer.render_to_device(scene, s))
         print(f"\rframe {i + 1}/{args.frames} enqueued", end="", flush=True)
-    _ = float(frames_dev[-1][0, 0, 0])  # the one read: the last frame is done
     total = time.perf_counter() - t_start
     print(f"\n{args.frames} frames in {total:.2f}s ({args.frames / total:.2f} FPS avg)")
     if args.save_dir:

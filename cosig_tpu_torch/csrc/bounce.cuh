@@ -39,19 +39,33 @@ constexpr int F_AMBIENT = 1, F_DIFFUSE = 2, F_SPECULAR = 4, F_REFRACTION = 8,
 constexpr int MAX_MATS = 64;
 constexpr int MAX_LIGHTS = 16;
 
-// Everything a launch needs besides the geometry and the state, passed by
-// value (it lands in the kernel's constant parameter bank). Mirrored by
-// cosig_tpu_torch/kernels/binding.py Frame; all fields are 4 bytes.
-struct Frame {
+// The per-frame inputs: uniforms, materials and lights, in device memory
+// that every kernel reads through Frame::data on the read-only path. A
+// captured frame (a CUDA graph) keeps the pointer, so a replay reads what
+// the host last copied there. Mirrored by
+// cosig_tpu_torch/kernels/binding.py FRAME_DATA; all fields are 4 bytes.
+struct FrameData {
   float u[UNIFORMS_LEN];
-  int flags;
-  int width, height, band, aa, grid_w, grid_h;
-  float aspect;  // float32(width / height)
-  int n_rays, n_mats, n_lights;
-  int depth, is_last;
+  int n_mats, n_lights;
   float mats[MAX_MATS * 8];      // color rgb, ambient, diffuse, specular, refraction, ior
   float lights[MAX_LIGHTS * 8];  // position xyz, rgb, pad, pad
 };
+
+// A launch's own parameters, by value (the kernel's constant parameter
+// bank): the static configuration, the band, the thread count, the
+// bounce, and the frame data's address. Mirrored by
+// cosig_tpu_torch/kernels/binding.py Frame.
+struct Frame {
+  int flags;
+  int width, height, band, aa, grid_w, grid_h;
+  float aspect;  // float32(width / height)
+  int n_rays;
+  int depth, is_last;
+  const FrameData* data;
+};
+
+// Uniform slot i of the frame.
+__device__ __forceinline__ float uni(const Frame& f, int i) { return __ldg(f.data->u + i); }
 
 struct RayState {
   float ox, oy, oz, dx, dy, dz;
@@ -97,10 +111,10 @@ template <class Walk>
 __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
                                             float px, float py, float s,
                                             float depth, bool is_last, bool frustum) {
-  const float bg_r = f.u[U_BG], bg_g = f.u[U_BG + 1], bg_b = f.u[U_BG + 2];
-  const float intensity = f.u[U_INTENSITY];
-  const float light_size = f.u[U_LIGHT_SIZE];
-  const float roughness = f.u[U_ROUGHNESS];
+  const float bg_r = uni(f, U_BG), bg_g = uni(f, U_BG + 1), bg_b = uni(f, U_BG + 2);
+  const float intensity = uni(f, U_INTENSITY);
+  const float light_size = uni(f, U_LIGHT_SIZE);
+  const float roughness = uni(f, U_ROUGHNESS);
   const float ox = st.ox, oy = st.oy, oz = st.oz;
   const float dx = st.dx, dy = st.dy, dz = st.dz;
   float at_r = st.at_r, at_g = st.at_g, at_b = st.at_b;
@@ -123,12 +137,13 @@ __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState
   // Material select, defaults for a miss or an out-of-range index.
   float cr = 1.0f, cg = 1.0f, cb = 1.0f, ka = 0.1f, kd = 0.7f, ks = 0.0f, krefr = 0.0f,
         ior = 1.0f;
-  for (int m = 0; m < f.n_mats; ++m) {
-    if (h.mat == (float)m) {
-      const float* mm = f.mats + m * 8;
-      cr = mm[0]; cg = mm[1]; cb = mm[2]; ka = mm[3];
-      kd = mm[4]; ks = mm[5]; krefr = mm[6]; ior = mm[7];
-    }
+  // The one m in [0, n_mats) with h.mat == m, read directly: a NaN or a
+  // fractional h.mat matches none.
+  const int m = (int)h.mat;
+  if (m >= 0 && m < __ldg(&f.data->n_mats) && (float)m == h.mat) {
+    const float* __restrict__ mm = f.data->mats + m * 8;
+    cr = __ldg(mm + 0); cg = __ldg(mm + 1); cb = __ldg(mm + 2); ka = __ldg(mm + 3);
+    kd = __ldg(mm + 4); ks = __ldg(mm + 5); krefr = __ldg(mm + 6); ior = __ldg(mm + 7);
   }
 
   const bool ambient = f.flags & F_AMBIENT;
@@ -136,9 +151,10 @@ __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState
   float loc_g = ambient ? cg * ka : 0.0f;
   float loc_b = ambient ? cb * ka : 0.0f;
 
-  for (int li = 0; li < f.n_lights; ++li) {
-    const float* L = f.lights + li * 8;
-    float lpx = L[0], lpy = L[1], lpz = L[2];
+  const int n_lights = __ldg(&f.data->n_lights);
+  for (int li = 0; li < n_lights; ++li) {
+    const float* __restrict__ L = f.data->lights + li * 8;
+    float lpx = __ldg(L + 0), lpy = __ldg(L + 1), lpz = __ldg(L + 2);
     if (f.flags & F_SOFT_SHADOWS) {
       float jx, jy, jz;
       random_unit(px + s * 9.0f, py + s * 4.0f + depth, s, jx, jy, jz);
@@ -172,9 +188,9 @@ __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState
         db = db + ks * spec;
       }
       if (f.flags & F_MULTI_LIGHT) {
-        dr = dr * L[3];
-        dg = dg * L[4];
-        db = db * L[5];
+        dr = dr * __ldg(L + 3);
+        dg = dg * __ldg(L + 4);
+        db = db * __ldg(L + 5);
       }
       loc_r = loc_r + (gate ? dr : 0.0f);
       loc_g = loc_g + (gate ? dg : 0.0f);

@@ -16,11 +16,13 @@ namespace cosig {
 __device__ __forceinline__ void camera_ray(const Frame& f, float px, float py, int s_i,
                                            RayState& st) {
   const float s = (float)s_i;
-  const float* cam = f.u + U_CAM;
-  const float dist = f.u[U_DIST];
-  const float plane_h = f.u[U_PLANE_H];
+  float cam[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) cam[j] = uni(f, U_CAM + j);
+  const float dist = uni(f, U_DIST);
+  const float plane_h = uni(f, U_PLANE_H);
   const float plane_w = plane_h * f.aspect;
-  const float ortho_h = f.u[U_ORTHO];
+  const float ortho_h = uni(f, U_ORTHO);
   const float ortho_w = ortho_h * f.aspect;
 
   // AA offsets (compute:300-310).
@@ -65,7 +67,7 @@ __device__ __forceinline__ void camera_ray(const Frame& f, float px, float py, i
   if (f.flags & F_MOTION_BLUR) {
     float rx, ry, rz;
     random_unit(px + s, py, s, rx, ry, rz);
-    const float scale = 0.2f * f.u[U_SHUTTER];
+    const float scale = 0.2f * uni(f, U_SHUTTER);
     st.ox = st.ox + (rx - 0.5f) * scale;
     st.oy = st.oy + (ry - 0.5f) * scale;
     st.oz = st.oz + (rz - 0.5f) * scale;

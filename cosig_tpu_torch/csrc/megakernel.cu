@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   const int i = y * f.width + x;  // pixel py_local * W + px
   const float px = (float)x;
   // Global row: projection and RNG seeds stay those of the full frame.
-  const float py = (float)y + f.u[U_ROW_OFF];
+  const float py = (float)y + uni(f, U_ROW_OFF);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   RayState st;
@@ -124,10 +124,12 @@ __global__ void __launch_bounds__(MEGA_THREADS)
   const int n = f.n_rays;
   const int i = y * f.width + x;
   const float px = (float)x;
-  const float py = (float)y + f.u[U_ROW_OFF];
-  const float* cam = f.u + U_CAM;
-  const float ocz = f.u[U_DIST];
-  const float plane_h = f.u[U_PLANE_H];
+  const float py = (float)y + uni(f, U_ROW_OFF);
+  float cam[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) cam[j] = uni(f, U_CAM + j);
+  const float ocz = uni(f, U_DIST);
+  const float plane_h = uni(f, U_PLANE_H);
   const float plane_w = plane_h * f.aspect;
 
   // trace_pallas.py:469-480, operation for operation: the origin is the

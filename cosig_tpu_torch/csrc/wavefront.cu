@@ -77,7 +77,7 @@ __device__ __forceinline__ void seeds(const Frame& f, int i, float& px, float& p
   const int s_i = i % f.aa;
   const int p_i = i / f.aa;
   px = (float)(p_i % f.width);
-  py = (float)(p_i / f.width) + f.u[U_ROW_OFF];
+  py = (float)(p_i / f.width) + uni(f, U_ROW_OFF);
   s = (float)s_i;
 }
 
@@ -271,14 +271,25 @@ __global__ void __launch_bounds__(COMPACT_THREADS)
 // The compaction's grid for n > 0 rays on the current device: the most
 // blocks a multiprocessor holds at once, times the multiprocessors, cut to
 // what n needs; span = chunks of 32 rays per warp; smem = the key bytes.
+// Raises the kernel's dynamic shared-memory limit to all a block may opt
+// into, once per call, so that a launch with any grid computed here needs
+// no attribute call (the binding computes each grid once and keeps it).
 struct CompactGrid {
   int blocks, span, smem;
 };
 
 cudaError_t compact_grid(int n, CompactGrid& g) {
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, compact_kernel);
+  if (err != cudaSuccess) return err;
+  const int cap = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
   if (err != cudaSuccess) return err;
   const int chunks = (n + 31) / 32;
   for (int per_sm = COMPACT_MAX_PER_SM; per_sm >= 1; --per_sm) {
@@ -287,11 +298,7 @@ cudaError_t compact_grid(int n, CompactGrid& g) {
     const int range = COMPACT_WARPS * g.span;  // chunks per block
     g.blocks = (chunks + range - 1) / range;
     g.smem = range * 32;
-    if (cudaFuncSetAttribute(compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem) != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next, smaller try may fit
-      continue;
-    }
+    if (g.smem > cap) continue;
     int resident = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, compact_kernel,
                                                         COMPACT_THREADS, g.smem);
@@ -362,8 +369,9 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
-// sizeof(Frame), for the binding's layout check.
+// sizeof(Frame) and sizeof(FrameData), for the binding's layout check.
 int cosig_frame_bytes() { return (int)sizeof(cosig::Frame); }
+int cosig_frame_data_bytes() { return (int)sizeof(cosig::FrameData); }
 
 // Dynamic shared memory of a block walk over clusters of k rows.
 int cosig_tile_smem_bytes(int k) { return (int)cosig::tile_layout(k).total; }
@@ -416,20 +424,26 @@ int cosig_compact_grid(int n, int* blocks, int* range) {
 }
 
 // List the live rays of state f32 [16, n] into idx[0 .. *n_live), by
-// octant then id: one cooperative launch on `stream`. counts: scratch of
-// `scratch` ints, at least 8 x the blocks of cosig_compact_grid(n).
-int cosig_compact_launch(const float* state, int n, int* counts, int scratch, int* idx,
-                         int* n_live, void* stream) {
+// octant then id: one cooperative launch on `stream`, on the grid that
+// cosig_compact_grid(n) gave on this device (blocks, range); it neither
+// queries nor sets anything of the device, so a stream capture records
+// it as one kernel node. counts: scratch of `scratch` ints, at least
+// 8 x blocks.
+int cosig_compact_launch(const float* state, int n, int blocks, int range, int* counts,
+                         int scratch, int* idx, int* n_live, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaMemsetAsync(n_live, 0, sizeof(int), s);
-  cosig::CompactGrid g;
-  cudaError_t err = cosig::compact_grid(n, g);
-  if (err != cudaSuccess) return (int)err;
-  if (scratch < cosig::OCTANTS * g.blocks) return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&state, (void*)&n, (void*)&g.span, (void*)&counts, (void*)&idx,
+  // range = COMPACT_THREADS x span: one chunk of 32 rays per warp and span.
+  if (blocks <= 0 || range <= 0 || range % cosig::COMPACT_THREADS != 0 ||
+      (long long)blocks * range < n || scratch < cosig::OCTANTS * blocks) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int span = range / cosig::COMPACT_THREADS;
+  void* args[] = {(void*)&state, (void*)&n, (void*)&span, (void*)&counts, (void*)&idx,
                   (void*)&n_live};
-  err = cudaLaunchCooperativeKernel((const void*)cosig::compact_kernel, dim3(g.blocks),
-                                    dim3(cosig::COMPACT_THREADS), args, (size_t)g.smem, s);
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel((const void*)cosig::compact_kernel, dim3(blocks),
+                                  dim3(cosig::COMPACT_THREADS), args, (size_t)range, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -3,15 +3,25 @@
 The library (built by :mod:`cosig_tpu_torch.kernels.build`) holds the
 five kernels of ``csrc/`` (primary, compaction, bounce, megakernel,
 debug) behind plain C launchers; this module loads it with ctypes,
-mirrors ``struct Frame`` (their launch parameters), checks the tensors
-they read and launches them on the current stream.
+mirrors ``struct Frame`` (a launch's own parameters, by value) and
+``struct FrameData`` (a frame's uniforms, materials and lights, which
+the kernels read from device memory through ``Frame::data``), checks the
+tensors they read and launches them on the current stream.
+
+A :class:`FrameBuffer` holds one frame's ``FrameData``: packed with
+numpy into pinned host memory and copied to its device buffer on the
+current stream, ahead of the launches that read it. A CUDA graph of a
+frame keeps the buffer's address, so writing the buffer and replaying
+renders another camera without a new capture
+(:mod:`cosig_tpu_torch.ops.frame_graph`).
 
 ``LAUNCHES`` counts kernel launches per kernel (``primary``, ``compact``,
-``bounce``, ``megakernel``, ``debug``); each wrapper of
-:mod:`cosig_tpu_torch.kernels.wavefront` and
+``bounce``, ``megakernel``, ``debug``) and graph replays (``graph``);
+each wrapper of :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
-kernel, and plain runs on the CPU count nothing. One ``compact`` is one
-call of the compaction kernel, which is one cooperative CUDA launch.
+kernel, a replay adds the kernels its graph holds and one ``graph``, and
+plain runs on the CPU count nothing. One ``compact`` is one call of the
+compaction kernel, which is one cooperative CUDA launch.
 :func:`reset_counts` sets every counter to 0.
 """
 
@@ -48,7 +58,7 @@ _FLAGS = (
     ("multi_light", 256),
 )
 
-LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "megakernel": 0, "debug": 0}
+LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "megakernel": 0, "debug": 0, "graph": 0}
 
 
 def reset_counts() -> None:
@@ -57,11 +67,20 @@ def reset_counts() -> None:
         LAUNCHES[name] = 0
 
 
+# Mirror of ``struct FrameData`` in csrc/bounce.cuh (all fields 4 bytes).
+FRAME_DATA = np.dtype([
+    ("u", "<f4", (UNIFORMS_LEN,)),
+    ("n_mats", "<i4"),
+    ("n_lights", "<i4"),
+    ("mats", "<f4", (MAX_MATS * 8,)),
+    ("lights", "<f4", (MAX_LIGHTS * 8,)),
+])
+
+
 class Frame(ctypes.Structure):
-    """Mirror of ``struct Frame`` in csrc/bounce.cuh (all fields 4 bytes)."""
+    """Mirror of ``struct Frame`` in csrc/bounce.cuh: a launch's parameters."""
 
     _fields_ = [
-        ("u", ctypes.c_float * UNIFORMS_LEN),
         ("flags", ctypes.c_int),
         ("width", ctypes.c_int),
         ("height", ctypes.c_int),
@@ -71,12 +90,9 @@ class Frame(ctypes.Structure):
         ("grid_h", ctypes.c_int),
         ("aspect", ctypes.c_float),
         ("n_rays", ctypes.c_int),
-        ("n_mats", ctypes.c_int),
-        ("n_lights", ctypes.c_int),
         ("depth", ctypes.c_int),
         ("is_last", ctypes.c_int),
-        ("mats", ctypes.c_float * (MAX_MATS * 8)),
-        ("lights", ctypes.c_float * (MAX_LIGHTS * 8)),
+        ("data", ctypes.c_void_p),
     ]
 
 
@@ -84,35 +100,92 @@ def config_flags(cfg: StaticConfig) -> int:
     return sum(bit for name, bit in _FLAGS if getattr(cfg, name))
 
 
-def make_frame(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
-               lights: np.ndarray, band: int, depth: int, is_last: bool,
-               n_rays: int | None = None) -> Frame:
-    """The launch parameters of one kernel; ``n_rays`` is its thread count
-    (default: the wavefront's rays in ``band`` rows)."""
+def pack_frame_data(out: np.ndarray, uniforms: np.ndarray, mats: np.ndarray,
+                    lights: np.ndarray) -> None:
+    """Write one frame's uniforms, materials and lights into ``out``, a
+    :data:`FRAME_DATA` record (numpy writes, no per-float Python); the
+    unused material and light rows are zeros."""
+    mats = np.asarray(mats, F32)
+    lights = np.asarray(lights, F32)
     if mats.shape[0] > MAX_MATS or lights.shape[0] > MAX_LIGHTS:
         raise ValueError(
             f"the kernels take at most {MAX_MATS} materials and {MAX_LIGHTS} lights; "
             f"got {mats.shape[0]} and {lights.shape[0]}"
         )
-    if uniforms.shape != (UNIFORMS_LEN,):
-        raise ValueError(f"uniforms must be [{UNIFORMS_LEN}], got {uniforms.shape}")
+    if np.shape(uniforms) != (UNIFORMS_LEN,):
+        raise ValueError(f"uniforms must be [{UNIFORMS_LEN}], got {np.shape(uniforms)}")
+    out["u"] = uniforms
+    out["n_mats"], out["n_lights"] = mats.shape[0], lights.shape[0]
+    out["mats"] = 0.0
+    out["mats"][: mats.size] = mats.ravel()
+    out["lights"] = 0.0
+    out["lights"][: lights.size] = lights.ravel()
+
+
+class FrameBuffer:
+    """One frame's uniforms, materials and lights on ``device``: as numpy
+    arrays, which the plain versions read, and on a CUDA device also as a
+    :data:`FRAME_DATA` record in device memory (``data``), which the
+    kernels read.
+
+    :meth:`write` packs the record into the next of ``ring`` pinned host
+    buffers and copies it to ``data`` on the current stream, so launches
+    queued after it read it and launches queued before it read the last
+    one. A pinned buffer is packed again only after its earlier copy has
+    run (an event per buffer), so the host may run ``ring - 1`` frames
+    ahead of the card."""
+
+    def __init__(self, device, ring: int = 1):
+        self.device = torch.device(device)
+        self.uniforms = self.mats = self.lights = None
+        self.data = None
+        if self.device.type == "cuda":
+            self.data = torch.empty(FRAME_DATA.itemsize, dtype=torch.uint8, device=self.device)
+            self._pinned = [torch.empty(FRAME_DATA.itemsize, dtype=torch.uint8, pin_memory=True)
+                            for _ in range(ring)]
+            self._records = [p.numpy().view(FRAME_DATA)[0] for p in self._pinned]
+            self._copied = [torch.cuda.Event() for _ in range(ring)]
+            self._next = 0
+
+    def write(self, uniforms: np.ndarray, mats: np.ndarray, lights: np.ndarray) -> None:
+        self.uniforms = np.asarray(uniforms, F32)
+        self.mats = np.asarray(mats, F32)
+        self.lights = np.asarray(lights, F32)
+        if self.data is None:
+            pack_frame_data(np.zeros((), FRAME_DATA), self.uniforms, self.mats, self.lights)
+            return
+        i = self._next
+        self._next = (i + 1) % len(self._pinned)
+        self._copied[i].synchronize()  # the copy from this buffer has run
+        pack_frame_data(self._records[i], self.uniforms, self.mats, self.lights)
+        with torch.cuda.device(self.device):
+            self.data.copy_(self._pinned[i], non_blocking=True)
+            self._copied[i].record()
+
+
+def frame_buffer(device, uniforms: np.ndarray, mats: np.ndarray,
+                 lights: np.ndarray) -> FrameBuffer:
+    """A one-frame :class:`FrameBuffer` on ``device``, written."""
+    fb = FrameBuffer(device)
+    fb.write(uniforms, mats, lights)
+    return fb
+
+
+def make_frame(cfg: StaticConfig, buffer: FrameBuffer, band: int, depth: int, is_last: bool,
+               n_rays: int | None = None) -> Frame:
+    """The parameters of one kernel launch that reads ``buffer``'s frame
+    data; ``n_rays`` is its thread count (default: the wavefront's rays in
+    ``band`` rows)."""
     aa = max(1, cfg.aa_samples)
     grid_w, grid_h = camera.aa_grid(aa)
     f = Frame()
-    f.u[:] = [float(x) for x in np.asarray(uniforms, F32)]
     f.flags = config_flags(cfg)
     f.width, f.height, f.band = cfg.width, cfg.height, band
     f.aa, f.grid_w, f.grid_h = aa, grid_w, grid_h
     f.aspect = float(F32(cfg.width / cfg.height))
     f.n_rays = trace_wavefront.num_rays(cfg, band) if n_rays is None else n_rays
-    f.n_mats, f.n_lights = mats.shape[0], lights.shape[0]
     f.depth, f.is_last = depth, int(is_last)
-    m = np.zeros(MAX_MATS * 8, F32)
-    m[: mats.size] = np.asarray(mats, F32).ravel()
-    f.mats[:] = [float(x) for x in m]
-    li = np.zeros(MAX_LIGHTS * 8, F32)
-    li[: lights.size] = np.asarray(lights, F32).ravel()
-    f.lights[:] = [float(x) for x in li]
+    f.data = buffer.data.data_ptr()
     return f
 
 
@@ -136,8 +209,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = common + extra + [ptr, ptr]
         fn.restype = i32
-    # state, n, counts, scratch ints, idx, n_live, stream
-    lib.cosig_compact_launch.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr]
+    # state, n, blocks, range, counts, scratch ints, idx, n_live, stream
+    lib.cosig_compact_launch.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, ptr, ptr]
     lib.cosig_compact_launch.restype = i32
     # n, &blocks, &range
     lib.cosig_compact_grid.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
@@ -147,13 +220,13 @@ def library() -> ctypes.CDLL:
     for name in ("cosig_wavefront_occupancy", "cosig_megakernel_occupancy"):
         getattr(lib, name).argtypes = [i32, i32, i32]  # which, n_clusters, k
         getattr(lib, name).restype = i32
-    lib.cosig_frame_bytes.argtypes = []
-    lib.cosig_frame_bytes.restype = i32
-    if lib.cosig_frame_bytes() != ctypes.sizeof(Frame):
-        raise RuntimeError(
-            f"Frame layout mismatch: C {lib.cosig_frame_bytes()} bytes, "
-            f"Python {ctypes.sizeof(Frame)}"
-        )
+    for name, size in (("cosig_frame_bytes", ctypes.sizeof(Frame)),
+                       ("cosig_frame_data_bytes", FRAME_DATA.itemsize)):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = i32
+        if fn() != size:
+            raise RuntimeError(f"{name}: layout mismatch, C {fn()} bytes, Python {size}")
     return lib
 
 
@@ -216,6 +289,14 @@ def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph
           *extra, out)
 
 
+def check_buffer(buffer: FrameBuffer, dev: torch.device) -> None:
+    """Raise unless ``buffer`` holds a written frame on ``dev``."""
+    if buffer.device != dev:
+        raise ValueError(f"the frame buffer is on {buffer.device}, not {dev}")
+    if buffer.uniforms is None:
+        raise ValueError("the frame buffer was never written")
+
+
 _OCCUPANCY = {"primary": ("cosig_wavefront_occupancy", 0),
               "bounce": ("cosig_wavefront_occupancy", 1),
               "megakernel": ("cosig_megakernel_occupancy", 0),
@@ -237,9 +318,11 @@ def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device) -> int:
     return blocks
 
 
+@functools.lru_cache(maxsize=64)
 def compact_grid(n: int, dev: torch.device) -> tuple:
     """(blocks, rays per block) of the compaction kernel's cooperative grid
-    for ``n`` rays on ``dev``; raise if no grid fits."""
+    for ``n`` rays on ``dev``, computed from the card's occupancy once per
+    (n, device) and kept; raise if no grid fits."""
     blocks, rays = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = library().cosig_compact_grid(n, ctypes.byref(blocks), ctypes.byref(rays))
@@ -250,9 +333,12 @@ def compact_grid(n: int, dev: torch.device) -> tuple:
 
 def launch_compact(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor) -> None:
     """List the live rays of ``state`` into ``idx`` and ``n_live`` (the
-    compaction kernel's one cooperative launch), with the per-block octant
-    counts' scratch from ``torch.empty``; raise if the launch is refused."""
+    compaction kernel's one cooperative launch, on the grid of
+    :func:`compact_grid`), with the per-block octant counts' scratch from
+    ``torch.empty``; raise if the launch is refused."""
     n = int(state.shape[1])
-    ints = OCTANTS * compact_grid(n, state.device)[0]
+    blocks, rays = compact_grid(n, state.device)
+    ints = OCTANTS * blocks
     counts = torch.empty(max(1, ints), dtype=torch.int32, device=state.device)
-    _call("cosig_compact_launch", state.device, state, n, counts, ints, idx, n_live)
+    _call("cosig_compact_launch", state.device, state, n, blocks, rays, counts, ints, idx,
+          n_live)

@@ -76,7 +76,7 @@ def build_variants(tmp: str) -> dict:
         m = re.search(r"compact_kernel.*?Used (\d+) registers", err, re.S)
         lib = ctypes.CDLL(out)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cosig_compact_launch.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr]
+        lib.cosig_compact_launch.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, ptr, ptr]
         lib.cosig_compact_launch.restype = i32
         lib.cosig_compact_grid.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         lib.cosig_compact_grid.restype = i32
@@ -100,11 +100,13 @@ def runner(lib, state):
     from cosig_tpu_torch.kernels.binding import OCTANTS
 
     dev, n = state.device, int(state.shape[1])
-    ints = OCTANTS * grid(lib, n)[0]
+    blocks, rays = grid(lib, n)
+    ints = OCTANTS * blocks
     counts = torch.empty(max(1, ints), dtype=torch.int32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     n_live = torch.empty(1, dtype=torch.int32, device=dev)
-    args = [ctypes.c_void_p(state.data_ptr()), n, ctypes.c_void_p(counts.data_ptr()), ints,
+    args = [ctypes.c_void_p(state.data_ptr()), n, blocks, rays,
+            ctypes.c_void_p(counts.data_ptr()), ints,
             ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(n_live.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
 
@@ -120,6 +122,7 @@ def main_path_states(device) -> dict:
     """The states the compaction reads on the main path: glass_sphere's at
     depth 1 and large_mesh's at depths 1-3, from the wavefront kernels."""
     import chip_smoke
+    from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
     from cosig_tpu_torch.ops import kernel_core as kc
 
@@ -127,13 +130,13 @@ def main_path_states(device) -> dict:
     for name, depths in (("glass_sphere", 1), ("large_mesh", 3)):
         s = chip_smoke.scene_setup(name, {}, device)
         cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
-        mats = cset.mats.cpu().numpy()
+        fb = binding.frame_buffer(cset.device, uni, cset.mats_host, lights)
         pk = kc.prim_table(None, (0, 0), device)
-        state = kw.primary(cset, uni, mats, lights, cfg, cfg.height, *pk)
+        state = kw.primary(cset, fb, cfg, cfg.height, *pk)
         for d in range(1, depths + 1):
             states[f"{name} depth {d}"] = state.clone()
             idx, n_live = kw.compact(state)
-            kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+            kw.bounce(state, idx, n_live, cset, fb, cfg, d, *pk)
     return states
 
 

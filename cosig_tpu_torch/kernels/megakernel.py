@@ -1,6 +1,8 @@
 """Wrappers of the megakernel and the debug kernel.
 
-``megakernel`` and ``debug`` take the inputs of one render. On a CUDA
+``megakernel`` and ``debug`` take the inputs of one render, the frame's
+uniforms, materials and lights in a
+:class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`. On a CUDA
 cluster set they launch the hand-written kernel (``csrc/megakernel.cu``)
 on the current stream, without synchronising, count the launch in
 :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and raise if the launch
@@ -11,7 +13,6 @@ no fallback from a CUDA tensor to the plain version.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from cosig_tpu_torch.accel.clusters import ClusterSet
@@ -20,23 +21,23 @@ from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import trace_megakernel
 
 
-def megakernel(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
-               lights: np.ndarray, cfg: StaticConfig, band: int, prims: torch.Tensor,
-               n_sph: int, n_box: int) -> torch.Tensor:
+def megakernel(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
+               prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
     """Render ``band`` rows -> f32 [4, band * W] (rgb mean, ray count) on the
     cluster set's device. ``prims``: the table of
     :func:`cosig_tpu_torch.ops.kernel_core.prim_table`."""
     dev = cset.device
     if dev.type == "cpu":
-        return trace_megakernel.megakernel_plain(cset, uniforms, mats, lights, cfg, band,
-                                                 prims, n_sph, n_box)
+        return trace_megakernel.megakernel_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg,
+                                                 band, prims, n_sph, n_box)
     if dev.type != "cuda":
         raise ValueError(f"no megakernel for device {dev}")
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
+    binding.check_buffer(fb, dev)
     if cfg.max_depth < 1:
         raise ValueError(f"max_depth must be >= 1, got {cfg.max_depth}")
     n = band * cfg.width
-    frame = binding.make_frame(cfg, uniforms, mats, lights, band, 0, False, n_rays=n)
+    frame = binding.make_frame(cfg, fb, band, 0, False, n_rays=n)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     binding.launch("cosig_megakernel_launch", frame, cset, prims, n_sph, n_box, out,
                    cfg.max_depth)
@@ -44,20 +45,21 @@ def megakernel(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     return out
 
 
-def debug(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray, lights: np.ndarray,
-          cfg: StaticConfig, prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+def debug(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, prims: torch.Tensor,
+          n_sph: int, n_box: int) -> torch.Tensor:
     """Debug view ``cfg.debug_mode`` -> f32 [4, H * W] (rgb, count 1)."""
     dev = cset.device
     if dev.type == "cpu":
-        return trace_megakernel.debug_plain(cset, uniforms, mats, lights, cfg, prims,
+        return trace_megakernel.debug_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg, prims,
                                             n_sph, n_box)
     if dev.type != "cuda":
         raise ValueError(f"no debug kernel for device {dev}")
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
+    binding.check_buffer(fb, dev)
     if cfg.debug_mode not in (1, 2, 3):
         raise ValueError(f"debug_mode must be 1, 2 or 3, got {cfg.debug_mode}")
     n = cfg.height * cfg.width
-    frame = binding.make_frame(cfg, uniforms, mats, lights, cfg.height, 0, False, n_rays=n)
+    frame = binding.make_frame(cfg, fb, cfg.height, 0, False, n_rays=n)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     binding.launch("cosig_debug_launch", frame, cset, prims, n_sph, n_box, out,
                    cfg.debug_mode)

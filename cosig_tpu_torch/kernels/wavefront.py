@@ -1,8 +1,10 @@
 """Wrappers of the three wavefront kernels.
 
 ``primary``, ``compact`` and ``bounce`` take the tensors of one render
-stage. On a CUDA tensor they launch the hand-written kernel
-(``csrc/wavefront.cu``) on the current stream, without synchronising,
+stage and the frame's uniforms, materials and lights in a
+:class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`. On a CUDA tensor
+they launch the hand-written kernel (``csrc/wavefront.cu``) on the
+current stream, without synchronising,
 count the launch in :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and
 raise if the launch is refused; on a CPU tensor they run the plain
 PyTorch version (:mod:`cosig_tpu_torch.ops.trace_wavefront`) and count
@@ -13,7 +15,6 @@ its length stay on the device, so the host never waits for them.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from cosig_tpu_torch.accel.clusters import ClusterSet
@@ -23,19 +24,19 @@ from cosig_tpu_torch.ops import trace_wavefront
 from cosig_tpu_torch.ops.kernel_core import STATE_ROWS
 
 
-def primary(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
-            lights: np.ndarray, cfg: StaticConfig, band: int, prims: torch.Tensor,
-            n_sph: int, n_box: int) -> torch.Tensor:
+def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
+            prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
     """Primary stage -> state f32 [16, N] on the cluster set's device.
     ``prims``: the table of :func:`cosig_tpu_torch.ops.kernel_core.prim_table`."""
     dev = cset.device
     if dev.type == "cpu":
-        return trace_wavefront.primary_stage(cset, uniforms, mats, lights, cfg, band,
+        return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
                                              prims, n_sph, n_box)
     if dev.type != "cuda":
         raise ValueError(f"no primary kernel for device {dev}")
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
-    frame = binding.make_frame(cfg, uniforms, mats, lights, band, 0, cfg.max_depth == 1)
+    binding.check_buffer(fb, dev)
+    frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1)
     state = torch.empty((STATE_ROWS, frame.n_rays), dtype=torch.float32, device=dev)
     binding.launch("cosig_primary_launch", frame, cset, prims, n_sph, n_box, state)
     binding.LAUNCHES["primary"] += 1
@@ -71,19 +72,20 @@ def compact(state: torch.Tensor) -> tuple:
 
 
 def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
-           uniforms: np.ndarray, mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
-           depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
+           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
+           n_sph: int, n_box: int) -> None:
     """One bounce stage at ``depth`` (1 .. max_depth-1) on the listed rays
     ``idx[:n_live]`` of ``state``, in place (``idx``, ``n_live``: from
     :func:`compact`)."""
     dev = state.device
     if dev.type == "cpu":
-        trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, uniforms, mats, lights,
-                                            cfg, depth, prims, n_sph, n_box)
+        trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
+                                            fb.lights, cfg, depth, prims, n_sph, n_box)
         return
     if dev.type != "cuda":
         raise ValueError(f"no bounce kernel for device {dev}")
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
+    binding.check_buffer(fb, dev)
     if not 1 <= depth < cfg.max_depth:
         raise ValueError(f"bounce depth {depth} outside 1..{cfg.max_depth - 1}")
     per_row = cfg.width * max(1, cfg.aa_samples)
@@ -94,7 +96,6 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be contiguous int32 {list(shape)} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    frame = binding.make_frame(cfg, uniforms, mats, lights, n // per_row, depth,
-                               depth == cfg.max_depth - 1)
+    frame = binding.make_frame(cfg, fb, n // per_row, depth, depth == cfg.max_depth - 1)
     binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
     binding.LAUNCHES["bounce"] += 1

@@ -11,7 +11,7 @@ what it does.
   wavefront divides by aa; so the two renders give the same bits when aa
   is a power of two, and differ by that one rounding otherwise.
 * :func:`render_chain` queues the same frame k times, the counterpart of
-  ``trace_pallas.render_chain``.
+  ``trace_pallas.render_chain``: on the card, k replays of one CUDA graph.
 * :func:`render_debug` shoots one perspective centre ray per pixel, even
   under the orthographic toggle, and shows depth (mode 1), normals (mode
   2) or hit/miss (mode 3) (``trace_pallas.py:438-513``).
@@ -173,6 +173,42 @@ def _image(out: torch.Tensor, width: int, band: int, counted: int, rays_on_devic
     return img, (rays if rays_on_device else int(rays))
 
 
+def one_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: int,
+              prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False):
+    """One megakernel frame of ``band`` rows at global row ``row_offset``
+    from the frame in ``fb`` (a written
+    :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> ``(img [band,
+    W, 3], rays of the rows inside the image as an int64 tensor)`` on the
+    cluster set's device, with no host read. ``plain``: the plain version."""
+    from cosig_tpu_torch.kernels import megakernel as km
+
+    if plain:
+        out = megakernel_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg, band, prims, n_sph,
+                               n_box)
+    else:
+        out = km.megakernel(cset, fb, cfg, band, prims, n_sph, n_box)
+    counted = max(0, min(band, cfg.height - int(row_offset)))
+    return _image(out, cfg.width, band, counted, True)
+
+
+def debug_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: int,
+                prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False):
+    """One debug view of the whole frame (``band`` must be the height, at
+    row 0) -> ``(img [H, W, 3], rays = H * W as an int64 tensor)``, with
+    no host read. ``plain``: the plain version."""
+    from cosig_tpu_torch.kernels import megakernel as km
+
+    if band != cfg.height or row_offset != 0:
+        raise ValueError("the debug view renders whole frames only")
+    if cfg.debug_mode not in (1, 2, 3):
+        raise ValueError(f"debug_mode must be 1, 2 or 3, got {cfg.debug_mode}")
+    if plain:
+        out = debug_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg, prims, n_sph, n_box)
+    else:
+        out = km.debug(cset, fb, cfg, prims, n_sph, n_box)
+    return _image(out, cfg.width, cfg.height, cfg.height, True)
+
+
 def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                     cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
                     device=None, plain: bool = False, prims=None, prim_counts=(0, 0),
@@ -186,42 +222,37 @@ def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     as on the TPU; their rays are not counted, so a frame cut into bands
     counts the rays of the frame (the TPU's sharded render counts them,
     ``trace_pallas.py:597-598`` summing a band's rows up to the global
-    height)."""
-    from cosig_tpu_torch.kernels import megakernel as km
+    height). This is the eager frame; the Renderer's frames on the card
+    replay it as a CUDA graph (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
+    from cosig_tpu_torch.kernels import binding
 
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
-    run = megakernel_plain if plain else km.megakernel
-    counted = max(0, min(band, cfg.height - int(row_offset)))
-    return _image(run(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box),
-                  cfg.width, band, counted, rays_on_device)
+    fb = binding.frame_buffer("cpu" if plain else cset.device, uniforms, mats, lights)
+    img, rays = one_frame(cset, fb, cfg, band, row_offset, prims, n_sph, n_box, plain)
+    return img, (rays if rays_on_device else int(rays))
 
 
 def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
-                 cfg: StaticConfig, k: int):
+                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0)):
     """Render the same frame ``k`` times through the megakernel on the
     cluster set's device, queued with no host read in between -> ``(last
     image [H, W, 3], total rays of the k frames as an int)``; the
-    counterpart of ``trace_pallas.py:612-636``. The inputs are prepared once.
+    counterpart of ``trace_pallas.py:612-636``. On the card the frame is
+    captured once as a CUDA graph and replayed k times, as the JAX
+    version runs its k frames in one dispatch; on the CPU the plain
+    version runs k times.
 
     Timing two chain lengths and taking the slope gives the device time
     per frame without the host's wait at the end. The JAX version threads
     a zero that depends on the previous image into each frame, so that XLA
     cannot hoist the loop-invariant render out of its scan; PyTorch runs
-    each call as it comes, so nothing of the kind is needed here."""
-    from cosig_tpu_torch.kernels import megakernel as km
+    each replay as it comes, so nothing of the kind is needed here."""
+    from cosig_tpu_torch.ops import frame_graph
 
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
-        cset, uniforms, lights, 0, None, None, (0, 0))
-    total = None
-    for _ in range(k):
-        img, rays = _image(km.megakernel(cset, uniforms, mats, lights, cfg, cfg.height, prims,
-                                         n_sph, n_box), cfg.width, cfg.height, cfg.height, True)
-        total = rays if total is None else total + rays
-    return img, int(total)
+    return frame_graph.render_chain("megakernel", cset, uniforms, lights, cfg, k, prims,
+                                    prim_counts)
 
 
 def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
@@ -229,12 +260,12 @@ def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                  prim_counts=(0, 0)):
     """Debug view ``cfg.debug_mode`` (1, 2 or 3) -> ``(img [H, W, 3] f32 on
     device, rays = H * W)``; arguments as in :func:`render_clusters`."""
-    from cosig_tpu_torch.kernels import megakernel as km
+    from cosig_tpu_torch.kernels import binding
 
     if cfg.debug_mode not in (1, 2, 3):
         raise ValueError(f"debug_mode must be 1, 2 or 3, got {cfg.debug_mode}")
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, 0, device, prims, prim_counts)
-    run = debug_plain if plain else km.debug
-    return _image(run(cset, uniforms, mats, lights, cfg, prims, n_sph, n_box),
-                  cfg.width, cfg.height, cfg.height, False)
+    fb = binding.frame_buffer("cpu" if plain else cset.device, uniforms, mats, lights)
+    img, rays = debug_frame(cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box, plain)
+    return img, int(rays)

@@ -181,7 +181,8 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     """Check the device and put a render's inputs in the form the stages
     take -> (uniforms with the row offset, lights, mats as numpy, prims
     table, n_sph, n_box). Shared by the wavefront, megakernel and debug
-    renders."""
+    renders. The materials are the cluster set's host copy, so nothing
+    is read back from the device."""
     dev = cset.device if device is None else torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -190,9 +191,43 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     uniforms = np.array(uniforms, F32)
     uniforms[U_ROW_OFF] = F32(row_offset)
     lights = np.ascontiguousarray(lights, F32)
-    mats = cset.mats.detach().cpu().numpy()
     prims, n_sph, n_box = kernel_core.prim_table(prims, prim_counts, dev)
-    return uniforms, lights, mats, prims, n_sph, n_box
+    return uniforms, lights, cset.mats_host, prims, n_sph, n_box
+
+
+def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tensor,
+           n_sph: int, n_box: int, plain: bool = False) -> torch.Tensor:
+    """The primary stage and the ``max_depth - 1`` bounce stages of the
+    frame in ``fb`` (a written
+    :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> the final
+    ray state f32 [16, N]. ``plain``: the plain versions on the cluster
+    set's device, else the kernels' wrappers, which dispatch by device.
+    Nothing here reads the device from the host, so a stream capture can
+    record it (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
+    from cosig_tpu_torch.kernels import wavefront as kw
+
+    if plain:
+        u, m, li = fb.uniforms, fb.mats, fb.lights
+        state = primary_stage(cset, u, m, li, cfg, band, prims, n_sph, n_box)
+        for depth in range(1, cfg.max_depth):
+            idx, n_live = compact_plain(state)
+            bounce_listed_stage(state, idx, n_live, cset, u, m, li, cfg, depth, prims, n_sph,
+                                n_box)
+        return state
+    state = kw.primary(cset, fb, cfg, band, prims, n_sph, n_box)
+    for depth in range(1, cfg.max_depth):
+        idx, n_live = kw.compact(state)
+        kw.bounce(state, idx, n_live, cset, fb, cfg, depth, prims, n_sph, n_box)
+    return state
+
+
+def one_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: int,
+              prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False):
+    """One wavefront frame of ``band`` rows -> ``(img [band, W, 3], rays as
+    an int64 tensor)`` on the cluster set's device, with no host read."""
+    del row_offset  # in fb's uniforms; rows past the image start dead
+    state = stages(cset, fb, cfg, band, prims, n_sph, n_box, plain)
+    return finalize(state, cfg, band, rays_on_device=True)
 
 
 def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
@@ -201,19 +236,13 @@ def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                 prim_counts=(0, 0)) -> torch.Tensor:
     """Run the primary stage and the ``max_depth - 1`` bounce stages ->
     the final ray state f32 [16, N] (arguments as in :func:`render_wavefront`)."""
-    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.kernels import binding
 
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
-    primary, compact, bounce = ((primary_stage, compact_plain, bounce_listed_stage) if plain
-                                else (kw.primary, kw.compact, kw.bounce))
-    state = primary(cset, uniforms, mats, lights, cfg, band, prims, n_sph, n_box)
-    for depth in range(1, cfg.max_depth):
-        idx, n_live = compact(state)
-        bounce(state, idx, n_live, cset, uniforms, mats, lights, cfg, depth, prims, n_sph,
-               n_box)
-    return state
+    fb = binding.frame_buffer("cpu" if plain else cset.device, uniforms, mats, lights)
+    return stages(cset, fb, cfg, band, prims, n_sph, n_box, plain)
 
 
 def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
@@ -233,8 +262,29 @@ def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     (n_sph, n_box), folded into every traversal. ``rays_on_device``: the
     ray count as an int64 tensor on the device, so that the host can queue
     more work before it reads the count (:func:`finalize`). Rows of a band
-    past the image start dead: they are traced by no ray and count none."""
+    past the image start dead: they are traced by no ray and count none.
+
+    This is the eager frame, one launch per stage from the host; a
+    :class:`~cosig_tpu_torch.ops.frame_graph.FrameGraph` captures the
+    same launches once and replays them (the Renderer's frames on the
+    card)."""
     state = trace_state(cset, uniforms, lights, cfg, rows, row_offset, device, plain,
                         prims, prim_counts)
     return finalize(state, cfg, state.shape[1] // (cfg.width * max(1, cfg.aa_samples)),
                     rays_on_device)
+
+
+def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
+                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0)):
+    """Render the same frame ``k`` times through the wavefront on the
+    cluster set's device, queued with no host read in between -> ``(last
+    image [H, W, 3], total rays of the k frames as an int)``; the
+    wavefront's counterpart of ``trace_megakernel.render_chain`` and of
+    the JAX package's wavefront chain (``bench.py:121-140``). On the card
+    the frame is captured once as a CUDA graph and replayed k times; on
+    the CPU the plain stages run k times. Timing two chain lengths and
+    taking the slope gives the device time per frame."""
+    from cosig_tpu_torch.ops import frame_graph
+
+    return frame_graph.render_chain("wavefront", cset, uniforms, lights, cfg, k, prims,
+                                    prim_counts)

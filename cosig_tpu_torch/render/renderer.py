@@ -28,6 +28,18 @@ Geometry is cached per scene object and analytic mode
 the kernels, the triangle soup (and the BVH or the analytic tables) for
 the oracle path, so camera or settings changes never rebuild or re-upload
 geometry.
+
+On ``"cuda"`` a frame of the kernel paths (wavefront, megakernel, debug
+view, analytic mode) is one replay of a CUDA graph
+(:class:`~cosig_tpu_torch.ops.frame_graph.FrameGraph`), the counterpart
+of the JAX package's jitted frame. The renderer keeps one graph, under
+:meth:`Renderer.graph_key` (the scene object, analytic mode, the path and
+the ``StaticConfig``): a change of camera, lights, background or the
+other per-frame values replays it; a change of resolution, depth, AA,
+a toggle or the debug mode captures a new one, which replaces it;
+``invalidate_cache`` frees it. Its private memory pool holds the frame's
+buffers (the wavefront's state [16, N] is 64 B a ray). The oracle path
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ from cosig_tpu_torch.accel.clusters import build_clusters
 from cosig_tpu_torch.models.scene import SceneData
 from cosig_tpu_torch.models.settings import RenderSettings
 from cosig_tpu_torch.models.soa import compile_scene, frame_params, materials_host, static_config
-from cosig_tpu_torch.ops import bvh_traverse, kernel_core, trace_megakernel, trace_wavefront, trace_xla
+from cosig_tpu_torch.ops import bvh_traverse, frame_graph, kernel_core, trace_xla
 from cosig_tpu_torch.ops.analytic import closest_hit_analytic, compile_analytic, pack_prims_host
 from cosig_tpu_torch.scene.tessellate import extract_triangles
 
@@ -91,11 +103,15 @@ class Renderer:
         # Oracle path: [scene, analytic, triangle soup, SceneArrays,
         # AnalyticPrims (analytic) or the BVH (once a frame has walked it) or None].
         self._cached_xla: Optional[list] = None
+        # Kernel paths on the card: (graph_key, scene, FrameGraph); the scene
+        # is held so that the id in its key stays its own.
+        self._graph: Optional[tuple] = None
         self.last_stats = RenderStats()
 
     def invalidate_cache(self) -> None:
         self._cached = None
         self._cached_xla = None
+        self._graph = None
 
     def resolve_backend(self) -> str:
         """The backend a frame runs: ``auto`` is the kernels' wavefront on
@@ -154,33 +170,69 @@ class Renderer:
             img, rays = trace_xla.render_image(arrays, params, cfg, with_rays=True)
         return img, rays, arrays.num_triangles
 
-    def render_to_device(self, scene: SceneData, settings: RenderSettings) -> torch.Tensor:
-        """Returns the framebuffer [H, W, 3] f32 on the renderer's device
-        (row 0 = bottom), without a copy to the host."""
+    def kernel_path(self, cfg) -> Optional[str]:
+        """The kernel path a frame of ``cfg`` runs (``"wavefront"``,
+        ``"megakernel"`` or ``"debug"``), or None on the oracle path."""
+        backend = self.resolve_backend()
+        if backend in ("xla", "xla-brute"):
+            return None
+        if cfg.debug_mode != 0:
+            return "debug"
+        return backend
+
+    def graph_key(self, scene: SceneData, settings: RenderSettings) -> tuple:
+        """What a captured frame is specific to: the scene object, analytic
+        mode, the kernel path and the ``StaticConfig`` (size, depth, AA,
+        toggles, debug mode). Frames with equal keys replay one graph."""
+        cfg = static_config(scene, settings)
+        return (id(scene), settings.analytic_primitives, self.kernel_path(cfg), cfg)
+
+    def _frame_graph(self, scene, settings, cfg, uniforms, lights):
+        """The cached graph of this frame's key, captured (in place of the
+        last one) if the key changed."""
+        key = self.graph_key(scene, settings)
+        if self._graph is None or self._graph[0] != key:
+            self._graph = None  # free the last graph's pool before capturing
+            cset, prims, prim_counts = self._geometry_for(scene, settings.analytic_primitives)
+            graph = frame_graph.FrameGraph(key[2], cset, cfg, uniforms, lights, prims,
+                                           prim_counts)
+            self._graph = (key, scene, graph)
+            log.info("captured a %s frame graph: %.3f s, %d pool bytes", key[2],
+                     graph.capture_s, graph.pool_bytes)
+        return self._graph[2]
+
+    def _frames(self, scene: SceneData, settings: RenderSettings, k: int):
+        """``k`` frames queued with no host read in between -> (last image,
+        rays of the k frames as an int); sets ``last_stats``."""
         params = frame_params(scene, settings)
         cfg = static_config(scene, settings)
         backend = self.resolve_backend()
         analytic = settings.analytic_primitives
+        path = self.kernel_path(cfg)
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        if backend in ("xla", "xla-brute"):
-            img, rays, triangles = self._render_xla(scene, params, cfg, backend, analytic)
+        if path is None:
+            rays = 0
+            for _ in range(k):
+                img, r, triangles = self._render_xla(scene, params, cfg, backend, analytic)
+                rays += r
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         else:
             uniforms = kernel_core.build_uniforms(params)
             lights = kernel_core.build_lights(params, cfg.multi_light)
             cset, prims, prim_counts = self._geometry_for(scene, analytic)
-            kw = dict(device=self.device, prims=prims, prim_counts=prim_counts)
-            if cfg.debug_mode != 0:
-                img, rays = trace_megakernel.render_debug(cset, uniforms, lights, cfg, **kw)
-            elif backend == "megakernel":
-                img, rays = trace_megakernel.render_clusters(cset, uniforms, lights, cfg, **kw)
-            else:
-                img, rays = trace_wavefront.render_wavefront(cset, uniforms, lights, cfg, **kw)
             triangles = cset.num_triangles
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                graph = self._frame_graph(scene, settings, cfg, uniforms, lights)
+                if k == 1:
+                    img, rays = graph.replay(uniforms, lights)
+                    rays = int(rays)  # the one read: the frame is done
+                else:
+                    img, rays = graph.chain(uniforms, lights, k)
+            else:
+                img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k, prims,
+                                                     prim_counts)
         dt = (time.perf_counter() - t0) * 1e3
         self.last_stats = RenderStats(
             width=cfg.width,
@@ -189,7 +241,25 @@ class Renderer:
             render_ms=dt,
             rays_traced=rays,
         )
-        return img
+        return img, rays
+
+    def render_to_device(self, scene: SceneData, settings: RenderSettings) -> torch.Tensor:
+        """Returns the framebuffer [H, W, 3] f32 on the renderer's device
+        (row 0 = bottom), without a copy to the host. The frame is done
+        when this returns, as in the JAX package (``renderer.py:218``):
+        ``last_stats.rays_traced`` is the int the host read, and
+        ``last_stats.render_ms`` the host's time from the call to it."""
+        return self._frames(scene, settings, 1)[0]
+
+    def render_chain(self, scene: SceneData, settings: RenderSettings, k: int):
+        """Render the frame ``k`` times, queued with no host read in between
+        -> ``(last image [H, W, 3] on the device, total rays of the k frames
+        as an int)``: on the card the kernel paths replay the cached graph k
+        times. ``last_stats`` holds the chain's time and rays; timing two
+        chain lengths and taking the slope gives the time per frame."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        return self._frames(scene, settings, k)
 
     def render(self, scene: SceneData, settings: RenderSettings) -> np.ndarray:
         """Render and copy to the host -> [H, W, 3] f32 numpy, row 0 bottom."""

@@ -195,7 +195,8 @@ def test_listed_bounce_on_an_empty_list_changes_nothing():
     before = state.clone()
     idx, n_live = kw.compact(state)
     assert int(n_live) == 0
-    kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, 1, prims, n_sph, n_box)
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
+    kw.bounce(state, idx, n_live, cset, fb, cfg, 1, prims, n_sph, n_box)
     assert torch.equal(state, before)
 
 

@@ -126,11 +126,14 @@ def test_tessellation_copy_bit_equal(name, primitives):
 
 @pytest.mark.parametrize("name", ["tiny", "glass_sphere", "cosig_walls", "large_mesh"])
 def test_bvh_copy_bit_equal(name):
-    """The port's Python builder against the JAX package's builder (its
-    C++ one where that is built): the same nodes and triangle order."""
+    """The port's builder against the JAX package's Python builder (whose
+    nodes its C++ one equals, tests/test_torch_native.py): the same nodes
+    and triangle order. The reference builds no native library, so this
+    test does not race other workers that load the JAX package's."""
     tris = ttess.extract_triangles(_port_scene(name)[0])
     for leaf in (4, 128):
-        ref = jbvh.build_bvh(jtess.extract_triangles(_scene(name)[0]), max_leaf=leaf)
+        ref = jbvh.build_bvh(jtess.extract_triangles(_scene(name)[0]), max_leaf=leaf,
+                             use_native="python")
         port = tbvh.build_bvh(tris, max_leaf=leaf)
         for field in ("node_min", "node_max", "left_or_first", "count", "order"):
             np.testing.assert_array_equal(getattr(ref, field), getattr(port, field),

@@ -5,6 +5,7 @@ C/Python mirror of the kernels' launch parameters."""
 import ctypes
 import pathlib
 import re
+import types
 from dataclasses import replace
 
 import numpy as np
@@ -136,7 +137,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
     for name in binding.LAUNCHES:
         binding.LAUNCHES[name] = 7
     binding.reset_counts()
-    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0)
+    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0,
+                                    graph=0)
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
@@ -148,7 +150,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
                       tkc.build_lights(params, False), cfg, plain=True)
         np.testing.assert_array_equal(a, b.numpy())
         r.render(tiny, st.replace(debug_mode=2))
-    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0)
+        r.render_chain(tiny, st, 2)
+    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0,
+                                    graph=0)
 
 
 def test_wrappers_reject_other_devices(tiny):
@@ -159,20 +163,21 @@ def test_wrappers_reject_other_devices(tiny):
     cfg = tsoa.static_config(tiny, st)
     mats = np.zeros((2, 8), np.float32)
     uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
+    fb = binding.frame_buffer("cpu", uni, mats, lights)
     pk = (torch.zeros((1, 22), device="meta"), 0, 0)
     with pytest.raises(ValueError, match="no primary kernel"):
-        kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
+        kw.primary(cset, fb, cfg, 8, *pk)
     state = torch.zeros((16, 64), device="meta")
     idx = torch.zeros(64, dtype=torch.int32, device="meta")
     n_live = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no compaction kernel"):
         kw.compact(state)
     with pytest.raises(ValueError, match="no bounce kernel"):
-        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state, idx, n_live, cset, fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="no megakernel"):
-        km.megakernel(cset, uni, mats, lights, cfg, 8, *pk)
+        km.megakernel(cset, fb, cfg, 8, *pk)
     with pytest.raises(ValueError, match="no debug kernel"):
-        km.debug(cset, uni, mats, lights, cfg, *pk)
+        km.debug(cset, fb, cfg, *pk)
 
 
 def test_check_inputs_rejects_misaligned_geom(tiny):
@@ -229,25 +234,28 @@ def _header(name):
     return (CSRC / name).read_text()
 
 
-def test_frame_struct_mirrors_header():
-    src = _header("bounce.cuh")
-    body = re.search(r"struct Frame \{(.*?)\};", src, re.S).group(1)
+def _struct_fields(src, name):
+    body = re.search(rf"struct {name} \{{(.*?)\}};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
-    names = []
-    for decl in body.split(";"):
-        decl = decl.strip()
-        if not decl:
-            continue
-        for part in decl.split(None, 1)[1].split(","):
-            names.append(part.strip().split("[")[0])
-    assert names == [f[0] for f in binding.Frame._fields_]
+    return [re.findall(r"\w+", part.split("[")[0])[-1]
+            for decl in body.split(";") if decl.strip() for part in decl.split(",")]
+
+
+def test_frame_struct_mirrors_header():
+    """binding.Frame (a launch's parameters, by value) and binding.FRAME_DATA
+    (the frame's uniforms, materials and lights, read through Frame::data)
+    mirror the two structs of csrc/bounce.cuh field for field."""
+    src = _header("bounce.cuh")
+    assert _struct_fields(src, "Frame") == [f[0] for f in binding.Frame._fields_]
+    assert _struct_fields(src, "FrameData") == list(binding.FRAME_DATA.names)
     consts = dict(re.findall(r"\b(MAX_MATS|MAX_LIGHTS|UNIFORMS_LEN) = (\d+)", src))
     assert int(consts["MAX_MATS"]) == binding.MAX_MATS
     assert int(consts["MAX_LIGHTS"]) == binding.MAX_LIGHTS
     assert int(consts["UNIFORMS_LEN"]) == tkc.UNIFORMS_LEN
-    n_scalars = len(names) - 3  # all but u, mats, lights
-    assert ctypes.sizeof(binding.Frame) == 4 * (
-        tkc.UNIFORMS_LEN + n_scalars + 8 * (binding.MAX_MATS + binding.MAX_LIGHTS))
+    assert binding.FRAME_DATA.itemsize == 4 * (
+        tkc.UNIFORMS_LEN + 2 + 8 * (binding.MAX_MATS + binding.MAX_LIGHTS))
+    n_scalars = len(binding.Frame._fields_) - 1  # all but the data pointer
+    assert ctypes.sizeof(binding.Frame) == -(-4 * n_scalars // 8) * 8 + 8
     flags = dict((k, int(v)) for k, v in re.findall(r"\bF_(\w+) = (\d+)", src))
     assert sorted(flags.values()) == sorted(bit for _, bit in binding._FLAGS)
 
@@ -259,15 +267,23 @@ def test_frame_contents_and_limits(tiny):
     mats = np.concatenate(tsoa.materials_host(scene), axis=1)
     lights = tkc.build_lights(params, cfg.multi_light)
     uni = tkc.build_uniforms(params)
-    f = binding.make_frame(cfg, uni, mats, lights, band=cfg.height, depth=2, is_last=True)
-    assert f.n_rays == cfg.width * cfg.height
-    assert (f.n_mats, f.n_lights, f.depth, f.is_last) == (mats.shape[0], 2, 2, 1)
+    rec = np.zeros((), binding.FRAME_DATA)
+    binding.pack_frame_data(rec, uni, mats, lights)
+    assert (rec["n_mats"], rec["n_lights"]) == (mats.shape[0], 2)
+    np.testing.assert_array_equal(rec["u"], uni)
+    np.testing.assert_array_equal(rec["mats"][: mats.size], mats.ravel())
+    assert not rec["mats"][mats.size:].any() and not rec["lights"][lights.size:].any()
+    fb = types.SimpleNamespace(data=torch.zeros(4))
+    f = binding.make_frame(cfg, fb, band=cfg.height, depth=2, is_last=True)
+    assert f.n_rays == cfg.width * cfg.height and f.data == fb.data.data_ptr()
+    assert (f.depth, f.is_last) == (2, 1)
     assert f.flags & 256 and not f.flags & 16  # multi_light on, orthographic off
-    np.testing.assert_array_equal(np.array(f.u[:], np.float32), uni)
-    np.testing.assert_array_equal(np.array(f.mats[: mats.size], np.float32), mats.ravel())
     with pytest.raises(ValueError, match="materials"):
-        binding.make_frame(cfg, uni, np.zeros((binding.MAX_MATS + 1, 8), np.float32), lights,
-                      cfg.height, 0, False)
+        binding.pack_frame_data(rec, uni, np.zeros((binding.MAX_MATS + 1, 8), np.float32),
+                                lights)
+    with pytest.raises(ValueError, match="materials"):
+        binding.frame_buffer("cpu", uni, np.zeros((binding.MAX_MATS + 1, 8), np.float32),
+                             lights)
     with pytest.raises(ValueError, match="f32-exact"):
         ttw.num_rays(cfg.__class__(width=4096, height=4096, aa_samples=1), 4096)
 
@@ -296,7 +312,7 @@ def test_kernels_match_plain_on_card(tiny, card):
     img_m, rays_m = ttm.render_clusters(cset, uni, lights, cfg)
     img_d, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)))
     counts = dict(binding.LAUNCHES)
-    assert counts == dict(primary=1, compact=2, bounce=2, megakernel=1, debug=1)
+    assert counts == dict(primary=1, compact=2, bounce=2, megakernel=1, debug=1, graph=0)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
     img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
     img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),
@@ -317,29 +333,31 @@ def test_wrappers_check_inputs_on_card(tiny, card):
     cfg = tsoa.static_config(tiny, st)
     cset = cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0].to(card)
     uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, False)
-    mats = cset.mats.cpu().numpy()
+    fb = binding.frame_buffer(card, uni, cset.mats_host, lights)
     pk = tkc.prim_table(None, (0, 0), card)
-    state = kw.primary(cset, uni, mats, lights, cfg, 8, *pk)
+    state = kw.primary(cset, fb, cfg, 8, *pk)
     idx, n_live = kw.compact(state)
     with pytest.raises(ValueError, match="state must be"):
         kw.compact(state.double())
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state.double(), idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state.double(), idx, n_live, cset, fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="state must be"):
-        kw.bounce(state[:, :-1].contiguous(), idx, n_live, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state[:, :-1].contiguous(), idx, n_live, cset, fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="idx must be"):
-        kw.bounce(state, idx.long(), n_live, cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state, idx.long(), n_live, cset, fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="n_live must be"):
-        kw.bounce(state, idx, n_live.cpu(), cset, uni, mats, lights, cfg, 1, *pk)
+        kw.bounce(state, idx, n_live.cpu(), cset, fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="depth"):
-        kw.bounce(state, idx, n_live, cset, uni, mats, lights, cfg, 2, *pk)
+        kw.bounce(state, idx, n_live, cset, fb, cfg, 2, *pk)
     with pytest.raises(ValueError, match="expected"):
         kw.bounce(state, idx, n_live, cosig_tpu_torch.Renderer(device="cpu")._geometry_for(tiny)[0],
-                  uni, mats, lights, cfg, 1, *pk)
+                  fb, cfg, 1, *pk)
     with pytest.raises(ValueError, match="prims"):
-        km.megakernel(cset, uni, mats, lights, cfg, 8, pk[0].cpu(), 0, 0)
+        km.megakernel(cset, fb, cfg, 8, pk[0].cpu(), 0, 0)
     with pytest.raises(ValueError, match="prims"):
-        km.debug(cset, uni, mats, lights, cfg, pk[0], 2, 0)
+        km.debug(cset, fb, cfg, pk[0], 2, 0)
+    with pytest.raises(ValueError, match="frame buffer"):
+        kw.primary(cset, binding.frame_buffer("cpu", uni, cset.mats_host, lights), cfg, 8, *pk)
 
 
 @pytest.mark.gpu
@@ -383,6 +401,7 @@ def test_refused_compaction_raises(monkeypatch, refused):
 
     fake = types.SimpleNamespace(cosig_compact_grid=grid, cosig_compact_launch=launch)
     monkeypatch.setattr(binding, "library", lambda: fake)
+    binding.compact_grid.cache_clear()
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
@@ -393,6 +412,9 @@ def test_refused_compaction_raises(monkeypatch, refused):
     with pytest.raises(RuntimeError, match="CUDA error 720"):
         binding.launch_compact(state, idx, n_live)
     if refused == "launch":
-        assert len(calls) == 1 and calls[0][1] == 1500 and calls[0][3] == 3 * binding.OCTANTS
+        # state, n, blocks, rays per block, counts, scratch ints, idx, n_live, stream
+        assert len(calls) == 1 and calls[0][1:4] == (1500, 3, 512)
+        assert calls[0][5] == 3 * binding.OCTANTS
     else:
         assert not calls
+    binding.compact_grid.cache_clear()
