@@ -9,7 +9,7 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. print the card's name and power limit and the torch version; build the
-   five kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
+   seven kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
    all started at once), then rebuild them warm with the compiles one
    after another and in parallel, and print the three times and each
    kernel's registers and spills;
@@ -93,7 +93,7 @@ Phases (any failure raises and the script exits non-zero):
    superblocks): the host build, the block walk's shared memory and blocks
    per multiprocessor at k = 128 in both builds of each ray kernel (with
    and without the superblock cull), the kernels against their plain
-   versions at 128x128 bit for bit (lists equal at every depth), the
+   versions at 128x128, depth 2, bit for bit (lists equal), the
    knot's clusters split 32 ways (75,360 clusters, past the 65,536 that
    sb_aabb_t's 128 superblocks cover, so every kernel takes its flat
    build) bit for bit at 16x8, depth 1, both paths at
@@ -111,7 +111,19 @@ Phases (any failure raises and the script exits non-zero):
    ``render_chain`` at k = 2 and 12 (k times the rays, ms/frame from the
    slope); and eager against graph in turns: ms/frame, the host's ms to
    queue a frame, the device's busy share in torch.profiler, each graph's
-   capture time and pool bytes.
+   capture time and pool bytes;
+10. the wavefront's fission form (trace and shade kernels) and its
+   separate primary and shadow cluster sets (``form_phase``): each new
+   kernel bit-equal to its plain version stage by stage, record rows and
+   lists included, on glass_sphere, large_mesh cut 4 ways (c_pad 1024),
+   the dense knot at 128x128, the analytic mixed scene and cosig_walls and the tiny scene with every
+   effect; the k the dense knot's shadow set would need against the
+   shared memory a block may take; every form's full-size frame
+   (glass_sphere, large_mesh, the dense knot), eager and as a graph
+   replay, bit-equal to the fused frame, with its launches read around
+   it; render_chain slopes of each form against the fused frame in
+   turns; and the new kernels timed beside the fused kernel of the same
+   stage, with their plain versions and bounds.
 
 Up to phase 8 every Renderer frame on the card is a graph replay too
 (each frame's launch counts include one ``graph``; the first frame of a
@@ -120,8 +132,8 @@ checks against their plain versions (phases 2, 3, 5) launch them
 eagerly.
 
 Near the end the script prints a JSON line of the models, a JSON line of
-per-frame numbers, a JSON line each of the oracle's and phases 7's, 8's
-and 9's numbers, a JSON line of per-kernel numbers, the card's name and
+per-frame numbers, a JSON line each of the oracle's and phases 7's, 8's,
+9's and 10's numbers, a JSON line of per-kernel numbers, the card's name and
 power limit, and, as the last line, the result ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -442,6 +454,22 @@ def scene_setup(name: str, settings_kw: dict, device, analytic: bool = False) ->
     return dict(scene=scene, settings=settings, cfg=cfg, cset=cset,
                 uni=build_uniforms(params), lights=build_lights(params, cfg.multi_light),
                 prims=prims, prim_counts=counts)
+
+
+def form_sets(s: dict, ks: dict, device) -> dict:
+    """Cluster sets of the frame ``s`` (:func:`scene_setup`'s) at other
+    cluster sizes, over the same triangles -> {name: ClusterSet on
+    ``device``} for ``ks`` {name: k}: the wavefront's ``cset_primary`` and
+    ``cset_shadow``."""
+    import numpy as np
+
+    from cosig_tpu_torch.accel.clusters import build_clusters
+    from cosig_tpu_torch.models.soa import materials_host
+    from cosig_tpu_torch.scene.tessellate import extract_triangles
+
+    tris = extract_triangles(s["scene"], include_primitives=not s["settings"].analytic_primitives)
+    mats = np.concatenate(materials_host(s["scene"]), axis=1)
+    return {name: build_clusters(tris, mats, k=k).to(device) for name, k in ks.items()}
 
 
 def tag_of(name, cfg, analytic=False) -> str:
@@ -1897,6 +1925,7 @@ def native_host(device, card: str, workdir: str, full_size: bool = True) -> dict
 # kernels against their plain versions at DENSE_PLAIN_SIDE, both paths
 # against the BVH-walk oracle at ORACLE_SIDE, and full-size frames.
 DENSE_PLAIN_SIDE = 128
+DENSE_PLAIN_DEPTH = 2  # one bounce: the plain frames were most of the script's time at d4
 DENSE_SUPERBLOCKS = 5
 DENSE_FLAT_SPLIT = 32  # 75,360 clusters of 4 rows: past MAX_CLUSTERS
 
@@ -1906,8 +1935,9 @@ def dense_frames(device, card: str, full_size: bool = True) -> dict:
     (DENSE_TRIANGLES triangles, DENSE_CLUSTERS clusters of k = 128 in
     c_pad 2560), the block walk's shared memory and blocks per
     multiprocessor at that k; (b) the kernels against their plain versions
-    at DENSE_PLAIN_SIDE, bit for bit, the compaction lists equal at every
-    depth, the plain wavefront frame inside PLAIN_FRAME_LIMIT_S; (c) both
+    at DENSE_PLAIN_SIDE, depth DENSE_PLAIN_DEPTH, bit for bit, the
+    compaction lists equal, the plain wavefront frame inside
+    PLAIN_FRAME_LIMIT_S; (c) both
     paths at 2048 x 2048, depth 4, through the Renderer, the launch
     counters set to 0 before each path and read after it: ms/frame, Mrays/s,
     the megakernel bit-equal to the wavefront, and each launch's device
@@ -1961,10 +1991,12 @@ def dense_frames(device, card: str, full_size: bool = True) -> dict:
     # 8b. The kernels against their plain versions at a cut size.
     side = DENSE_PLAIN_SIDE if full_size else 32
     t0 = time.perf_counter()
-    plain_s = compare_case(device, "dense_knot", dict(resolution_override=(side, side)), False,
+    plain_s = compare_case(device, "dense_knot", dict(resolution_override=(side, side),
+                                                      max_depth=DENSE_PLAIN_DEPTH), False,
                            exact=True)
     out["plain"] = dict(side=side, plain_s=plain_s, compare_s=time.perf_counter() - t0)
-    log(f"  dense knot {side}x{side}: kernels bit-equal to their plain versions; plain frames "
+    log(f"  dense knot {side}x{side} d{DENSE_PLAIN_DEPTH}: kernels bit-equal to their plain "
+        f"versions; plain frames "
         f"{plain_s['wavefront']:.1f} s (wavefront), {plain_s['megakernel']:.1f} s (megakernel)")
     check(plain_s["wavefront"] <= PLAIN_FRAME_LIMIT_S, "plain dense knot frame",
           plain_s["wavefront"])
@@ -2342,14 +2374,441 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
     return out
 
 
+# Phase 10: the wavefront's fission form (trace and shade kernels, the hit
+# record in state rows 15-19) and its separate primary and shadow cluster
+# sets (cosig_tpu/ops/trace_wavefront.py:115-135, :247-267, :716-888).
+# Cluster sizes of the forms' sets per scene: a finer primary cut and a
+# coarser shadow cut within one cull block (the dense knot's would need
+# k = KNOT_SHADOW_K, whose ring the block walk's shared memory cannot hold).
+FORM_KS = {"glass_sphere": dict(primary=8, shadow=64), "large_mesh": dict(primary=16, shadow=128),
+           "dense_knot": dict(primary=32)}
+KNOT_SHADOW_KS = (512, 1024)
+# name -> (fission, primary set, shadow set)
+FORMS = {"fission": (True, False, False), "primary set": (False, True, False),
+         "shadow set": (False, False, True), "all": (True, True, True)}
+FORM_TURNS = 2
+# The new kernel builds, their counters and the TPU kernel form each replaces.
+FORM_KERNELS = {
+    "trace": "cosig_tpu/ops/trace_wavefront.py:439 _make_bounce_kernel(mode=\"trace\")",
+    "shade": "cosig_tpu/ops/trace_wavefront.py:439 _make_bounce_kernel(mode=\"shade\")",
+    "primary_fission": "cosig_tpu/ops/trace_wavefront.py:293 _make_primary_kernel(fission=True)",
+    "primary_shadow": "cosig_tpu/ops/trace_wavefront.py:247 _make_shadow_traverse in "
+                      "_make_primary_kernel",
+    "bounce_shadow": "cosig_tpu/ops/trace_wavefront.py:247 _make_shadow_traverse in "
+                     "_make_bounce_kernel",
+}
+
+
+def form_kwargs(sets: dict, form: str) -> dict:
+    """The render keywords of ``form`` over the sets of form_sets, or None
+    where the scene has no such set."""
+    fission, primary, shadow = FORMS[form]
+    if (primary and "primary" not in sets) or (shadow and "shadow" not in sets):
+        return None
+    return dict(fission=fission, cset_primary=sets["primary"] if primary else None,
+                cset_shadow=sets["shadow"] if shadow else None)
+
+
+def form_launches(max_depth: int, forms: dict) -> dict:
+    """Launches of one wavefront frame in the form ``forms``."""
+    d = max_depth - 1
+    if forms["fission"]:
+        return dict(primary_fission=1, shade=1 + d, compact=d, trace=d)
+    if forms["cset_shadow"] is not None:
+        return dict(primary_shadow=1, compact=d, bounce_shadow=d)
+    return wavefront_launches(max_depth)
+
+
+def check_form_stages(s: dict, forms: dict, tag: str) -> list:
+    """The wavefront chain of one frame in the form ``forms`` with each
+    kernel held bit for bit to its plain version on the same input state
+    (all rows, the hit record's included) and each compaction list to the
+    plain one as integers; then the frame's image and rays to the fused
+    single-set kernels' -> the list lengths."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    cset, cfg = s["cset"], s["cfg"]
+    uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
+        cset, s["uni"], s["lights"], 0, None, s["prims"], s["prim_counts"])
+    pk = (prims, n_sph, n_box)
+    fb = binding.frame_buffer(cset.device, uni, mats, lights)
+    fission, csp, css = forms["fission"], forms["cset_primary"], forms["cset_shadow"]
+    pcs = cset if csp is None else csp
+    p_sh, b_sh = (pcs if css is None else css), (cset if css is None else css)
+
+    def same(stage, st_k, st_p):
+        ok, mx, _ = diff(st_k, st_p)
+        check(ok, tag, stage, "kernel not bit-equal to its plain version", mx)
+
+    prim_sh = None if fission else css
+    st = kw.primary(pcs, fb, cfg, cfg.height, *pk, fission=fission, cset_shadow=prim_sh)
+    same("primary", st, tw.primary_stage(pcs, uni, mats, lights, cfg, cfg.height, *pk,
+                                         fission=fission, cset_shadow=prim_sh))
+    if fission:
+        ref = st.clone()
+        kw.shade(st, None, None, p_sh, fb, cfg, 0, *pk)
+        tw.primary_shade(ref, p_sh, uni, mats, lights, cfg, *pk)
+        same("shade of the primary", st, ref)
+    lengths = []
+    for d in range(1, cfg.max_depth):
+        idx, n_live = kw.compact(st)
+        idx_p, n_p = tw.compact_plain(st)
+        m = int(n_live)
+        check(m == int(n_p) and bool((idx[:m] == idx_p[:m]).all()), tag, "list at depth", d)
+        lengths.append(m)
+        ref = st.clone()
+        if fission:
+            kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk)
+            tw.trace_listed_stage(ref, idx, n_live, cset, *pk)
+            same(f"trace at depth {d}", st, ref)
+            ref = st.clone()
+            kw.shade(st, idx, n_live, b_sh, fb, cfg, d, *pk)
+            tw.shade_listed_stage(ref, idx, n_live, b_sh, uni, mats, lights, cfg, d, *pk)
+            same(f"shade at depth {d}", st, ref)
+        else:
+            kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=css)
+            tw.bounce_listed_stage(ref, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                   cset_shadow=css)
+            same(f"bounce at depth {d}", st, ref)
+    img, rays = tw.finalize(st, cfg, cfg.height)
+    img0, rays0 = tw.render_wavefront(cset, s["uni"], s["lights"], cfg, prims=s["prims"],
+                                      prim_counts=s["prim_counts"])
+    check(torch.equal(img, img0) and rays == rays0, tag, "frame differs from the fused one")
+    return lengths
+
+
+def form_small(device) -> dict:
+    """Phase 10a: every new kernel against its plain version, bit for bit,
+    stage by stage (check_form_stages) on small frames: glass_sphere,
+    large_mesh with its clusters cut 4 ways (c_pad 1024: the superblock
+    builds), the dense knot at 128x128, depth 3, the analytic mixed scene
+    and cosig_walls, and the tiny scene with soft shadows, glossy and AA
+    2 (the shade's RNG). The knot's primary set (9,447 clusters) is held
+    to the fused frame at full size (form_frames)."""
+    effects = dict(aa_samples=2, enable_soft_shadows=True, light_size=5.0, enable_glossy=True,
+                   surface_roughness=0.05)
+    cases = [
+        ("glass_sphere", dict(resolution_override=(96, 96)), False, 1, ("all", "shadow set")),
+        ("large_mesh", dict(resolution_override=(128, 96)), False, 4, ("all", "shadow set")),
+        ("dense_knot", dict(resolution_override=(128, 128), max_depth=3), False, 1,
+         ("fission",)),
+        ("mixed", dict(resolution_override=(64, 48), max_depth=3), True, 1, ("all", "shadow set")),
+        ("cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True, 1, ("all",)),
+        ("tiny", dict(resolution_override=(64, 64), max_depth=3, **effects), False, 1,
+         ("all", "shadow set")),
+    ]
+    out = {}
+    for name, kw_, analytic, split, forms in cases:
+        t0 = time.perf_counter()
+        s = scene_setup(name, kw_, device, analytic)
+        k = s["cset"].k
+        ks = dict(FORM_KS.get(name, dict(primary=max(4, k // 4), shadow=2 * k)))
+        if name == "large_mesh":
+            s["cset"] = split_clusters(s["cset"], split)
+        sets = form_sets(s, ks, device)
+        tag = tag_of(name, s["cfg"], analytic) + (f" split {split}" if split > 1 else "")
+        for form in forms:
+            f = form_kwargs(sets, form)
+            lengths = check_form_stages(s, f, f"{tag} {form}")
+            out[f"{tag} {form}"] = dict(lists=lengths, clusters=s["cset"].num_clusters,
+                                        c_pad=int(s["cset"].aabb_t.shape[1]),
+                                        sets={n: (c.num_clusters, c.k, int(c.aabb_t.shape[1]))
+                                              for n, c in sets.items()})
+        log(f"  {tag} (clusters {s['cset'].num_clusters}, c_pad {s['cset'].aabb_t.shape[1]}; "
+            + ", ".join(f"{n} set {c.num_clusters} of k = {c.k}, c_pad {c.aabb_t.shape[1]}"
+                        for n, c in sets.items())
+            + f"): forms {forms}: every kernel bit-equal to its plain version, lists equal, "
+            f"frames equal to the fused one ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def knot_shadow_k(device) -> dict:
+    """The dense knot's shadow set: the smallest k of KNOT_SHADOW_KS whose
+    cut fits one cull block, and whether the block walk's shared memory
+    (tile_layout(k), the ring of 3 x k x 144 B) fits what a block may opt
+    into on this card."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+
+    s = scene_setup("dense_knot", dict(resolution_override=(8, 8)), "cpu")
+    optin = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    out = {"optin_bytes": optin}
+    for k in KNOT_SHADOW_KS:
+        c = form_sets(s, dict(k=k), "cpu")["k"]
+        smem = binding.library().cosig_tile_smem_bytes(k)
+        out[str(k)] = dict(clusters=c.num_clusters, c_pad=int(c.aabb_t.shape[1]),
+                           one_block=int(c.aabb_t.shape[1]) <= 512, smem_bytes=smem,
+                           fits=smem <= optin)
+        if out[str(k)]["one_block"]:
+            out["k"] = k
+            break
+    log(f"  dense knot shadow set: {out} (a block may opt into {optin} B)")
+    return out
+
+
+def form_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phase 10b, the forms' main path: glass_sphere (1024x1024, d6, AA 4),
+    large_mesh (2048x2048, d4) and the dense knot (2048x2048, d4), each in
+    every form its sets allow, eager (render_wavefront) and as a CUDA
+    graph (FrameGraph), bit-equal to the fused single-set eager frame,
+    image and rays; the launch counters set to 0 just before each form's
+    frames and read just after; then each graph's render_chain slope
+    (k = 2 and 12) against the fused frame's graph, in turns."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.ops import frame_graph
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    out = {"launches": {}, "frames": {}}
+    totals = out["launches"]
+    scenes = ("glass_sphere", "large_mesh", "dense_knot") if full_size else ("glass_sphere",)
+    for name in scenes:
+        s = scene_setup(name, {} if full_size else dict(resolution_override=(96, 96)), device)
+        cset, cfg, uni, lights = s["cset"], s["cfg"], s["uni"], s["lights"]
+        pk = dict(prims=s["prims"], prim_counts=s["prim_counts"])
+        sets = form_sets(s, FORM_KS[name], device)
+        tag = tag_of(name, cfg)
+        img0, rays0 = tw.render_wavefront(cset, uni, lights, cfg, **pk)
+        graphs = {"fused": frame_graph.FrameGraph("wavefront", cset, cfg, uni, lights, **pk)}
+        rec = {"sets": {n: (c.num_clusters, c.k, int(c.aabb_t.shape[1]))
+                        for n, c in sets.items()}}
+        # Blocks per multiprocessor of each build at this scene's sets (the
+        # shadow builds hold the larger of the two walks' shared memory).
+        c, k = cset.num_clusters, cset.k
+        occ = {n: binding.occupancy(n, c, k, device)
+               for n in ("primary", "bounce", "trace", "primary_fission")}
+        if "primary" in sets:
+            occ["primary (primary set)"] = binding.occupancy(
+                "primary", sets["primary"].num_clusters, sets["primary"].k, device)
+        walk_sh = sets.get("shadow", cset)
+        occ["shade"] = binding.occupancy("shade", walk_sh.num_clusters, walk_sh.k, device)
+        if "shadow" in sets:
+            for n in ("primary_shadow", "bounce_shadow"):
+                occ[n] = binding.occupancy(n, c, k, device, shadow_k=sets["shadow"].k)
+        rec["blocks_per_sm"] = occ
+        rec["smem_bytes"] = {n: binding.library().cosig_tile_smem_bytes(c.k)
+                             for n, c in dict(sets, main=cset).items()}
+        log(f"  [{card}] {tag_of(name, cfg)}: blocks per multiprocessor {occ}; block walk "
+            f"shared memory {rec['smem_bytes']} B")
+        for form in FORMS:
+            f = form_kwargs(sets, form)
+            if f is None:
+                continue
+            binding.reset_counts()
+            img, rays = tw.render_wavefront(cset, uni, lights, cfg, **pk, **f)
+            eager = {k: v for k, v in binding.LAUNCHES.items() if v}
+            g = frame_graph.FrameGraph("wavefront", cset, cfg, uni, lights, **pk, **f)
+            img_g, rays_g = g.replay(uni, lights)
+            got = {k: v for k, v in binding.LAUNCHES.items() if v}
+            for k, v in got.items():
+                totals[k] = totals.get(k, 0) + v
+            want = form_launches(cfg.max_depth, f)
+            check(eager == want, tag, form, "eager launches", eager, "expected", want)
+            check({k: v for k, v in g.launches.items() if v} == dict(want, graph=1), tag, form,
+                  "graph launches", g.launches)
+            check(torch.equal(img, img0) and int(rays) == int(rays0), tag, form,
+                  "eager frame differs from the fused frame")
+            check(torch.equal(img_g, img0) and int(rays_g) == int(rays0), tag, form,
+                  "graph replay differs from the fused frame")
+            graphs[form] = g
+            rec[form] = dict(launches=got, pool_bytes=g.pool_bytes, capture_s=g.capture_s)
+            log(f"  [{card}] {tag} {form}: eager and replayed frames bit-equal to the fused "
+                f"frame ({rays0} rays); launches {got}; pool {g.pool_bytes} B")
+        del img0
+        # Device ms per frame: the slope of render_chain over CHAIN_KS, each
+        # graph in turns with the fused one.
+        lo, hi = CHAIN_KS
+        slopes = {n: [] for n in graphs}
+        for _ in range(FORM_TURNS):
+            for n, g in graphs.items():
+                ms = {}
+                for k in (lo, hi):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    g.chain(uni, lights, k)
+                    ms[k] = (time.perf_counter() - t0) * 1e3
+                slopes[n].append((ms[hi] - ms[lo]) / (hi - lo))
+        rec["slope_ms"] = slopes
+        log(f"  [{card}] {tag} render_chain slope, ms/frame in {FORM_TURNS} turns: "
+            + "; ".join(f"{n} " + " / ".join(f"{v:.3f}" for v in vs) for n, vs in slopes.items()))
+        out["frames"][tag] = rec
+        del graphs, sets, cset
+        torch.cuda.empty_cache()
+    return out
+
+
+def form_kernel_times(device) -> list:
+    """Phase 10c: the new kernels alone against their plain versions, with
+    the fused kernel of the same stage on the same input in this call:
+    glass_sphere's primary stage (the fission primary and the shade over
+    every ray; the primary with the shadow set) and depth 1 (trace, shade,
+    the bounce with the shadow set; plain versions timed here), then
+    large_mesh's depths 1-3 (plain versions at depth 1 only). Bounds from
+    the plain versions' counted work (WORK) and the bytes each kernel must
+    move -> the kernels line's rows."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    forms_cu = "cosig_tpu_torch/csrc/forms.cu + csrc/wavefront.cuh"
+    rows = {}
+
+    def row(name, tag, run_k, copies_k, run_p, nbytes, plain=True, fused_ms=None):
+        """Time ``run_k(state)`` on fresh copies; hold it to ``run_p(state)``
+        once; the bound from the plain run's WORK."""
+        st_k = run_k(copies_k.pop())
+        if plain:
+            kc.reset_work()
+            st_p, plain_ms = timed(lambda: run_p(copies_k.pop()))
+            bound = work_bound(dict(kc.WORK), nbytes)
+            same, mx, _ = diff(st_k, st_p)
+            check(same, name, tag, "kernel not bit-equal to its plain version", mx)
+            del st_p
+        ms = device_ms(lambda: run_k(copies_k.pop()), 3)
+        r = dict(at=tag, ms=ms, fused_ms=fused_ms)
+        if plain:
+            r.update(plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound["bound_ms"],
+                     bound_by=bound["bound_by"], work=bound["work"])
+        log(f"  {name} ({tag}): {ms:.4f} ms on the card"
+            + (f", the fused kernel {fused_ms:.4f} ms" if fused_ms is not None else "")
+            + (f"; plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
+               f"({bound['bound_by']}; {bound['work']})" if plain else ""))
+        if name not in rows:
+            rows[name] = dict(name=name, route="cuda", source=forms_cu,
+                              replaces=FORM_KERNELS[name], library_ms=None, **r)
+        else:
+            rows[name].setdefault("more", []).append(r)
+        return st_k
+
+    for name in ("glass_sphere", "large_mesh"):
+        s = scene_setup(name, {}, device)
+        cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+        mats = cset.mats_host
+        fb = binding.frame_buffer(cset.device, uni, mats, lights)
+        pk = kc.prim_table(None, (0, 0), device)
+        sh = form_sets(s, dict(shadow=FORM_KS[name]["shadow"]), device)["shadow"]
+        geom = 4 * (cset.geom.numel() + cset.aabb_t.numel())
+        geom_sh = 4 * (sh.geom.numel() + sh.aabb_t.numel())
+        band, n = cfg.height, kc.state_rows(False)
+        tag = f"{name} {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}"
+        glass = name == "glass_sphere"
+        # The primary stage: fused, fission, with the shadow set.
+        st16 = kw.primary(cset, fb, cfg, band, *pk)
+        n_rays = st16.shape[1]
+        if glass:
+            fused_ms = device_ms(lambda: kw.primary(cset, fb, cfg, band, *pk), 3)
+            row("primary_fission", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk,
+                                                            fission=True),
+                [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
+                                                      fission=True),
+                geom + 4 * n_rays * (6 + 14), fused_ms=fused_ms)
+            row("primary_shadow", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk,
+                                                           cset_shadow=sh),
+                [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
+                                                      cset_shadow=sh),
+                geom + geom_sh + 4 * n_rays * 16, fused_ms=fused_ms)
+            st24 = kw.primary(cset, fb, cfg, band, *pk, fission=True)
+
+            def shade_all(st):
+                kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
+                return st
+
+            def shade_all_p(st):
+                tw.primary_shade(st, cset, uni, mats, lights, cfg, *pk)
+                return st
+
+            row("shade", f"{tag}, the primary stage over all rays", shade_all,
+                [st24.clone() for _ in range(5)], shade_all_p,
+                geom + 4 * n_rays * (13 + 5 + 14), fused_ms=fused_ms)
+            del st24
+        # The bounces: the fused bounce, trace then shade, the shadow-set bounce.
+        st24 = torch.zeros((kc.FISSION_ROWS, n_rays), dtype=torch.float32, device=device)
+        st24[:n] = st16
+        for d in range(1, cfg.max_depth if not glass else 2):
+            idx, n_live = kw.compact(st16)
+            live = int(n_live)
+            plain = d == 1
+            copies = [st16.clone() for _ in range(4)]
+            fused_ms = device_ms(lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d,
+                                                   *pk), 3)
+            at = f"{tag}, depth {d} ({live} live rays)"
+            rows_io = 4 * live * (13 + 14 + 1) + 4
+            nc = 5 if plain else 4
+
+            def bounce_sh(st):
+                kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=sh)
+                return st
+
+            def bounce_sh_p(st):
+                tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                       cset_shadow=sh)
+                return st
+
+            row("bounce_shadow", at, bounce_sh, [st16.clone() for _ in range(nc)], bounce_sh_p,
+                geom + geom_sh + rows_io, plain=plain, fused_ms=fused_ms)
+
+            def trace(st):
+                kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk)
+                return st
+
+            def trace_p(st):
+                tw.trace_listed_stage(st, idx, n_live, cset, *pk)
+                return st
+
+            traced_st = row("trace", at, trace, [st24.clone() for _ in range(nc)], trace_p,
+                            geom + 4 * live * (7 + 6 + 1) + 4, plain=plain, fused_ms=fused_ms)
+
+            def shade(st):
+                kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk)
+                return st
+
+            def shade_p(st):
+                tw.shade_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+                return st
+
+            row("shade", at, shade, [traced_st.clone() for _ in range(nc)], shade_p,
+                geom + 4 * live * (13 + 5 + 14 + 1) + 4, plain=plain, fused_ms=fused_ms)
+            # The next depth's input: the fused bounce, and the fission state from it.
+            kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk)
+            st24[:n] = st16
+            del copies, traced_st
+        del st16, st24, cset, sh
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def form_phase(device, card: str, full_size: bool = True) -> dict:
+    """Phase 10 (form_small, knot_shadow_k, form_frames, form_kernel_times)."""
+    out = {"small": form_small(device)}
+    if full_size:
+        out["knot_shadow"] = knot_shadow_k(device)
+    out.update(form_frames(device, card, full_size))
+    if full_size:
+        out["kernels"] = form_kernel_times(device)
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b,
-    "superblocks": {the same of the build with the superblock cull}}, ...}."""
+    "superblocks": {the same of the build with the superblock cull}}, ...},
+    the wavefront's other builds under their launch counters' names
+    (primary_fission, primary_shadow, bounce_shadow; shade_all, the shade
+    over every ray of the primary stage)."""
     import re
 
-    names = {"primary_kernel": "primary", "bounce_kernel": "bounce",
-             "megakernel": "megakernel", "debug_kernel": "debug", "compact_kernel": "compact"}
+    names = {"primary_kernel": "primary", "bounce_kernel": "bounce", "trace_kernel": "trace",
+             "shade_kernel": "shade", "megakernel": "megakernel", "debug_kernel": "debug",
+             "compact_kernel": "compact"}
     out, cur = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
@@ -2357,8 +2816,16 @@ def ptxas_resources(ptxas: str) -> dict:
             name = names.get(m.group(2)[: int(m.group(1))])
             cur = None
             if name:
+                args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[int(m.group(1)):])
+                flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
+                if name == "primary" and flags[2:3] == [True]:
+                    name = "primary_fission"
+                elif name in ("primary", "bounce") and flags[1:2] == [True]:
+                    name += "_shadow"
+                elif name == "shade" and flags[1:2] == [False]:
+                    name = "shade_all"
                 cur = out.setdefault(name, {})
-                if m.group(2)[int(m.group(1)):].startswith("ILb1E"):  # built with <true>
+                if flags[:1] == [True]:  # built with the superblock cull
                     cur = cur.setdefault("superblocks", {})
             continue
         if cur is None:
@@ -2432,7 +2899,9 @@ def main(argv: list) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     resources = ptxas_resources(ptxas)
-    check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug"}, resources)
+    check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug", "trace",
+                             "shade", "shade_all", "primary_fission", "primary_shadow",
+                             "bounce_shadow"}, resources)
     check_no_jax()
 
     t0 = time.perf_counter()
@@ -2466,6 +2935,9 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     phase9 = graph_frames(device, card)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase10 = form_phase(device, card)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -2489,12 +2961,27 @@ def main(argv: list) -> int:
             continue
         k["design"] = "block walk" + (" on the compaction list" if k["name"] == "bounce" else "")
         k["smem_bytes"] = binding.library().cosig_tile_smem_bytes(glass_k)
+    # The fission form and the shadow-set builds: launches on phase 10's
+    # main path (its forms' full-size frames, eager and replayed).
+    for k in phase10.pop("kernels"):
+        k["launches"] = phase10["launches"].get(k["name"], 0)
+        check(k["launches"] > 0, k["name"], "was not launched on its path")
+        k.update(resources[k["name"]])
+        if k["name"] == "shade":
+            k["primary_stage_build"] = resources["shade_all"]
+        k["design"] = {"trace": "block walk on the compaction list, closest hit only",
+                       "shade": "the record, then the block walk's any hits",
+                       "primary_fission": "block walk, stops after the closest hit",
+                       "primary_shadow": "two block walks, one shared memory (handoff)",
+                       "bounce_shadow": "two block walks, one shared memory (handoff)"}[k["name"]]
+        kernels.append(k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"oracle": oracle}))
     log(json.dumps({"phase7": phase7}))
     log(json.dumps({"phase8": phase8}))
     log(json.dumps({"phase9": phase9}))
+    log(json.dumps({"phase10": phase10}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -216,3 +216,39 @@ def _build_python(tris: TriangleSoA, max_leaf: int) -> BVH:
         triangles=tris.take(order_arr),
         order=order_arr,
     )
+
+
+def validate_bvh(bvh: BVH, tris: TriangleSoA) -> None:
+    """Raise ``ValueError`` unless the BVH's structural invariants hold
+    (cosig_tpu/accel/bvh.py:224-246, with its tolerances): every triangle
+    exactly once, every node's box ordered, each inner node's children
+    contiguous, in range and inside it, each leaf's triangles in range and
+    inside its box."""
+    t = tris.count
+    n = bvh.num_nodes
+    if not np.array_equal(np.sort(bvh.order), np.arange(t)):
+        raise ValueError("the triangle order is not a permutation of the soup")
+    if not (bvh.node_min <= bvh.node_max + 1e-6).all():
+        raise ValueError("a node's box has min above max")
+    inner = (bvh.count == 0) & (t > 0)
+    nodes = np.nonzero(inner)[0]
+    left = bvh.left_or_first[inner].astype(np.int64)
+    if ((left <= 0) | (left + 1 >= n)).any():
+        raise ValueError("an inner node's children lie outside the node array")
+    for child in (left, left + 1):
+        if not ((bvh.node_min[nodes] <= bvh.node_min[child] + 1e-5).all()
+                and (bvh.node_max[child] <= bvh.node_max[nodes] + 1e-5).all()):
+            raise ValueError("a child's box is not inside its parent's")
+    leaves = np.nonzero(~inner)[0]
+    first = bvh.left_or_first[leaves].astype(np.int64)
+    count = bvh.count[leaves].astype(np.int64)
+    if ((first < 0) | (count < 0) | (first + count > t)).any():
+        raise ValueError("a leaf's triangles lie outside the soup")
+    node = np.repeat(leaves, count)
+    tri = np.concatenate([np.arange(f, f + c) for f, c in zip(first, count)] or [[]]).astype(
+        np.int64)
+    tt = bvh.triangles
+    v = np.stack([tt.v0[tri], tt.v1[tri], tt.v2[tri]])  # [3, m, 3]
+    if not ((v.min(axis=0) >= bvh.node_min[node] - 1e-4).all()
+            and (v.max(axis=0) <= bvh.node_max[node] + 1e-4).all()):
+        raise ValueError("a leaf's triangle is not inside its box")

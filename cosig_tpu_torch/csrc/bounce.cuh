@@ -17,6 +17,13 @@
 // together, so every thread of the block calls it, dead rays and threads
 // without a ray too: a dead ray's bounce changes nothing (its colour gains
 // +0, its count 0, its state stays) and it enters no box.
+//
+// Its two halves are the wavefront's fission form (kernel_core.py
+// bounce_trace and bounce_core(rec=...), :1042-1090): bounce_trace counts
+// and traces the closest hit, bounce_shade takes that hit (or the record
+// a trace kernel stored) and does the rest. The overload with a second
+// walk sends the shadow rays through a separate cluster set (cset_shadow)
+// after handing it the block's shared memory (traverse_tile.cuh handoff).
 #pragma once
 
 #include "rng.cuh"
@@ -103,14 +110,24 @@ __device__ __forceinline__ void random_unit(float sx, float sy, float sz, float&
   rz = z;
 }
 
-// One bounce on a live ray (kernel_core.py:1089-1270). px/py/s are the RNG
-// seeds, depth the bounce index; is_last retires the ray after shading;
-// frustum (the same in every thread) runs the block walk's frustum
-// pre-cull in both traversals, for coherent rays.
+// The closest-hit half of a bounce (kernel_core.py bounce_trace): count a
+// live ray and trace it. frustum (the same in every thread) runs the block
+// walk's frustum pre-cull, for coherent rays.
 template <class Walk>
-__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
-                                            float px, float py, float s,
-                                            float depth, bool is_last, bool frustum) {
+__device__ __forceinline__ Hit bounce_trace(Walk& walk, RayState& st, bool frustum) {
+  st.count = st.count + (st.alive ? 1.0f : 0.0f);
+  return walk.closest(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive, frustum);
+}
+
+// The shade half (kernel_core.py:1089-1270 after the trace): the hit h of
+// the ray, then the background or the shading, the shadow rays through
+// `walk`, and the secondary ray. px/py/s are the RNG seeds, depth the
+// bounce index; is_last retires the ray after shading; frustum runs the
+// frustum pre-cull in the shadow rays' walks.
+template <class Walk>
+__device__ __forceinline__ void bounce_shade(const Frame& f, Walk& walk, RayState& st,
+                                             const Hit& h, float px, float py, float s,
+                                             float depth, bool is_last, bool frustum) {
   const float bg_r = uni(f, U_BG), bg_g = uni(f, U_BG + 1), bg_b = uni(f, U_BG + 2);
   const float intensity = uni(f, U_INTENSITY);
   const float light_size = uni(f, U_LIGHT_SIZE);
@@ -119,9 +136,6 @@ __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState
   const float dx = st.dx, dy = st.dy, dz = st.dz;
   float at_r = st.at_r, at_g = st.at_g, at_b = st.at_b;
   bool alive = st.alive;
-
-  st.count = st.count + (alive ? 1.0f : 0.0f);
-  const Hit h = walk.closest(ox, oy, oz, dx, dy, dz, alive, frustum);
   const float t = h.t, nx = h.nx, ny = h.ny, nz = h.nz;
 
   const bool miss = alive && !h.hit;
@@ -266,6 +280,27 @@ __device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState
   st.at_g = at_g;
   st.at_b = at_b;
   st.alive = cont && (nan_max(nan_max(at_r, at_g), at_b) > 0.0f);
+}
+
+// One bounce on a live ray (kernel_core.py bounce_core): trace, then shade,
+// both through `walk`.
+template <class Walk>
+__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, RayState& st,
+                                            float px, float py, float s,
+                                            float depth, bool is_last, bool frustum) {
+  const Hit h = bounce_trace(walk, st, frustum);
+  bounce_shade(f, walk, st, h, px, py, s, depth, is_last, frustum);
+}
+
+// One bounce whose shadow rays walk a separate cluster set: trace through
+// `walk`, hand the block's shared memory to `shadow`, shade through it.
+template <class Walk, class ShadowWalk>
+__device__ __forceinline__ void bounce_core(const Frame& f, Walk& walk, ShadowWalk& shadow,
+                                            RayState& st, float px, float py, float s,
+                                            float depth, bool is_last, bool frustum) {
+  const Hit h = bounce_trace(walk, st, frustum);
+  handoff(walk, shadow);
+  bounce_shade(f, shadow, st, h, px, py, s, depth, is_last, frustum);
 }
 
 }  // namespace cosig

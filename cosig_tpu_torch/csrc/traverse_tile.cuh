@@ -114,6 +114,10 @@ __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
+__device__ __forceinline__ void mbar_inval(unsigned bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
   unsigned done;
   asm volatile(
@@ -544,6 +548,29 @@ struct BlockWalk {
     return active && (!walking || prims_occlude(g, r, max_t));
   }
 };
+
+// Hand the block's dynamic shared memory from walk `from` to walk `to`,
+// whose geometry is another cluster set (the shadow set): every thread of
+// the block, between a bounce's closest hit through `from` and its shadow
+// rays through `to` (the uses are strictly sequential, as the TPU kernel's
+// shadow traversal shares best_ref and the DMA semaphores with the main
+// one, cosig_tpu/ops/trace_wavefront.py:247-267). Every copy `from`
+// issued has landed (a closest hit waits for each listed cluster's rows,
+// an any hit for the copies still in flight when it stops). Thread 0
+// invalidates `from`'s mbarriers, since `to`'s layout (tile_layout of its
+// own k) may put ring rows or boxes over them, and `to.init` sets up its
+// own; the proxy fence orders the block's generic writes before `to`'s
+// bulk copies into the same bytes. The block's shared memory is the larger
+// of the two layouts (the launches size it so).
+template <bool A, bool B>
+__device__ __forceinline__ void handoff(BlockWalk<A>& from, BlockWalk<B>& to) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();  // every thread is done with `from`'s shared memory
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING_STAGES; ++s) mbar_inval(smem_u32(from.smem + from.lay().bars + 8 * s));
+  }
+  to.init(to.g, from.smem);
+}
 
 // Launch `kernel` (a ray kernel's instantiation) on a grid of `blocks`
 // blocks of TILE_THREADS with `smem` bytes of dynamic shared memory on

@@ -1,11 +1,8 @@
 // Wavefront stages of the default render: the primary kernel, the
-// compaction kernel and the bounce kernel, with plain C launchers for
-// ctypes.
-//
-// primary_kernel replaces cosig_tpu/ops/trace_wavefront.py
-// _make_primary_kernel (:293-436): per (pixel, AA sample) the camera ray
-// (camera.cuh: stratified jitter, perspective or orthographic, motion
-// blur), the 16-row state and bounce 0.
+// compaction kernel and the bounce kernel (their fused single-set builds;
+// the ray kernels are templates of wavefront.cuh), with plain C launchers
+// for ctypes. forms.cu launches the same templates' fission and
+// shadow-set builds.
 //
 // compact_kernel replaces cosig_tpu/ops/trace_wavefront.py _compact_prefix
 // (:576-617, XLA, not Pallas), the blocked dispatch's gather of the live
@@ -23,117 +20,15 @@
 // same on every run. A launch the card refuses is an error, never a
 // fallback.
 //
-// bounce_kernel replaces cosig_tpu/ops/trace_wavefront.py
-// _make_bounce_kernel (:439-564) in its blocked form (:1013-1129): one
-// bounce on each listed ray. Thread j takes list entry j, reads ray
-// idx[j]'s rows, bounces it and writes the rows back in place at idx[j],
-// so the state keeps pixel order and finalize needs no inverse
-// permutation. The grid is sized for all N rays, since the list length
-// stays on the device: a block whose first entry is past the list
-// returns before it touches shared memory, a test every thread of the
-// block answers alike. A dead ray is not listed and its state is not
-// touched, as in the self-skip form (a dead ray's bounce changes nothing).
-// Two other designs were timed against this one and lost (PERF.md, PR 4):
-// a persistent grid striding over the list (the hardware's block
-// scheduler balances uneven tiles better than a fixed stride), and a
-// per-warp walk without block barriers reading rows through L1 (slower at
-// every depth, incoherent rays included).
-//
-// Design: one thread per ray, 128 threads per block, state f32 [16, N]
-// row-major so a warp's reads and writes of one row are contiguous (for
-// the bounce nearly so: a run of the list within one octant holds
-// ascending ids). Both ray kernels are bound by the pair tests of their
-// traversals: the arithmetic, and the loads that feed it. They walk a
-// block's rays together (traverse_tile.cuh), culling every cluster box
-// from shared memory once per block, listing the clusters some ray
-// enters, and streaming each listed cluster's rows into shared memory
-// with bulk async copies ahead of their use, so that a pair test costs 8
-// shared-memory loads. That pays when the rays of a block enter the same
-// clusters. The camera rays of a block are neighbours. The bounce's rays
-// are the survivors, sparse in pixel order, so the bounce walks the list,
-// whose 128 consecutive entries are all live and mostly of one octant.
-// Threads past n_rays or past the list, and rays of rows past the image,
-// take part in the walk inactive. No tensor cores: see traverse_tile.cuh.
-//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// --fmad=false (cosig_tpu_torch/kernels/build.py). --fmad=false and IEEE
-// division and sqrt (no --use_fast_math) keep the results bit-equal to
-// the plain PyTorch version.
+// --fmad=false (cosig_tpu_torch/kernels/build.py).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "camera.cuh"
-#include "traverse_tile.cuh"
+#include "wavefront.cuh"
 
 namespace cosig {
-
-constexpr int ROW_ALIVE = 12, ROW_COUNT = 13, ROW_ID = 14, STATE_ROWS = 16;
-constexpr int THREADS = TILE_THREADS;
-
-// (px, py, s) RNG seeds of ray id i: the inverse of the enumeration, py global.
-__device__ __forceinline__ void seeds(const Frame& f, int i, float& px, float& py,
-                                      float& s) {
-  const int s_i = i % f.aa;
-  const int p_i = i / f.aa;
-  px = (float)(p_i % f.width);
-  py = (float)(p_i / f.width) + uni(f, U_ROW_OFF);
-  s = (float)s_i;
-}
-
-__device__ __forceinline__ void store(float* __restrict__ state, int n, int i,
-                                      const RayState& st) {
-  state[0 * (size_t)n + i] = st.ox;
-  state[1 * (size_t)n + i] = st.oy;
-  state[2 * (size_t)n + i] = st.oz;
-  state[3 * (size_t)n + i] = st.dx;
-  state[4 * (size_t)n + i] = st.dy;
-  state[5 * (size_t)n + i] = st.dz;
-  state[6 * (size_t)n + i] = st.at_r;
-  state[7 * (size_t)n + i] = st.at_g;
-  state[8 * (size_t)n + i] = st.at_b;
-  state[9 * (size_t)n + i] = st.col_r;
-  state[10 * (size_t)n + i] = st.col_g;
-  state[11 * (size_t)n + i] = st.col_b;
-  state[ROW_ALIVE * (size_t)n + i] = st.alive ? 1.0f : 0.0f;
-  state[ROW_COUNT * (size_t)n + i] = st.count;
-}
-
-template <bool SB>
-__global__ void __launch_bounds__(THREADS)
-    primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
-                   int n_clusters, int k, int c_pad,
-                   const float* __restrict__ prims, int n_sph, int n_box,
-                   float* __restrict__ state) {
-  extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
-  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
-            tile_smem);
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = f.n_rays;
-  const bool in_range = i < n;  // threads past the last ray walk inactive
-  float px, py, s;
-  seeds(f, i, px, py, s);
-  const int s_i = i % f.aa;
-
-  RayState st;
-  camera_ray(f, px, py, s_i, st);
-
-  st.at_r = st.at_g = st.at_b = 1.0f;
-  st.col_r = st.col_g = st.col_b = 0.0f;
-  st.count = 0.0f;
-  st.alive = in_range && py < (float)f.height;  // rows of the band past the image are dead
-
-  // Camera rays and their shadow rays are coherent: frustum pre-cull on
-  // (trace_wavefront.py:412-424).
-  bounce_core(f, walk, st, px, py, s, 0.0f, f.is_last != 0, true);
-  if (!in_range) return;
-  store(state, n, i, st);
-  state[ROW_ID * (size_t)n + i] = (float)i;
-  state[(STATE_ROWS - 1) * (size_t)n + i] = 0.0f;  // pad row
-}
 
 // ---- compaction ----
 
@@ -307,64 +202,6 @@ cudaError_t compact_grid(int n, CompactGrid& g) {
   }
   return cudaErrorCooperativeLaunchTooLarge;
 }
-
-// ---- bounce ----
-
-// Ray `i`'s state, or an inactive thread's zeros.
-__device__ __forceinline__ RayState load(const float* __restrict__ state, int n, int i,
-                                         bool listed) {
-  RayState st;
-  st.ox = st.oy = st.oz = st.dx = st.dy = st.dz = 0.0f;
-  st.at_r = st.at_g = st.at_b = st.col_r = st.col_g = st.col_b = st.count = 0.0f;
-  if (listed) {
-    st.ox = state[0 * (size_t)n + i];
-    st.oy = state[1 * (size_t)n + i];
-    st.oz = state[2 * (size_t)n + i];
-    st.dx = state[3 * (size_t)n + i];
-    st.dy = state[4 * (size_t)n + i];
-    st.dz = state[5 * (size_t)n + i];
-    st.at_r = state[6 * (size_t)n + i];
-    st.at_g = state[7 * (size_t)n + i];
-    st.at_b = state[8 * (size_t)n + i];
-    st.col_r = state[9 * (size_t)n + i];
-    st.col_g = state[10 * (size_t)n + i];
-    st.col_b = state[11 * (size_t)n + i];
-    st.count = state[ROW_COUNT * (size_t)n + i];
-  }
-  st.alive = listed;  // the list holds exactly the live rays
-  return st;
-}
-
-template <bool SB>
-__global__ void __launch_bounds__(THREADS)
-    bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
-                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
-                  int n_clusters, int k, int c_pad,
-                  const float* __restrict__ prims, int n_sph, int n_box,
-                  const int* __restrict__ idx, const int* __restrict__ n_live,
-                  float* __restrict__ state) {
-  const int live = *n_live;
-  if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
-  extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
-  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
-            tile_smem);
-
-  const int n = f.n_rays;
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  const bool listed = j < live;  // threads past the list walk inactive
-  const int i = listed ? idx[j] : 0;
-  RayState st = load(state, n, i, listed);
-  // RNG seeds from the ray id row (bit-equal to the primary's planes).
-  float px = 0.0f, py = 0.0f, s = 0.0f;
-  if (listed && (f.flags & (F_SOFT_SHADOWS | F_GLOSSY))) {
-    seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
-  }
-  // Bounce rays are incoherent: superblock cull only (trace_wavefront.py:459).
-  bounce_core(f, walk, st, px, py, s, (float)f.depth, f.is_last != 0, false);
-  if (listed) store(state, n, i, st);
-}
-
 }  // namespace cosig
 
 extern "C" {
@@ -386,10 +223,12 @@ int cosig_wavefront_occupancy(int which, int n_clusters, int k) {
   const int smem = (int)cosig::tile_layout(k).total;
   const bool sb = cosig::superblocks(n_clusters) > 0;
   if (which == 0) {
-    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true> : cosig::primary_kernel<false>,
+    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true, false, false>
+                                    : cosig::primary_kernel<false, false, false>,
                                  smem);
   }
-  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true> : cosig::bounce_kernel<false>,
+  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true, false>
+                                  : cosig::bounce_kernel<false, false>,
                                smem);
 }
 
@@ -402,11 +241,12 @@ int cosig_primary_launch(const cosig::Frame* frame, const float* geom, const flo
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::primary_kernel<true>
-                                                         : cosig::primary_kernel<false>;
+  const auto kernel = cosig::superblocks(n_clusters) > 0
+                          ? cosig::primary_kernel<true, false, false>
+                          : cosig::primary_kernel<false, false, false>;
   return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
                                  (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, state);
+                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, state);
 }
 
 // The compaction's grid for n rays: blocks and rays per block (0 and 0
@@ -458,11 +298,12 @@ int cosig_bounce_launch(const cosig::Frame* frame, const float* geom, const floa
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::bounce_kernel<true>
-                                                         : cosig::bounce_kernel<false>;
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::bounce_kernel<true, false>
+                                                         : cosig::bounce_kernel<false, false>;
   return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
                                  (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, idx, n_live, state);
+                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, idx, n_live,
+                                 state);
 }
 
 }  // extern "C"

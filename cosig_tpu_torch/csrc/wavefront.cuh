@@ -1,0 +1,359 @@
+// The wavefront's ray kernels: the primary kernel and the bounce kernel
+// of the default render, and the fission form's trace and shade kernels,
+// as templates that wavefront.cu (the fused single-set builds, beside the
+// compaction) and forms.cu (the fission and shadow-set builds) instantiate
+// and launch, one nvcc each.
+//
+// primary_kernel replaces cosig_tpu/ops/trace_wavefront.py
+// _make_primary_kernel (:293-436): per (pixel, AA sample) the camera ray
+// (camera.cuh: stratified jitter, perspective or orthographic, motion
+// blur), the 16-row state and bounce 0.
+//
+// bounce_kernel replaces cosig_tpu/ops/trace_wavefront.py
+// _make_bounce_kernel (:439-564) in its blocked form (:1013-1129): one
+// bounce on each listed ray. Thread j takes list entry j, reads ray
+// idx[j]'s rows, bounces it and writes the rows back in place at idx[j],
+// so the state keeps pixel order and finalize needs no inverse
+// permutation. The grid is sized for all N rays, since the list length
+// stays on the device: a block whose first entry is past the list
+// returns before it touches shared memory, a test every thread of the
+// block answers alike. A dead ray is not listed and its state is not
+// touched, as in the self-skip form (a dead ray's bounce changes nothing).
+// Two other designs were timed against this one and lost (PERF.md, PR 4):
+// a persistent grid striding over the list (the hardware's block
+// scheduler balances uneven tiles better than a fixed stride), and a
+// per-warp walk without block barriers reading rows through L1 (slower at
+// every depth, incoherent rays included).
+//
+// Design: one thread per ray, 128 threads per block, state f32 [16, N]
+// row-major so a warp's reads and writes of one row are contiguous (for
+// the bounce nearly so: a run of the list within one octant holds
+// ascending ids). Both ray kernels are bound by the pair tests of their
+// traversals: the arithmetic, and the loads that feed it. They walk a
+// block's rays together (traverse_tile.cuh), culling every cluster box
+// from shared memory once per block, listing the clusters some ray
+// enters, and streaming each listed cluster's rows into shared memory
+// with bulk async copies ahead of their use, so that a pair test costs 8
+// shared-memory loads. That pays when the rays of a block enter the same
+// clusters. The camera rays of a block are neighbours. The bounce's rays
+// are the survivors, sparse in pixel order, so the bounce walks the list,
+// whose 128 consecutive entries are all live and mostly of one octant.
+// Threads past n_rays or past the list, and rays of rows past the image,
+// take part in the walk inactive. No tensor cores: see traverse_tile.cuh.
+//
+// The fission form and the separate shadow set (cosig_tpu/ops/
+// trace_wavefront.py:115-135, :247-267, :716-888), the TPU kernel forms
+// behind render_wavefront's _FISSION switch and its cset_primary /
+// cset_shadow arguments:
+//
+// primary_kernel<SB, SH, FISSION = true> replaces _make_primary_kernel
+// (fission=True) (:293-300, :426-427): the camera ray and the closest hit
+// only, its hit record (t, nx, ny, nz, mat) stored in rows 15-19 of a
+// 24-row state. trace_kernel replaces _make_bounce_kernel(mode="trace")
+// (:439-499): the closest hit of each listed ray, its count and its
+// record; no material, light or RNG loads. shade_kernel replaces
+// _make_bounce_kernel(mode="shade"): read the record (hit = t < INF, the
+// traversal's own value), then ambient, per light the any-hit shadow ray,
+// Lambert and Blinn-Phong, and the secondary ray; over every ray for the
+// primary stage (depth 0, frustum pre-cull on its coherent shadow rays,
+// as the fused primary) and over a bounce's list, the list its trace
+// took (a ray that missed in the trace is live until its shade adds the
+// background). Bound: the trace by the closest hit's pair tests; the
+// shade by its shadow rays' tests, and where they are few by the record's
+// round trip, about 20 state rows of the listed rays read and 14 written
+// (at 4,194,304 rays, 24 rows x 4 B a ray are 403 MB, 0.12 ms at 3.35
+// TB/s). What the split buys on this card: each kernel holds one walk's
+// registers and code, and the two halves time apart.
+//
+// SH (primary_kernel, bounce_kernel) replaces the sh_* operands of every
+// TPU kernel (_make_shadow_traverse, :247-267): the closest hit walks the
+// stage's set, then the block hands its shared memory to a second walk
+// over the shadow set, a coarser cut within one cull block (c_pad <= 512,
+// so that walk has no superblock cull), for every shadow ray
+// (traverse_tile.cuh handoff). The block's shared memory is the larger of
+// the two walks'. Occlusion and the (t, gid) winner do not depend on the
+// cut, so every form gives the fused single-set bits. The fused builds
+// (SH and FISSION false) compile to the code they had without these flags.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// --fmad=false (cosig_tpu_torch/kernels/build.py). --fmad=false and IEEE
+// division and sqrt (no --use_fast_math) keep the results bit-equal to
+// the plain PyTorch version.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "camera.cuh"
+#include "traverse_tile.cuh"
+
+namespace cosig {
+
+constexpr int ROW_ALIVE = 12, ROW_COUNT = 13, ROW_ID = 14, STATE_ROWS = 16;
+constexpr int REC0 = 15, FISSION_ROWS = 24;  // the fission form's hit record, rows 15-19
+constexpr int THREADS = TILE_THREADS;
+
+// (px, py, s) RNG seeds of ray id i: the inverse of the enumeration, py global.
+__device__ __forceinline__ void seeds(const Frame& f, int i, float& px, float& py,
+                                      float& s) {
+  const int s_i = i % f.aa;
+  const int p_i = i / f.aa;
+  px = (float)(p_i % f.width);
+  py = (float)(p_i / f.width) + uni(f, U_ROW_OFF);
+  s = (float)s_i;
+}
+
+__device__ __forceinline__ void store(float* __restrict__ state, int n, int i,
+                                      const RayState& st) {
+  state[0 * (size_t)n + i] = st.ox;
+  state[1 * (size_t)n + i] = st.oy;
+  state[2 * (size_t)n + i] = st.oz;
+  state[3 * (size_t)n + i] = st.dx;
+  state[4 * (size_t)n + i] = st.dy;
+  state[5 * (size_t)n + i] = st.dz;
+  state[6 * (size_t)n + i] = st.at_r;
+  state[7 * (size_t)n + i] = st.at_g;
+  state[8 * (size_t)n + i] = st.at_b;
+  state[9 * (size_t)n + i] = st.col_r;
+  state[10 * (size_t)n + i] = st.col_g;
+  state[11 * (size_t)n + i] = st.col_b;
+  state[ROW_ALIVE * (size_t)n + i] = st.alive ? 1.0f : 0.0f;
+  state[ROW_COUNT * (size_t)n + i] = st.count;
+}
+
+// The hit record of ray i in rows 15-19.
+__device__ __forceinline__ void store_rec(float* __restrict__ state, int n, int i,
+                                          const Hit& h) {
+  state[(REC0 + 0) * (size_t)n + i] = h.t;
+  state[(REC0 + 1) * (size_t)n + i] = h.nx;
+  state[(REC0 + 2) * (size_t)n + i] = h.ny;
+  state[(REC0 + 3) * (size_t)n + i] = h.nz;
+  state[(REC0 + 4) * (size_t)n + i] = h.mat;
+}
+
+// The block walk over the shadow set `sh` (no superblocks: it fits one
+// cull block), before its handoff: geometry only, no shared memory yet.
+__device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
+  BlockWalk<false> w;
+  w.g = sh;
+  return w;
+}
+
+// SH: the shadow rays walk the cluster set `sh`; FISSION: stop after the
+// trace and store the hit record (24-row state). Not both: the fission
+// primary traces no shadow ray.
+template <bool SB, bool SH, bool FISSION>
+__global__ void __launch_bounds__(THREADS)
+    primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                   int n_clusters, int k, int c_pad,
+                   const float* __restrict__ prims, int n_sph, int n_box,
+                   const __grid_constant__ Geometry sh, float* __restrict__ state) {
+  static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = f.n_rays;
+  const bool in_range = i < n;  // threads past the last ray walk inactive
+  float px, py, s;
+  seeds(f, i, px, py, s);
+  const int s_i = i % f.aa;
+
+  RayState st;
+  camera_ray(f, px, py, s_i, st);
+
+  st.at_r = st.at_g = st.at_b = 1.0f;
+  st.col_r = st.col_g = st.col_b = 0.0f;
+  st.count = 0.0f;
+  st.alive = in_range && py < (float)f.height;  // rows of the band past the image are dead
+
+  // Camera rays and their shadow rays are coherent: frustum pre-cull on
+  // (trace_wavefront.py:412-424).
+  if constexpr (FISSION) {
+    Hit h = bounce_trace(walk, st, true);
+    if (!in_range) return;
+    if (!st.alive) {  // a dead ray's record is a miss, as the plain traversal's
+      h.t = INF;
+      h.nx = h.nz = 0.0f;
+      h.ny = 1.0f;
+      h.mat = -1.0f;
+    }
+    store(state, n, i, st);
+    state[ROW_ID * (size_t)n + i] = (float)i;
+    store_rec(state, n, i, h);
+    for (int r = REC0 + 5; r < FISSION_ROWS; ++r) state[r * (size_t)n + i] = 0.0f;  // pad rows
+    return;
+  } else if constexpr (SH) {
+    BlockWalk<false> shadow = shadow_walk(sh);
+    bounce_core(f, walk, shadow, st, px, py, s, 0.0f, f.is_last != 0, true);
+  } else {
+    bounce_core(f, walk, st, px, py, s, 0.0f, f.is_last != 0, true);
+  }
+  if (!in_range) return;
+  store(state, n, i, st);
+  state[ROW_ID * (size_t)n + i] = (float)i;
+  state[(STATE_ROWS - 1) * (size_t)n + i] = 0.0f;  // pad row
+}
+
+// Ray `i`'s state, or an inactive thread's zeros.
+__device__ __forceinline__ RayState load(const float* __restrict__ state, int n, int i,
+                                         bool listed) {
+  RayState st;
+  st.ox = st.oy = st.oz = st.dx = st.dy = st.dz = 0.0f;
+  st.at_r = st.at_g = st.at_b = st.col_r = st.col_g = st.col_b = st.count = 0.0f;
+  if (listed) {
+    st.ox = state[0 * (size_t)n + i];
+    st.oy = state[1 * (size_t)n + i];
+    st.oz = state[2 * (size_t)n + i];
+    st.dx = state[3 * (size_t)n + i];
+    st.dy = state[4 * (size_t)n + i];
+    st.dz = state[5 * (size_t)n + i];
+    st.at_r = state[6 * (size_t)n + i];
+    st.at_g = state[7 * (size_t)n + i];
+    st.at_b = state[8 * (size_t)n + i];
+    st.col_r = state[9 * (size_t)n + i];
+    st.col_g = state[10 * (size_t)n + i];
+    st.col_b = state[11 * (size_t)n + i];
+    st.count = state[ROW_COUNT * (size_t)n + i];
+  }
+  st.alive = listed;  // the list holds exactly the live rays
+  return st;
+}
+
+// SH: the shadow rays walk the cluster set `sh`.
+template <bool SB, bool SH>
+__global__ void __launch_bounds__(THREADS)
+    bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                  int n_clusters, int k, int c_pad,
+                  const float* __restrict__ prims, int n_sph, int n_box,
+                  const __grid_constant__ Geometry sh,
+                  const int* __restrict__ idx, const int* __restrict__ n_live,
+                  float* __restrict__ state) {
+  const int live = *n_live;
+  if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
+
+  const int n = f.n_rays;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const bool listed = j < live;  // threads past the list walk inactive
+  const int i = listed ? idx[j] : 0;
+  RayState st = load(state, n, i, listed);
+  // RNG seeds from the ray id row (bit-equal to the primary's planes).
+  float px = 0.0f, py = 0.0f, s = 0.0f;
+  if (listed && (f.flags & (F_SOFT_SHADOWS | F_GLOSSY))) {
+    seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
+  }
+  // Bounce rays are incoherent: superblock cull only (trace_wavefront.py:459).
+  if constexpr (SH) {
+    BlockWalk<false> shadow = shadow_walk(sh);
+    bounce_core(f, walk, shadow, st, px, py, s, (float)f.depth, f.is_last != 0, false);
+  } else {
+    bounce_core(f, walk, st, px, py, s, (float)f.depth, f.is_last != 0, false);
+  }
+  if (listed) store(state, n, i, st);
+}
+
+// ---- the fission form: trace, then shade ----
+
+// The trace half of a bounce on the listed rays of a 24-row state: ray
+// idx[j]'s origin, direction and count in, its count and hit record out.
+template <bool SB>
+__global__ void __launch_bounds__(THREADS)
+    trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+                 const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                 int n_clusters, int k, int c_pad,
+                 const float* __restrict__ prims, int n_sph, int n_box,
+                 const int* __restrict__ idx, const int* __restrict__ n_live,
+                 float* __restrict__ state) {
+  const int live = *n_live;
+  if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
+
+  const int n = f.n_rays;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const bool listed = j < live;  // threads past the list walk inactive
+  const int i = listed ? idx[j] : 0;
+  RayState st;
+  st.ox = st.oy = st.oz = st.dx = st.dy = st.dz = st.count = 0.0f;
+  if (listed) {
+    st.ox = state[0 * (size_t)n + i];
+    st.oy = state[1 * (size_t)n + i];
+    st.oz = state[2 * (size_t)n + i];
+    st.dx = state[3 * (size_t)n + i];
+    st.dy = state[4 * (size_t)n + i];
+    st.dz = state[5 * (size_t)n + i];
+    st.count = state[ROW_COUNT * (size_t)n + i];
+  }
+  st.alive = listed;  // the list holds exactly the live rays
+  // Bounce rays are incoherent: superblock cull only.
+  const Hit h = bounce_trace(walk, st, false);
+  if (!listed) return;
+  state[ROW_COUNT * (size_t)n + i] = st.count;
+  store_rec(state, n, i, h);
+}
+
+// The shade half on a 24-row state, its shadow rays through the cluster
+// set it is given (the shadow set where there is one). LISTED: the listed
+// rays of a bounce stage; else every ray of the primary stage, whose
+// blocks of consecutive rays are coherent (frustum pre-cull on).
+template <bool SB, bool LISTED>
+__global__ void __launch_bounds__(THREADS)
+    shade_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
+                 const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
+                 int n_clusters, int k, int c_pad,
+                 const float* __restrict__ prims, int n_sph, int n_box,
+                 const int* __restrict__ idx, const int* __restrict__ n_live,
+                 float* __restrict__ state) {
+  const int n = f.n_rays;
+  int i;
+  bool listed;
+  if constexpr (LISTED) {
+    const int live = *n_live;
+    if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
+    const int j = blockIdx.x * THREADS + threadIdx.x;
+    listed = j < live;
+    i = listed ? idx[j] : 0;
+  } else {
+    i = blockIdx.x * THREADS + threadIdx.x;
+    listed = i < n;  // threads past the last ray walk inactive
+  }
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  BlockWalk<SB> walk;
+  walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
+            tile_smem);
+
+  RayState st = load(state, n, i, listed);
+  if (!LISTED) st.alive = listed && state[ROW_ALIVE * (size_t)n + i] > 0.0f;
+  Hit h;
+  h.t = INF;
+  h.nx = 0.0f;
+  h.ny = 1.0f;
+  h.nz = 0.0f;
+  h.mat = -1.0f;
+  if (listed) {
+    h.t = state[(REC0 + 0) * (size_t)n + i];
+    h.nx = state[(REC0 + 1) * (size_t)n + i];
+    h.ny = state[(REC0 + 2) * (size_t)n + i];
+    h.nz = state[(REC0 + 3) * (size_t)n + i];
+    h.mat = state[(REC0 + 4) * (size_t)n + i];
+  }
+  h.hit = h.t < INF;  // the traversal's own value: t is INF exactly on a miss
+  float px = 0.0f, py = 0.0f, s = 0.0f;
+  if (listed && (f.flags & (F_SOFT_SHADOWS | F_GLOSSY))) {
+    seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
+  }
+  bounce_shade(f, walk, st, h, px, py, s, (float)f.depth, f.is_last != 0, !LISTED);
+  if (listed) store(state, n, i, st);
+}
+
+}  // namespace cosig

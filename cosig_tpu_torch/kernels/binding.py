@@ -1,8 +1,8 @@
 """The kernel library's binding and the kernels' launch counters.
 
 The library (built by :mod:`cosig_tpu_torch.kernels.build`) holds the
-five kernels of ``csrc/`` (primary, compaction, bounce, megakernel,
-debug) behind plain C launchers; this module loads it with ctypes,
+seven kernels of ``csrc/`` (primary, compaction, bounce, trace, shade,
+megakernel, debug) behind plain C launchers; this module loads it with ctypes,
 mirrors ``struct Frame`` (a launch's own parameters, by value) and
 ``struct FrameData`` (a frame's uniforms, materials and lights, which
 the kernels read from device memory through ``Frame::data``), checks the
@@ -16,7 +16,11 @@ renders another camera without a new capture
 (:mod:`cosig_tpu_torch.ops.frame_graph`).
 
 ``LAUNCHES`` counts kernel launches per kernel (``primary``, ``compact``,
-``bounce``, ``megakernel``, ``debug``) and graph replays (``graph``);
+``bounce``, ``trace``, ``shade``, ``megakernel``, ``debug``; the
+wavefront's other builds apart: ``primary_fission``, the primary that
+stops after its trace, and ``primary_shadow``/``bounce_shadow``, the
+builds whose shadow rays walk a separate cluster set) and graph replays
+(``graph``);
 each wrapper of :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
 kernel, a replay adds the kernels its graph holds and one ``graph``, and
@@ -33,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from cosig_tpu_torch.accel.clusters import GEOM_COMPS, MAX_SUPERBLOCKS, ClusterSet
+from cosig_tpu_torch.accel.clusters import CULL_BLOCK, GEOM_COMPS, MAX_SUPERBLOCKS, ClusterSet
 from cosig_tpu_torch.kernels import build as kbuild
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import camera, trace_wavefront
@@ -58,7 +62,9 @@ _FLAGS = (
     ("multi_light", 256),
 )
 
-LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "megakernel": 0, "debug": 0, "graph": 0}
+LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "trace": 0, "shade": 0,
+            "primary_fission": 0, "primary_shadow": 0, "bounce_shadow": 0,
+            "megakernel": 0, "debug": 0, "graph": 0}
 
 
 def reset_counts() -> None:
@@ -191,7 +197,7 @@ def make_frame(cfg: StaticConfig, buffer: FrameBuffer, band: int, depth: int, is
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library (all five kernels)."""
+    """Build (if needed) and load the kernel library (all seven kernels)."""
     path, _, _ = kbuild.build()
     lib = ctypes.CDLL(path)
     # frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box
@@ -200,9 +206,14 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    shadow = [ptr, ptr, i32, i32, i32]  # the shadow set's geom, aabb, n_clusters, k, c_pad
     for name, extra in (
         ("cosig_primary_launch", []),  # state, stream
         ("cosig_bounce_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_primary_form_launch", [i32] + shadow),  # fission, shadow set, state, stream
+        ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
+        ("cosig_trace_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_shade_launch", [ptr, ptr]),  # idx or NULL, n_live or NULL, state, stream
         ("cosig_megakernel_launch", [i32]),  # max_depth, out, stream
         ("cosig_debug_launch", [i32]),  # mode, out, stream
     ):
@@ -220,6 +231,8 @@ def library() -> ctypes.CDLL:
     for name in ("cosig_wavefront_occupancy", "cosig_megakernel_occupancy"):
         getattr(lib, name).argtypes = [i32, i32, i32]  # which, n_clusters, k
         getattr(lib, name).restype = i32
+    lib.cosig_form_occupancy.argtypes = [i32, i32, i32, i32]  # which, n_clusters, k, shadow k
+    lib.cosig_form_occupancy.restype = i32
     for name, size in (("cosig_frame_bytes", ctypes.sizeof(Frame)),
                        ("cosig_frame_data_bytes", FRAME_DATA.itemsize)):
         fn = getattr(lib, name)
@@ -230,30 +243,37 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def check_cluster_set(cset: ClusterSet, dev: torch.device, name: str = "cset") -> None:
+    """Raise unless the cluster set is what the kernels read: contiguous
+    float32 on ``dev``, of the layout they index, with ``geom`` 16-byte
+    aligned (the block walk copies each cluster's rows with bulk async
+    copies, which fault on other addresses), the superblock boxes
+    ``sb_aabb_t`` [8, 128] (every kernel's superblock cull reads them)."""
+    for field in ("geom", "aabb_t", "sb_aabb_t"):
+        t = getattr(cset, field)
+        if t.device != dev:
+            raise ValueError(f"{name}.{field} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}.{field} must be contiguous float32")
+    if cset.geom.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}.geom must start at a 16-byte aligned address")
+    if cset.geom.dim() != 3 or cset.geom.shape[2] != GEOM_COMPS:
+        raise ValueError(f"{name}.geom must be [C, K, {GEOM_COMPS}], "
+                         f"got {tuple(cset.geom.shape)}")
+    if cset.aabb_t.dim() != 2 or cset.aabb_t.shape[0] != 8 \
+            or cset.aabb_t.shape[1] < cset.geom.shape[0]:
+        raise ValueError(f"{name}.aabb_t must be [8, >= C], got {tuple(cset.aabb_t.shape)}")
+    if tuple(cset.sb_aabb_t.shape) != (8, MAX_SUPERBLOCKS):
+        raise ValueError(f"{name}.sb_aabb_t must be [8, {MAX_SUPERBLOCKS}], "
+                         f"got {tuple(cset.sb_aabb_t.shape)}")
+
+
 def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
                  n_sph: int, n_box: int) -> None:
     """Raise unless the cluster set and the primitive table are what the
-    kernels read: contiguous float32 on ``dev``, of the layout they index,
-    with ``geom`` 16-byte aligned (the block walk copies each cluster's
-    rows with bulk async copies, which fault on other addresses), the
-    superblock boxes ``sb_aabb_t`` [8, 128] (every kernel's superblock
-    cull reads them)."""
-    for name in ("geom", "aabb_t", "sb_aabb_t"):
-        t = getattr(cset, name)
-        if t.device != dev:
-            raise ValueError(f"cset.{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"cset.{name} must be contiguous float32")
-    if cset.geom.data_ptr() % 16 != 0:
-        raise ValueError("cset.geom must start at a 16-byte aligned address")
-    if cset.geom.dim() != 3 or cset.geom.shape[2] != GEOM_COMPS:
-        raise ValueError(f"cset.geom must be [C, K, {GEOM_COMPS}], got {tuple(cset.geom.shape)}")
-    if cset.aabb_t.dim() != 2 or cset.aabb_t.shape[0] != 8 \
-            or cset.aabb_t.shape[1] < cset.geom.shape[0]:
-        raise ValueError(f"cset.aabb_t must be [8, >= C], got {tuple(cset.aabb_t.shape)}")
-    if tuple(cset.sb_aabb_t.shape) != (8, MAX_SUPERBLOCKS):
-        raise ValueError(f"cset.sb_aabb_t must be [8, {MAX_SUPERBLOCKS}], "
-                         f"got {tuple(cset.sb_aabb_t.shape)}")
+    kernels read: the set as :func:`check_cluster_set` holds it, the table
+    contiguous float32 [>= n_sph + n_box, 22] on ``dev``."""
+    check_cluster_set(cset, dev)
     if (prims.device != dev or prims.dtype != torch.float32 or not prims.is_contiguous()
             or prims.dim() != 2 or prims.shape[1] != 22
             or prims.shape[0] < n_sph + n_box or min(n_sph, n_box) < 0):
@@ -261,6 +281,25 @@ def check_inputs(cset: ClusterSet, dev: torch.device, prims: torch.Tensor,
             f"prims must be contiguous float32 [>= {n_sph + n_box}, 22] on {dev}, "
             f"got {prims.dtype} {tuple(prims.shape)} on {prims.device}"
         )
+
+
+def check_shadow_set(cset_shadow: ClusterSet, dev: torch.device) -> None:
+    """Raise unless ``cset_shadow`` is what the kernels' shadow walk reads:
+    a set as :func:`check_cluster_set` holds it, within one cull block
+    (c_pad <= 512, so the walk needs no superblock cull)."""
+    check_cluster_set(cset_shadow, dev, "cset_shadow")
+    if int(cset_shadow.aabb_t.shape[1]) > CULL_BLOCK:
+        raise ValueError(f"cset_shadow must fit one cull block of {CULL_BLOCK} clusters, "
+                         f"got c_pad {int(cset_shadow.aabb_t.shape[1])}")
+
+
+def shadow_args(cset_shadow) -> tuple:
+    """A launcher's shadow-set arguments: (geom, aabb, n_clusters, k,
+    c_pad), NULL pointers and zeros without a shadow set."""
+    if cset_shadow is None:
+        return None, None, 0, 0, 0
+    return (cset_shadow.geom, cset_shadow.aabb_t, cset_shadow.num_clusters, cset_shadow.k,
+            int(cset_shadow.aabb_t.shape[1]))
 
 
 def _arg(x):
@@ -300,19 +339,28 @@ def check_buffer(buffer: FrameBuffer, dev: torch.device) -> None:
 _OCCUPANCY = {"primary": ("cosig_wavefront_occupancy", 0),
               "bounce": ("cosig_wavefront_occupancy", 1),
               "megakernel": ("cosig_megakernel_occupancy", 0),
-              "debug": ("cosig_megakernel_occupancy", 1)}
+              "debug": ("cosig_megakernel_occupancy", 1),
+              "primary_shadow": ("cosig_form_occupancy", 0),
+              "bounce_shadow": ("cosig_form_occupancy", 1),
+              "primary_fission": ("cosig_form_occupancy", 2),
+              "trace": ("cosig_form_occupancy", 3),
+              "shade": ("cosig_form_occupancy", 4)}
 
 
-def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device) -> int:
-    """Blocks of ray kernel ``kernel`` (primary, bounce, megakernel, debug),
-    in the build its launch picks for ``n_clusters`` clusters (with the
-    superblock cull where :func:`~cosig_tpu_torch.accel.clusters.superblocks`
-    is above 0), that one multiprocessor of ``dev`` holds at once with the
-    block walk's shared memory for clusters of ``k`` rows; raise if the card
-    refuses that shared memory."""
+def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k: int = 0) -> int:
+    """Blocks of ray kernel ``kernel`` (primary, bounce, megakernel, debug,
+    and the wavefront's other builds: primary_shadow, bounce_shadow,
+    primary_fission, trace, shade), in the build its launch picks for
+    ``n_clusters`` clusters (with the superblock cull where
+    :func:`~cosig_tpu_torch.accel.clusters.superblocks` is above 0), that
+    one multiprocessor of ``dev`` holds at once with the block walk's
+    shared memory for clusters of ``k`` rows (for the shadow builds, the
+    larger of the walks over ``k`` and over the shadow set's ``shadow_k``
+    rows); raise if the card refuses that shared memory."""
     name, which = _OCCUPANCY[kernel]
+    args = (which, n_clusters, k) + ((shadow_k,) if name == "cosig_form_occupancy" else ())
     with torch.cuda.device(dev):
-        blocks = getattr(library(), name)(which, n_clusters, k)
+        blocks = getattr(library(), name)(*args)
     if blocks <= 0:
         raise RuntimeError(f"{kernel} kernel at k = {k}: CUDA error {-blocks}")
     return blocks

@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles each kernel source of ``cosig_tpu_torch/csrc``
 (``wavefront.cu``: the primary, compaction and bounce kernels;
-``megakernel.cu``: the megakernel and the debug kernel; with their
-headers) for Hopper, one ``nvcc`` per source, all started at once, and
+``forms.cu``: the wavefront's fission builds, trace and shade kernels
+and shadow-set builds; ``megakernel.cu``: the megakernel and the debug
+kernel; with their headers) for Hopper, one ``nvcc`` per source, all started at once, and
 links the objects into
 ``cosig_tpu_torch/build/libcosig_kernels_<hash>.so``, a plain C library
 that :mod:`cosig_tpu_torch.kernels.binding` binds with ctypes. The hash
@@ -30,8 +31,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("rng.cuh", "traverse.cuh", "traverse_tile.cuh", "bounce.cuh", "camera.cuh",
-           "wavefront.cu", "megakernel.cu")
-KERNEL_SOURCES = ("wavefront.cu", "megakernel.cu")  # one nvcc each, then one link
+           "wavefront.cuh", "wavefront.cu", "forms.cu", "megakernel.cu")
+KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "megakernel.cu")  # one nvcc each, then one link
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

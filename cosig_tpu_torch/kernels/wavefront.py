@@ -1,16 +1,20 @@
-"""Wrappers of the three wavefront kernels.
+"""Wrappers of the five wavefront kernels.
 
-``primary``, ``compact`` and ``bounce`` take the tensors of one render
-stage and the frame's uniforms, materials and lights in a
-:class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`. On a CUDA tensor
-they launch the hand-written kernel (``csrc/wavefront.cu``) on the
-current stream, without synchronising,
+``primary``, ``compact``, ``bounce``, ``trace`` and ``shade`` take the
+tensors of one render stage and the frame's uniforms, materials and
+lights in a :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`. On a
+CUDA tensor they launch the hand-written kernel (``csrc/wavefront.cu``;
+the fission and shadow-set builds ``csrc/forms.cu``)
+on the current stream, without synchronising,
 count the launch in :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and
 raise if the launch is refused; on a CPU tensor they run the plain
 PyTorch version (:mod:`cosig_tpu_torch.ops.trace_wavefront`) and count
 nothing. There is no fallback from a CUDA tensor to the plain version.
 A bounce stage is ``compact`` then ``bounce`` on its list: the list and
-its length stay on the device, so the host never waits for them.
+its length stay on the device, so the host never waits for them. In the
+fission form it is ``compact``, then ``trace`` and ``shade`` on the same
+list, on a 24-row state that ``primary(..., fission=True)`` makes and a
+``shade`` over every ray finishes.
 """
 
 from __future__ import annotations
@@ -21,48 +25,67 @@ from cosig_tpu_torch.accel.clusters import ClusterSet
 from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import trace_wavefront
-from cosig_tpu_torch.ops.kernel_core import STATE_ROWS
+from cosig_tpu_torch.ops.kernel_core import FISSION_ROWS, STATE_ROWS, state_rows
+
+
+def _device(name: str, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
 
 
 def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
-            prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+            prims: torch.Tensor, n_sph: int, n_box: int, fission: bool = False,
+            cset_shadow=None) -> torch.Tensor:
     """Primary stage -> state f32 [16, N] on the cluster set's device.
-    ``prims``: the table of :func:`cosig_tpu_torch.ops.kernel_core.prim_table`."""
+    ``prims``: the table of :func:`cosig_tpu_torch.ops.kernel_core.prim_table`.
+    ``fission``: the build that stops after the trace -> state f32 [24, N]
+    with the hit record in rows 15-19; ``cset_shadow``: the build whose
+    shadow rays walk that cluster set."""
     dev = cset.device
+    if fission and cset_shadow is not None:
+        raise ValueError("the fission primary traces no shadow rays: pass cset_shadow to shade")
     if dev.type == "cpu":
         return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
-                                             prims, n_sph, n_box)
-    if dev.type != "cuda":
-        raise ValueError(f"no primary kernel for device {dev}")
+                                             prims, n_sph, n_box, fission=fission,
+                                             cset_shadow=cset_shadow)
+    _device("primary", dev)
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
     binding.check_buffer(fb, dev)
+    if cset_shadow is not None:
+        binding.check_shadow_set(cset_shadow, dev)
     frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1)
-    state = torch.empty((STATE_ROWS, frame.n_rays), dtype=torch.float32, device=dev)
-    binding.launch("cosig_primary_launch", frame, cset, prims, n_sph, n_box, state)
-    binding.LAUNCHES["primary"] += 1
+    state = torch.empty((state_rows(fission), frame.n_rays), dtype=torch.float32, device=dev)
+    if fission or cset_shadow is not None:
+        binding.launch("cosig_primary_form_launch", frame, cset, prims, n_sph, n_box, state,
+                       int(fission), *binding.shadow_args(cset_shadow))
+    else:
+        binding.launch("cosig_primary_launch", frame, cset, prims, n_sph, n_box, state)
+    name = ("primary_fission" if fission else "primary" if cset_shadow is None
+            else "primary_shadow")
+    binding.LAUNCHES[name] += 1
     return state
 
 
-def _check_state(state: torch.Tensor, per_row: int) -> None:
-    """Raise unless ``state`` is contiguous f32 [16, a multiple of ``per_row``]."""
+def _check_state(state: torch.Tensor, per_row: int, rows=(STATE_ROWS, FISSION_ROWS)) -> None:
+    """Raise unless ``state`` is contiguous f32 [one of ``rows``, a multiple
+    of ``per_row``]."""
     if (state.dtype != torch.float32 or not state.is_contiguous() or state.dim() != 2
-            or state.shape[0] != STATE_ROWS or state.shape[1] % per_row != 0):
+            or state.shape[0] not in rows or state.shape[1] % per_row != 0):
         raise ValueError(
-            f"state must be contiguous float32 [{STATE_ROWS}, band * {per_row}], "
-            f"got {state.dtype} {tuple(state.shape)}"
+            f"state must be contiguous float32 [{' or '.join(map(str, rows))}, band * "
+            f"{per_row}], got {state.dtype} {tuple(state.shape)}"
         )
 
 
 def compact(state: torch.Tensor) -> tuple:
-    """List the live rays of ``state`` f32 [16, N] -> ``(idx, n_live)``:
+    """List the live rays of ``state`` f32 [16 or 24, N] -> ``(idx, n_live)``:
     int32 [N] and int32 [1] on the state's device, ``idx[:n_live]`` the ids
     of the rays with alive > 0 by direction octant, then by id (entries
     past ``n_live`` are unspecified)."""
     dev = state.device
     if dev.type == "cpu":
         return trace_wavefront.compact_plain(state)
-    if dev.type != "cuda":
-        raise ValueError(f"no compaction kernel for device {dev}")
+    _device("compaction", dev)
     _check_state(state, 1)
     idx = torch.empty(state.shape[1], dtype=torch.int32, device=dev)
     n_live = torch.empty(1, dtype=torch.int32, device=dev)
@@ -71,31 +94,95 @@ def compact(state: torch.Tensor) -> tuple:
     return idx, n_live
 
 
-def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
-           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
-           n_sph: int, n_box: int) -> None:
-    """One bounce stage at ``depth`` (1 .. max_depth-1) on the listed rays
-    ``idx[:n_live]`` of ``state``, in place (``idx``, ``n_live``: from
-    :func:`compact`)."""
+def _check_stage(name, state, idx, n_live, cset, fb, cfg, depth, prims, n_sph, n_box, rows):
+    """The checks of a bounce-stage launch -> its Frame."""
     dev = state.device
-    if dev.type == "cpu":
-        trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
-                                            fb.lights, cfg, depth, prims, n_sph, n_box)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"no bounce kernel for device {dev}")
+    _device(name, dev)
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
     binding.check_buffer(fb, dev)
     if not 1 <= depth < cfg.max_depth:
-        raise ValueError(f"bounce depth {depth} outside 1..{cfg.max_depth - 1}")
+        raise ValueError(f"{name} depth {depth} outside 1..{cfg.max_depth - 1}")
     per_row = cfg.width * max(1, cfg.aa_samples)
-    _check_state(state, per_row)
+    _check_state(state, per_row, rows)
     n = state.shape[1]
-    for name, t, shape in (("idx", idx, (n,)), ("n_live", n_live, (1,))):
+    for what, t, shape in (("idx", idx, (n,)), ("n_live", n_live, (1,))):
         if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
                 or tuple(t.shape) != shape):
-            raise ValueError(f"{name} must be contiguous int32 {list(shape)} on {dev}, "
+            raise ValueError(f"{what} must be contiguous int32 {list(shape)} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    frame = binding.make_frame(cfg, fb, n // per_row, depth, depth == cfg.max_depth - 1)
-    binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
-    binding.LAUNCHES["bounce"] += 1
+    return binding.make_frame(cfg, fb, n // per_row, depth, depth == cfg.max_depth - 1)
+
+
+def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
+           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
+           n_sph: int, n_box: int, cset_shadow=None) -> None:
+    """One bounce stage at ``depth`` (1 .. max_depth-1) on the listed rays
+    ``idx[:n_live]`` of ``state``, in place (``idx``, ``n_live``: from
+    :func:`compact`); ``cset_shadow``: the build whose shadow rays walk
+    that cluster set."""
+    dev = state.device
+    if dev.type == "cpu":
+        trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
+                                            fb.lights, cfg, depth, prims, n_sph, n_box,
+                                            cset_shadow=cset_shadow)
+        return
+    frame = _check_stage("bounce", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
+                         n_box, (STATE_ROWS,))
+    if cset_shadow is None:
+        binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx,
+                       n_live)
+        binding.LAUNCHES["bounce"] += 1
+        return
+    binding.check_shadow_set(cset_shadow, dev)
+    binding.launch("cosig_bounce_shadow_launch", frame, cset, prims, n_sph, n_box, state,
+                   *binding.shadow_args(cset_shadow), idx, n_live)
+    binding.LAUNCHES["bounce_shadow"] += 1
+
+
+def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
+          fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
+          n_sph: int, n_box: int) -> None:
+    """The trace half of the bounce stage at ``depth`` on the listed rays
+    ``idx[:n_live]`` of a 24-row ``state``, in place: each listed ray's
+    count, and its hit record in rows 15-19."""
+    dev = state.device
+    if dev.type == "cpu":
+        trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box)
+        return
+    frame = _check_stage("trace", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
+                         n_box, (FISSION_ROWS,))
+    binding.launch("cosig_trace_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
+    binding.LAUNCHES["trace"] += 1
+
+
+def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameBuffer,
+          cfg: StaticConfig, depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
+    """The shade half of a stage on a 24-row ``state`` in place, its shadow
+    rays through ``cset`` (the shadow set where there is one): with ``idx``
+    and ``n_live`` (None both) on the listed rays of the bounce stage at
+    ``depth``, the list its trace took; without them on every ray of the
+    primary stage (``depth`` 0), on the primary kernel's blocks with the
+    frustum cull."""
+    dev = state.device
+    if (idx is None) != (n_live is None) or (idx is None) != (depth == 0):
+        raise ValueError("shade takes a list at depth >= 1 and none at depth 0")
+    if dev.type == "cpu":
+        if idx is None:
+            trace_wavefront.primary_shade(state, cset, fb.uniforms, fb.mats, fb.lights, cfg,
+                                          prims, n_sph, n_box)
+        else:
+            trace_wavefront.shade_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
+                                               fb.lights, cfg, depth, prims, n_sph, n_box)
+        return
+    if idx is None:
+        _device("shade", dev)
+        binding.check_inputs(cset, dev, prims, n_sph, n_box)
+        binding.check_buffer(fb, dev)
+        per_row = cfg.width * max(1, cfg.aa_samples)
+        _check_state(state, per_row, (FISSION_ROWS,))
+        frame = binding.make_frame(cfg, fb, state.shape[1] // per_row, 0, cfg.max_depth == 1)
+    else:
+        frame = _check_stage("shade", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
+                             n_box, (FISSION_ROWS,))
+    binding.launch("cosig_shade_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
+    binding.LAUNCHES["shade"] += 1

@@ -17,7 +17,11 @@ every capture):
 
 * ``"wavefront"``: the primary kernel, then a compaction and a bounce per
   depth, then finalize (the list lengths stay on the device, so the
-  stages need no host step between them);
+  stages need no host step between them); with ``fission`` the primary's
+  trace and a shade, then per depth a compaction, a trace and a shade,
+  and with ``cset_primary``/``cset_shadow`` the kernels' builds that walk
+  those sets (:func:`~cosig_tpu_torch.ops.trace_wavefront.render_wavefront`);
+  a graph holds the launches of its own form only;
 * ``"megakernel"``: the megakernel and the image's untiling;
 * ``"debug"``: the debug kernel (``cfg.debug_mode`` 1, 2 or 3).
 
@@ -27,7 +31,7 @@ pointer to the device buffer of a
 owns, so :meth:`FrameGraph.replay` writes that buffer on the current
 stream and replays: a new camera or new lights need no new capture. The
 graph's private memory pool holds what the frame allocates: the state
-[16, N], the lists and their lengths, the compaction's scratch, the
+[16, N] ([24, N] with fission), the lists and their lengths, the compaction's scratch, the
 image and the int64 ray count (``pool_bytes``).
 
 A replayed frame is the eager frame bit for bit: the same launches with
@@ -70,6 +74,9 @@ class FrameGraph:
     ``prim_counts``, ``rows`` and ``row_offset`` as in
     :func:`~cosig_tpu_torch.ops.trace_wavefront.render_wavefront`.
 
+    ``cset_primary``, ``cset_shadow`` and ``fission``: the wavefront's
+    forms, as in ``render_wavefront``; a graph is captured for one form.
+
     ``launches``: what one replay adds to ``binding.LAUNCHES`` (the
     kernels the graph holds, and ``graph`` 1); ``capture_s``: the host's
     seconds for the capture and the graph's instantiation; ``pool_bytes``:
@@ -77,9 +84,12 @@ class FrameGraph:
 
     def __init__(self, path: str, cset: ClusterSet, cfg: StaticConfig, uniforms: np.ndarray,
                  lights: np.ndarray, prims=None, prim_counts=(0, 0), rows: int | None = None,
-                 row_offset: int = 0):
+                 row_offset: int = 0, cset_primary=None, cset_shadow=None,
+                 fission: bool = False):
         if path not in PATHS:
             raise ValueError(f"unknown path {path!r}: use one of {tuple(PATHS)}")
+        forms = _forms(path, cset, dict(cset_primary=cset_primary, cset_shadow=cset_shadow,
+                                        fission=fission))
         dev = cset.device
         if dev.type != "cuda":
             raise ValueError(f"a FrameGraph captures frames on a CUDA device, not {dev}")
@@ -91,8 +101,9 @@ class FrameGraph:
             cset, uniforms, lights, row_offset, dev, prims, prim_counts)
         self.prims = prims  # the graph reads this table's memory
         self.fb = binding.FrameBuffer(dev, RING)
+        self.forms = forms  # the graph reads these sets' memory
         run = functools.partial(PATHS[path], cset, self.fb, cfg, self.band, self.row_offset,
-                                prims, n_sph, n_box)
+                                prims, n_sph, n_box, **forms)
         with torch.cuda.device(dev):
             self.fb.write(uniforms, self.mats, lights)
             current = torch.cuda.current_stream(dev)
@@ -153,21 +164,35 @@ class FrameGraph:
             return self.image.clone(), int(total)
 
 
+def _forms(path: str, cset: ClusterSet, forms: dict) -> dict:
+    """The keyword arguments of ``path``'s frame for the wavefront forms
+    ``forms``; raise where the path has none or the sets do not fit."""
+    if path != "wavefront":
+        if forms.get("fission") or any(forms.get(k) is not None
+                                       for k in ("cset_primary", "cset_shadow")):
+            raise ValueError(f"the {path} path has no fission or separate cluster sets")
+        return {}
+    trace_wavefront.check_forms(cset, forms.get("cset_primary"), forms.get("cset_shadow"))
+    return forms
+
+
 def render_chain(path: str, cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
-                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0)):
+                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0), **forms):
     """``k`` whole frames of ``path`` queued with no host read in between ->
     ``(last image [H, W, 3], total rays of the k frames as an int)``: on a
-    card one capture and k replays, on the CPU k plain frames."""
+    card one capture and k replays, on the CPU k plain frames. ``forms``:
+    the wavefront's ``cset_primary``, ``cset_shadow`` and ``fission``."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if cset.device.type == "cuda":
         return FrameGraph(path, cset, cfg, uniforms, lights, prims,
-                          prim_counts).chain(uniforms, lights, k)
+                          prim_counts, **forms).chain(uniforms, lights, k)
+    forms = _forms(path, cset, forms)
     uniforms, lights, mats, prims, n_sph, n_box = trace_wavefront.frame_inputs(
         cset, uniforms, lights, 0, None, prims, prim_counts)
     fb = binding.frame_buffer(cset.device, uniforms, mats, lights)
     total = 0
     for _ in range(k):
-        img, rays = PATHS[path](cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box)
+        img, rays = PATHS[path](cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box, **forms)
         total = total + rays
     return img, int(total)

@@ -49,11 +49,21 @@ F32 = np.float32
 
 # Ray-state rows (f32 [16, N]): 0-2 origin, 3-5 direction, 6-8
 # attenuation, 9-11 accumulated color, 12 alive, 13 rays-traced count,
-# 14 ray id, 15 pad.
+# 14 ray id, 15 pad. The fission form (separate trace and shade stages)
+# appends the hit record, t, nx, ny, nz, mat, at rows 15-19 and pads to 24
+# rows (cosig_tpu/ops/trace_wavefront.py:24-28, :132-138); the record is
+# written and read within one depth step.
 ROW_ALIVE = 12
 ROW_COUNT = 13
 ROW_ID = 14
 STATE_ROWS = 16
+REC0 = 15
+FISSION_ROWS = 24
+
+
+def state_rows(fission: bool) -> int:
+    """Rows of a ray state: 16 fused, 24 in the fission form."""
+    return FISSION_ROWS if fission else STATE_ROWS
 
 # uniforms layout (f32 [UNIFORMS_LEN])
 U_CAM = 0  # 12 floats: rows of the 3x4 camera->object matrix
@@ -596,13 +606,40 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
 # One Whitted bounce on the ray state
 
 
+def bounce_trace(cset: ClusterSet, state: torch.Tensor, prims=None, n_sph: int = 0,
+                 n_box: int = 0, warps=None, packets=None, frustum: bool = False) -> tuple:
+    """The closest-hit half of a bounce (cosig_tpu/ops/kernel_core.py:1042-1056):
+    count the live rays of ``state`` in place and trace them -> the hit
+    record ``(hit, t, nx, ny, nz, mat)`` of :func:`traverse`."""
+    alive = state[ROW_ALIVE] > 0.0
+    state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
+    return traverse(cset, state[0], state[1], state[2], state[3], state[4], state[5], alive,
+                    prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
+                    frustum=frustum)
+
+
+def rec_store(state: torch.Tensor, rec: tuple) -> None:
+    """Write a hit record into the fission rows 15-19 of ``state``."""
+    _, t, nx, ny, nz, mat = rec
+    for r, v in enumerate((t, nx, ny, nz, mat)):
+        state[REC0 + r] = v
+
+
+def rec_load(state: torch.Tensor) -> tuple:
+    """The hit record of rows 15-19 -> ``(hit, t, nx, ny, nz, mat)``, with
+    ``hit`` recomputed as ``t < INF``: exactly the traversal's own value,
+    whose t is INF on a miss and below it on every hit."""
+    t = state[REC0]
+    return t < INF, t, state[REC0 + 1], state[REC0 + 2], state[REC0 + 3], state[REC0 + 4]
+
+
 def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
                 px, py, s, depth: int, is_last: bool,
                 prims=None, n_sph: int = 0, n_box: int = 0, warps=None,
-                packets=None, frustum: bool = False) -> None:
+                packets=None, frustum: bool = False, rec=None, cset_shadow=None) -> None:
     """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
-    kernel_core.py:1089-1270): count and trace the live rays, add the
+    kernel_core.py:1058-1270): count and trace the live rays, add the
     background on a miss, shade the hits (ambient, then per light a
     shadow ray, Lambert and Blinn-Phong), and turn each surviving ray
     into its secondary (refraction first, TIR reflects about the flipped
@@ -615,7 +652,13 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     warp map whose pair-loop slots they count, ``packets`` the ray -> block
     map of the kernel's block walk and ``frustum`` whether the block's
     frustum pre-cull runs, for the closest hit and the shadow rays alike
-    (:func:`traverse`)."""
+    (:func:`traverse`).
+
+    ``rec``: a hit record of :func:`bounce_trace` (or :func:`rec_load`):
+    this call is then the shade half and traces no closest hit (the fission
+    form). ``cset_shadow``: the cluster set every shadow ray walks, a
+    coarser cut of the same triangles (default ``cset``); occlusion does
+    not depend on the cut, so neither do the results."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -623,16 +666,18 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     roughness = u[U_ROUGHNESS]
     depth_f = float(depth)
 
+    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
+              frustum=frustum)
+    if rec is None:
+        rec = bounce_trace(cset, state, **pk)
+    hit, t, nx, ny, nz, mat_c = rec
+    shadow_set = cset if cset_shadow is None else cset_shadow
+
     ox, oy, oz = state[0], state[1], state[2]
     dx, dy, dz = state[3], state[4], state[5]
     at_r, at_g, at_b = state[6], state[7], state[8]
     scol_r, scol_g, scol_b = state[9], state[10], state[11]
     alive = state[ROW_ALIVE] > 0.0
-
-    state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
-    pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
-              frustum=frustum)
-    hit, t, nx, ny, nz, mat_c = traverse(cset, ox, oy, oz, dx, dy, dz, alive, **pk)
 
     miss = alive & ~hit
     scol_r = scol_r + torch.where(miss, at_r * bg[0], 0.0)
@@ -677,7 +722,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
             shadow_active = alive & (ndl > 0.0)
             state[ROW_COUNT] = state[ROW_COUNT] + shadow_active.to(torch.float32)
             s_occ = traverse(
-                cset, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
+                shadow_set, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
                 ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True, **pk,
             )[0]
             gate = ~s_occ & (ndl > 0.0) & alive

@@ -272,3 +272,46 @@ def test_sqrt_correctly_rounded():
     off = int((torch.sqrt(torch.from_numpy(x)).numpy() != ref).sum())
     print(f"torch.sqrt float32 on {torch.backends.cpu.get_cpu_capability()}: "
           f"{off} of {x.size} roots off by 1 ulp")
+
+
+@pytest.mark.parametrize("mode", ["python", "native"])
+@pytest.mark.parametrize("name", ["tiny", "demo_cornell", "glass_sphere", "large_mesh"])
+def test_validate_bvh_accepts_built_trees(name, mode):
+    """The port's validate_bvh passes the port's BVHs of the in-repo scenes,
+    from both builders, as the JAX package's validate_bvh does."""
+    tris = ttess.extract_triangles(_port_scene(name)[0])
+    bvh = tbvh.build_bvh(tris, use_native=mode)
+    tbvh.validate_bvh(bvh, tris)
+    jbvh.validate_bvh(bvh, tris)
+
+
+def _corrupt(bvh, how):
+    """A copy of ``bvh`` with one invariant broken."""
+    import copy
+
+    bad = copy.deepcopy(bvh)
+    leaf = int(np.nonzero(bad.count > 0)[0][0])
+    inner = int(np.nonzero(bad.count == 0)[0][0])
+    if how == "order":
+        bad.order[0] = bad.order[1]
+    elif how == "box":
+        bad.node_min[0], bad.node_max[0] = bvh.node_max[0], bvh.node_min[0] - 1.0
+    elif how == "child_index":
+        bad.left_or_first[inner] = bad.num_nodes - 1
+    elif how == "child_box":
+        child = int(bad.left_or_first[inner])
+        bad.node_max[child] = bvh.node_max[inner] + 1.0
+    elif how == "leaf_range":
+        bad.left_or_first[leaf] = len(bvh.order)
+    elif how == "leaf_box":
+        bad.node_max[leaf] = bvh.node_min[leaf]
+    return bad
+
+
+@pytest.mark.parametrize("how", ["order", "box", "child_index", "child_box", "leaf_range",
+                                 "leaf_box"])
+def test_validate_bvh_rejects_corrupted_trees(how):
+    tris = ttess.extract_triangles(_port_scene("glass_sphere")[0])
+    bvh = tbvh.build_bvh(tris)
+    with pytest.raises(ValueError):
+        tbvh.validate_bvh(_corrupt(bvh, how), tris)

@@ -137,8 +137,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
     for name in binding.LAUNCHES:
         binding.LAUNCHES[name] = 7
     binding.reset_counts()
-    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0,
-                                    graph=0)
+    zero = dict(primary=0, compact=0, bounce=0, trace=0, shade=0, primary_fission=0,
+                primary_shadow=0, bounce_shadow=0, megakernel=0, debug=0, graph=0)
+    assert binding.LAUNCHES == zero
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
     params = tsoa.frame_params(tiny, st)
     cfg = tsoa.static_config(tiny, st)
@@ -151,8 +152,10 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
         np.testing.assert_array_equal(a, b.numpy())
         r.render(tiny, st.replace(debug_mode=2))
         r.render_chain(tiny, st, 2)
-    assert binding.LAUNCHES == dict(primary=0, compact=0, bounce=0, megakernel=0, debug=0,
-                                    graph=0)
+    cset = r._geometry_for(tiny)[0]
+    ttw.render_wavefront(cset, tkc.build_uniforms(params), tkc.build_lights(params, False), cfg,
+                         fission=True, cset_shadow=cset)
+    assert binding.LAUNCHES == zero
 
 
 def test_wrappers_reject_other_devices(tiny):
@@ -198,7 +201,7 @@ def test_check_inputs_rejects_misaligned_geom(tiny):
 def test_nvcc_command_keeps_ieee_arithmetic():
     """Every kernel source compiles with the IEEE flags for sm_90a, one
     nvcc each; one link makes the library."""
-    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "megakernel.cu")
+    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "forms.cu", "megakernel.cu")
     for src in kbuild.KERNEL_SOURCES:
         cmd = kbuild.nvcc_command("nvcc", src, "/tmp/x.o")
         joined = " ".join(cmd)
@@ -312,7 +315,8 @@ def test_kernels_match_plain_on_card(tiny, card):
     img_m, rays_m = ttm.render_clusters(cset, uni, lights, cfg)
     img_d, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)))
     counts = dict(binding.LAUNCHES)
-    assert counts == dict(primary=1, compact=2, bounce=2, megakernel=1, debug=1, graph=0)
+    assert counts == dict(primary=1, compact=2, bounce=2, trace=0, shade=0, primary_fission=0,
+                          primary_shadow=0, bounce_shadow=0, megakernel=1, debug=1, graph=0)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
     img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
     img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),
