@@ -9,10 +9,11 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. print the card's name and power limit and the torch version; build the
-   seven kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
-   all started at once), then rebuild them warm with the compiles one
-   after another and in parallel, and print the three times and each
-   kernel's registers and spills;
+   kernels from ``cosig_tpu_torch/csrc`` (one ``nvcc`` per source,
+   all started at once), and print the build's time and each kernel's
+   registers and spills (the warm serial and parallel rebuilds that PRs
+   6-10 timed, ~80 s of the script on a slow host, are left out since
+   PR 11 to keep the script inside its time limit);
 2. render small frames with the kernels and with their plain PyTorch
    versions on the card and hold them to the tolerances below: the
    wavefront (primary, compaction, bounce) and the megakernel on every
@@ -123,7 +124,28 @@ Phases (any failure raises and the script exits non-zero):
    replay, bit-equal to the fused frame, with its launches read around
    it; render_chain slopes of each form against the fused frame in
    turns; and the new kernels timed beside the fused kernel of the same
-   stage, with their plain versions and bounds.
+   stage, with their plain versions and bounds;
+11. the tensor-core form of the pair test (``mx_phase``; the JAX
+   package's MXU form, ``mxu="full"`` and ``"closest"``): (a) the device
+   functions on single clusters of glass_sphere, large_mesh and large_mesh
+   cut 4 ways through ``binding.mx_probe``: the geometry limbs bit-equal to
+   ``clusters.pack_mx``, every plane within 1e-6 x sum |coef x input| of
+   the float64 sums, the largest error printed; (b) every tensor-core
+   kernel against its plain tensor-core version stage by stage on
+   glass_sphere, large_mesh cut 4 ways, cosig_walls, the analytic mixed
+   scene and the tiny scene with every effect: rays within 8, depth 1 max
+   <= 2e-6 and deeper RMSE < 1e-5, flips (more than 1e-3 apart) at most
+   0.01 % of a frame, each printed with the pairs whose validity terms
+   changed sign; (c) the five bench configurations at full size through
+   ``Renderer(mxu="full")`` on both paths and ``mxu="closest"`` on the
+   wavefront against their JAX records, each replay bit-equal to its
+   eager frame, with the launch counters read around each path; the dense
+   knot (past 6 MiB of geometry) keeping the exact builds; glass_sphere
+   and large_mesh at 256x256 against the oracle (RMSE < 1e-5);
+   ``render_chain`` slopes of the exact and tensor-core frames in turns;
+   (d) each tensor-core kernel beside its exact build on the same input in
+   turns, with its plain version, bound, ``torch.bmm`` of the same planes
+   and blocks per multiprocessor of both layouts.
 
 Up to phase 8 every Renderer frame on the card is a graph replay too
 (each frame's launch counts include one ``graph``; the first frame of a
@@ -132,8 +154,8 @@ checks against their plain versions (phases 2, 3, 5) launch them
 eagerly.
 
 Near the end the script prints a JSON line of the models, a JSON line of
-per-frame numbers, a JSON line each of the oracle's and phases 7's, 8's,
-9's and 10's numbers, a JSON line of per-kernel numbers, the card's name and
+per-frame numbers, a JSON line each of the oracle's and phases 7's to
+11's numbers, a JSON line of per-kernel numbers, the card's name and
 power limit, and, as the last line, the result ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -2797,13 +2819,601 @@ def form_phase(device, card: str, full_size: bool = True) -> dict:
     return out
 
 
+# ---- phase 11: the tensor-core form of the pair test (mxu) ----
+
+# The gates of phase 11. The kernel's planes against the float64 sums of
+# the same limb products: tests/test_pallas.py:482's bound, 1e-6 of the
+# sum of |coefficient x input| over a plane's terms. The frames against
+# the plain tensor-core versions: the slice tolerances, with pixels (rays,
+# in a stage's state) more than FLIP_ABS apart counted as flips (a plane an
+# ulp away from the plain one can turn a grazing pair's validity), at most
+# FLIP_SHARE of a frame's.
+MX_PLANE_REL = 1e-6
+FLIP_ABS = 1e-3
+FLIP_SHARE = 1e-4  # 0.01 %
+MX_MODES = {"wavefront": ("full", "closest"), "megakernel": ("full",)}
+# The bound of a tensor-core kernel: its mma products (5 planes x 48
+# contraction columns a pair, csrc/mx_pair.cuh) over the dense bf16 rate
+# (989 TFLOP/s, 494.5 T multiply-adds/s), plus its fp32 operations (the
+# slab, pre-filter and primitive tests as above, and about 15 a pair for
+# the selection: a reciprocal, t, 9 compares and the fold) over
+# PEAK_F32_OPS; or its bytes over HBM_BYTES_PER_S, whichever is larger.
+MX_MACS_PER_PAIR = 5 * 48
+MX_SEL_OPS_PER_PAIR = 15
+PEAK_BF16_MACS = 989e12 / 2
+MX_REPLACES = "cosig_tpu/ops/kernel_core.py:776 mt_mxu + :633 mxu_sel, in "
+MX_KERNELS = {
+    "primary_mx": ("cosig_tpu_torch/csrc/mx.cu + csrc/wavefront.cuh + csrc/mx_pair.cuh",
+                   MX_REPLACES + "trace_wavefront.py:293 _make_primary_kernel"),
+    "bounce_mx": ("cosig_tpu_torch/csrc/mx.cu + csrc/wavefront.cuh + csrc/mx_pair.cuh",
+                  MX_REPLACES + "trace_wavefront.py:439 _make_bounce_kernel"),
+    "megakernel_mx": ("cosig_tpu_torch/csrc/megakernel.cu + csrc/mx_pair.cuh",
+                      MX_REPLACES + "trace_pallas.py:132 _make_kernel"),
+}
+MX_EXACT = {"primary_mx": "primary", "bounce_mx": "bounce", "megakernel_mx": "megakernel"}
+MX_TURNS = 2
+
+
+def mx_bound(work: dict, nbytes: int) -> dict:
+    """Bound of one tensor-core kernel call from the plain traversal's
+    counted work (mx=True) and the bytes it must move."""
+    pairs = work["pair_tests"]
+    f32 = (FLOPS_PER_SLAB * work["slab_tests"] + MX_SEL_OPS_PER_PAIR * pairs
+           + FLOPS_PER_PRIM * work["prim_tests"]
+           + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
+    op_ms = (MX_MACS_PER_PAIR * pairs / PEAK_BF16_MACS + f32 / PEAK_F32_OPS) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                work=dict(work, macs=MX_MACS_PER_PAIR * pairs, f32_ops=f32, bytes=nbytes))
+
+
+def mx_split(cset, ways: int):
+    """split_clusters with the tensor-core operand packed for the split rows."""
+    from dataclasses import replace
+
+    from cosig_tpu_torch.accel.clusters import pack_mx
+
+    out = split_clusters(cset, ways)
+    return replace(out, geom_mx=pack_mx(out.geom).to(cset.device))
+
+
+def mx_probe_check(device) -> dict:
+    """Phase 11a: the tensor-core device functions (binding.mx_probe) on
+    clusters of glass_sphere (k = 32), large_mesh (k = 64) and large_mesh
+    cut 4 ways (k = 16), each against 384 rays from the numpy seed aimed
+    around its box: the geometry limbs bit-equal to clusters.pack_mx, and
+    every plane within MX_PLANE_REL x sum |coefficient x input| of the
+    float64 sums of the same products (kernel_core.mx_planes)."""
+    import numpy as np
+    import torch
+
+    from cosig_tpu_torch.accel.clusters import GN, NDA, VA, VB, VC, pack_mx
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.ops import kernel_core as kc
+
+    rng = np.random.default_rng(11)
+    out = {}
+    worst = 0.0
+    for name, ways in (("glass_sphere", 1), ("large_mesh", 1), ("large_mesh", 4)):
+        cset = scene_setup(name, dict(resolution_override=(8, 8)), device)["cset"]
+        if ways > 1:
+            cset = mx_split(cset, ways)
+        c_all = cset.num_clusters
+        for c in sorted({0, c_all // 2, c_all - 1}):
+            geom = cset.geom[c].contiguous()
+            box = cset.aabb_t[:6, c].cpu().numpy().astype(np.float64)
+            lo, hi = box[:3], box[3:]
+            mid, size = (lo + hi) / 2, float(np.max(hi - lo)) + 1e-3
+            n = 384
+            o = mid + rng.normal(size=(n, 3)) * 2.0 * size
+            tgt = lo + rng.random((n, 3)) * (hi - lo)
+            d = tgt - o
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            rays = torch.from_numpy(np.concatenate([o, d], axis=1).T.astype(np.float32)).to(device)
+            limbs, planes = binding.mx_probe(geom, rays.contiguous())
+            torch.cuda.synchronize()
+            ref_limbs = pack_mx(geom.cpu()[None])[0]
+            same = torch.equal(limbs.cpu().view(torch.int16), ref_limbs.view(torch.int16))
+            check(same, name, ways, c, "kernel limbs differ from pack_mx")
+            ox, oy, oz, dx, dy, dz = (rays[i] for i in range(6))
+            w = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx)
+            rl = kc.ray_limbs(ox, oy, oz, dx, dy, dz, *w)
+            exact = kc.mx_planes(cset.geom_mx[c], rl, f64=True)  # [n, k] each
+            # Sum of |coefficient x input| per plane, in float64.
+            x = torch.stack([ox, oy, oz, dx, dy, dz, *w, torch.ones_like(ox)]).double()  # [10, n]
+            g = geom.double()
+            coefs = [(g[:, VA:VA + 6], range(3, 9)), (g[:, VB:VB + 6], range(3, 9)),
+                     (g[:, VC:VC + 6], range(3, 9)), (g[:, GN:GN + 3], range(3, 6)),
+                     (torch.cat([-g[:, GN:GN + 3], g[:, NDA:NDA + 1]], 1), (0, 1, 2, 9))]
+            rel = 0.0
+            for p, (cf, inputs) in enumerate(coefs):
+                mag = sum((x[i][:, None] * cf[None, :, j]).abs() for j, i in enumerate(inputs))
+                err = (planes[p].double().T - exact[p]).abs()
+                bad = err > MX_PLANE_REL * mag
+                check(not bool(bad.any()), name, ways, c, "plane", p, "outside the bound",
+                      float(err.max()))
+                rel = max(rel, float((err / mag.clamp_min(1e-30)).max()))
+            worst = max(worst, rel)
+            out[f"{name} split {ways} cluster {c}"] = dict(k=cset.k, limbs_equal=same,
+                                                           max_rel_err=rel)
+    log(f"  probe: limbs bit-equal to pack_mx on {len(out)} clusters; largest plane error "
+        f"{worst:.3e} of sum |coef x input| (bound {MX_PLANE_REL})")
+    out["max_rel_err"] = worst
+    return out
+
+
+def flips_of(a, b) -> tuple:
+    """(flipped, rmse, max) of ``a`` against ``b`` [rows, n]: the columns
+    more than FLIP_ABS apart in some row, and the RMSE and the largest
+    difference over the other columns."""
+    import torch
+
+    d = torch.nan_to_num((a - b).abs(), nan=1.0)
+    bad = (d > FLIP_ABS).any(dim=0)
+    rest = d[:, ~bad].double()
+    return (torch.nonzero(bad).squeeze(1), float(rest.pow(2).mean().sqrt()) if rest.numel() else 0.0,
+            float(rest.max()) if rest.numel() else 0.0)
+
+
+def explain_flip(cset, o, d, tag: str) -> None:
+    """Print the pairs of one ray (origin ``o``, direction ``d``, 3-vectors
+    on the card) whose validity terms (|s| - EPSILON, va s, vb s, vc s,
+    t - EPSILON) change sign between the kernel's planes (binding.mx_probe)
+    and the plain ones (kernel_core.mx_planes), cluster by cluster, and the
+    closest hit's (t, gid) winner under each where the two differ (two
+    valid pairs whose t order turned, as on coplanar faces)."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.ops import kernel_core as kc
+
+    rays = torch.cat([o, d]).reshape(6, 1).contiguous()
+    ox, oy, oz, dx, dy, dz = (rays[i] for i in range(6))
+    rl = kc.ray_limbs(ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+                      ox * dy - oy * dx)
+
+    def terms(pl):
+        va, vb, vc, s, num = pl
+        t = num * torch.reciprocal(s)
+        return torch.stack([s.abs() - kc.EPSILON, va * s, vb * s, vc * s, t - kc.EPSILON])
+
+    found = 0
+    best = {"kernel": (float("inf"), 0.0, None), "plain": (float("inf"), 0.0, None)}
+    for c in range(cset.num_clusters):
+        _, planes = binding.mx_probe(cset.geom[c].contiguous(), rays)
+        tk = terms([planes[p][:, 0] for p in range(5)])
+        tp = terms([x[0] for x in kc.mx_planes(cset.geom_mx[c], rl)])
+        for name, tt in (("kernel", tk), ("plain", tp)):
+            for row in torch.nonzero((tt >= 0).all(dim=0)).squeeze(1).tolist():
+                key = (float(tt[4, row]), float(cset.geom[c, row, 35]), (c, row))
+                if key[:2] < best[name][:2]:
+                    best[name] = key
+        sign = (tk >= 0) != (tp >= 0)
+        for row in torch.nonzero(sign.any(dim=0)).squeeze(1).tolist():
+            gid = float(cset.geom[c, row, 35])
+            if gid >= 2 ** 24:
+                continue
+            found += 1
+            log(f"    {tag}: cluster {c} row {row} gid {gid:.0f}: terms kernel "
+                f"{[f'{v:.3e}' for v in tk[:, row].tolist()]} plain "
+                f"{[f'{v:.3e}' for v in tp[:, row].tolist()]}")
+    if best["kernel"][:2] != best["plain"][:2]:
+        found += 1
+        log(f"    {tag}: the closest hit's winner turned: kernel (t - EPSILON, gid, (cluster, "
+            f"row)) {best['kernel']}, plain {best['plain']}")
+    if not found:
+        log(f"    {tag}: no closest-hit pair changed (a shadow ray's pair)")
+
+
+def hold_mx(tag, cfg, a, b, count_a, count_b, n_pixels, explain=None) -> dict:
+    """A tensor-core kernel's output ``a`` [rows, n] against its plain
+    version's ``b``: flips at most FLIP_SHARE of ``n_pixels``, each printed
+    (``explain(column)`` then names its pair); the ray counts within
+    RAYS_SLACK; outside the flips, at depth 1 the largest difference within
+    DEPTH1_MAX, deeper the RMSE below DEEP_RMSE (a flip is a turned pair,
+    the slice gates hold everywhere else)."""
+    import torch
+
+    flipped, rmse, rest = flips_of(a, b)
+    log(f"  {tag}: flips {flipped.numel()} of {n_pixels}; outside them rmse {rmse:.3e}, max "
+        f"{rest:.3e}; rays {count_a} / {count_b}")
+    for col in flipped[:8].tolist():
+        log(f"    flip at column {col}: kernel {a[:, col].tolist()} plain {b[:, col].tolist()}")
+        if explain is not None:
+            explain(col)
+    check(flipped.numel() <= FLIP_SHARE * n_pixels, tag, "flips", flipped.numel())
+    check(abs(count_a - count_b) <= RAYS_SLACK, tag, "rays", count_a, count_b)
+    check(bool(torch.isfinite(a).all()), tag, "not finite")
+    if cfg.max_depth == 1:
+        check(rest <= DEPTH1_MAX, tag, "max", rest)
+    else:
+        check(rmse < DEEP_RMSE, tag, "rmse", rmse)
+    return dict(flips=int(flipped.numel()), rmse=rmse, max_rest=rest)
+
+
+def mx_stages(device) -> dict:
+    """Phase 11b: each tensor-core kernel against its plain tensor-core
+    version on the same inputs, stage by stage (the wavefront's primary,
+    then per depth the kernel's compaction list and the bounce on the same
+    state; the megakernel per frame), in full and closest-only mode, on
+    glass_sphere, large_mesh cut 4 ways (c_pad 1024: the superblock
+    builds; full mode only, at 96x64 d3, since its plain walk over 884
+    clusters is most of this phase's time), cosig_walls, the analytic
+    mixed scene and the tiny scene with every effect (AA 2, soft shadows,
+    glossy, motion blur)."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import camera
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    effects = dict(aa_samples=2, enable_soft_shadows=True, light_size=5.0, enable_glossy=True,
+                   surface_roughness=0.05, enable_motion_blur=True, shutter_speed=0.5)
+    cases = [
+        ("glass_sphere", dict(resolution_override=(96, 96)), False, 1),
+        ("large_mesh", dict(resolution_override=(96, 64), max_depth=3), False, 4),
+        ("cosig_walls", dict(resolution_override=(128, 128), max_depth=2), False, 1),
+        ("mixed", dict(resolution_override=(64, 48), max_depth=3), True, 1),
+        ("tiny", dict(resolution_override=(64, 64), max_depth=3, **effects), False, 1),
+    ]
+    out = {}
+    for name, kw_, analytic, split in cases:
+        t0 = time.perf_counter()
+        s = scene_setup(name, kw_, device, analytic)
+        cset, cfg = s["cset"], s["cfg"]
+        if split > 1:
+            cset = mx_split(cset, split)
+        tag = tag_of(name, cfg, analytic) + (f" split {split}" if split > 1 else "")
+        uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
+            cset, s["uni"], s["lights"], 0, None, s["prims"], s["prim_counts"])
+        pk = (prims, n_sph, n_box)
+        fb = binding.frame_buffer(device, uni, mats, lights)
+        n_pix = cfg.width * cfg.height
+        rec = {}
+        u = [float(x) for x in uni]
+        for mode in MX_MODES["wavefront"] if split == 1 else ("full",):
+            def explain(col, inputs):
+                o, d = inputs
+                explain_flip(cset, o[:, col], d[:, col], f"{tag} {mode} ray {col}")
+
+            rid = torch.arange(tw.num_rays(cfg, cfg.height), device=device)
+            px, py, sp = tw._seed_planes(rid, cfg, 0.0)
+            cam = camera.primary_rays(cfg, u, px, py, sp)
+            cam_in = (torch.stack(cam[:3]), torch.stack(cam[3:]))
+            st = kw.primary(cset, fb, cfg, cfg.height, *pk, mxu=mode)
+            ref = tw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk, mxu=mode)
+            stage = {"primary": hold_mx(
+                f"{tag} {mode} primary", cfg, st[:13], ref[:13], int(st[kc.ROW_COUNT].sum()),
+                int(ref[kc.ROW_COUNT].sum()), st.shape[1],
+                lambda col: explain(col, cam_in))}
+            for d in range(1, cfg.max_depth):
+                idx, n_live = kw.compact(st)
+                inputs = (st[0:3].clone(), st[3:6].clone())
+                ref = st.clone()
+                kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, mxu=mode)
+                tw.bounce_listed_stage(ref, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                       mxu=mode)
+                stage[f"bounce {d}"] = hold_mx(
+                    f"{tag} {mode} bounce {d} ({int(n_live)} live)", cfg, st[:13], ref[:13],
+                    int(st[kc.ROW_COUNT].sum()), int(ref[kc.ROW_COUNT].sum()), st.shape[1],
+                    lambda col: explain(col, inputs))
+            rec[f"wavefront {mode}"] = stage
+        img_k, rays_k = tm.render_clusters(cset, s["uni"], s["lights"], cfg, prims=s["prims"],
+                                           prim_counts=s["prim_counts"], mxu="full")
+        img_p, rays_p = tm.render_clusters(cset, s["uni"], s["lights"], cfg, plain=True,
+                                           prims=s["prims"], prim_counts=s["prim_counts"],
+                                           mxu="full")
+        rec["megakernel full"] = hold_mx(f"{tag} megakernel full", cfg, img_k.reshape(-1, 3).T,
+                                         img_p.reshape(-1, 3).T, rays_k, rays_p, n_pix)
+        rec["clusters"], rec["c_pad"] = cset.num_clusters, int(cset.aabb_t.shape[1])
+        out[tag] = rec
+        log(f"  {tag}: every tensor-core kernel held to its plain version "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del cset, st, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def mx_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phase 11c, the tensor-core form's main path: the five bench
+    configurations through Renderer(mxu="full") on the wavefront and the
+    megakernel and Renderer(mxu="closest") on the wavefront, the launch
+    counters set to 0 just before each path and read just after, each frame
+    held to the JAX records and its graph replay to the eager frame bit for
+    bit; the dense knot (43 MB of geometry, past STREAM_THRESHOLD_BYTES)
+    through Renderer(mxu="full"), which must launch the exact builds; the
+    oracle gate at 256x256 on glass_sphere and large_mesh; and the
+    render_chain slopes of the exact and the tensor-core frames in turns."""
+    import numpy as np
+    import torch
+
+    import cosig_tpu_torch
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.models.soa import frame_params, static_config
+    from cosig_tpu_torch.ops import frame_graph
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+    from cosig_tpu_torch.ops.kernel_core import build_lights, build_uniforms
+
+    out = {"frames": {}, "launches": {}, "oracle": {}, "slopes": {}}
+    names = list(RECORDS) if full_size else ["diffuse_sphere", "glass_sphere"]
+    for backend, modes in MX_MODES.items():
+        for mode in modes:
+            renderer = cosig_tpu_torch.Renderer(device="cuda", backend=backend, mxu=mode)
+            binding.reset_counts()
+            frames = {}
+            for name in names:
+                scene, settings = load(name)
+                if not full_size:
+                    settings = settings.replace(resolution_override=(96, 96))
+                per_frame = (dict(primary_mx=1, compact=settings.max_depth - 1,
+                                  bounce_mx=settings.max_depth - 1)
+                             if backend == "wavefront" else dict(megakernel_mx=1))
+                frames[name] = (scene, settings, drive(renderer, name, scene, settings, per_frame))
+            got = {k: v for k, v in binding.LAUNCHES.items() if v}
+            log(f"  [{card}] launches in the {backend} mxu={mode} path: {got}")
+            check(not any(got.get(k) for k in ("primary", "bounce", "megakernel")), backend, mode,
+                  "an exact build ran", got)
+            for k, v in got.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for name, (scene, settings, fr) in frames.items():
+                params = frame_params(scene, settings)
+                cfg = static_config(scene, settings)
+                render = tw.render_wavefront if backend == "wavefront" else tm.render_clusters
+                img_e, rays_e = render(renderer._geometry_for(scene)[0], build_uniforms(params),
+                                       build_lights(params, cfg.multi_light), cfg, mxu=mode)
+                same = bool(np.array_equal(img_e.cpu().numpy(), fr["image"]))
+                check(same and int(rays_e) == fr["rays"], name, backend, mode,
+                      "graph replay differs from the eager frame")
+                rec = RECORDS[name]
+                log(f"  [{card}] {backend} mxu={mode} {name}: {fr['ms']:.3f} ms/frame, "
+                    f"rays={fr['rays']} (record {rec['rays']}), mean={fr['mean']:.6f} (record "
+                    f"{rec['mean']}); replay bit-equal to the eager frame")
+                if full_size:
+                    check(abs(fr["rays"] - rec["rays"]) <= RAYS_REL * rec["rays"], name, mode,
+                          fr["rays"])
+                    check(abs(fr["mean"] - rec["mean"]) <= MEAN_ABS, name, mode, fr["mean"])
+                out["frames"][f"{backend} {mode} {name}"] = dict(
+                    ms=fr["ms"], rays=fr["rays"], mean=fr["mean"], mrays_s=fr["mrays_s"])
+            del renderer
+            torch.cuda.empty_cache()
+
+    # The streaming rule: a set past 6 MiB keeps the exact builds.
+    scene, settings = load("dense_knot")
+    settings = settings.replace(resolution_override=(128, 128), max_depth=2)
+    renderer = cosig_tpu_torch.Renderer(device="cuda", mxu="full")
+    binding.reset_counts()
+    renderer.render_to_device(scene, settings)
+    cset = renderer._geometry_for(scene)[0]
+    got = {k: v for k, v in binding.LAUNCHES.items() if v}
+    log(f"  [{card}] dense knot ({cset.geom_bytes} B of geometry, geom_mx "
+        f"{'absent' if cset.geom_mx is None else 'present'}) through Renderer(mxu='full'): "
+        f"launches {got}")
+    check(cset.streamed and got.get("primary", 0) > 0 and "primary_mx" not in got
+          and "bounce_mx" not in got, "the streaming rule", got)
+    out["streamed_knot"] = dict(geom_bytes=cset.geom_bytes, launches=got)
+    del renderer, cset
+
+    # The oracle gate at bench.py's reduced size.
+    side = ORACLE_SIDE if full_size else 64
+    for name in ("glass_sphere", "large_mesh"):
+        scene, settings = load(name)
+        small = settings.replace(resolution_override=(side, side))
+        oracle = cosig_tpu_torch.Renderer(device="cuda", backend="xla-brute")
+        img_o = oracle.render_to_device(scene, small)
+        rays_o = oracle.last_stats.rays_traced
+        for backend in MX_MODES:
+            r = cosig_tpu_torch.Renderer(device="cuda", backend=backend, mxu="full")
+            img = r.render_to_device(scene, small)
+            _, mx, rmse = diff(img, img_o)
+            rays = r.last_stats.rays_traced
+            log(f"  [{card}] {name} {side}x{side} {backend} mxu=full: rmse_vs_oracle {rmse:.3e} "
+                f"(JAX record {ORACLE_RECORDS[name]:.3e}), max {mx:.3e}, rays {rays} (oracle "
+                f"{rays_o})")
+            check(rmse < ORACLE_RMSE, name, backend, "mxu rmse_vs_oracle", rmse)
+            check(abs(rays - rays_o) <= RAYS_SLACK, name, backend, "mxu rays", rays, rays_o)
+            out["oracle"][f"{backend} {name}"] = dict(rmse=rmse, max=mx, rays=rays)
+        del oracle
+        torch.cuda.empty_cache()
+
+    # render_chain slopes, exact and tensor-core frames in turns.
+    lo, hi = CHAIN_KS
+    for name in ("glass_sphere", "large_mesh") if full_size else ("glass_sphere",):
+        s = scene_setup(name, {} if full_size else dict(resolution_override=(96, 96)), device)
+        a = (s["cset"], s["cfg"], s["uni"], s["lights"])
+        graphs = {f"wavefront {m}": frame_graph.FrameGraph("wavefront", *a, mxu=m)
+                  for m in ("off", "full", "closest")}
+        graphs.update({f"megakernel {m}": frame_graph.FrameGraph("megakernel", *a, mxu=m)
+                       for m in ("off", "full")})
+        slopes = {n: [] for n in graphs}
+        for _ in range(MX_TURNS):
+            for n, g in graphs.items():
+                ms = {}
+                for k in (lo, hi):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    g.chain(s["uni"], s["lights"], k)
+                    ms[k] = (time.perf_counter() - t0) * 1e3
+                slopes[n].append((ms[hi] - ms[lo]) / (hi - lo))
+        tag = tag_of(name, s["cfg"])
+        out["slopes"][tag] = slopes
+        log(f"  [{card}] {tag} render_chain slope, ms/frame in {MX_TURNS} turns: "
+            + "; ".join(f"{n} " + " / ".join(f"{v:.3f}" for v in vs) for n, vs in slopes.items()))
+        del graphs, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def mx_kernel_times(device, card: str) -> list:
+    """Phase 11d: each tensor-core kernel alone beside its exact build on
+    the same input, in turns (exact, mx, mx, exact), at the main path's
+    shapes: glass_sphere's primary stage and depth 1, large_mesh's depths
+    1-3, the megakernel on glass_sphere; the plain tensor-core versions
+    timed once (the primary and the bounce at glass_sphere's full size,
+    the megakernel at 256x256), with the bound from their counted work
+    (mx_bound), torch.bmm of the same clusters' planes as a scale for the
+    products alone, and blocks per multiprocessor of both layouts ->
+    the kernels line's rows."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import megakernel as km
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    rows = {}
+
+    def turns(run_exact, run_mx, reps=3):
+        """(exact ms, mx ms) pairs in turns exact, mx, mx, exact."""
+        e1 = device_ms(run_exact, reps)
+        m1 = device_ms(run_mx, reps)
+        m2 = device_ms(run_mx, reps)
+        e2 = device_ms(run_exact, reps)
+        return [e1, e2], [m1, m2]
+
+    def bmm_ms(cset, pairs):
+        """torch.bmm of every cluster's planes [5K, 64] against as many ray
+        columns as the counted pair tests give it on average."""
+        c, k = cset.num_clusters, cset.k
+        r = max(8, -(-pairs // (c * k)))
+        a = cset.geom_mx
+        b = torch.ones((c, 64, r), dtype=torch.bfloat16, device=device)
+        torch.bmm(a, b)
+        return device_ms(lambda: torch.bmm(a, b), 3)
+
+    def add(name, at, exact_ms, mx_ms, plain_ms, err, bound, bmm, occ):
+        r = dict(at=at, ms=sum(mx_ms) / 2, ms_turns=mx_ms, exact_ms=exact_ms, plain_ms=plain_ms,
+                 max_abs_err=err, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                 work=bound["work"], bmm_ms=bmm, blocks_per_sm=occ)
+        log(f"  [{card}] {name} ({at}): {r['ms']:.4f} ms ({' / '.join(f'{v:.4f}' for v in mx_ms)}),"
+            f" exact {' / '.join(f'{v:.4f}' for v in exact_ms)} ms; plain {plain_ms:.1f} ms, "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), torch.bmm of the planes "
+            f"{bmm:.4f} ms; blocks per multiprocessor {occ}; max |kernel - plain| {err:.3e}")
+        if name not in rows:
+            src, rep = MX_KERNELS[name]
+            rows[name] = dict(name=name, route="cuda", source=src, replaces=rep, library_ms=None,
+                              **r)
+        else:
+            rows[name].setdefault("more", []).append(r)
+
+    def occupancy(name, cset):
+        return {lay: binding.occupancy(k, cset.num_clusters, cset.k, device)
+                for lay, k in (("exact", MX_EXACT[name]), ("mx", name))}
+
+    for name in ("glass_sphere", "large_mesh"):
+        s = scene_setup(name, {}, device)
+        cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+        mats = cset.mats_host
+        fb = binding.frame_buffer(device, uni, mats, lights)
+        pk = kc.prim_table(None, (0, 0), device)
+        geom = 4 * (cset.geom.numel() + cset.aabb_t.numel())
+        band = cfg.height
+        tag = tag_of(name, cfg)
+        glass = name == "glass_sphere"
+        st16 = kw.primary(cset, fb, cfg, band, *pk)
+        n_rays = st16.shape[1]
+        if glass:
+            ex, mx = turns(lambda: kw.primary(cset, fb, cfg, band, *pk),
+                           lambda: kw.primary(cset, fb, cfg, band, *pk, mxu="full"))
+            st_k = kw.primary(cset, fb, cfg, band, *pk, mxu="full")
+            kc.reset_work()
+            st_p, plain_ms = timed(lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band,
+                                                            *pk, mxu="full"))
+            work = dict(kc.WORK)
+            err = diff(st_k, st_p)[1]
+            hold_mx(f"{tag} primary_mx", cfg, st_k[:13], st_p[:13], int(st_k[kc.ROW_COUNT].sum()),
+                    int(st_p[kc.ROW_COUNT].sum()), n_rays)
+            add("primary_mx", tag, ex, mx, plain_ms, err,
+                mx_bound(work, geom + 4 * n_rays * 16), bmm_ms(cset, work["pair_tests"]),
+                occupancy("primary_mx", cset))
+            del st_k, st_p
+        for d in range(1, 2 if glass else cfg.max_depth):
+            idx, n_live = kw.compact(st16)
+            live = int(n_live)
+            copies = [st16.clone() for _ in range(12)]
+            ex, mx = turns(lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d, *pk),
+                           lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d, *pk,
+                                             mxu="full"))
+            at = f"{tag}, depth {d} ({live} live rays)"
+            st_k = st16.clone()
+            kw.bounce(st_k, idx, n_live, cset, fb, cfg, d, *pk, mxu="full")
+            if glass:  # the plain walk of large_mesh's 4M incoherent rays takes minutes
+                st_p = st16.clone()
+                kc.reset_work()
+                _, plain_ms = timed(lambda: tw.bounce_listed_stage(
+                    st_p, idx, n_live, cset, uni, mats, lights, cfg, d, *pk, mxu="full"))
+                work = dict(kc.WORK)
+                err = diff(st_k, st_p)[1]
+                hold_mx(f"{at} bounce_mx", cfg, st_k[:13], st_p[:13],
+                        int(st_k[kc.ROW_COUNT].sum()), int(st_p[kc.ROW_COUNT].sum()), n_rays)
+                bound = mx_bound(work, geom + 4 * live * (13 + 14 + 1) + 4)
+                bmm = bmm_ms(cset, work["pair_tests"])
+                del st_p
+            else:
+                plain_ms, err, bound, bmm = float("nan"), float("nan"), dict(
+                    bound_ms=float("nan"), bound_by="not measured", work={}), float("nan")
+            add("bounce_mx", at, ex, mx, plain_ms, err, bound, bmm, occupancy("bounce_mx", cset))
+            kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk)  # the next depth's input
+            del copies, st_k
+        if glass:
+            # At 256x256, where the plain version takes seconds (at full size
+            # minutes); then the full-size frame's launches in turns.
+            small = scene_setup(name, dict(resolution_override=(ORACLE_SIDE, ORACLE_SIDE)), device)
+            sfb = binding.frame_buffer(device, small["uni"], mats, small["lights"])
+            scfg = small["cfg"]
+            ex, mx = turns(lambda: km.megakernel(cset, sfb, scfg, scfg.height, *pk),
+                           lambda: km.megakernel(cset, sfb, scfg, scfg.height, *pk, mxu="full"))
+            out_k = km.megakernel(cset, sfb, scfg, scfg.height, *pk, mxu="full")
+            kc.reset_work()
+            out_p, plain_ms = timed(lambda: tm.megakernel_plain(
+                cset, small["uni"], mats, small["lights"], scfg, scfg.height, *pk, mxu="full"))
+            work = dict(kc.WORK)
+            err = diff(out_k, out_p)[1]
+            stag = tag_of(name, scfg)
+            hold_mx(f"{stag} megakernel_mx", scfg, out_k[:3], out_p[:3], int(out_k[3].sum()),
+                    int(out_p[3].sum()), scfg.width * scfg.height)
+            add("megakernel_mx", stag, ex, mx, plain_ms, err,
+                mx_bound(work, geom + 4 * 4 * scfg.width * scfg.height),
+                bmm_ms(cset, work["pair_tests"]), occupancy("megakernel_mx", cset))
+            ex, mx = turns(lambda: km.megakernel(cset, fb, cfg, band, *pk),
+                           lambda: km.megakernel(cset, fb, cfg, band, *pk, mxu="full"))
+            add("megakernel_mx", tag, ex, mx, float("nan"), float("nan"),
+                dict(bound_ms=float("nan"), bound_by="not measured", work={}), float("nan"),
+                occupancy("megakernel_mx", cset))
+        del st16, cset
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def mx_phase(device, card: str, full_size: bool = True) -> dict:
+    """Phase 11 (mx_probe_check, mx_stages, mx_frames, mx_kernel_times)."""
+    from cosig_tpu_torch.kernels import binding
+
+    out = {"probe": mx_probe_check(device), "small": mx_stages(device)}
+    out.update(mx_frames(device, card, full_size))
+    out["smem_bytes"] = {str(k): dict(exact=binding.library().cosig_tile_smem_bytes(k),
+                                      mx=binding.library().cosig_mx_smem_bytes(k))
+                         for k in (16, 32, 64, 128)}
+    log(f"  [{card}] block walk shared memory, exact and tensor-core layouts: {out['smem_bytes']}")
+    if full_size:
+        out["kernels"] = mx_kernel_times(device, card)
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b,
     "superblocks": {the same of the build with the superblock cull}}, ...},
-    the wavefront's other builds under their launch counters' names
-    (primary_fission, primary_shadow, bounce_shadow; shade_all, the shade
-    over every ray of the primary stage)."""
+    the other builds under their launch counters' names
+    (primary_fission, primary_shadow, bounce_shadow, primary_mx, bounce_mx,
+    megakernel_mx; shade_all, the shade over every ray of the primary
+    stage)."""
     import re
 
     names = {"primary_kernel": "primary", "bounce_kernel": "bounce", "trace_kernel": "trace",
@@ -2818,7 +3428,13 @@ def ptxas_resources(ptxas: str) -> dict:
             if name:
                 args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[int(m.group(1)):])
                 flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
-                if name == "primary" and flags[2:3] == [True]:
+                if name == "primary" and flags[3:4] == [True]:
+                    name = "primary_mx"
+                elif name == "bounce" and flags[2:3] == [True]:
+                    name = "bounce_mx"
+                elif name == "megakernel" and flags[1:2] == [True]:
+                    name = "megakernel_mx"
+                elif name == "primary" and flags[2:3] == [True]:
                     name = "primary_fission"
                 elif name in ("primary", "bounce") and flags[1:2] == [True]:
                     name += "_shadow"
@@ -2890,18 +3506,14 @@ def main(argv: list) -> int:
     path, build_s, ptxas = kbuild.build(force=True, verbose=True)
     log(f"kernels built in {build_s:.2f} s, one nvcc per source in parallel: "
         f"{os.path.relpath(path, here)}")
-    # The same build again, warm, one after another and in parallel.
-    serial_s = kbuild.build(force=True, parallel=False)[1]
-    parallel_s = kbuild.build(force=True)[1]
-    log(f"rebuilt warm: compiles one after another {serial_s:.2f} s, in parallel "
-        f"{parallel_s:.2f} s")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     resources = ptxas_resources(ptxas)
     check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug", "trace",
                              "shade", "shade_all", "primary_fission", "primary_shadow",
-                             "bounce_shadow"}, resources)
+                             "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx"},
+          resources)
     check_no_jax()
 
     t0 = time.perf_counter()
@@ -2938,6 +3550,9 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     phase10 = form_phase(device, card)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase11 = mx_phase(device, card)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -2975,6 +3590,15 @@ def main(argv: list) -> int:
                        "primary_shadow": "two block walks, one shared memory (handoff)",
                        "bounce_shadow": "two block walks, one shared memory (handoff)"}[k["name"]]
         kernels.append(k)
+    # The tensor-core builds: launches on phase 11's main path (its
+    # Renderer frames: warm-up, capture's warm-up and replays).
+    for k in phase11.pop("kernels"):
+        k["launches"] = phase11["launches"].get(k["name"], 0)
+        check(k["launches"] > 0, k["name"], "was not launched on its path")
+        k.update(resources[k["name"]])
+        k["design"] = ("block walk; per warp mma.sync m16n8k16 bf16 on limbs split in "
+                       "registers from the ring's f32 rows, a running winner per fragment row")
+        kernels.append(k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"oracle": oracle}))
@@ -2982,6 +3606,7 @@ def main(argv: list) -> int:
     log(json.dumps({"phase8": phase8}))
     log(json.dumps({"phase9": phase9}))
     log(json.dumps({"phase10": phase10}))
+    log(json.dumps({"phase11": phase11}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,14 @@ and run the exact pair test on the clusters it may enter.
 
 Kept from the JAX build, bit for bit: the auto-k rule and the explicit
 ``k``, leaf chunking and packing, gid-sorted rows, the inflated boxes,
-the NaN padding columns and the superblock unions. Dropped: the sub-cluster boxes (``sub_aabb_t``,
-never read by the traversal) and the TPU matrix-unit operands
-(``geom_mx``/``gatt``).
+the NaN padding columns, the superblock unions and the matrix-unit
+operand ``geom_mx`` of the tensor-core form of the pair test
+(:func:`pack_mx`). Dropped: the sub-cluster boxes (``sub_aabb_t``, never
+read by the traversal) and ``gatt``, the per-triangle attributes that the
+TPU kernel gathers for the winner by a one-hot contraction: that
+contraction rebuilds geom columns 25-35 exactly, and the port reads those
+columns of the winning row instead (``csrc/traverse.cuh``
+``finish_closest``, ``kernel_core.traverse``).
 
 Layout (same as the JAX package, so the two can share one structure):
 
@@ -21,7 +26,13 @@ Layout (same as the JAX package, so the two can share one structure):
 * ``aabb_t [8, C_pad]`` f32 — rows min.xyz / max.xyz, NaN padding columns;
 * ``sb_aabb_t [8, 128]`` f32 — unions of CULL_BLOCK-cluster superblocks;
 * ``mats [M, 8]`` f32 — color rgb, ambient, diffuse, specular, refraction, ior
-  (and ``mats_host``, the same table in numpy).
+  (and ``mats_host``, the same table in numpy);
+* ``geom_mx [C, 5K, 64]`` bf16 — the tensor-core form's operand
+  (:func:`pack_mx`): the JAX package's ``geom_mx [C, 6K, 64]`` without its
+  last row group, the gid plane, which only the TPU's chunk-level
+  selection reads. ``build_clusters`` packs it for a set whose geometry is
+  at most ``STREAM_THRESHOLD_BYTES``; a larger set (which the JAX package
+  streams, keeping the exact test) carries None.
 """
 
 from __future__ import annotations
@@ -60,6 +71,20 @@ GID_PAD = F32(2 ** 24)
 DEFAULT_K = 32
 AUTO_K_MAX_C = 256  # auto rule: double k while the cut is wider than this
 
+# The tensor-core form of the pair test (cosig_tpu/accel/clusters.py:70-103):
+# every f32 coefficient and ray input splits into three bf16 limbs (limbs),
+# and the limb products (j, k) with j + k <= 2 become contraction columns:
+# column ci * 10 + i of a plane's row holds limb j of coefficient i, the
+# ray's staged column limb k of input i (0:3 origin, 3:6 direction, 6:9
+# moment w = o x d, 9 the constant 1), for MX_COMBOS[ci] = (j, k).
+MX_COMBOS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+MX_COLS = 64  # 10 inputs x 6 combos, zero-padded
+MX_PLANES = 5  # va, vb, vc, s = d.n, num = nda - o.n (JAX's sixth, the gid plane, dropped)
+# Geometry above this many bytes streams on the TPU, which then keeps the
+# exact pair test (cosig_tpu/ops/kernel_core.py:90); the port applies the
+# same rule per stage.
+STREAM_THRESHOLD_BYTES = 6 * 1024 * 1024
+
 CULL_BLOCK = 512  # clusters per superblock
 MAX_SUPERBLOCKS = 128  # sb_aabb_t width
 MAX_CLUSTERS = MAX_SUPERBLOCKS * CULL_BLOCK  # 65,536: the most that sb_aabb_t covers
@@ -82,6 +107,8 @@ class ClusterSet:
     # The material table on the host, kept beside ``mats`` (on any device)
     # so that a frame packs its materials without a copy from the device.
     mats_host: np.ndarray = field(default=None, compare=False, repr=False)
+    # [C, 5K, 64] bf16 (pack_mx), or None (a set past STREAM_THRESHOLD_BYTES).
+    geom_mx: torch.Tensor = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.mats_host is None:
@@ -100,6 +127,17 @@ class ClusterSet:
     def device(self) -> torch.device:
         return self.geom.device
 
+    @property
+    def geom_bytes(self) -> int:
+        """Bytes of ``geom``, the size the streaming rule reads."""
+        return 4 * self.geom.numel()
+
+    @property
+    def streamed(self) -> bool:
+        """Whether the JAX package streams this set's geometry, and so keeps
+        the exact pair test where the tensor-core form is asked for."""
+        return self.geom_bytes > STREAM_THRESHOLD_BYTES
+
     def to(self, device) -> "ClusterSet":
         return replace(
             self,
@@ -107,23 +145,93 @@ class ClusterSet:
             aabb_t=self.aabb_t.to(device),
             sb_aabb_t=self.sb_aabb_t.to(device),
             mats=self.mats.to(device),
+            geom_mx=None if self.geom_mx is None else self.geom_mx.to(device),
         )
 
 
-def cluster_set_from_arrays(geom, aabb_t, sb_aabb_t, mats) -> ClusterSet:
+def cluster_set_from_arrays(geom, aabb_t, sb_aabb_t, mats, geom_mx=None) -> ClusterSet:
     """A ClusterSet over given numpy arrays (e.g. the JAX package's
     ``ClusterSet`` fields), on the CPU. Padding rows carry ``GID_PAD``, so
-    the real triangle count is the number of other rows."""
+    the real triangle count is the number of other rows. ``geom_mx``: the
+    tensor-core operand, [C, 5K, 64] or the JAX package's [C, 6K, 64] (its
+    gid plane is dropped), as bf16 (a torch tensor, or numpy of an ml_dtypes
+    bfloat16 or uint16 bit pattern); None leaves the set without it."""
     geom = np.ascontiguousarray(geom, F32)
     if geom.ndim != 3 or geom.shape[2] != GEOM_COMPS:
         raise ValueError(f"geom must be [C, K, {GEOM_COMPS}], got {geom.shape}")
+    c, k = geom.shape[:2]
+    if geom_mx is not None:
+        if not isinstance(geom_mx, torch.Tensor):
+            bits = np.ascontiguousarray(geom_mx)
+            if bits.dtype.itemsize != 2:
+                raise ValueError(f"geom_mx must hold bf16 values, got {bits.dtype}")
+            geom_mx = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+        if (geom_mx.dtype != torch.bfloat16 or geom_mx.dim() != 3 or geom_mx.shape[0] != c
+                or geom_mx.shape[1] not in (MX_PLANES * k, (MX_PLANES + 1) * k)
+                or geom_mx.shape[2] != MX_COLS):
+            raise ValueError(f"geom_mx must be bf16 [{c}, {MX_PLANES} * {k}, {MX_COLS}], got "
+                             f"{geom_mx.dtype} {tuple(geom_mx.shape)}")
+        geom_mx = geom_mx[:, :MX_PLANES * k].contiguous()
     return ClusterSet(
         geom=torch.from_numpy(geom.copy()),
         aabb_t=torch.from_numpy(np.array(aabb_t, F32)),
         sb_aabb_t=torch.from_numpy(np.array(sb_aabb_t, F32)),
         mats=torch.from_numpy(np.array(mats, F32)),
         num_triangles=int((geom[:, :, GID] != GID_PAD).sum()),
+        geom_mx=geom_mx,
     )
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> float32 rounded to bfloat16, to nearest even, by integer
+    operations on the bits (the same on every device and CPU build, and
+    ml_dtypes' and ``__float2bfloat16_rn``'s rounding: subnormals kept, a
+    NaN stays a quiet NaN)."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    r = torch.where((u & 0x7FFFFFFF) > 0x7F800000, (u | 0x00400000) & 0xFFFF0000, r)
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32).view(torch.float32)
+
+
+def limbs(a) -> tuple:
+    """Split float32 values (a tensor or an array) into three bf16 limbs ->
+    (l0, l1, l2) float32 tensors with a == l0 + l1 + l2 exactly: l0 the
+    value rounded to bf16, then each residual (an exact float32
+    subtraction) rounded the same way (cosig_tpu/accel/clusters.py:105)."""
+    a = a.to(torch.float32) if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, F32))
+    l0 = bf16_round(a)
+    r = a - l0
+    l1 = bf16_round(r)
+    return l0, l1, bf16_round(r - l1)
+
+
+def pack_mx(geom) -> torch.Tensor:
+    """The tensor-core operand of a finished geometry block [C, K, 36] (a
+    tensor or an array) -> bf16 [C, 5K, 64] on the CPU: per cluster the
+    row groups va, vb, vc, s and num of cosig_tpu/accel/clusters.py:119
+    ``_pack_mx``, bit for bit (its sixth, the gid plane, left out). Column
+    ci * 10 + i of a row holds limb MX_COMBOS[ci][0] of the row's
+    coefficient of input i; padding rows are zeros."""
+    g = (geom.to(torch.float32).cpu() if isinstance(geom, torch.Tensor)
+         else torch.from_numpy(np.array(geom, F32)))
+    c, k, _ = g.shape
+    coef = torch.zeros((c, MX_PLANES * k, 10), dtype=torch.float32)
+    coef[:, 0 * k:1 * k, 3:9] = g[:, :, VA:VA + 6]
+    coef[:, 1 * k:2 * k, 3:9] = g[:, :, VB:VB + 6]
+    coef[:, 2 * k:3 * k, 3:9] = g[:, :, VC:VC + 6]
+    coef[:, 3 * k:4 * k, 3:6] = g[:, :, GN:GN + 3]
+    coef[:, 4 * k:5 * k, 0:3] = -g[:, :, GN:GN + 3]
+    coef[:, 4 * k:5 * k, 9] = g[:, :, NDA]
+    lim = limbs(coef)
+    mx = torch.zeros((c, MX_PLANES * k, MX_COLS), dtype=torch.float32)
+    for ci, (j, _) in enumerate(MX_COMBOS):
+        mx[:, :, ci * 10:ci * 10 + 10] = lim[j]
+    return mx.to(torch.bfloat16)  # exact: every limb is a bf16 value
+
+
+def _geom_mx(geom: np.ndarray):
+    """pack_mx of a set the tensor-core form runs on, else None."""
+    return pack_mx(geom) if 4 * geom.size <= STREAM_THRESHOLD_BYTES else None
 
 
 def superblocks(n_clusters: int) -> int:
@@ -232,6 +340,7 @@ def build_clusters(tris: TriangleSoA, mats_host: np.ndarray, k: int | None = Non
             sb_aabb_t=torch.from_numpy(superblock_aabbs(aabb_t)),
             mats=mats,
             num_triangles=0,
+            geom_mx=_geom_mx(geom),
         )
 
     bvh, chunks = _cut(tris, k)
@@ -287,4 +396,5 @@ def build_clusters(tris: TriangleSoA, mats_host: np.ndarray, k: int | None = Non
         sb_aabb_t=torch.from_numpy(superblock_aabbs(aabb_t)),
         mats=mats,
         num_triangles=t,
+        geom_mx=_geom_mx(geom),
     )

@@ -38,10 +38,13 @@ constexpr int U_CAM = 0, U_DIST = 12, U_PLANE_H = 13, U_ORTHO = 14, U_BG = 15,
               U_INTENSITY = 18, U_LIGHT_SIZE = 19, U_ROUGHNESS = 20, U_SHUTTER = 21,
               U_ROW_OFF = 22, UNIFORMS_LEN = 25;
 
-// StaticConfig toggles as one runtime bitmask.
+// StaticConfig toggles as one runtime bitmask, and F_MX_SHADOW: in the
+// builds with the tensor-core pair test (MX), the shadow rays take it too
+// (full mode; without it closest-only mode, the JAX package's
+// COSIG_MXU_SHADOW=0).
 constexpr int F_AMBIENT = 1, F_DIFFUSE = 2, F_SPECULAR = 4, F_REFRACTION = 8,
               F_ORTHO = 16, F_SOFT_SHADOWS = 32, F_GLOSSY = 64, F_MOTION_BLUR = 128,
-              F_MULTI_LIGHT = 256;
+              F_MULTI_LIGHT = 256, F_MX_SHADOW = 512;
 
 constexpr int MAX_MATS = 64;
 constexpr int MAX_LIGHTS = 16;

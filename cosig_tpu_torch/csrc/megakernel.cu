@@ -1,7 +1,8 @@
 // The megakernel and the debug kernel, with plain C launchers for ctypes.
 //
 // megakernel replaces cosig_tpu/ops/trace_pallas.py _make_kernel
-// (:132-288): per pixel, every AA sample in order, each traced through up
+// (:132-288), megakernel<SB, true> its MXU form (the tensor-core pair
+// test, traverse_tile.cuh and mx_pair.cuh): per pixel, every AA sample in order, each traced through up
 // to max_depth bounces, then the colour mean and the per-pixel ray count.
 // On the TPU a grid step owns a 32x32 pixel tile, keeps the ray state in
 // VMEM and skips a bounce when no ray of the tile is alive; here one
@@ -59,7 +60,10 @@ __device__ __forceinline__ bool tile_pixel(const Frame& f, int& x, int& y) {
   return x < f.width && y < f.band;
 }
 
-template <bool SB>
+// MX: the tensor-core form of the pair test (traverse_tile.cuh), for the
+// closest hits and the shadow rays alike (the TPU megakernel's MXU form
+// has full mode only, trace_pallas.py:88-106).
+template <bool SB, bool MX = false>
 __global__ void __launch_bounds__(MEGA_THREADS)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -67,9 +71,10 @@ __global__ void __launch_bounds__(MEGA_THREADS)
                const float* __restrict__ prims, int n_sph, int n_box, int max_depth,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
+  if constexpr (MX) walk.mx_any = true;
 
   int x, y;
   const bool in_tile = tile_pixel(f, x, y);
@@ -178,7 +183,8 @@ inline int tile_blocks(const Frame& f) {
 
 extern "C" {
 
-// Blocks of the megakernel (which 0) or the debug kernel (1), in the
+// Blocks of the megakernel (which 0), the debug kernel (1) or the
+// megakernel with the tensor-core pair test (2), in the
 // build their launch picks for n_clusters clusters (with or without the
 // superblock cull), that one multiprocessor holds at once with the block
 // walk's shared memory for clusters of k rows,
@@ -187,6 +193,10 @@ extern "C" {
 int cosig_megakernel_occupancy(int which, int n_clusters, int k) {
   const int smem = (int)cosig::tile_layout(k).total;
   const bool sb = cosig::superblocks(n_clusters) > 0;
+  if (which == 2) {  // the build with the tensor-core pair test
+    return cosig::walk_occupancy(sb ? cosig::megakernel<true, true> : cosig::megakernel<false, true>,
+                                 (int)cosig::tile_layout(k, true).total);
+  }
   if (which == 0) {
     return cosig::walk_occupancy(sb ? cosig::megakernel<true> : cosig::megakernel<false>, smem);
   }
@@ -209,6 +219,21 @@ int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const 
                                  (int)cosig::tile_layout(k).total, (cudaStream_t)stream, *frame,
                                  geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
                                  max_depth, out);
+}
+
+// The megakernel with the tensor-core pair test (full mode), as above.
+int cosig_megakernel_mx_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
+                               const float* sb_aabb, int n_clusters, int k, int c_pad,
+                               const float* prims, int n_sph, int n_box, int max_depth,
+                               float* out, void* stream) {
+  if (frame->n_rays <= 0) return 0;
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::megakernel<true, true>
+                                                         : cosig::megakernel<false, true>;
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
+                                 (int)cosig::tile_layout(k, true).total, (cudaStream_t)stream,
+                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
+                                 n_box, max_depth, out);
 }
 
 int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float* aabb,

@@ -1,0 +1,155 @@
+// The wavefront's builds with the tensor-core form of the pair test
+// (primary_kernel<SB, false, false, true>, bounce_kernel<SB, false, true>:
+// the TPU kernels' MXU form, mx_pair.cuh), and mx_probe_kernel, which runs
+// the same device functions on one cluster and a list of rays and writes
+// out the geometry limbs and the five planes, for phase 11 of
+// chip_smoke.py; with plain C launchers for ctypes. A translation unit of
+// its own, so that nvcc builds it beside wavefront.cu and forms.cu, in
+// parallel. Closest-only mode is the same build without F_MX_SHADOW in
+// the frame's flags.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// --fmad=false (cosig_tpu_torch/kernels/build.py).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wavefront.cuh"
+
+namespace cosig {
+
+// The geometry limb j of MX_COMBOS[ci] ((0,0),(0,1),(1,0),(0,2),(1,1),(2,0)).
+__device__ __forceinline__ int combo_j(int ci) { return ci == 2 || ci == 4 ? 1 : ci == 5 ? 2 : 0; }
+
+// One block of four warps, 32 rays each (ray i = blockIdx.x * 128 +
+// threadIdx.x; zeros past n): the cluster's k rows [k, GEOM_COMPS] into
+// shared memory, each warp's ray operand staged (mx_stage), every n-tile's
+// geometry operand split (mx_load_b) and the planes multiplied
+// (mx_planes), as the block walk does. Out: planes f32 [5, k, n] (va, vb,
+// vc, s, num) and, from block 0, the geometry limbs as bf16 bits in the
+// layout of clusters.pack_mx, [5 k, 64] (the caller zeroes it: only the
+// columns of each plane's inputs are written).
+__global__ void __launch_bounds__(TILE_THREADS)
+    mx_probe_kernel(const float* __restrict__ geom, int k, const float* __restrict__ rays, int n,
+                    unsigned short* __restrict__ limbs, float* __restrict__ planes) {
+  extern __shared__ __align__(128) unsigned char probe_smem[];
+  float* rows = reinterpret_cast<float*>(probe_smem);
+  unsigned* frag = reinterpret_cast<unsigned*>(probe_smem + 16 * ((k * GEOM_COMPS * 4 + 15) / 16)) +
+                   (threadIdx.x >> 5) * MX_WARP_WORDS;
+  for (int j = threadIdx.x; j < k * GEOM_COMPS; j += TILE_THREADS) rows[j] = geom[j];
+  __syncthreads();
+  const int i = blockIdx.x * TILE_THREADS + threadIdx.x;
+  const bool in = i < n;
+  const Ray r = make_ray(in ? rays[0 * n + i] : 0.0f, in ? rays[1 * n + i] : 0.0f,
+                         in ? rays[2 * n + i] : 0.0f, in ? rays[3 * n + i] : 0.0f,
+                         in ? rays[4 * n + i] : 0.0f, in ? rays[5 * n + i] : 0.0f);
+  float mt[2][2];
+  mx_stage(r, INF, frag, mt);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ray0 = blockIdx.x * TILE_THREADS + (threadIdx.x & ~31);
+  for (int nt = 0; MX_TILE_ROWS * nt < k; ++nt) {
+    unsigned bf[5][3];
+    mx_load_b(rows, k, nt, bf);
+    const int row = MX_TILE_ROWS * nt + g;
+    if (blockIdx.x == 0 && threadIdx.x < 32 && row < k) {
+      for (int p = 0; p < 5; ++p) {
+        for (int ci = 0; ci < 6; ++ci) {
+          for (int e = 0; e < 2; ++e) {
+            const int q = 2 * t + e;  // slot: X = d, w (planes 0-3), Z = o, 1 (num)
+            const int input = p < 4 ? (q < 6 ? 3 + q : -1) : (q < 3 ? q : q == 3 ? 9 : -1);
+            if (input < 0) continue;
+            limbs[(p * k + row) * 64 + ci * 10 + input] =
+                (unsigned short)((bf[p][combo_j(ci)] >> (16 * e)) & 0xffffu);
+          }
+        }
+      }
+    }
+    for (int m = 0; m < 2; ++m) {
+      unsigned ax[MX_REGS], az[MX_REGS];
+      mx_load_a(frag, m, ax, az);
+      float d[5][4];
+      mx_planes(ax, az, bf, d);
+      for (int e = 0; e < 4; ++e) {
+        const int ray = ray0 + 16 * m + g + 8 * (e >> 1);
+        const int rw = MX_TILE_ROWS * nt + 2 * t + (e & 1);
+        if (ray >= n || rw >= k) continue;
+        for (int p = 0; p < 5; ++p) planes[((size_t)p * k + rw) * n + ray] = d[p][e];
+      }
+    }
+  }
+}
+
+}  // namespace cosig
+
+extern "C" {
+
+// Dynamic shared memory of a block walk over clusters of k rows in the
+// tensor-core builds.
+int cosig_mx_smem_bytes(int k) { return (int)cosig::tile_layout(k, true).total; }
+
+// Blocks of the tensor-core primary (which 0) or bounce (1) that one
+// multiprocessor holds at once, in the build its launch picks for
+// n_clusters clusters of k rows; minus the CUDA error if refused.
+int cosig_mx_occupancy(int which, int n_clusters, int k) {
+  const int smem = (int)cosig::tile_layout(k, true).total;
+  const bool sb = cosig::superblocks(n_clusters) > 0;
+  if (which == 0) {
+    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true, false, false, true>
+                                    : cosig::primary_kernel<false, false, false, true>,
+                                 smem);
+  }
+  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true, false, true>
+                                  : cosig::bounce_kernel<false, false, true>,
+                               smem);
+}
+
+// The primary stage with the tensor-core pair test into state f32 [16,
+// n_rays]; its shadow rays take it when frame->flags has F_MX_SHADOW.
+int cosig_primary_mx_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
+                            const float* sb_aabb, int n_clusters, int k, int c_pad,
+                            const float* prims, int n_sph, int n_box, float* state,
+                            void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
+  const auto kernel = cosig::superblocks(n_clusters) > 0
+                          ? cosig::primary_kernel<true, false, false, true>
+                          : cosig::primary_kernel<false, false, false, true>;
+  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k, true).total,
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
+                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, state);
+}
+
+// One bounce with the tensor-core pair test on the listed rays idx[0 ..
+// *n_live) of state f32 [16, n_rays].
+int cosig_bounce_mx_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
+                           const float* sb_aabb, int n_clusters, int k, int c_pad,
+                           const float* prims, int n_sph, int n_box, const int* idx,
+                           const int* n_live, float* state, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
+  const auto kernel = cosig::superblocks(n_clusters) > 0
+                          ? cosig::bounce_kernel<true, false, true>
+                          : cosig::bounce_kernel<false, false, true>;
+  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k, true).total,
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
+                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, idx, n_live,
+                                 state);
+}
+
+// mx_probe_kernel on one cluster geom f32 [k, 36] and rays f32 [6, n]
+// (origin, direction) -> limbs (bf16 bits [5 k, 64], zeroed by the
+// caller) and planes f32 [5, k, n].
+int cosig_mx_probe_launch(const float* geom, int k, const float* rays, int n,
+                          unsigned short* limbs, float* planes, void* stream) {
+  if (k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = 16 * ((k * cosig::GEOM_COMPS * 4 + 15) / 16) +
+                   cosig::TILE_WARPS * cosig::MX_WARP_BYTES;
+  const int blocks = (n + cosig::TILE_THREADS - 1) / cosig::TILE_THREADS;
+  return (int)cosig::launch_walk(cosig::mx_probe_kernel, blocks, smem, (cudaStream_t)stream,
+                                 geom, k, rays, n, limbs, planes);
+}
+
+}  // extern "C"

@@ -60,13 +60,21 @@
 // after its first occluder, so the bound's count (kernel_core.WORK,
 // shadow rays up to their first occluder) stays a floor. The per-pair
 // arithmetic is traverse.cuh's: box_pass, pair_test and finish_closest
-// unchanged. Not tensor cores: the three edge volumes per pair are a small
-// matrix product (the TPU had an MXU form), but wgmma accumulates in its
-// own order and rounds its inputs to TF32 or bf16, so it would keep
-// neither the Plücker chain order nor the unfused float32 roundings that
-// make these kernels bit-equal to their plain versions.
+// unchanged.
+//
+// MX (BlockWalk<SB, true>): the same walk with the tensor-core form of the
+// pair test in step 3 (mx_pair.cuh, the TPU's MXU form): each warp stages
+// its rays' limbs once per walk (mx_stage, tile_layout's mx region), runs
+// mma.sync on every listed cluster's rows as they land in the ring (the
+// per-warp ballot branch is already warp-uniform; lanes outside the box
+// take part in the mma but do not fold), keeps a running winner per
+// fragment row, and hands each ray its winner at the end (mx_finish). The
+// any hit takes that form when mx_any is set (full mode), else the exact
+// test (closest-only mode, a runtime flag of the same build). The exact
+// builds keep their code: every MX branch is `if constexpr`.
 #pragma once
 
+#include "mx_pair.cuh"
 #include "traverse.cuh"
 
 namespace cosig {
@@ -85,12 +93,13 @@ constexpr int HULL_SLOTS = 16;  // a warp's partial hull: 13 floats and the flag
 // frustum candidates (the clusters of a pass the block's hull passes, in
 // order) and their flag words, the warps' partial hulls
 // [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers and the two
-// list lengths. Every offset is a multiple of 16.
+// list lengths, and with `mx` the warps' staged ray operands
+// (mx_pair.cuh, MX_WARP_BYTES a warp). Every offset is a multiple of 16.
 struct TileLayout {
-  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, total;
+  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, mxa, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int k) {
+__host__ __device__ inline TileLayout tile_layout(int k, bool mx = false) {
   TileLayout l;
   l.ring = 0;
   l.boxes = (unsigned)(RING_STAGES * k * ROW_BYTES);
@@ -102,7 +111,8 @@ __host__ __device__ inline TileLayout tile_layout(int k) {
   l.hull = l.partial + TILE_WARPS * HULL_SLOTS * 4;
   l.bars = l.hull + 16 * (((unsigned)sizeof(Hull) + 4 + 15) / 16);
   l.count = l.bars + 16 * ((RING_STAGES * 8 + 15) / 16);
-  l.total = l.count + 16;
+  l.mxa = l.count + 16;
+  l.total = l.mxa + (mx ? (unsigned)(TILE_WARPS * MX_WARP_BYTES) : 0u);
   return l;
 }
 
@@ -183,13 +193,14 @@ __device__ __forceinline__ PairRow row_smem(const float4* p) {
 // ways and its launch picks SB = (superblocks(n_clusters) > 0), so that a
 // scene of at most 512 clusters (or past 65,536, where the walk is flat)
 // runs none of its code: present but unused, it cost the bounce 2-3 %
-// (PERF.md).
-template <bool SB>
+// (PERF.md). MX: the tensor-core form of the pair test (see the top).
+template <bool SB, bool MX = false>
 struct BlockWalk {
   Geometry g;
-  unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(g.k)
+  unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(g.k, MX)
   unsigned seq;  // bulk copies issued so far; the same in every thread
   bool sb_open;  // some ray of the block enters the current superblock; the same in every thread
+  bool mx_any;  // MX: the any hit takes the tensor-core form too (full mode); the same in every thread
 
   // Every thread of the block, once, before the first walk.
   __device__ __forceinline__ void init(const Geometry& geo, unsigned char* base) {
@@ -197,6 +208,7 @@ struct BlockWalk {
     smem = base;
     seq = 0;
     sb_open = true;
+    mx_any = false;
     if (threadIdx.x == 0) {
       for (int s = 0; s < RING_STAGES; ++s) mbar_init(smem_u32(smem + lay().bars + 8 * s), 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -205,7 +217,7 @@ struct BlockWalk {
     __syncthreads();
   }
 
-  __device__ __forceinline__ TileLayout lay() const { return tile_layout(g.k); }
+  __device__ __forceinline__ TileLayout lay() const { return tile_layout(g.k, MX); }
   __device__ __forceinline__ int lane() const { return threadIdx.x & 31; }
   __device__ __forceinline__ int warp() const { return threadIdx.x >> 5; }
 
@@ -223,6 +235,10 @@ struct BlockWalk {
   }
   __device__ __forceinline__ Hull* hull() const {
     return reinterpret_cast<Hull*>(smem + lay().hull);
+  }
+  // MX: this warp's staged ray operand.
+  __device__ __forceinline__ unsigned* mx_frag() const {
+    return reinterpret_cast<unsigned*>(smem + lay().mxa) + warp() * MX_WARP_WORDS;
   }
 
   // The block's hull of the rays with `in` set, into shared memory ->
@@ -447,6 +463,13 @@ struct BlockWalk {
                                          float dz, bool active, bool frustum) {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     Best b = no_hit();
+    Best bm[2][2];  // MX: the running winners of the lane's fragment rows
+    float mt_unused[2][2];
+    if constexpr (MX) {
+      for (int m = 0; m < 2; ++m)
+        for (int h = 0; h < 2; ++h) bm[m][h] = no_hit();
+      mx_stage(r, INF, mx_frag(), mt_unused);
+    }
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
@@ -468,11 +491,15 @@ struct BlockWalk {
           const float4* rows =
               reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);
           const int row0 = (c0 + c) * g.k;
-          for (int k = 0; k < g.k; ++k) {
-            const float4* p = rows + 9 * k;
-            const float gid = p[8].w;
-            if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
-            if (mine) fold_pair(b, row_smem(p), gid, r, row0 + k);
+          if constexpr (MX) {
+            mx_closest_cluster(reinterpret_cast<const float*>(rows), g.k, row0, w, mx_frag(), bm);
+          } else {
+            for (int k = 0; k < g.k; ++k) {
+              const float4* p = rows + 9 * k;
+              const float gid = p[8].w;
+              if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
+              if (mine) fold_pair(b, row_smem(p), gid, r, row0 + k);
+            }
           }
         }
         __syncthreads();  // every warp is done with this slot
@@ -483,6 +510,7 @@ struct BlockWalk {
       }
       seq = base + m;
     }
+    if constexpr (MX) b = mx_finish(bm);
     return finish_closest(g, r, b);
   }
 
@@ -492,6 +520,10 @@ struct BlockWalk {
                                       float dz, float max_t, bool active, bool frustum) {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     bool walking = active;  // active and no occluder found yet
+    float mt[2][2];  // MX: max_t of the lane's fragment rows
+    if constexpr (MX) {
+      if (mx_any) mx_stage(r, max_t, mx_frag(), mt);
+    }
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
@@ -515,7 +547,16 @@ struct BlockWalk {
         const unsigned entered = bal[c * TILE_WARPS + warp()];
         if (entered != 0u) wait_copy(q);
         const unsigned w = entered & __ballot_sync(FULL_MASK, walking);
-        if (w != 0u) {
+        bool mx_done = false;
+        if constexpr (MX) {
+          if (mx_any && w != 0u) {
+            mx_any_cluster(
+                reinterpret_cast<const float*>(smem + lay().ring + (q % RING_STAGES) * bytes),
+                g.k, w, mx_frag(), mt, walking);
+            mx_done = true;
+          }
+        }
+        if (w != 0u && !mx_done) {
           bool mine = (w >> lane()) & 1u;
           const float4* rows =
               reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);

@@ -39,7 +39,9 @@
 // are the survivors, sparse in pixel order, so the bounce walks the list,
 // whose 128 consecutive entries are all live and mostly of one octant.
 // Threads past n_rays or past the list, and rays of rows past the image,
-// take part in the walk inactive. No tensor cores: see traverse_tile.cuh.
+// take part in the walk inactive. The builds with the tensor-core form of
+// the pair test (MX, traverse_tile.cuh and mx_pair.cuh; instantiated by
+// mx.cu) replace the TPU kernels' MXU form of the same stages.
 //
 // The fission form and the separate shadow set (cosig_tpu/ops/
 // trace_wavefront.py:115-135, :247-267, :716-888), the TPU kernel forms
@@ -141,8 +143,10 @@ __device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
 
 // SH: the shadow rays walk the cluster set `sh`; FISSION: stop after the
 // trace and store the hit record (24-row state). Not both: the fission
-// primary traces no shadow ray.
-template <bool SB, bool SH, bool FISSION>
+// primary traces no shadow ray. MX: the tensor-core form of the pair test
+// (traverse_tile.cuh), neither SH nor FISSION; its shadow rays take it
+// when the frame has F_MX_SHADOW.
+template <bool SB, bool SH, bool FISSION, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                    const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -150,10 +154,12 @@ __global__ void __launch_bounds__(THREADS)
                    const float* __restrict__ prims, int n_sph, int n_box,
                    const __grid_constant__ Geometry sh, float* __restrict__ state) {
   static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
+  static_assert(!(MX && (SH || FISSION)), "the tensor-core form has no fission or shadow-set build");
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
+  if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = f.n_rays;
@@ -223,8 +229,9 @@ __device__ __forceinline__ RayState load(const float* __restrict__ state, int n,
   return st;
 }
 
-// SH: the shadow rays walk the cluster set `sh`.
-template <bool SB, bool SH>
+// SH: the shadow rays walk the cluster set `sh`; MX: the tensor-core form
+// (not with SH), its shadow rays too when the frame has F_MX_SHADOW.
+template <bool SB, bool SH, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -235,10 +242,12 @@ __global__ void __launch_bounds__(THREADS)
                   float* __restrict__ state) {
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
+  static_assert(!(MX && SH), "the tensor-core form has no shadow-set build");
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
+  if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   const int n = f.n_rays;
   const int j = blockIdx.x * THREADS + threadIdx.x;

@@ -19,8 +19,9 @@ renders another camera without a new capture
 ``bounce``, ``trace``, ``shade``, ``megakernel``, ``debug``; the
 wavefront's other builds apart: ``primary_fission``, the primary that
 stops after its trace, and ``primary_shadow``/``bounce_shadow``, the
-builds whose shadow rays walk a separate cluster set) and graph replays
-(``graph``);
+builds whose shadow rays walk a separate cluster set; the builds with the
+tensor-core pair test ``primary_mx``, ``bounce_mx`` and ``megakernel_mx``,
+in full and closest-only mode alike) and graph replays (``graph``);
 each wrapper of :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
 kernel, a replay adds the kernels its graph holds and one ``graph``, and
@@ -61,9 +62,12 @@ _FLAGS = (
     ("enable_motion_blur", 128),
     ("multi_light", 256),
 )
+# The tensor-core builds' shadow rays take that form too (full mode).
+F_MX_SHADOW = 512
 
 LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "trace": 0, "shade": 0,
             "primary_fission": 0, "primary_shadow": 0, "bounce_shadow": 0,
+            "primary_mx": 0, "bounce_mx": 0, "megakernel_mx": 0,
             "megakernel": 0, "debug": 0, "graph": 0}
 
 
@@ -178,14 +182,15 @@ def frame_buffer(device, uniforms: np.ndarray, mats: np.ndarray,
 
 
 def make_frame(cfg: StaticConfig, buffer: FrameBuffer, band: int, depth: int, is_last: bool,
-               n_rays: int | None = None) -> Frame:
+               n_rays: int | None = None, mx_shadow: bool = False) -> Frame:
     """The parameters of one kernel launch that reads ``buffer``'s frame
     data; ``n_rays`` is its thread count (default: the wavefront's rays in
-    ``band`` rows)."""
+    ``band`` rows); ``mx_shadow``: a tensor-core build's shadow rays take
+    that form too (F_MX_SHADOW)."""
     aa = max(1, cfg.aa_samples)
     grid_w, grid_h = camera.aa_grid(aa)
     f = Frame()
-    f.flags = config_flags(cfg)
+    f.flags = config_flags(cfg) | (F_MX_SHADOW if mx_shadow else 0)
     f.width, f.height, f.band = cfg.width, cfg.height, band
     f.aa, f.grid_w, f.grid_h = aa, grid_w, grid_h
     f.aspect = float(F32(cfg.width / cfg.height))
@@ -197,7 +202,7 @@ def make_frame(cfg: StaticConfig, buffer: FrameBuffer, band: int, depth: int, is
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library (all seven kernels)."""
+    """Build (if needed) and load the kernel library (all its kernels)."""
     path, _, _ = kbuild.build()
     lib = ctypes.CDLL(path)
     # frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box
@@ -210,6 +215,9 @@ def library() -> ctypes.CDLL:
     for name, extra in (
         ("cosig_primary_launch", []),  # state, stream
         ("cosig_bounce_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_primary_mx_launch", []),  # state, stream
+        ("cosig_bounce_mx_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_megakernel_mx_launch", [i32]),  # max_depth, out, stream
         ("cosig_primary_form_launch", [i32] + shadow),  # fission, shadow set, state, stream
         ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
         ("cosig_trace_launch", [ptr, ptr]),  # idx, n_live, state, stream
@@ -226,9 +234,14 @@ def library() -> ctypes.CDLL:
     # n, &blocks, &range
     lib.cosig_compact_grid.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.cosig_compact_grid.restype = i32
-    lib.cosig_tile_smem_bytes.argtypes = [i32]
-    lib.cosig_tile_smem_bytes.restype = i32
-    for name in ("cosig_wavefront_occupancy", "cosig_megakernel_occupancy"):
+    for name in ("cosig_tile_smem_bytes", "cosig_mx_smem_bytes"):
+        getattr(lib, name).argtypes = [i32]  # k
+        getattr(lib, name).restype = i32
+    # geom, k, rays, n, limbs, planes, stream
+    lib.cosig_mx_probe_launch.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr]
+    lib.cosig_mx_probe_launch.restype = i32
+    for name in ("cosig_wavefront_occupancy", "cosig_megakernel_occupancy",
+                 "cosig_mx_occupancy"):
         getattr(lib, name).argtypes = [i32, i32, i32]  # which, n_clusters, k
         getattr(lib, name).restype = i32
     lib.cosig_form_occupancy.argtypes = [i32, i32, i32, i32]  # which, n_clusters, k, shadow k
@@ -344,13 +357,17 @@ _OCCUPANCY = {"primary": ("cosig_wavefront_occupancy", 0),
               "bounce_shadow": ("cosig_form_occupancy", 1),
               "primary_fission": ("cosig_form_occupancy", 2),
               "trace": ("cosig_form_occupancy", 3),
-              "shade": ("cosig_form_occupancy", 4)}
+              "shade": ("cosig_form_occupancy", 4),
+              "primary_mx": ("cosig_mx_occupancy", 0),
+              "bounce_mx": ("cosig_mx_occupancy", 1),
+              "megakernel_mx": ("cosig_megakernel_occupancy", 2)}
 
 
 def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k: int = 0) -> int:
     """Blocks of ray kernel ``kernel`` (primary, bounce, megakernel, debug,
-    and the wavefront's other builds: primary_shadow, bounce_shadow,
-    primary_fission, trace, shade), in the build its launch picks for
+    the wavefront's other builds: primary_shadow, bounce_shadow,
+    primary_fission, trace, shade, and the tensor-core builds primary_mx,
+    bounce_mx, megakernel_mx), in the build its launch picks for
     ``n_clusters`` clusters (with the superblock cull where
     :func:`~cosig_tpu_torch.accel.clusters.superblocks` is above 0), that
     one multiprocessor of ``dev`` holds at once with the block walk's
@@ -364,6 +381,28 @@ def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k:
     if blocks <= 0:
         raise RuntimeError(f"{kernel} kernel at k = {k}: CUDA error {-blocks}")
     return blocks
+
+
+def mx_probe(geom: torch.Tensor, rays: torch.Tensor) -> tuple:
+    """The tensor-core form's device functions on one cluster ``geom`` f32
+    [k, 36] and rays f32 [6, n] (origin, direction), both contiguous on a
+    card (csrc/mx.cu mx_probe_kernel) -> (limbs, planes): the geometry
+    limbs as bf16 [5 k, 64] in the layout of ``clusters.pack_mx`` and the
+    planes f32 [5, k, n] (va, vb, vc, s, num). A check's entry, not a
+    kernel of a path: it counts no launch."""
+    dev = geom.device
+    for what, t in (("geom", geom), ("rays", rays)):
+        if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.dim() != 2:
+            raise ValueError(f"{what} must be a contiguous float32 matrix on a card")
+    k, n = int(geom.shape[0]), int(rays.shape[1])
+    if geom.shape[1] != GEOM_COMPS or rays.shape[0] != 6 or k == 0 or n == 0:
+        raise ValueError(f"geom must be [k, {GEOM_COMPS}] and rays [6, n], got "
+                         f"{tuple(geom.shape)} and {tuple(rays.shape)}")
+    limbs = torch.zeros((5 * k, 64), dtype=torch.int16, device=dev)
+    planes = torch.empty((5, k, n), dtype=torch.float32, device=dev)
+    _call("cosig_mx_probe_launch", dev, geom, k, rays, n, limbs, planes)
+    return limbs.view(torch.bfloat16), planes
 
 
 @functools.lru_cache(maxsize=64)

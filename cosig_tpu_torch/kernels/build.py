@@ -3,8 +3,9 @@
 ``nvcc`` compiles each kernel source of ``cosig_tpu_torch/csrc``
 (``wavefront.cu``: the primary, compaction and bounce kernels;
 ``forms.cu``: the wavefront's fission builds, trace and shade kernels
-and shadow-set builds; ``megakernel.cu``: the megakernel and the debug
-kernel; with their headers) for Hopper, one ``nvcc`` per source, all started at once, and
+and shadow-set builds; ``mx.cu``: the primary and bounce builds with the
+tensor-core pair test and its probe; ``megakernel.cu``: the megakernel
+in both forms of the pair test and the debug kernel; with their headers) for Hopper, one ``nvcc`` per source, all started at once, and
 links the objects into
 ``cosig_tpu_torch/build/libcosig_kernels_<hash>.so``, a plain C library
 that :mod:`cosig_tpu_torch.kernels.binding` binds with ctypes. The hash
@@ -30,9 +31,10 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("rng.cuh", "traverse.cuh", "traverse_tile.cuh", "bounce.cuh", "camera.cuh",
-           "wavefront.cuh", "wavefront.cu", "forms.cu", "megakernel.cu")
-KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "megakernel.cu")  # one nvcc each, then one link
+SOURCES = ("rng.cuh", "traverse.cuh", "mx_pair.cuh", "traverse_tile.cuh", "bounce.cuh",
+           "camera.cuh", "wavefront.cuh", "wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
+# One nvcc each, then one link.
+KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

@@ -8,7 +8,9 @@ on the current stream, without synchronising, count the launch in
 :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and raise if the launch
 is refused; on the CPU they run the plain PyTorch version
 (:mod:`cosig_tpu_torch.ops.trace_megakernel`) and count nothing. There is
-no fallback from a CUDA tensor to the plain version.
+no fallback from a CUDA tensor to the plain version. ``megakernel(mxu=
+"full")`` launches the build with the tensor-core pair test (counter
+``megakernel_mx``) where :func:`kernel_core.mxu_mode` keeps it for the set.
 """
 
 from __future__ import annotations
@@ -18,18 +20,20 @@ import torch
 from cosig_tpu_torch.accel.clusters import ClusterSet
 from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
-from cosig_tpu_torch.ops import trace_megakernel
+from cosig_tpu_torch.ops import kernel_core, trace_megakernel
 
 
 def megakernel(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
-               prims: torch.Tensor, n_sph: int, n_box: int) -> torch.Tensor:
+               prims: torch.Tensor, n_sph: int, n_box: int, mxu: str = "off") -> torch.Tensor:
     """Render ``band`` rows -> f32 [4, band * W] (rgb mean, ray count) on the
     cluster set's device. ``prims``: the table of
-    :func:`cosig_tpu_torch.ops.kernel_core.prim_table`."""
+    :func:`cosig_tpu_torch.ops.kernel_core.prim_table`; ``mxu``: ``"off"``
+    or ``"full"``, the pair test's form."""
     dev = cset.device
+    trace_megakernel.check_mxu(mxu)
     if dev.type == "cpu":
         return trace_megakernel.megakernel_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg,
-                                                 band, prims, n_sph, n_box)
+                                                 band, prims, n_sph, n_box, mxu=mxu)
     if dev.type != "cuda":
         raise ValueError(f"no megakernel for device {dev}")
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
@@ -39,6 +43,11 @@ def megakernel(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, ban
     n = band * cfg.width
     frame = binding.make_frame(cfg, fb, band, 0, False, n_rays=n)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    if kernel_core.mxu_mode(cset, mxu) != "off":
+        binding.launch("cosig_megakernel_mx_launch", frame, cset, prims, n_sph, n_box, out,
+                       cfg.max_depth)
+        binding.LAUNCHES["megakernel_mx"] += 1
+        return out
     binding.launch("cosig_megakernel_launch", frame, cset, prims, n_sph, n_box, out,
                    cfg.max_depth)
     binding.LAUNCHES["megakernel"] += 1

@@ -14,7 +14,11 @@ A bounce stage is ``compact`` then ``bounce`` on its list: the list and
 its length stay on the device, so the host never waits for them. In the
 fission form it is ``compact``, then ``trace`` and ``shade`` on the same
 list, on a 24-row state that ``primary(..., fission=True)`` makes and a
-``shade`` over every ray finishes.
+``shade`` over every ray finishes. ``primary`` and ``bounce`` take
+``mxu`` (``"off"``, ``"full"``, ``"closest"``): the builds with the
+tensor-core pair test (``csrc/mx.cu``; counters ``primary_mx`` and
+``bounce_mx`` in both modes) where :func:`kernel_core.mxu_mode` keeps it
+for the set, else the exact builds.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from cosig_tpu_torch.accel.clusters import ClusterSet
 from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
-from cosig_tpu_torch.ops import trace_wavefront
+from cosig_tpu_torch.ops import kernel_core, trace_wavefront
 from cosig_tpu_torch.ops.kernel_core import FISSION_ROWS, STATE_ROWS, state_rows
 
 
@@ -35,26 +39,32 @@ def _device(name: str, dev: torch.device) -> None:
 
 def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
             prims: torch.Tensor, n_sph: int, n_box: int, fission: bool = False,
-            cset_shadow=None) -> torch.Tensor:
+            cset_shadow=None, mxu: str = "off") -> torch.Tensor:
     """Primary stage -> state f32 [16, N] on the cluster set's device.
     ``prims``: the table of :func:`cosig_tpu_torch.ops.kernel_core.prim_table`.
     ``fission``: the build that stops after the trace -> state f32 [24, N]
     with the hit record in rows 15-19; ``cset_shadow``: the build whose
-    shadow rays walk that cluster set."""
+    shadow rays walk that cluster set; ``mxu``: the pair test's form."""
     dev = cset.device
     if fission and cset_shadow is not None:
         raise ValueError("the fission primary traces no shadow rays: pass cset_shadow to shade")
+    trace_wavefront.check_mxu(mxu, fission, cset_shadow)
     if dev.type == "cpu":
         return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
                                              prims, n_sph, n_box, fission=fission,
-                                             cset_shadow=cset_shadow)
+                                             cset_shadow=cset_shadow, mxu=mxu)
     _device("primary", dev)
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
     binding.check_buffer(fb, dev)
     if cset_shadow is not None:
         binding.check_shadow_set(cset_shadow, dev)
-    frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1)
+    mxu = kernel_core.mxu_mode(cset, mxu)
+    frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1, mx_shadow=mxu == "full")
     state = torch.empty((state_rows(fission), frame.n_rays), dtype=torch.float32, device=dev)
+    if mxu != "off":
+        binding.launch("cosig_primary_mx_launch", frame, cset, prims, n_sph, n_box, state)
+        binding.LAUNCHES["primary_mx"] += 1
+        return state
     if fission or cset_shadow is not None:
         binding.launch("cosig_primary_form_launch", frame, cset, prims, n_sph, n_box, state,
                        int(fission), *binding.shadow_args(cset_shadow))
@@ -94,7 +104,8 @@ def compact(state: torch.Tensor) -> tuple:
     return idx, n_live
 
 
-def _check_stage(name, state, idx, n_live, cset, fb, cfg, depth, prims, n_sph, n_box, rows):
+def _check_stage(name, state, idx, n_live, cset, fb, cfg, depth, prims, n_sph, n_box, rows,
+                 mx_shadow=False):
     """The checks of a bounce-stage launch -> its Frame."""
     dev = state.device
     _device(name, dev)
@@ -110,24 +121,32 @@ def _check_stage(name, state, idx, n_live, cset, fb, cfg, depth, prims, n_sph, n
                 or tuple(t.shape) != shape):
             raise ValueError(f"{what} must be contiguous int32 {list(shape)} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    return binding.make_frame(cfg, fb, n // per_row, depth, depth == cfg.max_depth - 1)
+    return binding.make_frame(cfg, fb, n // per_row, depth, depth == cfg.max_depth - 1,
+                              mx_shadow=mx_shadow)
 
 
 def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
            fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
-           n_sph: int, n_box: int, cset_shadow=None) -> None:
+           n_sph: int, n_box: int, cset_shadow=None, mxu: str = "off") -> None:
     """One bounce stage at ``depth`` (1 .. max_depth-1) on the listed rays
     ``idx[:n_live]`` of ``state``, in place (``idx``, ``n_live``: from
     :func:`compact`); ``cset_shadow``: the build whose shadow rays walk
-    that cluster set."""
+    that cluster set; ``mxu``: the pair test's form."""
     dev = state.device
+    trace_wavefront.check_mxu(mxu, cset_shadow=cset_shadow)
     if dev.type == "cpu":
         trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
                                             fb.lights, cfg, depth, prims, n_sph, n_box,
-                                            cset_shadow=cset_shadow)
+                                            cset_shadow=cset_shadow, mxu=mxu)
         return
+    mxu = kernel_core.mxu_mode(cset, mxu)
     frame = _check_stage("bounce", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
-                         n_box, (STATE_ROWS,))
+                         n_box, (STATE_ROWS,), mx_shadow=mxu == "full")
+    if mxu != "off":
+        binding.launch("cosig_bounce_mx_launch", frame, cset, prims, n_sph, n_box, state, idx,
+                       n_live)
+        binding.LAUNCHES["bounce_mx"] += 1
+        return
     if cset_shadow is None:
         binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx,
                        n_live)

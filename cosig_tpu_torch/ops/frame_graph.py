@@ -25,6 +25,10 @@ every capture):
 * ``"megakernel"``: the megakernel and the image's untiling;
 * ``"debug"``: the debug kernel (``cfg.debug_mode`` 1, 2 or 3).
 
+``mxu`` picks the pair test's form of the wavefront (``"off"``,
+``"full"``, ``"closest"``) and the megakernel (``"off"``, ``"full"``) as
+their eager frames take it; the debug view has the exact test only.
+
 The kernels read the frame's uniforms, materials and lights through a
 pointer to the device buffer of a
 :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer` that the graph
@@ -76,6 +80,7 @@ class FrameGraph:
 
     ``cset_primary``, ``cset_shadow`` and ``fission``: the wavefront's
     forms, as in ``render_wavefront``; a graph is captured for one form.
+    ``mxu``: the pair test's form of the wavefront and the megakernel.
 
     ``launches``: what one replay adds to ``binding.LAUNCHES`` (the
     kernels the graph holds, and ``graph`` 1); ``capture_s``: the host's
@@ -85,11 +90,11 @@ class FrameGraph:
     def __init__(self, path: str, cset: ClusterSet, cfg: StaticConfig, uniforms: np.ndarray,
                  lights: np.ndarray, prims=None, prim_counts=(0, 0), rows: int | None = None,
                  row_offset: int = 0, cset_primary=None, cset_shadow=None,
-                 fission: bool = False):
+                 fission: bool = False, mxu: str = "off"):
         if path not in PATHS:
             raise ValueError(f"unknown path {path!r}: use one of {tuple(PATHS)}")
         forms = _forms(path, cset, dict(cset_primary=cset_primary, cset_shadow=cset_shadow,
-                                        fission=fission))
+                                        fission=fission, mxu=mxu))
         dev = cset.device
         if dev.type != "cuda":
             raise ValueError(f"a FrameGraph captures frames on a CUDA device, not {dev}")
@@ -166,13 +171,21 @@ class FrameGraph:
 
 def _forms(path: str, cset: ClusterSet, forms: dict) -> dict:
     """The keyword arguments of ``path``'s frame for the wavefront forms
-    ``forms``; raise where the path has none or the sets do not fit."""
+    and the pair test's form ``forms``; raise where the path has none or
+    the sets do not fit."""
+    mxu = forms.get("mxu", "off")
     if path != "wavefront":
         if forms.get("fission") or any(forms.get(k) is not None
                                        for k in ("cset_primary", "cset_shadow")):
             raise ValueError(f"the {path} path has no fission or separate cluster sets")
-        return {}
-    trace_wavefront.check_forms(cset, forms.get("cset_primary"), forms.get("cset_shadow"))
+        if path == "debug":
+            if mxu != "off":
+                raise ValueError(f"the debug view has the exact pair test only, not mxu={mxu!r}")
+            return {}
+        trace_megakernel.check_mxu(mxu)
+        return dict(mxu=mxu)
+    trace_wavefront.check_forms(cset, forms.get("cset_primary"), forms.get("cset_shadow"),
+                                forms.get("fission", False), mxu)
     return forms
 
 
@@ -181,7 +194,8 @@ def render_chain(path: str, cset: ClusterSet, uniforms: np.ndarray, lights: np.n
     """``k`` whole frames of ``path`` queued with no host read in between ->
     ``(last image [H, W, 3], total rays of the k frames as an int)``: on a
     card one capture and k replays, on the CPU k plain frames. ``forms``:
-    the wavefront's ``cset_primary``, ``cset_shadow`` and ``fission``."""
+    the wavefront's ``cset_primary``, ``cset_shadow`` and ``fission``, and
+    ``mxu``."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if cset.device.type == "cuda":

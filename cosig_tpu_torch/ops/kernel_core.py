@@ -24,6 +24,20 @@ operations are IEEE (everything but sin/cos):
 * analytic spheres and boxes (``analytic_primitives``) fold in after the
   cluster walk with tie ids above every triangle's (``:931-1018``).
 
+The tensor-core form of the pair test (``traverse(..., mx=True)``, the
+JAX package's MXU form ``mt_mxu``/``mxu_sel``, ``:633-803``) changes only
+the five planes va, vb, vc, s and num = nda - o.n: each is the sum of the
+exact bf16 x bf16 products of the limbs (``clusters.pack_mx`` for the
+geometry, :func:`ray_limbs` for the rays), taken in float64 in ascending
+column order and rounded once to float32, a fixed reference within about
+one float32 rounding of the exact sum whatever order a tensor core takes.
+The validity test, t = num * (1/s), the (t, gid) fold and u = vb * (1/s)
+stay as they are. ``bounce_core(mxu=)`` picks it per traversal: ``"full"``
+for the closest hit and the shadow rays, ``"closest"`` for the closest
+hit only (the JAX package's ``COSIG_MXU_SHADOW=0``); :func:`mxu_mode`
+applies the JAX package's rule that a set past ``STREAM_THRESHOLD_BYTES``
+keeps the exact test.
+
 Division by a Python scalar goes through a tensor divisor (``_div``):
 PyTorch's CUDA backend turns ``tensor / scalar`` into a multiply by the
 reciprocal, which is not IEEE division. Square roots go through float64
@@ -39,7 +53,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cosig_tpu_torch.accel.clusters import CULL_BLOCK, GID_PAD, ClusterSet, superblocks
+from cosig_tpu_torch.accel.clusters import (
+    CULL_BLOCK,
+    GID_PAD,
+    MX_COMBOS,
+    MX_PLANES,
+    ClusterSet,
+    limbs,
+    superblocks,
+)
 from cosig_tpu_torch.models.soa import FrameParams, StaticConfig
 from cosig_tpu_torch.ops import rng
 from cosig_tpu_torch.ops.intersect import EPSILON, INF, _sign, _sqrt
@@ -115,6 +137,68 @@ WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
 # block walk together, and its cull takes TILE_C clusters a pass.
 BLOCK_RAYS = 128
 TILE_C = 256
+
+
+# The tensor-core form (traverse(..., mx=True)): the modes a caller picks,
+# each plane's contraction inputs (0:3 origin, 3:6 direction, 6:9 moment
+# w, 9 the constant 1), and the rows a kernel's any hit tests at a time
+# (csrc/mx_pair.cuh: an mma tile of 8 triangles), by which WORK counts a
+# shadow ray's pair tests in that form.
+MXU_MODES = ("off", "full", "closest")
+MX_INPUTS = ((3, 4, 5, 6, 7, 8),) * 3 + ((3, 4, 5), (0, 1, 2, 9))
+MX_ROWS = 8
+
+
+def mxu_mode(cset: ClusterSet, mxu: str) -> str:
+    """The pair test that a stage over ``cset`` runs when the caller asks for
+    ``mxu``: ``"off"`` for a set past STREAM_THRESHOLD_BYTES, whose
+    geometry the JAX package streams and then keeps the exact test
+    (cosig_tpu/ops/trace_wavefront.py:651-659); raise on an unknown mode
+    and on a set without ``geom_mx`` where the form would run."""
+    if mxu not in MXU_MODES:
+        raise ValueError(f"mxu must be one of {MXU_MODES}, got {mxu!r}")
+    if mxu == "off" or cset.streamed:
+        return "off"
+    if cset.geom_mx is None:
+        raise ValueError("the tensor-core pair test needs the cluster set's geom_mx "
+                         "(clusters.pack_mx); this set has none")
+    return mxu
+
+
+def ray_limbs(ox, oy, oz, dx, dy, dz, wx, wy, wz) -> torch.Tensor:
+    """The rays' inputs split into bf16 limbs, as the JAX kernel stages them
+    (cosig_tpu/ops/kernel_core.py:335-392 stage_rays) -> f32 [10, 3, N]:
+    limb k of input i (0:3 origin, 3:6 direction, 6:9 w, 9 the constant 1
+    with limbs 1, 0, 0)."""
+    planes = [torch.stack(limbs(x)) for x in (ox, oy, oz, dx, dy, dz, wx, wy, wz)]
+    one = torch.zeros_like(planes[0])
+    one[0] = 1.0
+    return torch.stack(planes + [one])
+
+
+def mx_planes(gmx: torch.Tensor, rl: torch.Tensor, f64: bool = False) -> list:
+    """The five planes of one cluster for a chunk of rays: ``gmx`` [5K, 64]
+    (the cluster's geom_mx), ``rl`` [10, 3, n] (:func:`ray_limbs` of the
+    rays) -> [va, vb, vc, s, num], each f32 [n, K]: per (ray, row) the sum
+    of the limb products over the plane's contraction columns ci * 10 + i,
+    in float64 in ascending column order, rounded once to float32 (``f64``:
+    the float64 sums, unrounded). Every product is exact in float64 (8 x 8
+    significant bits), and columns whose geometry or ray limb is 0 by
+    construction add an exact zero, so they are skipped."""
+    k = gmx.shape[0] // MX_PLANES
+    g = gmx.to(torch.float64)
+    r = rl.to(torch.float64)
+    out = []
+    for p, inputs in enumerate(MX_INPUTS):
+        acc = torch.zeros((r.shape[2], k), dtype=torch.float64, device=g.device)
+        gp = g[p * k:(p + 1) * k]
+        for ci, (_, kk) in enumerate(MX_COMBOS):
+            for i in inputs:
+                if i == 9 and kk:
+                    continue  # the constant's limbs 1 and 2 are 0
+                acc += r[i, kk][:, None] * gp[:, ci * 10 + i][None, :]
+        out.append(acc if f64 else acc.to(torch.float32))
+    return out
 
 
 def reset_work() -> None:
@@ -345,7 +429,7 @@ def prim_table(prims, prim_counts, device):
 
 def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
              max_t=None, any_hit=False, prims=None, n_sph=0, n_box=0, warps=None,
-             packets=None, frustum=False):
+             packets=None, frustum=False, mx=False):
     """Closest hit (or, with ``any_hit``, occlusion at t <= max_t) of rays
     [N] against the cluster set and the analytic primitives -> ``(hit, t,
     nx, ny, nz, mat)``.
@@ -389,6 +473,11 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     wx = oy * dz - oz * dy
     wy = oz * dx - ox * dz
     wz = ox * dy - oy * dx
+    if mx:
+        if cset.geom_mx is None:
+            raise ValueError("the tensor-core pair test needs the cluster set's geom_mx")
+        rl = ray_limbs(ox, oy, oz, dx, dy, dz, wx, wy, wz)
+    chunk = max(1, (1 << 22) // K) if mx else _PAIR_CHUNK
 
     if any_hit:
         occ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -459,21 +548,27 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             return g[:, j].unsqueeze(0)  # [1, K]
 
         gid = col(_GID)
-        for lo in range(0, int(rays.numel()), _PAIR_CHUNK):
-            r = rays[lo:lo + _PAIR_CHUNK]
-            oxs, oys, ozs = ox[r, None], oy[r, None], oz[r, None]
-            dxs, dys, dzs = dx[r, None], dy[r, None], dz[r, None]
-            wxs, wys, wzs = wx[r, None], wy[r, None], wz[r, None]
-            va = (dxs * col(_VA) + dys * col(_VA + 1) + dzs * col(_VA + 2)
-                  + wxs * col(_VA + 3) + wys * col(_VA + 4) + wzs * col(_VA + 5))
-            vb = (dxs * col(_VB) + dys * col(_VB + 1) + dzs * col(_VB + 2)
-                  + wxs * col(_VB + 3) + wys * col(_VB + 4) + wzs * col(_VB + 5))
-            vc = (dxs * col(_VC) + dys * col(_VC + 1) + dzs * col(_VC + 2)
-                  + wxs * col(_VC + 3) + wys * col(_VC + 4) + wzs * col(_VC + 5))
-            s = dxs * col(_GN) + dys * col(_GN + 1) + dzs * col(_GN + 2)
-            ndo = oxs * col(_GN) + oys * col(_GN + 1) + ozs * col(_GN + 2)
-            inv_s = torch.reciprocal(s)
-            t = (col(_NDA) - ndo) * inv_s
+        for lo in range(0, int(rays.numel()), chunk):
+            r = rays[lo:lo + chunk]
+            if mx:
+                # The five planes from the limb products (mxu_sel, kernel_core.py:640-649).
+                va, vb, vc, s, num = mx_planes(cset.geom_mx[c], rl[:, :, r])
+                inv_s = torch.reciprocal(s)
+                t = num * inv_s
+            else:
+                oxs, oys, ozs = ox[r, None], oy[r, None], oz[r, None]
+                dxs, dys, dzs = dx[r, None], dy[r, None], dz[r, None]
+                wxs, wys, wzs = wx[r, None], wy[r, None], wz[r, None]
+                va = (dxs * col(_VA) + dys * col(_VA + 1) + dzs * col(_VA + 2)
+                      + wxs * col(_VA + 3) + wys * col(_VA + 4) + wzs * col(_VA + 5))
+                vb = (dxs * col(_VB) + dys * col(_VB + 1) + dzs * col(_VB + 2)
+                      + wxs * col(_VB + 3) + wys * col(_VB + 4) + wzs * col(_VB + 5))
+                vc = (dxs * col(_VC) + dys * col(_VC + 1) + dzs * col(_VC + 2)
+                      + wxs * col(_VC + 3) + wys * col(_VC + 4) + wzs * col(_VC + 5))
+                s = dxs * col(_GN) + dys * col(_GN + 1) + dzs * col(_GN + 2)
+                ndo = oxs * col(_GN) + oys * col(_GN + 1) + ozs * col(_GN + 2)
+                inv_s = torch.reciprocal(s)
+                t = (col(_NDA) - ndo) * inv_s
             valid = (
                 (torch.abs(s) >= EPSILON)
                 & (va * s >= 0.0)
@@ -486,7 +581,10 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                 occludes = valid & (t <= max_t[r, None])
                 first = occludes.to(torch.uint8).argmax(dim=1)
                 hit_here = occludes.any(dim=1)
-                WORK["pair_tests"] += int(torch.where(hit_here, first + 1, rows_real[c]).sum())
+                tested_rows = first + 1
+                if mx:  # the kernel tests MX_ROWS rows at a time
+                    tested_rows = torch.clamp((first // MX_ROWS + 1) * MX_ROWS, max=rows_real[c])
+                WORK["pair_tests"] += int(torch.where(hit_here, tested_rows, rows_real[c]).sum())
                 occ[r] |= hit_here
                 continue
             tm = torch.where(valid, t, INF)
@@ -607,15 +705,17 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
 
 
 def bounce_trace(cset: ClusterSet, state: torch.Tensor, prims=None, n_sph: int = 0,
-                 n_box: int = 0, warps=None, packets=None, frustum: bool = False) -> tuple:
+                 n_box: int = 0, warps=None, packets=None, frustum: bool = False,
+                 mx: bool = False) -> tuple:
     """The closest-hit half of a bounce (cosig_tpu/ops/kernel_core.py:1042-1056):
     count the live rays of ``state`` in place and trace them -> the hit
-    record ``(hit, t, nx, ny, nz, mat)`` of :func:`traverse`."""
+    record ``(hit, t, nx, ny, nz, mat)`` of :func:`traverse` (``mx``: its
+    tensor-core form)."""
     alive = state[ROW_ALIVE] > 0.0
     state[ROW_COUNT] = state[ROW_COUNT] + alive.to(torch.float32)
     return traverse(cset, state[0], state[1], state[2], state[3], state[4], state[5], alive,
                     prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
-                    frustum=frustum)
+                    frustum=frustum, mx=mx)
 
 
 def rec_store(state: torch.Tensor, rec: tuple) -> None:
@@ -637,7 +737,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
                 lights: np.ndarray, cset: ClusterSet, state: torch.Tensor,
                 px, py, s, depth: int, is_last: bool,
                 prims=None, n_sph: int = 0, n_box: int = 0, warps=None,
-                packets=None, frustum: bool = False, rec=None, cset_shadow=None) -> None:
+                packets=None, frustum: bool = False, rec=None, cset_shadow=None,
+                mxu: str = "off") -> None:
     """One Whitted bounce on ``state`` [16, N] in place (compute:356-473;
     kernel_core.py:1058-1270): count and trace the live rays, add the
     background on a miss, shade the hits (ambient, then per light a
@@ -658,7 +759,11 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     this call is then the shade half and traces no closest hit (the fission
     form). ``cset_shadow``: the cluster set every shadow ray walks, a
     coarser cut of the same triangles (default ``cset``); occlusion does
-    not depend on the cut, so neither do the results."""
+    not depend on the cut, so neither do the results.
+
+    ``mxu``: the pair test's form (:data:`MXU_MODES`): ``"full"`` runs the
+    tensor-core form in the closest hit and the shadow rays, ``"closest"``
+    in the closest hit only; the caller has applied :func:`mxu_mode`."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -669,7 +774,7 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
     pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps, packets=packets,
               frustum=frustum)
     if rec is None:
-        rec = bounce_trace(cset, state, **pk)
+        rec = bounce_trace(cset, state, mx=mxu != "off", **pk)
     hit, t, nx, ny, nz, mat_c = rec
     shadow_set = cset if cset_shadow is None else cset_shadow
 
@@ -723,7 +828,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
             state[ROW_COUNT] = state[ROW_COUNT] + shadow_active.to(torch.float32)
             s_occ = traverse(
                 shadow_set, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
-                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True, **pk,
+                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True, mx=mxu == "full",
+                **pk,
             )[0]
             gate = ~s_occ & (ndl > 0.0) & alive
             dr = cr * kd * ndl

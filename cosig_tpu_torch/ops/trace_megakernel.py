@@ -16,6 +16,12 @@ what it does.
   under the orthographic toggle, and shows depth (mode 1), normals (mode
   2) or hit/miss (mode 3) (``trace_pallas.py:438-513``).
 
+``mxu="full"`` runs the megakernel's closest hits and shadow rays with the
+tensor-core form of the pair test (:func:`kernel_core.traverse` ``mx``),
+the JAX package's megakernel under ``COSIG_MXU`` (``trace_pallas.py:88-106``),
+which has full mode only: ``"closest"`` is refused (:func:`check_mxu`).
+The debug view keeps the exact test, as there.
+
 Both dispatch by device as :mod:`cosig_tpu_torch.ops.trace_wavefront`
 does: on a CUDA cluster set they launch the kernels of ``csrc/megakernel.cu``
 through :mod:`cosig_tpu_torch.kernels.megakernel`, on the CPU they run the
@@ -81,16 +87,27 @@ def tile_packets(width: int, band: int) -> torch.Tensor:
     return kernel_core.warp_of_rays(tile_slots(width, band), band * width) // 4
 
 
+def check_mxu(mxu: str) -> None:
+    """Raise unless ``mxu`` is a mode of the megakernel: ``"off"`` or
+    ``"full"`` (the JAX megakernel has no closest-only mode)."""
+    if mxu not in ("off", "full"):
+        raise ValueError(f"the megakernel takes mxu 'off' or 'full', got {mxu!r} (the JAX "
+                         "package's megakernel runs the MXU form in full mode only)")
+
+
 def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                      lights: np.ndarray, cfg: StaticConfig, band: int,
                      prims: torch.Tensor, n_sph: int, n_box: int,
-                     warps=None) -> torch.Tensor:
+                     warps=None, mxu: str = "off") -> torch.Tensor:
     """Plain version of the megakernel -> f32 [4, band * W] (rgb mean, ray
     count) on the cluster set's device. ``warps``: an optional pixel ->
     warp map whose pair-loop slots the traversals count
     (:func:`kernel_core.traverse`). The traversals run the kernel's
     pre-filters on its 16 x 8 pixel blocks, the frustum cull at depth 0
-    (JAX: trace_pallas.py:187-198,272)."""
+    (JAX: trace_pallas.py:187-198,272). ``mxu``: ``"off"`` or ``"full"``
+    (:func:`check_mxu`, then :func:`kernel_core.mxu_mode`)."""
+    check_mxu(mxu)
+    mxu = kernel_core.mxu_mode(cset, mxu)
     dev = cset.device
     u = [float(x) for x in uniforms]
     px, py = _pixel_planes(cfg, band, u[U_ROW_OFF], dev)
@@ -114,7 +131,7 @@ def megakernel_plain(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                                     px, py, s_plane, depth=depth,
                                     is_last=depth == cfg.max_depth - 1,
                                     prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
-                                    packets=packets, frustum=depth == 0)
+                                    packets=packets, frustum=depth == 0, mxu=mxu)
         acc_r = acc_r + state[9]
         acc_g = acc_g + state[10]
         acc_b = acc_b + state[11]
@@ -174,19 +191,21 @@ def _image(out: torch.Tensor, width: int, band: int, counted: int, rays_on_devic
 
 
 def one_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: int,
-              prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False):
+              prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False,
+              mxu: str = "off"):
     """One megakernel frame of ``band`` rows at global row ``row_offset``
     from the frame in ``fb`` (a written
     :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> ``(img [band,
     W, 3], rays of the rows inside the image as an int64 tensor)`` on the
-    cluster set's device, with no host read. ``plain``: the plain version."""
+    cluster set's device, with no host read. ``plain``: the plain version;
+    ``mxu``: the pair test's form."""
     from cosig_tpu_torch.kernels import megakernel as km
 
     if plain:
         out = megakernel_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg, band, prims, n_sph,
-                               n_box)
+                               n_box, mxu=mxu)
     else:
-        out = km.megakernel(cset, fb, cfg, band, prims, n_sph, n_box)
+        out = km.megakernel(cset, fb, cfg, band, prims, n_sph, n_box, mxu=mxu)
     counted = max(0, min(band, cfg.height - int(row_offset)))
     return _image(out, cfg.width, band, counted, True)
 
@@ -212,12 +231,13 @@ def debug_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: 
 def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                     cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
                     device=None, plain: bool = False, prims=None, prim_counts=(0, 0),
-                    rays_on_device: bool = False):
+                    rays_on_device: bool = False, mxu: str = "off"):
     """Render through the megakernel -> ``(img [rows, W, 3] f32 on device,
     rays traced)``. Arguments as in
     :func:`cosig_tpu_torch.ops.trace_wavefront.render_wavefront`: a band of
     global rows, ``plain=True`` for the plain version on any device, the
-    analytic primitives, and the ray count as a device tensor. Unlike the
+    analytic primitives, the ray count as a device tensor, and ``mxu``
+    (``"off"`` or ``"full"``, :func:`check_mxu`). Unlike the
     wavefront, rows of a band past the image are traced like the others,
     as on the TPU; their rays are not counted, so a frame cut into bands
     counts the rays of the frame (the TPU's sharded render counts them,
@@ -226,16 +246,17 @@ def render_clusters(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     replay it as a CUDA graph (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import binding
 
+    check_mxu(mxu)
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
     fb = binding.frame_buffer("cpu" if plain else cset.device, uniforms, mats, lights)
-    img, rays = one_frame(cset, fb, cfg, band, row_offset, prims, n_sph, n_box, plain)
+    img, rays = one_frame(cset, fb, cfg, band, row_offset, prims, n_sph, n_box, plain, mxu)
     return img, (rays if rays_on_device else int(rays))
 
 
 def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
-                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0)):
+                 cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0), mxu: str = "off"):
     """Render the same frame ``k`` times through the megakernel on the
     cluster set's device, queued with no host read in between -> ``(last
     image [H, W, 3], total rays of the k frames as an int)``; the
@@ -248,11 +269,12 @@ def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     per frame without the host's wait at the end. The JAX version threads
     a zero that depends on the previous image into each frame, so that XLA
     cannot hoist the loop-invariant render out of its scan; PyTorch runs
-    each replay as it comes, so nothing of the kind is needed here."""
+    each replay as it comes, so nothing of the kind is needed here.
+    ``mxu``: as in :func:`render_clusters`."""
     from cosig_tpu_torch.ops import frame_graph
 
     return frame_graph.render_chain("megakernel", cset, uniforms, lights, cfg, k, prims,
-                                    prim_counts)
+                                    prim_counts, mxu=mxu)
 
 
 def render_debug(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,

@@ -30,6 +30,15 @@ here (``render_wavefront(cset_primary=, cset_shadow=)`` and its
 * ``cset_shadow``: every shadow ray of every stage walks this cut, which
   must fit one cull block (c_pad <= 512, ``:716-753``).
 
+``mxu`` picks the pair test's form in the primary and bounce stages, the
+counterpart of the JAX package's ``COSIG_MXU`` and ``COSIG_MXU_SHADOW``
+switches (``:651-662``): ``"off"`` (the default) the exact test, ``"full"``
+the tensor-core form (:func:`kernel_core.traverse` ``mx``) for the closest
+hit and the shadow rays, ``"closest"`` for the closest hit only. A stage
+whose set is past ``STREAM_THRESHOLD_BYTES`` keeps the exact test, as the
+JAX package's streamed stages do (:func:`kernel_core.mxu_mode`). It has no
+fission form and no separate shadow set yet: those are refused.
+
 Rays are enumerated in plain order, ``id = (py_local * W + px) * aa + s``
 with N = band * W * aa and no tile padding. The RNG seeds (px, py, s) are
 the JAX package's, so images agree; finalize is the exact inverse of the
@@ -81,11 +90,24 @@ def _seed_planes(rid: torch.Tensor, cfg: StaticConfig, row_offset: float):
     return px, py, s_i.to(torch.float32)
 
 
-def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None) -> None:
+def check_mxu(mxu: str, fission: bool = False, cset_shadow=None) -> None:
+    """Raise on an unknown ``mxu`` and on the tensor-core form together with
+    the fission form or a separate shadow set, which it has no build of."""
+    if mxu not in kernel_core.MXU_MODES:
+        raise ValueError(f"mxu must be one of {kernel_core.MXU_MODES}, got {mxu!r}")
+    if mxu != "off" and (fission or cset_shadow is not None):
+        raise ValueError(f"the tensor-core pair test (mxu={mxu!r}) has no fission form and no "
+                         "separate shadow set (cset_shadow)")
+
+
+def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None, fission: bool = False,
+                mxu: str = "off") -> None:
     """Raise unless the optional cluster sets can stand in for ``cset``:
     on its device, over as many triangles, and a shadow set within one cull
     block (c_pad <= 512, as cosig_tpu/ops/trace_wavefront.py:733 asserts);
-    a wider shadow set is refused, never clipped."""
+    a wider shadow set is refused, never clipped; and unless ``mxu`` goes
+    with the forms (:func:`check_mxu`)."""
+    check_mxu(mxu, fission, cset_shadow)
     for name, other in (("cset_primary", cset_primary), ("cset_shadow", cset_shadow)):
         if other is None:
             continue
@@ -104,7 +126,8 @@ def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None) -> None:
 def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                   lights: np.ndarray, cfg: StaticConfig, band: int,
                   prims: torch.Tensor, n_sph: int, n_box: int,
-                  warps=None, fission: bool = False, cset_shadow=None) -> torch.Tensor:
+                  warps=None, fission: bool = False, cset_shadow=None,
+                  mxu: str = "off") -> torch.Tensor:
     """Plain version of the primary kernel -> state f32 [16, N] ([24, N]
     with ``fission``) on the cluster set's device (trace_wavefront.py:317-434). ``prims`` is the
     table of :func:`kernel_core.prim_table`; ``warps`` an optional ray ->
@@ -114,7 +137,10 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     among them (JAX: trace_wavefront.py:412-424). ``fission``: the state
     has 24 rows and the stage stops after the trace, with the hit record
     in rows 15-19 (:func:`primary_shade` finishes it); ``cset_shadow``: the
-    cluster set the shadow rays walk."""
+    cluster set the shadow rays walk; ``mxu``: the pair test's form (module
+    docstring)."""
+    check_mxu(mxu, fission, cset_shadow)
+    mxu = kernel_core.mxu_mode(cset, mxu)
     dev = cset.device
     n = num_rays(cfg, band)
     u = [float(x) for x in uniforms]
@@ -139,7 +165,7 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
         return state
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=0, is_last=cfg.max_depth == 1,
-                            cset_shadow=cset_shadow, **pk)
+                            cset_shadow=cset_shadow, mxu=mxu, **pk)
     return state
 
 
@@ -154,7 +180,7 @@ def _seeds_of(state: torch.Tensor, cfg: StaticConfig, uniforms: np.ndarray):
 def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                  mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
                  depth: int, prims: torch.Tensor, n_sph: int, n_box: int,
-                 warps=None, packets=None, cset_shadow=None) -> None:
+                 warps=None, packets=None, cset_shadow=None, mxu: str = "off") -> None:
     """One bounce at ``depth`` on every column of ``state`` in place
     (trace_wavefront.py:466-507), the self-skip form: a dead ray's bounce
     changes nothing. ``warps``: an optional ray -> warp map of the
@@ -162,13 +188,15 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     optional ray -> block map, whose superblock cull the traversals run
     (bounce rays are incoherent: no frustum cull, as
     trace_wavefront.py:459); ``cset_shadow``: the cluster set the shadow
-    rays walk."""
+    rays walk; ``mxu``: the pair test's form (module docstring)."""
+    check_mxu(mxu, cset_shadow=cset_shadow)
+    mxu = kernel_core.mxu_mode(cset, mxu)
     px, py, s = _seeds_of(state, cfg, uniforms)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=depth,
                             is_last=depth == cfg.max_depth - 1,
                             prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
-                            packets=packets, cset_shadow=cset_shadow)
+                            packets=packets, cset_shadow=cset_shadow, mxu=mxu)
 
 
 def shade_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
@@ -229,17 +257,18 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
                         cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                         lights: np.ndarray, cfg: StaticConfig, depth: int,
                         prims: torch.Tensor, n_sph: int, n_box: int, warps=None,
-                        cset_shadow=None) -> None:
+                        cset_shadow=None, mxu: str = "off") -> None:
     """Plain version of the bounce kernel: one bounce at ``depth`` on the
     listed rays ``idx[:n_live]`` of ``state`` (from :func:`compact_plain`),
     gathered, bounced and written back in place. Every live ray is listed
     and a dead ray's bounce changes nothing, so this equals
     :func:`bounce_stage` on the whole state bit for bit. ``warps``: an
     optional ray id -> warp map [N] (:func:`kernel_core.traverse`).
-    ``cset_shadow``: the cluster set the shadow rays walk."""
+    ``cset_shadow``: the cluster set the shadow rays walk; ``mxu``: the
+    pair test's form."""
     _on_list(state, idx, n_live, warps, lambda st, **kw: bounce_stage(
         st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box,
-        cset_shadow=cset_shadow, **kw))
+        cset_shadow=cset_shadow, mxu=mxu, **kw))
 
 
 def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
@@ -303,7 +332,7 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
 
 def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tensor,
            n_sph: int, n_box: int, plain: bool = False, cset_primary=None, cset_shadow=None,
-           fission: bool = False) -> torch.Tensor:
+           fission: bool = False, mxu: str = "off") -> torch.Tensor:
     """The primary stage and the ``max_depth - 1`` bounce stages of the
     frame in ``fb`` (a written
     :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> the final
@@ -311,7 +340,8 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     versions on the cluster set's device, else the kernels' wrappers, which
     dispatch by device. ``fission``, ``cset_primary``, ``cset_shadow``: the
     forms of the module docstring; with ``fission`` a frame is primary
-    trace, shade, then per depth compaction, trace and shade. Nothing here
+    trace, shade, then per depth compaction, trace and shade; ``mxu``: the
+    pair test's form of the primary and bounce stages. Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -326,7 +356,7 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     if plain:
         u, m, li = fb.uniforms, fb.mats, fb.lights
         state = primary_stage(pcs, u, m, li, cfg, band, *pk, fission=fission,
-                              cset_shadow=primary_shadow)
+                              cset_shadow=primary_shadow, mxu=mxu)
         if fission:
             primary_shade(state, p_sh, u, m, li, cfg, *pk)
         for depth in range(1, cfg.max_depth):
@@ -336,9 +366,10 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
                 shade_listed_stage(state, idx, n_live, b_sh, u, m, li, cfg, depth, *pk)
             else:
                 bounce_listed_stage(state, idx, n_live, cset, u, m, li, cfg, depth, *pk,
-                                    cset_shadow=cset_shadow)
+                                    cset_shadow=cset_shadow, mxu=mxu)
         return state
-    state = kw.primary(pcs, fb, cfg, band, *pk, fission=fission, cset_shadow=primary_shadow)
+    state = kw.primary(pcs, fb, cfg, band, *pk, fission=fission, cset_shadow=primary_shadow,
+                       mxu=mxu)
     if fission:
         kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk)
     for depth in range(1, cfg.max_depth):
@@ -347,18 +378,19 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
             kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk)
             kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk)
         else:
-            kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow)
+            kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow,
+                      mxu=mxu)
     return state
 
 
 def one_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: int,
               prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False,
-              cset_primary=None, cset_shadow=None, fission: bool = False):
+              cset_primary=None, cset_shadow=None, fission: bool = False, mxu: str = "off"):
     """One wavefront frame of ``band`` rows -> ``(img [band, W, 3], rays as
     an int64 tensor)`` on the cluster set's device, with no host read."""
     del row_offset  # in fb's uniforms; rows past the image start dead
     state = stages(cset, fb, cfg, band, prims, n_sph, n_box, plain, cset_primary, cset_shadow,
-                   fission)
+                   fission, mxu)
     return finalize(state, cfg, band, rays_on_device=True)
 
 
@@ -366,26 +398,27 @@ def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                 cfg: StaticConfig, rows: int | None = None, row_offset: int = 0,
                 device=None, plain: bool = False, prims=None,
                 prim_counts=(0, 0), cset_primary=None, cset_shadow=None,
-                fission: bool = False) -> torch.Tensor:
+                fission: bool = False, mxu: str = "off") -> torch.Tensor:
     """Run the primary stage and the ``max_depth - 1`` bounce stages ->
     the final ray state f32 [16, N], [24, N] with ``fission`` (arguments
     as in :func:`render_wavefront`)."""
     from cosig_tpu_torch.kernels import binding
 
-    check_forms(cset, cset_primary, cset_shadow)
+    check_forms(cset, cset_primary, cset_shadow, fission, mxu)
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)
     fb = binding.frame_buffer("cpu" if plain else cset.device, uniforms, mats, lights)
     return stages(cset, fb, cfg, band, prims, n_sph, n_box, plain, cset_primary, cset_shadow,
-                  fission)
+                  fission, mxu)
 
 
 def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                      cfg: StaticConfig, rows: int | None = None,
                      row_offset: int = 0, device=None, plain: bool = False,
                      prims=None, prim_counts=(0, 0), rays_on_device: bool = False,
-                     cset_primary=None, cset_shadow=None, fission: bool = False):
+                     cset_primary=None, cset_shadow=None, fission: bool = False,
+                     mxu: str = "off"):
     """Render -> ``(img [rows, W, 3] f32 on device, rays traced)``.
 
     ``uniforms``/``lights`` come from :func:`kernel_core.build_uniforms` /
@@ -405,21 +438,23 @@ def render_wavefront(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     stage), ``cset_shadow`` (a coarser cut, within one cull block, for
     every shadow ray) and ``fission`` (separate trace and shade stages):
     the JAX package's kernel forms (module docstring), each giving the
-    fused single-set bits; defaults off, as there.
+    fused single-set bits; defaults off, as there. ``mxu``: the pair test's
+    form (``"off"``, ``"full"``, ``"closest"``; module docstring).
 
     This is the eager frame, one launch per stage from the host; a
     :class:`~cosig_tpu_torch.ops.frame_graph.FrameGraph` captures the
     same launches once and replays them (the Renderer's frames on the
     card)."""
     state = trace_state(cset, uniforms, lights, cfg, rows, row_offset, device, plain,
-                        prims, prim_counts, cset_primary, cset_shadow, fission)
+                        prims, prim_counts, cset_primary, cset_shadow, fission, mxu)
     return finalize(state, cfg, state.shape[1] // (cfg.width * max(1, cfg.aa_samples)),
                     rays_on_device)
 
 
 def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
                  cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0),
-                 cset_primary=None, cset_shadow=None, fission: bool = False):
+                 cset_primary=None, cset_shadow=None, fission: bool = False,
+                 mxu: str = "off"):
     """Render the same frame ``k`` times through the wavefront on the
     cluster set's device, queued with no host read in between -> ``(last
     image [H, W, 3], total rays of the k frames as an int)``; the
@@ -428,9 +463,9 @@ def render_chain(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     the frame is captured once as a CUDA graph and replayed k times; on
     the CPU the plain stages run k times. Timing two chain lengths and
     taking the slope gives the device time per frame. ``cset_primary``,
-    ``cset_shadow``, ``fission``: as in :func:`render_wavefront`."""
+    ``cset_shadow``, ``fission``, ``mxu``: as in :func:`render_wavefront`."""
     from cosig_tpu_torch.ops import frame_graph
 
     return frame_graph.render_chain("wavefront", cset, uniforms, lights, cfg, k, prims,
                                     prim_counts, cset_primary=cset_primary,
-                                    cset_shadow=cset_shadow, fission=fission)
+                                    cset_shadow=cset_shadow, fission=fission, mxu=mxu)

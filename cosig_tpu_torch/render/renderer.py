@@ -40,6 +40,13 @@ a toggle or the debug mode captures a new one, which replaces it;
 ``invalidate_cache`` frees it. Its private memory pool holds the frame's
 buffers (the wavefront's state [16, N] is 64 B a ray). The oracle path
 runs eagerly.
+
+``Renderer(..., mxu=)`` picks the pair test's form on the kernel paths:
+``"off"`` (the default) the exact test, ``"full"`` the tensor-core form
+for every closest hit and shadow ray, ``"closest"`` for the closest hits
+only (the wavefront; the megakernel refuses it). The debug view and the
+oracle path keep the exact test; a scene whose cluster geometry is past
+6 MiB does too (``ops/kernel_core.mxu_mode``).
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from cosig_tpu_torch.accel.clusters import build_clusters
 from cosig_tpu_torch.models.scene import SceneData
 from cosig_tpu_torch.models.settings import RenderSettings
 from cosig_tpu_torch.models.soa import compile_scene, frame_params, materials_host, static_config
-from cosig_tpu_torch.ops import bvh_traverse, frame_graph, kernel_core, trace_xla
+from cosig_tpu_torch.ops import bvh_traverse, frame_graph, kernel_core, trace_megakernel, trace_xla
 from cosig_tpu_torch.ops.analytic import closest_hit_analytic, compile_analytic, pack_prims_host
 from cosig_tpu_torch.scene.tessellate import extract_triangles
 
@@ -85,9 +92,13 @@ class RenderStats:
 class Renderer:
     """Stateful front end with scene and acceleration caching."""
 
-    def __init__(self, device="cuda", backend: str = "wavefront"):
+    def __init__(self, device="cuda", backend: str = "wavefront", mxu: str = "off"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
+        if mxu not in kernel_core.MXU_MODES:
+            raise ValueError(f"mxu must be one of {kernel_core.MXU_MODES}, got {mxu!r}")
+        if backend == "megakernel":
+            trace_megakernel.check_mxu(mxu)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -98,6 +109,7 @@ class Renderer:
             raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
         self.device = dev
         self.backend = backend
+        self.mxu = mxu
         # Kernel paths: (scene, analytic, cluster set, primitive table, (n_sph, n_box)).
         self._cached: Optional[tuple] = None
         # Oracle path: [scene, analytic, triangle soup, SceneArrays,
@@ -182,10 +194,17 @@ class Renderer:
 
     def graph_key(self, scene: SceneData, settings: RenderSettings) -> tuple:
         """What a captured frame is specific to: the scene object, analytic
-        mode, the kernel path and the ``StaticConfig`` (size, depth, AA,
-        toggles, debug mode). Frames with equal keys replay one graph."""
+        mode, the kernel path, the ``StaticConfig`` (size, depth, AA,
+        toggles, debug mode) and the pair test's form (``mxu``). Frames with
+        equal keys replay one graph."""
         cfg = static_config(scene, settings)
-        return (id(scene), settings.analytic_primitives, self.kernel_path(cfg), cfg)
+        path = self.kernel_path(cfg)
+        return (id(scene), settings.analytic_primitives, path, cfg, self._mxu_of(path))
+
+    def _mxu_of(self, path) -> str:
+        """The pair test's form a frame of ``path`` runs: the renderer's on
+        the wavefront and the megakernel, the exact test elsewhere."""
+        return self.mxu if path in ("wavefront", "megakernel") else "off"
 
     def _frame_graph(self, scene, settings, cfg, uniforms, lights):
         """The cached graph of this frame's key, captured (in place of the
@@ -195,7 +214,7 @@ class Renderer:
             self._graph = None  # free the last graph's pool before capturing
             cset, prims, prim_counts = self._geometry_for(scene, settings.analytic_primitives)
             graph = frame_graph.FrameGraph(key[2], cset, cfg, uniforms, lights, prims,
-                                           prim_counts)
+                                           prim_counts, mxu=key[4])
             self._graph = (key, scene, graph)
             log.info("captured a %s frame graph: %.3f s, %d pool bytes", key[2],
                      graph.capture_s, graph.pool_bytes)
@@ -232,7 +251,7 @@ class Renderer:
                     img, rays = graph.chain(uniforms, lights, k)
             else:
                 img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k, prims,
-                                                     prim_counts)
+                                                     prim_counts, mxu=self._mxu_of(path))
         dt = (time.perf_counter() - t0) * 1e3
         self.last_stats = RenderStats(
             width=cfg.width,

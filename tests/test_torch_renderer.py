@@ -138,7 +138,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
         binding.LAUNCHES[name] = 7
     binding.reset_counts()
     zero = dict(primary=0, compact=0, bounce=0, trace=0, shade=0, primary_fission=0,
-                primary_shadow=0, bounce_shadow=0, megakernel=0, debug=0, graph=0)
+                primary_shadow=0, bounce_shadow=0, primary_mx=0, bounce_mx=0, megakernel_mx=0,
+                megakernel=0, debug=0, graph=0)
     assert binding.LAUNCHES == zero
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
     params = tsoa.frame_params(tiny, st)
@@ -201,7 +202,7 @@ def test_check_inputs_rejects_misaligned_geom(tiny):
 def test_nvcc_command_keeps_ieee_arithmetic():
     """Every kernel source compiles with the IEEE flags for sm_90a, one
     nvcc each; one link makes the library."""
-    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "forms.cu", "megakernel.cu")
+    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
     for src in kbuild.KERNEL_SOURCES:
         cmd = kbuild.nvcc_command("nvcc", src, "/tmp/x.o")
         joined = " ".join(cmd)
@@ -260,6 +261,7 @@ def test_frame_struct_mirrors_header():
     n_scalars = len(binding.Frame._fields_) - 1  # all but the data pointer
     assert ctypes.sizeof(binding.Frame) == -(-4 * n_scalars // 8) * 8 + 8
     flags = dict((k, int(v)) for k, v in re.findall(r"\bF_(\w+) = (\d+)", src))
+    assert flags.pop("MX_SHADOW") == binding.F_MX_SHADOW
     assert sorted(flags.values()) == sorted(bit for _, bit in binding._FLAGS)
 
 
@@ -316,7 +318,8 @@ def test_kernels_match_plain_on_card(tiny, card):
     img_d, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)))
     counts = dict(binding.LAUNCHES)
     assert counts == dict(primary=1, compact=2, bounce=2, trace=0, shade=0, primary_fission=0,
-                          primary_shadow=0, bounce_shadow=0, megakernel=1, debug=1, graph=0)
+                          primary_shadow=0, bounce_shadow=0, primary_mx=0, bounce_mx=0,
+                          megakernel_mx=0, megakernel=1, debug=1, graph=0)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
     img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
     img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),
