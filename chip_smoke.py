@@ -143,9 +143,13 @@ Phases (any failure raises and the script exits non-zero):
    knot (past 6 MiB of geometry) keeping the exact builds; glass_sphere
    and large_mesh at 256x256 against the oracle (RMSE < 1e-5);
    ``render_chain`` slopes of the exact and tensor-core frames in turns;
-   (d) each tensor-core kernel beside its exact build on the same input in
-   turns, with its plain version, bound, ``torch.bmm`` of the same planes
-   and blocks per multiprocessor of both layouts.
+   (d) each tensor-core kernel at the main path's shapes (glass_sphere
+   1024x1024 d6 AA 4: the primary, depth 1 and the megakernel's frame;
+   large_mesh's depths 1-3) held to its plain tensor-core version as in
+   (b), with the plain version's time and the bound from its counted work
+   (phase 3's ``kernel_row``), then beside its exact build on the same
+   input in turns, with ``torch.bmm`` of the same planes and blocks per
+   multiprocessor of both layouts.
 
 Up to phase 8 every Renderer frame on the card is a graph replay too
 (each frame's launch counts include one ``graph``; the first frame of a
@@ -970,6 +974,37 @@ def timed(fn):
     return res, start.elapsed_time(end)
 
 
+def kernel_row(name, tag, run_k, run_p, nbytes, reps_k=5, reps_p=2, bound=work_bound,
+               hold=None) -> dict:
+    """One kernel against its plain version on the same input (phases 3 and
+    11): the kernel's result, the plain version's first run (timed; its
+    counted WORK and ``nbytes(result)`` give ``bound``), the two held to
+    each other (``hold(kernel's, plain's)``, by default within STATE_MAX),
+    then the kernel's time on the card and as the host paces it.
+    ``reps_p=0`` times the plain version's one run that gives its result."""
+    from cosig_tpu_torch.ops import kernel_core as kc
+
+    res_k = run_k()
+    kc.reset_work()
+    res_p, first_ms = timed(run_p)
+    b = bound(dict(kc.WORK), nbytes(res_k))
+    same, mx, _ = diff(res_k, res_p)
+    log(f"{name} kernel vs plain ({tag}): bitwise={same} max={mx:.3e}")
+    if hold is None:
+        check(mx <= STATE_MAX, name, tag, mx)
+    else:
+        hold(res_k, res_p)
+    ms = device_ms(run_k, reps_k)
+    paced_ms = cuda_ms(run_k, reps_k)
+    plain_ms = cuda_ms(run_p, reps_p) if reps_p else first_ms
+    log(f"  {name} ({tag}): {ms:.3f} ms on the card ({paced_ms:.3f} ms paced by the host), "
+        f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+        f"{b['work']})")
+    return dict(name=name, at=tag, route="cuda", max_abs_err=mx, ms=ms,
+                host_paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=None, work=b["work"], result=res_k)
+
+
 def time_kernels(device) -> list:
     """Phase 3: each kernel alone against its plain version on the same
     inputs, at the main path's shapes: glass_sphere at full size for every
@@ -987,27 +1022,6 @@ def time_kernels(device) -> list:
 
     wavefront_cu = "cosig_tpu_torch/csrc/wavefront.cu"
     out = []
-
-    def measure(name, tag, run_k, run_p, nbytes, reps_k=5, reps_p=2) -> dict:
-        """Kernel against plain on one input; ``reps_p=0`` times the plain
-        version's one run that gives its result."""
-        res_k = run_k()
-        kc.reset_work()
-        res_p, first_ms = timed(run_p)
-        bound = work_bound(dict(kc.WORK), nbytes(res_k))
-        same, mx, _ = diff(res_k, res_p)
-        log(f"{name} kernel vs plain ({tag}): bitwise={same} max={mx:.3e}")
-        check(mx <= STATE_MAX, name, tag, mx)
-        ms = device_ms(run_k, reps_k)
-        paced_ms = cuda_ms(run_k, reps_k)
-        plain_ms = cuda_ms(run_p, reps_p) if reps_p else first_ms
-        log(f"  {name} ({tag}): {ms:.3f} ms on the card ({paced_ms:.3f} ms paced by the host), "
-            f"plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
-            f"{bound['work']})")
-        return dict(name=name, at=tag, route="cuda", max_abs_err=mx, ms=ms,
-                    host_paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
-                    bound_by=bound["bound_by"], library_ms=None, work=bound["work"],
-                    result=res_k)
 
     def bounce_measure(tag, cset, uni, mats, lights, cfg, depth, pk, state, geom_bytes,
                        reps_p):
@@ -1034,7 +1048,7 @@ def time_kernels(device) -> list:
             return st
 
         log(f"bounce input ({tag}): {live} of {state.shape[1]} rays alive")
-        rec = measure("bounce", tag, run_k, run_p, lambda st: nbytes, reps_p=reps_p)
+        rec = kernel_row("bounce", tag, run_k, run_p, lambda st: nbytes, reps_p=reps_p)
         rec["live"] = live
         return rec
 
@@ -1048,7 +1062,7 @@ def time_kernels(device) -> list:
     geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
     glass = f"glass_sphere {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}"
 
-    rec = measure("primary", glass, lambda: kw.primary(cset, fb, cfg, band, *pk),
+    rec = kernel_row("primary", glass, lambda: kw.primary(cset, fb, cfg, band, *pk),
                   lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk),
                   lambda st: geom_bytes + 4 * st.numel())
     st_k = rec.pop("result")
@@ -1109,7 +1123,7 @@ def time_kernels(device) -> list:
         f"({bounce['empty_list_host_paced_ms']:.4f} ms paced by the host)")
     del st_k, idx
 
-    rec = measure("megakernel", glass,
+    rec = kernel_row("megakernel", glass,
                   lambda: km.megakernel(cset, fb, cfg, band, *pk),
                   lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk),
                   lambda o: geom_bytes + 4 * o.numel())
@@ -1117,7 +1131,7 @@ def time_kernels(device) -> list:
     megakernel = dict(rec, source="cosig_tpu_torch/csrc/megakernel.cu",
                       replaces="cosig_tpu/ops/trace_pallas.py:132")
     dcfg = static_config(s["scene"], s["settings"].replace(debug_mode=1))
-    rec = measure("debug", f"{glass} mode 1", lambda: km.debug(cset, fb, dcfg, *pk),
+    rec = kernel_row("debug", f"{glass} mode 1", lambda: km.debug(cset, fb, dcfg, *pk),
                   lambda: tm.debug_plain(cset, uni, mats, lights, dcfg, *pk),
                   lambda o: geom_bytes + 4 * o.numel(), reps_k=20, reps_p=5)
     del rec["result"]
@@ -2832,13 +2846,13 @@ MX_PLANE_REL = 1e-6
 FLIP_ABS = 1e-3
 FLIP_SHARE = 1e-4  # 0.01 %
 MX_MODES = {"wavefront": ("full", "closest"), "megakernel": ("full",)}
-# The bound of a tensor-core kernel: its mma products (5 planes x 48
-# contraction columns a pair, csrc/mx_pair.cuh) over the dense bf16 rate
+# The bound of a tensor-core kernel: the limb products a pair needs
+# (kernel_core.MX_PRODUCTS, 147: those not zero by construction, fewer
+# than the 5 x 48 the kernel's mma tiles issue) over the dense bf16 rate
 # (989 TFLOP/s, 494.5 T multiply-adds/s), plus its fp32 operations (the
 # slab, pre-filter and primitive tests as above, and about 15 a pair for
 # the selection: a reciprocal, t, 9 compares and the fold) over
 # PEAK_F32_OPS; or its bytes over HBM_BYTES_PER_S, whichever is larger.
-MX_MACS_PER_PAIR = 5 * 48
 MX_SEL_OPS_PER_PAIR = 15
 PEAK_BF16_MACS = 989e12 / 2
 MX_REPLACES = "cosig_tpu/ops/kernel_core.py:776 mt_mxu + :633 mxu_sel, in "
@@ -2857,15 +2871,17 @@ MX_TURNS = 2
 def mx_bound(work: dict, nbytes: int) -> dict:
     """Bound of one tensor-core kernel call from the plain traversal's
     counted work (mx=True) and the bytes it must move."""
+    from cosig_tpu_torch.ops.kernel_core import MX_PRODUCTS
+
     pairs = work["pair_tests"]
     f32 = (FLOPS_PER_SLAB * work["slab_tests"] + MX_SEL_OPS_PER_PAIR * pairs
            + FLOPS_PER_PRIM * work["prim_tests"]
            + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
-    op_ms = (MX_MACS_PER_PAIR * pairs / PEAK_BF16_MACS + f32 / PEAK_F32_OPS) * 1e3
+    op_ms = (MX_PRODUCTS * pairs / PEAK_BF16_MACS + f32 / PEAK_F32_OPS) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
-                work=dict(work, macs=MX_MACS_PER_PAIR * pairs, f32_ops=f32, bytes=nbytes))
+                work=dict(work, macs=MX_PRODUCTS * pairs, f32_ops=f32, bytes=nbytes))
 
 
 def mx_split(cset, ways: int):
@@ -2956,13 +2972,17 @@ def flips_of(a, b) -> tuple:
             float(rest.max()) if rest.numel() else 0.0)
 
 
-def explain_flip(cset, o, d, tag: str) -> None:
-    """Print the pairs of one ray (origin ``o``, direction ``d``, 3-vectors
-    on the card) whose validity terms (|s| - EPSILON, va s, vb s, vc s,
-    t - EPSILON) change sign between the kernel's planes (binding.mx_probe)
-    and the plain ones (kernel_core.mx_planes), cluster by cluster, and the
-    closest hit's (t, gid) winner under each where the two differ (two
-    valid pairs whose t order turned, as on coplanar faces)."""
+def explain_flip(cset, o, d, tag: str) -> dict:
+    """Print the pairs of one flipped ray (origin ``o``, direction ``d``,
+    3-vectors on the card) whose validity terms (|s| - EPSILON, va s, vb s,
+    vc s, t - EPSILON) change sign between the kernel's planes
+    (binding.mx_probe) and the plain ones (kernel_core.mx_planes), over the
+    clusters whose box the ray enters (the slab test, NaN-conservative as
+    the walk's), and the closest hit's (t, gid) winner under each where the
+    two differ (two valid pairs whose t order turned, as on coplanar
+    faces). hold_mx calls it for at most 8 flips of a stage. Returns
+    {"pairs": [(cluster, row, gid) whose terms changed sign], "winners":
+    {"kernel": (t - EPSILON, gid, (cluster, row)), "plain": ...}}."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
@@ -2978,9 +2998,15 @@ def explain_flip(cset, o, d, tag: str) -> None:
         t = num * torch.reciprocal(s)
         return torch.stack([s.abs() - kc.EPSILON, va * s, vb * s, vc * s, t - kc.EPSILON])
 
-    found = 0
+    box = cset.aabb_t[:6, :cset.num_clusters]
+    inv = torch.reciprocal(d)[:, None]
+    t0, t1 = (box[:3] - o[:, None]) * inv, (box[3:] - o[:, None]) * inv
+    tn = torch.minimum(t0, t1).max(dim=0).values
+    tf = torch.maximum(t0, t1).min(dim=0).values
+    entered = torch.nonzero(~(tn > tf) & ~(tf < 0.0)).squeeze(1).tolist()
+    pairs = []
     best = {"kernel": (float("inf"), 0.0, None), "plain": (float("inf"), 0.0, None)}
-    for c in range(cset.num_clusters):
+    for c in entered:
         _, planes = binding.mx_probe(cset.geom[c].contiguous(), rays)
         tk = terms([planes[p][:, 0] for p in range(5)])
         tp = terms([x[0] for x in kc.mx_planes(cset.geom_mx[c], rl)])
@@ -2994,16 +3020,17 @@ def explain_flip(cset, o, d, tag: str) -> None:
             gid = float(cset.geom[c, row, 35])
             if gid >= 2 ** 24:
                 continue
-            found += 1
+            pairs.append((c, row, gid))
             log(f"    {tag}: cluster {c} row {row} gid {gid:.0f}: terms kernel "
                 f"{[f'{v:.3e}' for v in tk[:, row].tolist()]} plain "
                 f"{[f'{v:.3e}' for v in tp[:, row].tolist()]}")
-    if best["kernel"][:2] != best["plain"][:2]:
-        found += 1
+    turned = best["kernel"][:2] != best["plain"][:2]
+    if turned:
         log(f"    {tag}: the closest hit's winner turned: kernel (t - EPSILON, gid, (cluster, "
             f"row)) {best['kernel']}, plain {best['plain']}")
-    if not found:
+    if not pairs and not turned:
         log(f"    {tag}: no closest-hit pair changed (a shadow ray's pair)")
+    return dict(pairs=pairs, winners=best)
 
 
 def hold_mx(tag, cfg, a, b, count_a, count_b, n_pixels, explain=None) -> dict:
@@ -3249,15 +3276,14 @@ def mx_frames(device, card: str, full_size: bool = True) -> dict:
 
 
 def mx_kernel_times(device, card: str) -> list:
-    """Phase 11d: each tensor-core kernel alone beside its exact build on
-    the same input, in turns (exact, mx, mx, exact), at the main path's
-    shapes: glass_sphere's primary stage and depth 1, large_mesh's depths
-    1-3, the megakernel on glass_sphere; the plain tensor-core versions
-    timed once (the primary and the bounce at glass_sphere's full size,
-    the megakernel at 256x256), with the bound from their counted work
-    (mx_bound), torch.bmm of the same clusters' planes as a scale for the
-    products alone, and blocks per multiprocessor of both layouts ->
-    the kernels line's rows."""
+    """Phase 11d: each tensor-core kernel against its plain tensor-core
+    version at the main path's shapes through phase 3's kernel_row (held by
+    hold_mx, bound by mx_bound, the plain version timed by its one run):
+    glass_sphere's primary stage, depth 1 and megakernel frame, and
+    large_mesh's depths 1-3; each then beside its exact build on the same
+    input in turns (exact, mx, mx, exact), with torch.bmm of the same
+    clusters' planes as a scale for the products alone and blocks per
+    multiprocessor of both layouts -> the kernels line's rows."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
@@ -3268,14 +3294,13 @@ def mx_kernel_times(device, card: str) -> list:
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
     rows = {}
+    reps = 3
 
-    def turns(run_exact, run_mx, reps=3):
-        """(exact ms, mx ms) pairs in turns exact, mx, mx, exact."""
-        e1 = device_ms(run_exact, reps)
-        m1 = device_ms(run_mx, reps)
-        m2 = device_ms(run_mx, reps)
-        e2 = device_ms(run_exact, reps)
-        return [e1, e2], [m1, m2]
+    def held(tag, cfg, n_pixels, rows_, count):
+        """hold_mx of a kernel's result against its plain version's: rows
+        0..rows_-1 compared, row ``count`` the rays traced."""
+        return lambda a, b: hold_mx(tag, cfg, a[:rows_], b[:rows_], int(a[count].sum()),
+                                    int(b[count].sum()), n_pixels)
 
     def bmm_ms(cset, pairs):
         """torch.bmm of every cluster's planes [5K, 64] against as many ray
@@ -3285,26 +3310,28 @@ def mx_kernel_times(device, card: str) -> list:
         a = cset.geom_mx
         b = torch.ones((c, 64, r), dtype=torch.bfloat16, device=device)
         torch.bmm(a, b)
-        return device_ms(lambda: torch.bmm(a, b), 3)
+        return device_ms(lambda: torch.bmm(a, b), reps)
 
-    def add(name, at, exact_ms, mx_ms, plain_ms, err, bound, bmm, occ):
-        r = dict(at=at, ms=sum(mx_ms) / 2, ms_turns=mx_ms, exact_ms=exact_ms, plain_ms=plain_ms,
-                 max_abs_err=err, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                 work=bound["work"], bmm_ms=bmm, blocks_per_sm=occ)
-        log(f"  [{card}] {name} ({at}): {r['ms']:.4f} ms ({' / '.join(f'{v:.4f}' for v in mx_ms)}),"
-            f" exact {' / '.join(f'{v:.4f}' for v in exact_ms)} ms; plain {plain_ms:.1f} ms, "
-            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), torch.bmm of the planes "
-            f"{bmm:.4f} ms; blocks per multiprocessor {occ}; max |kernel - plain| {err:.3e}")
+    def add(name, cset, rec, run_exact, run_mx):
+        """The row of kernel_row's ``rec``, timed in turns beside the exact build."""
+        del rec["result"]
+        e1 = device_ms(run_exact, reps)
+        m1 = device_ms(run_mx, reps)
+        m2 = device_ms(run_mx, reps)
+        e2 = device_ms(run_exact, reps)
+        occ = {lay: binding.occupancy(k, cset.num_clusters, cset.k, device)
+               for lay, k in (("exact", MX_EXACT[name]), ("mx", name))}
+        r = dict(rec, ms=(m1 + m2) / 2, ms_turns=[m1, m2], exact_ms=[e1, e2],
+                 bmm_ms=bmm_ms(cset, rec["work"]["pair_tests"]), blocks_per_sm=occ)
+        log(f"  [{card}] {name} ({r['at']}): {r['ms']:.4f} ms ({m1:.4f} / {m2:.4f}), exact "
+            f"{e1:.4f} / {e2:.4f} ms; plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), torch.bmm of the planes {r['bmm_ms']:.4f} ms; blocks per "
+            f"multiprocessor {occ}; max |kernel - plain| {r['max_abs_err']:.3e}")
         if name not in rows:
             src, rep = MX_KERNELS[name]
-            rows[name] = dict(name=name, route="cuda", source=src, replaces=rep, library_ms=None,
-                              **r)
+            rows[name] = dict(r, source=src, replaces=rep)
         else:
             rows[name].setdefault("more", []).append(r)
-
-    def occupancy(name, cset):
-        return {lay: binding.occupancy(k, cset.num_clusters, cset.k, device)
-                for lay, k in (("exact", MX_EXACT[name]), ("mx", name))}
 
     for name in ("glass_sphere", "large_mesh"):
         s = scene_setup(name, {}, device)
@@ -3312,80 +3339,59 @@ def mx_kernel_times(device, card: str) -> list:
         mats = cset.mats_host
         fb = binding.frame_buffer(device, uni, mats, lights)
         pk = kc.prim_table(None, (0, 0), device)
-        geom = 4 * (cset.geom.numel() + cset.aabb_t.numel())
+        geom = 4 * (cset.geom.numel() + cset.aabb_t.numel() + pk[0].numel())
         band = cfg.height
         tag = tag_of(name, cfg)
         glass = name == "glass_sphere"
+        n_px = cfg.width * cfg.height
         st16 = kw.primary(cset, fb, cfg, band, *pk)
         n_rays = st16.shape[1]
         if glass:
-            ex, mx = turns(lambda: kw.primary(cset, fb, cfg, band, *pk),
-                           lambda: kw.primary(cset, fb, cfg, band, *pk, mxu="full"))
-            st_k = kw.primary(cset, fb, cfg, band, *pk, mxu="full")
-            kc.reset_work()
-            st_p, plain_ms = timed(lambda: tw.primary_stage(cset, uni, mats, lights, cfg, band,
-                                                            *pk, mxu="full"))
-            work = dict(kc.WORK)
-            err = diff(st_k, st_p)[1]
-            hold_mx(f"{tag} primary_mx", cfg, st_k[:13], st_p[:13], int(st_k[kc.ROW_COUNT].sum()),
-                    int(st_p[kc.ROW_COUNT].sum()), n_rays)
-            add("primary_mx", tag, ex, mx, plain_ms, err,
-                mx_bound(work, geom + 4 * n_rays * 16), bmm_ms(cset, work["pair_tests"]),
-                occupancy("primary_mx", cset))
-            del st_k, st_p
+            def run_mx():
+                return kw.primary(cset, fb, cfg, band, *pk, mxu="full")
+
+            rec = kernel_row("primary_mx", tag, run_mx, lambda: tw.primary_stage(
+                cset, uni, mats, lights, cfg, band, *pk, mxu="full"),
+                lambda st: geom + 4 * st.numel(), reps_k=reps, reps_p=0, bound=mx_bound,
+                hold=held(f"{tag} primary_mx", cfg, n_rays, 13, kc.ROW_COUNT))
+            add("primary_mx", cset, rec, lambda: kw.primary(cset, fb, cfg, band, *pk), run_mx)
         for d in range(1, 2 if glass else cfg.max_depth):
             idx, n_live = kw.compact(st16)
             live = int(n_live)
-            copies = [st16.clone() for _ in range(12)]
-            ex, mx = turns(lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d, *pk),
-                           lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d, *pk,
-                                             mxu="full"))
             at = f"{tag}, depth {d} ({live} live rays)"
-            st_k = st16.clone()
-            kw.bounce(st_k, idx, n_live, cset, fb, cfg, d, *pk, mxu="full")
-            if glass:  # the plain walk of large_mesh's 4M incoherent rays takes minutes
-                st_p = st16.clone()
-                kc.reset_work()
-                _, plain_ms = timed(lambda: tw.bounce_listed_stage(
-                    st_p, idx, n_live, cset, uni, mats, lights, cfg, d, *pk, mxu="full"))
-                work = dict(kc.WORK)
-                err = diff(st_k, st_p)[1]
-                hold_mx(f"{at} bounce_mx", cfg, st_k[:13], st_p[:13],
-                        int(st_k[kc.ROW_COUNT].sum()), int(st_p[kc.ROW_COUNT].sum()), n_rays)
-                bound = mx_bound(work, geom + 4 * live * (13 + 14 + 1) + 4)
-                bmm = bmm_ms(cset, work["pair_tests"])
-                del st_p
-            else:
-                plain_ms, err, bound, bmm = float("nan"), float("nan"), dict(
-                    bound_ms=float("nan"), bound_by="not measured", work={}), float("nan")
-            add("bounce_mx", at, ex, mx, plain_ms, err, bound, bmm, occupancy("bounce_mx", cset))
+            # Fresh copies of the input state: 1 + 2 x reps kernel runs in
+            # kernel_row, one plain run, 4 x reps in turns.
+            copies = [st16.clone() for _ in range(2 + 6 * reps)]
+
+            def run(mxu):
+                st = copies.pop()
+                kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, mxu=mxu)
+                return st
+
+            def run_plain():
+                st = copies.pop()
+                tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                       mxu="full")
+                return st
+
+            rows_in = 13 + int(cfg.enable_soft_shadows or cfg.enable_glossy)
+            rec = kernel_row("bounce_mx", at, lambda: run("full"), run_plain,
+                             lambda st: geom + 4 * live * (rows_in + 14 + 1) + 4,
+                             reps_k=reps, reps_p=0, bound=mx_bound,
+                             hold=held(f"{at} bounce_mx", cfg, n_rays, 13, kc.ROW_COUNT))
+            add("bounce_mx", cset, rec, lambda: run("off"), lambda: run("full"))
             kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk)  # the next depth's input
-            del copies, st_k
+            del copies
         if glass:
-            # At 256x256, where the plain version takes seconds (at full size
-            # minutes); then the full-size frame's launches in turns.
-            small = scene_setup(name, dict(resolution_override=(ORACLE_SIDE, ORACLE_SIDE)), device)
-            sfb = binding.frame_buffer(device, small["uni"], mats, small["lights"])
-            scfg = small["cfg"]
-            ex, mx = turns(lambda: km.megakernel(cset, sfb, scfg, scfg.height, *pk),
-                           lambda: km.megakernel(cset, sfb, scfg, scfg.height, *pk, mxu="full"))
-            out_k = km.megakernel(cset, sfb, scfg, scfg.height, *pk, mxu="full")
-            kc.reset_work()
-            out_p, plain_ms = timed(lambda: tm.megakernel_plain(
-                cset, small["uni"], mats, small["lights"], scfg, scfg.height, *pk, mxu="full"))
-            work = dict(kc.WORK)
-            err = diff(out_k, out_p)[1]
-            stag = tag_of(name, scfg)
-            hold_mx(f"{stag} megakernel_mx", scfg, out_k[:3], out_p[:3], int(out_k[3].sum()),
-                    int(out_p[3].sum()), scfg.width * scfg.height)
-            add("megakernel_mx", stag, ex, mx, plain_ms, err,
-                mx_bound(work, geom + 4 * 4 * scfg.width * scfg.height),
-                bmm_ms(cset, work["pair_tests"]), occupancy("megakernel_mx", cset))
-            ex, mx = turns(lambda: km.megakernel(cset, fb, cfg, band, *pk),
-                           lambda: km.megakernel(cset, fb, cfg, band, *pk, mxu="full"))
-            add("megakernel_mx", tag, ex, mx, float("nan"), float("nan"),
-                dict(bound_ms=float("nan"), bound_by="not measured", work={}), float("nan"),
-                occupancy("megakernel_mx", cset))
+            def run_mx():
+                return km.megakernel(cset, fb, cfg, band, *pk, mxu="full")
+
+            rec = kernel_row("megakernel_mx", tag, run_mx, lambda: tm.megakernel_plain(
+                cset, uni, mats, lights, cfg, band, *pk, mxu="full"),
+                lambda o: geom + 4 * o.numel(), reps_k=reps, reps_p=0, bound=mx_bound,
+                hold=held(f"{tag} megakernel_mx", cfg, n_px, 3, 3))
+            add("megakernel_mx", cset, rec, lambda: km.megakernel(cset, fb, cfg, band, *pk),
+                run_mx)
         del st16, cset
         torch.cuda.empty_cache()
     return list(rows.values())

@@ -13,7 +13,7 @@
 // within a few f32 roundings of the exact sum of those products, in an
 // order the hardware picks. The plain version
 // (cosig_tpu_torch/ops/kernel_core.py mx_planes) sums the same products in
-// float64 in one fixed order and rounds once; the two are held to
+// float64 (one matrix product) and rounds once; the two are held to
 // 1e-6 x sum |coef * input| (chip_smoke.py phase 11), and the frames to
 // the slice tolerances, since a plane an ulp away can flip a grazing pair.
 //
@@ -44,9 +44,12 @@
 //    n-tile of its first occluder (kernel_core.traverse counts its pair
 //    tests so, MX_ROWS).
 //
-// Bound: the mma's products (5 planes x 48 columns per pair, 240 MACs)
-// over the dense bf16 rate, and the selection's f32 operations (about 15
-// a pair) over the fp32 rate; chip_smoke.py phase 11 prints both.
+// Bound: the limb products a pair needs (kernel_core.MX_PRODUCTS, 147 of
+// the 5 planes x 48 columns the mma tiles issue; the rest are zero by
+// construction) over the dense bf16 rate, and the selection's f32
+// operations (about 15 a pair) over the fp32 rate; chip_smoke.py phase 11
+// prints both.
+
 #pragma once
 
 #include <cuda_bf16.h>

@@ -28,9 +28,11 @@ The tensor-core form of the pair test (``traverse(..., mx=True)``, the
 JAX package's MXU form ``mt_mxu``/``mxu_sel``, ``:633-803``) changes only
 the five planes va, vb, vc, s and num = nda - o.n: each is the sum of the
 exact bf16 x bf16 products of the limbs (``clusters.pack_mx`` for the
-geometry, :func:`ray_limbs` for the rays), taken in float64 in ascending
-column order and rounded once to float32, a fixed reference within about
-one float32 rounding of the exact sum whatever order a tensor core takes.
+geometry, :func:`ray_limbs` for the rays), summed in float64 by one matrix
+product and rounded once to float32: every product is exact in float64, so
+the sum is within a few float64 roundings of the exact one in any order,
+a fixed reference within about one float32 rounding of the exact sum
+whatever order a tensor core takes.
 The validity test, t = num * (1/s), the (t, gid) fold and u = vb * (1/s)
 stay as they are. ``bounce_core(mxu=)`` picks it per traversal: ``"full"``
 for the closest hit and the shadow rays, ``"closest"`` for the closest
@@ -143,10 +145,14 @@ TILE_C = 256
 # each plane's contraction inputs (0:3 origin, 3:6 direction, 6:9 moment
 # w, 9 the constant 1), and the rows a kernel's any hit tests at a time
 # (csrc/mx_pair.cuh: an mma tile of 8 triangles), by which WORK counts a
-# shadow ray's pair tests in that form.
+# shadow ray's pair tests in that form. MX_PRODUCTS is the limb products
+# a pair needs, those not zero by construction (the constant's limbs 1 and
+# 2 are 0): 36 each for va, vb and vc, 18 for s, 21 for num.
 MXU_MODES = ("off", "full", "closest")
 MX_INPUTS = ((3, 4, 5, 6, 7, 8),) * 3 + ((3, 4, 5), (0, 1, 2, 9))
 MX_ROWS = 8
+MX_PRODUCTS = sum(1 for inputs in MX_INPUTS for _, kk in MX_COMBOS for i in inputs
+                  if not (i == 9 and kk))
 
 
 def mxu_mode(cset: ClusterSet, mxu: str) -> str:
@@ -180,25 +186,16 @@ def mx_planes(gmx: torch.Tensor, rl: torch.Tensor, f64: bool = False) -> list:
     """The five planes of one cluster for a chunk of rays: ``gmx`` [5K, 64]
     (the cluster's geom_mx), ``rl`` [10, 3, n] (:func:`ray_limbs` of the
     rays) -> [va, vb, vc, s, num], each f32 [n, K]: per (ray, row) the sum
-    of the limb products over the plane's contraction columns ci * 10 + i,
-    in float64 in ascending column order, rounded once to float32 (``f64``:
-    the float64 sums, unrounded). Every product is exact in float64 (8 x 8
-    significant bits), and columns whose geometry or ray limb is 0 by
-    construction add an exact zero, so they are skipped."""
+    of the limb products over the contraction columns ci * 10 + i (the
+    ray's limb MX_COMBOS[ci][1] of input i), one float64 matrix product
+    rounded once to float32 (``f64``: the float64 sums, unrounded). Every
+    product is exact in float64 (8 x 8 significant bits), and the columns
+    whose geometry or ray limb is 0 by construction add exact zeros."""
     k = gmx.shape[0] // MX_PLANES
-    g = gmx.to(torch.float64)
-    r = rl.to(torch.float64)
-    out = []
-    for p, inputs in enumerate(MX_INPUTS):
-        acc = torch.zeros((r.shape[2], k), dtype=torch.float64, device=g.device)
-        gp = g[p * k:(p + 1) * k]
-        for ci, (_, kk) in enumerate(MX_COMBOS):
-            for i in inputs:
-                if i == 9 and kk:
-                    continue  # the constant's limbs 1 and 2 are 0
-                acc += r[i, kk][:, None] * gp[:, ci * 10 + i][None, :]
-        out.append(acc if f64 else acc.to(torch.float32))
-    return out
+    x = torch.cat([rl[:, kk] for _, kk in MX_COMBOS]).to(torch.float64)  # [60, n]
+    cols = x.shape[0]
+    acc = x.T @ gmx[:, :cols].to(torch.float64).T  # [n, 5K]
+    return [p if f64 else p.to(torch.float32) for p in acc.split(k, dim=1)]
 
 
 def reset_work() -> None:

@@ -45,8 +45,11 @@ runs eagerly.
 ``"off"`` (the default) the exact test, ``"full"`` the tensor-core form
 for every closest hit and shadow ray, ``"closest"`` for the closest hits
 only (the wavefront; the megakernel refuses it). The debug view and the
-oracle path keep the exact test; a scene whose cluster geometry is past
-6 MiB does too (``ops/kernel_core.mxu_mode``).
+oracle path have only the exact test, so a renderer whose backend is the
+oracle path, and a debug frame, refuse any other form with a
+``ValueError``, as ``FrameGraph`` does. A scene whose cluster geometry is
+past 6 MiB keeps the exact test (``ops/kernel_core.mxu_mode``), as the
+JAX package's streamed stages do.
 """
 
 from __future__ import annotations
@@ -110,6 +113,9 @@ class Renderer:
         self.device = dev
         self.backend = backend
         self.mxu = mxu
+        if mxu != "off" and self.resolve_backend() in ("xla", "xla-brute"):
+            raise ValueError(f"mxu={mxu!r} needs a kernel path: the {self.resolve_backend()!r} "
+                             "backend has only the exact pair test")
         # Kernel paths: (scene, analytic, cluster set, primitive table, (n_sph, n_box)).
         self._cached: Optional[tuple] = None
         # Oracle path: [scene, analytic, triangle soup, SceneArrays,
@@ -203,7 +209,10 @@ class Renderer:
 
     def _mxu_of(self, path) -> str:
         """The pair test's form a frame of ``path`` runs: the renderer's on
-        the wavefront and the megakernel, the exact test elsewhere."""
+        the wavefront and the megakernel; a debug frame refuses any form
+        but the exact test."""
+        if path == "debug" and self.mxu != "off":
+            raise ValueError(f"mxu={self.mxu!r}: the debug view has only the exact pair test")
         return self.mxu if path in ("wavefront", "megakernel") else "off"
 
     def _frame_graph(self, scene, settings, cfg, uniforms, lights):

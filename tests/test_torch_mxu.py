@@ -263,8 +263,16 @@ def test_refusals_and_graph_key():
     keys = {m: cosig_tpu_torch.Renderer(device="cpu", mxu=m).graph_key(scene, settings)
             for m in tkc.MXU_MODES}
     assert len(set(keys.values())) == 3 and keys["full"][-1] == "full"
+    # The debug view and the oracle path have only the exact test: refused.
     debug = settings.replace(debug_mode=1)
-    assert cosig_tpu_torch.Renderer(device="cpu", mxu="full").graph_key(scene, debug)[-1] == "off"
+    assert cosig_tpu_torch.Renderer(device="cpu").graph_key(scene, debug)[-1] == "off"
+    with pytest.raises(ValueError, match="debug"):
+        cosig_tpu_torch.Renderer(device="cpu", mxu="full").graph_key(scene, debug)
+    with pytest.raises(ValueError, match="debug"):
+        cosig_tpu_torch.Renderer(device="cpu", mxu="full").render(scene, debug)
+    for backend in ("xla", "xla-brute", "auto"):
+        with pytest.raises(ValueError, match="mxu"):
+            cosig_tpu_torch.Renderer(device="cpu", backend=backend, mxu="closest")
 
 
 def test_renderer_mxu_on_cpu():
@@ -289,16 +297,30 @@ def card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# demo_cornell at 48 x 32, d3, AA 1 on the card: the pixels (x, y) where the
+# megakernel's frame parts from its plain version's by more than FLIP_ABS
+# (the wavefront kernels' frame parts on the same three). Each turns on
+# one pair: triangles 0 and 9 of the soup, the back wall and the glass
+# box's back face, both in the plane z = -6, whose t are equal or an ulp
+# apart, so the kernel's and the plain version's sums can order them
+# either way. (27, 15) turns at bounce 1 on equal inputs (ray 747, the
+# stage-by-stage check's one flip); (27, 16) at bounce 1 and (26, 17) at
+# bounce 2 after an earlier stage moved them within the stage gates
+# (whole frames are independent chains). The test checks each.
+CARD_FLIP_PIXELS = {(27, 15), (27, 16), (26, 17)}
+
+
 @pytest.mark.gpu
 def test_mx_kernels_on_card(card):
     """On a card the tensor-core builds launch (primary_mx, bounce_mx,
     megakernel_mx, in both modes), each wavefront stage holds its plain
     version on the same input state at the gates of the JAX comparison
-    above (flips at most max(MIN_FLIPS, 0.01 %)), and the megakernel's
-    frame equals the wavefront kernels'. demo_cornell's glass-box back face
-    is coplanar with the back wall, so two valid pairs there can swap their
-    t order between the two summation orders: at 48 x 32, d3, one ray of
-    bounce 1 turns (chip_smoke ``explain_flip`` names the pairs)."""
+    above (flips at most max(MIN_FLIPS, 0.01 %)), the megakernel's frame
+    equals the wavefront kernels' bit for bit, and it holds its plain
+    version's frame outside CARD_FLIP_PIXELS (RMSE < 1e-5, rays within 8).
+    demo_cornell's glass-box back face is coplanar with the back wall, so
+    two valid pairs there can swap their t order between the two summation
+    orders (chip_smoke ``explain_flip`` names the pairs)."""
     from cosig_tpu_torch.kernels import wavefront as kw
 
     s = chip_smoke.scene_setup("demo_cornell", dict(resolution_override=(48, 32), max_depth=3),
@@ -334,12 +356,52 @@ def test_mx_kernels_on_card(card):
         assert binding.LAUNCHES["primary_mx"] == 1 and binding.LAUNCHES["bounce_mx"] == 2
         assert binding.LAUNCHES["primary"] == binding.LAUNCHES["bounce"] == 0
     # The megakernel runs the same per-ray device code: at AA 1 its frame is
-    # the wavefront kernels' bit for bit (whole frames of independent
-    # chains against the plain version part on the coplanar face: chip_smoke
-    # phase 11 holds the megakernel to its plain version on other scenes).
+    # the wavefront kernels' bit for bit.
     a = (cset, s["uni"], s["lights"], cfg)
     img_w, rays_w = ttw.render_wavefront(*a, mxu="full")
     binding.reset_counts()
     img, rays = ttm.render_clusters(*a, mxu="full")
     assert binding.LAUNCHES["megakernel_mx"] == 1 and binding.LAUNCHES["megakernel"] == 0
     assert torch.equal(img, img_w) and rays == rays_w
+    # Against its plain version: whole frames, so a turned pair's pixel
+    # parts (CARD_FLIP_PIXELS); every other pixel holds the slice gate.
+    img_p, rays_p = ttm.render_clusters(*a, plain=True, mxu="full")
+    d = (img - img_p).abs().reshape(-1, 3).cpu().double()
+    flips = (d > FLIP_ABS).any(dim=1)
+    pixels = {(i % cfg.width, i // cfg.width) for i in torch.nonzero(flips).squeeze(1).tolist()}
+    print("megakernel pixels apart from the plain frame", sorted(pixels))
+    assert pixels <= CARD_FLIP_PIXELS
+    assert float(d[~flips].pow(2).mean().sqrt()) < 1e-5
+    assert abs(rays - rays_p) <= 8
+    # Each of those pixels turns on the coplanar pair. Along independent
+    # chains (the kernels' and the plain version's), at the first stage
+    # where a ray parts, the closest hit's winners under the kernel's planes
+    # and under the plain ones (chip_smoke.explain_flip, on the plain
+    # chain's input) are triangles 0 and 9, which lie in one plane.
+    sk = kw.primary(cset, fb, cfg, cfg.height, *pk, mxu="full")
+    sp = ttw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk, mxu="full")
+    assert not bool(((sk[:13] - sp[:13]).abs() > FLIP_ABS).any())
+    turned = {}
+    for depth in range(1, cfg.max_depth):
+        o, dirs = sp[0:3].clone(), sp[3:6].clone()
+        idx, n_live = kw.compact(sk)
+        kw.bounce(sk, idx, n_live, cset, fb, cfg, depth, *pk, mxu="full")
+        idx, n_live = ttw.compact_plain(sp)
+        ttw.bounce_listed_stage(sp, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk,
+                                mxu="full")
+        parted = ((sk[:13] - sp[:13]).abs() > FLIP_ABS).any(dim=0)
+        for r in torch.nonzero(parted).squeeze(1).tolist():
+            if r not in turned:
+                res = chip_smoke.explain_flip(cset, o[:, r], dirs[:, r], f"bounce {depth} ray {r}")
+                turned[r] = {res["winners"]["kernel"][1], res["winners"]["plain"][1]}
+    print("rays parted along the chains and their winners' gids", turned)
+    assert {(r % cfg.width, r // cfg.width) for r in turned} == pixels
+    assert all(gids == {0.0, 9.0} for gids in turned.values())
+    geom = cset.geom.reshape(-1, tcl.GEOM_COMPS).double()
+    planes = []
+    for gid in (0.0, 9.0):
+        row = geom[geom[:, tcl.GID] == gid][0]
+        norm = row[tcl.GN:tcl.GN + 3].norm()
+        planes.append((row[tcl.GN:tcl.GN + 3] / norm, row[tcl.NDA] / norm))
+    assert torch.allclose(planes[0][0], -planes[1][0]) and torch.isclose(planes[0][1],
+                                                                           -planes[1][1])
