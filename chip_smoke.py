@@ -77,7 +77,9 @@ Phases (any failure raises and the script exits non-zero):
    32x24 and 32x50 (AA 1 and 4), depth 2, in n = 1, 2, 4, 8 bands on
    ``[cuda:0] * n`` through the oracle, wavefront and megakernel sharded
    functions, each bit-equal to its single render with equal rays and
-   within 1e-5 (oracle) and 1e-3 (kernels) of the single oracle; (b)
+   within 1e-5 (oracle) and 1e-3 (kernels) of the single oracle, and the
+   kernel paths with ``mxu="full"`` in 2 and 4 bands bit-equal to their
+   single tensor-core renders; (b)
    glass_sphere in 2, 3 and 4 wavefront bands, bit-equal to the single
    frame, 8,847,840 rays; (c) large_mesh at 2048x2048, depth 4, AA 4 (2^24
    camera rays, which one wavefront band refuses) in 2 and 4 bands,
@@ -97,7 +99,8 @@ Phases (any failure raises and the script exits non-zero):
    versions at 128x128, depth 2, bit for bit (lists equal), the
    knot's clusters split 32 ways (75,360 clusters, past the 65,536 that
    sb_aabb_t's 128 superblocks cover, so every kernel takes its flat
-   build) bit for bit at 16x8, depth 1, both paths at
+   build) bit for bit at 16x8, depth 1 (depth 2, with the bounce and the
+   debug view, under ``--dense-knot``), both paths at
    2048x2048 depth 4 through the Renderer with the launch counters read
    around each (ms/frame, Mrays/s, the megakernel bit-equal to the
    wavefront, each launch's device time), and both paths against
@@ -149,7 +152,24 @@ Phases (any failure raises and the script exits non-zero):
    (b), with the plain version's time and the bound from its counted work
    (phase 3's ``kernel_row``), then beside its exact build on the same
    input in turns, with ``torch.bmm`` of the same planes and blocks per
-   multiprocessor of both layouts.
+   multiprocessor of both layouts;
+12. the tensor-core form in the wavefront's fission form and with the
+   separate primary and shadow sets (``mx_form_phase``; six new builds of
+   ``csrc/mx_forms.cu``): (a) every new build against its plain version
+   stage by stage at 64²-128² (glass_sphere in every form and both modes,
+   large_mesh cut 4 ways for the superblock builds, the analytic mixed
+   scene, the tiny scene with every effect) at phase 11's gates, flips
+   counted, lists equal, and each form's frame bit-equal to the fused
+   tensor-core kernels' frame (the same mode's; closest-only with a
+   shadow set, whose shadow rays are exact); (b) glass_sphere and
+   large_mesh at full size in every form and mode, eager and as a graph
+   replay, against their JAX records, the eager frame bit-equal to the
+   fused tensor-core frame and the replay to the eager one, with the
+   launch counters read around each; ``render_chain`` slopes of each
+   against the fused exact frame in turns; (c) each new build at the main
+   path's shapes held to its plain version, timed in turns beside the same
+   form's exact build and the fused tensor-core build, with its bound and
+   blocks per multiprocessor.
 
 Up to phase 8 every Renderer frame on the card is a graph replay too
 (each frame's launch counts include one ``graph``; the first frame of a
@@ -159,7 +179,7 @@ eagerly.
 
 Near the end the script prints a JSON line of the models, a JSON line of
 per-frame numbers, a JSON line each of the oracle's and phases 7's to
-11's numbers, a JSON line of per-kernel numbers, the card's name and
+12's numbers, a JSON line of per-kernel numbers, the card's name and
 power limit, and, as the last line, the result ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -172,6 +192,17 @@ runs only phase 3's kernel times (``time_kernels``) of the checkout TREE
 package, and prints one line ``TIMES {"tree": ..., "card": ...,
 "primary": ms, ..., "bounce large_mesh": [ms per depth]}``. Run it once per
 tree, each in a process of its own, parent and change in turns (README.md).
+
+    python3 chip_smoke.py --dense-knot
+
+holds the dense knot to its plain versions at depth 4 (``dense_deep``):
+every wavefront stage bit for bit at 128x128 in the fused and the fission
+form, the chain, the megakernel and the debug view; the knot cut 32 ways
+(past 65,536 clusters: the flat builds) at 16x8, depth 2, with the
+bounce and the debug view; then the primary and the megakernel at
+2048x2048 with their times and bounds; one ``DENSE {...}`` line, the
+card line and the result line (~7 min; phase 8 runs these plain checks
+at depth 2 and 1, whose plain frames took most of its time).
 """
 
 from __future__ import annotations
@@ -1679,7 +1710,9 @@ def shard_small(device) -> dict:
     2) and the padding case (32 x 50, at AA 1 and AA 4) in n bands on
     ``[device] * n``, n = 1, 2, 4, 8, through the three sharded functions:
     each bit-equal to its single render with equal rays, and within the
-    dryrun's bounds of the single oracle."""
+    dryrun's bounds of the single oracle; then the two kernel paths in the
+    tensor-core form (``mxu="full"``) in 2 and 4 bands, each bit-equal to
+    its single tensor-core render."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
@@ -1726,6 +1759,28 @@ def shard_small(device) -> dict:
                 f"{res['wavefront']['rays']} / {res['megakernel']['rays']}, max vs oracle "
                 f"{res['wavefront']['max_vs_oracle']:.2e} / "
                 f"{res['megakernel']['max_vs_oracle']:.2e}")
+        # The tensor-core form: a pair's planes do not depend on the band.
+        single = {"wavefront": tw.render_wavefront(*args, mxu="full"),
+                  "megakernel": tm.render_clusters(*args, mxu="full")}
+        for n in (2, 4):
+            devs = sharding.make_mesh(devices=[device] * n)
+            for path, fn in (("wavefront", sharding.render_sharded_wavefront),
+                             ("megakernel", sharding.render_sharded_megakernel)):
+                before = dict(binding.LAUNCHES)
+                img, rays = fn(*args, devs, mxu="full")
+                got = _launched(before)
+                check(torch.equal(img, single[path][0]) and rays == single[path][1], tag, n, path,
+                      "mxu=full: sharded differs from its single render", rays, single[path][1])
+                if path == "wavefront":
+                    bands = len(sharding.band_offsets(h, sharding.wavefront_band(cfg, n), n))
+                    want = dict(primary_mx=bands, compact=bands, bounce_mx=bands)
+                else:
+                    want = dict(megakernel_mx=len(sharding.band_offsets(
+                        h, sharding.megakernel_band(s["cset"], h, n), n)))
+                _expect_launches(device, got, want, tag, n, path, "mxu=full")
+                out[f"{tag} n{n}"][f"{path} mxu full"] = dict(rays=rays, launches=got)
+        log(f"  {tag} in 2 and 4 bands, mxu=full: wavefront and megakernel bit-equal to their "
+            f"single tensor-core renders")
         del arrays, oracle, single
     torch.cuda.empty_cache() if device.type == "cuda" else None
     return out
@@ -2043,7 +2098,8 @@ def dense_frames(device, card: str, full_size: bool = True) -> dict:
     out["plain_flat"] = dict(clusters=DENSE_FLAT_SPLIT * DENSE_CLUSTERS, side=(16, 8),
                              plain_s=flat_s, compare_s=time.perf_counter() - t0)
     log(f"  dense knot split {DENSE_FLAT_SPLIT} ways ({DENSE_FLAT_SPLIT * DENSE_CLUSTERS} "
-        f"clusters, no superblock cull) 16x8 d1: kernels bit-equal to their plain versions; "
+        f"clusters, no superblock cull) 16x8 d1: kernels bit-equal to their plain versions "
+        f"(at d2, the bounce and the debug view: --dense-knot); "
         f"plain frames {flat_s['wavefront']:.1f} s, {flat_s['megakernel']:.1f} s")
 
     # 8c. Full-size frames on both paths.
@@ -2455,16 +2511,23 @@ def form_launches(max_depth: int, forms: dict) -> dict:
     return wavefront_launches(max_depth)
 
 
-def check_form_stages(s: dict, forms: dict, tag: str) -> list:
+def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off") -> list:
     """The wavefront chain of one frame in the form ``forms`` with each
     kernel held bit for bit to its plain version on the same input state
     (all rows, the hit record's included) and each compaction list to the
     plain one as integers; then the frame's image and rays to the fused
-    single-set kernels' -> the list lengths."""
+    single-set kernels' -> the list lengths. With ``mxu`` ("full" or
+    "closest", phase 12) every stage runs the tensor-core form and a kernel
+    is held to its plain version by hold_mx (rows 0-12 and the record's
+    15-19, flips counted) instead, and the frame, bit for bit, to the fused
+    tensor-core kernels' frame of the mode the form's arithmetic gives:
+    ``mxu``'s own, or "closest" with a separate shadow set (whose shadow
+    rays are exact)."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
     cset, cfg = s["cset"], s["cfg"]
@@ -2475,19 +2538,24 @@ def check_form_stages(s: dict, forms: dict, tag: str) -> list:
     fission, csp, css = forms["fission"], forms["cset_primary"], forms["cset_shadow"]
     pcs = cset if csp is None else csp
     p_sh, b_sh = (pcs if css is None else css), (cset if css is None else css)
+    sh_mxu = mxu if css is None else "off"  # the shade's shadow rays: exact on a shadow set
 
     def same(stage, st_k, st_p):
-        ok, mx, _ = diff(st_k, st_p)
-        check(ok, tag, stage, "kernel not bit-equal to its plain version", mx)
+        if mxu == "off":
+            ok, mx, _ = diff(st_k, st_p)
+            check(ok, tag, stage, "kernel not bit-equal to its plain version", mx)
+            return
+        hold_mx(f"{tag} {mxu} {stage}", cfg, mx_state_rows(st_k), mx_state_rows(st_p),
+                int(st_k[kc.ROW_COUNT].sum()), int(st_p[kc.ROW_COUNT].sum()), st_k.shape[1])
 
     prim_sh = None if fission else css
-    st = kw.primary(pcs, fb, cfg, cfg.height, *pk, fission=fission, cset_shadow=prim_sh)
+    st = kw.primary(pcs, fb, cfg, cfg.height, *pk, fission=fission, cset_shadow=prim_sh, mxu=mxu)
     same("primary", st, tw.primary_stage(pcs, uni, mats, lights, cfg, cfg.height, *pk,
-                                         fission=fission, cset_shadow=prim_sh))
+                                         fission=fission, cset_shadow=prim_sh, mxu=mxu))
     if fission:
         ref = st.clone()
-        kw.shade(st, None, None, p_sh, fb, cfg, 0, *pk)
-        tw.primary_shade(ref, p_sh, uni, mats, lights, cfg, *pk)
+        kw.shade(st, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu)
+        tw.primary_shade(ref, p_sh, uni, mats, lights, cfg, *pk, mxu=sh_mxu)
         same("shade of the primary", st, ref)
     lengths = []
     for d in range(1, cfg.max_depth):
@@ -2498,22 +2566,28 @@ def check_form_stages(s: dict, forms: dict, tag: str) -> list:
         lengths.append(m)
         ref = st.clone()
         if fission:
-            kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk)
-            tw.trace_listed_stage(ref, idx, n_live, cset, *pk)
+            kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk, mxu=mxu)
+            tw.trace_listed_stage(ref, idx, n_live, cset, *pk, mxu=mxu)
             same(f"trace at depth {d}", st, ref)
             ref = st.clone()
-            kw.shade(st, idx, n_live, b_sh, fb, cfg, d, *pk)
-            tw.shade_listed_stage(ref, idx, n_live, b_sh, uni, mats, lights, cfg, d, *pk)
+            kw.shade(st, idx, n_live, b_sh, fb, cfg, d, *pk, mxu=sh_mxu)
+            tw.shade_listed_stage(ref, idx, n_live, b_sh, uni, mats, lights, cfg, d, *pk,
+                                  mxu=sh_mxu)
             same(f"shade at depth {d}", st, ref)
         else:
-            kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=css)
+            kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=css, mxu=mxu)
             tw.bounce_listed_stage(ref, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
-                                   cset_shadow=css)
+                                   cset_shadow=css, mxu=mxu)
             same(f"bounce at depth {d}", st, ref)
     img, rays = tw.finalize(st, cfg, cfg.height)
+    fused = "off" if mxu == "off" else "closest" if css is not None else mxu
     img0, rays0 = tw.render_wavefront(cset, s["uni"], s["lights"], cfg, prims=s["prims"],
-                                      prim_counts=s["prim_counts"])
-    check(torch.equal(img, img0) and rays == rays0, tag, "frame differs from the fused one")
+                                      prim_counts=s["prim_counts"], mxu=fused)
+    if not (torch.equal(img, img0) and rays == rays0):
+        log(f"  {tag} {mxu}: frame apart from the fused {fused} frame at pixels "
+            f"{torch.nonzero((img - img0).abs().amax(dim=2) > 0)[:8].tolist()}")
+    check(torch.equal(img, img0) and rays == rays0, tag, mxu,
+          "frame differs from the fused", fused, "frame")
     return lengths
 
 
@@ -2685,7 +2759,7 @@ def form_kernel_times(device) -> list:
     glass_sphere's primary stage (the fission primary and the shade over
     every ray; the primary with the shadow set) and depth 1 (trace, shade,
     the bounce with the shadow set; plain versions timed here), then
-    large_mesh's depths 1-3 (plain versions at depth 1 only). Bounds from
+    large_mesh's depths 1-3 (plain versions at each). Bounds from
     the plain versions' counted work (WORK) and the bytes each kernel must
     move -> the kernels line's rows."""
     import torch
@@ -2698,26 +2772,23 @@ def form_kernel_times(device) -> list:
     forms_cu = "cosig_tpu_torch/csrc/forms.cu + csrc/wavefront.cuh"
     rows = {}
 
-    def row(name, tag, run_k, copies_k, run_p, nbytes, plain=True, fused_ms=None):
+    def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None):
         """Time ``run_k(state)`` on fresh copies; hold it to ``run_p(state)``
         once; the bound from the plain run's WORK."""
         st_k = run_k(copies_k.pop())
-        if plain:
-            kc.reset_work()
-            st_p, plain_ms = timed(lambda: run_p(copies_k.pop()))
-            bound = work_bound(dict(kc.WORK), nbytes)
-            same, mx, _ = diff(st_k, st_p)
-            check(same, name, tag, "kernel not bit-equal to its plain version", mx)
-            del st_p
+        kc.reset_work()
+        st_p, plain_ms = timed(lambda: run_p(copies_k.pop()))
+        bound = work_bound(dict(kc.WORK), nbytes)
+        same, mx, _ = diff(st_k, st_p)
+        check(same, name, tag, "kernel not bit-equal to its plain version", mx)
+        del st_p
         ms = device_ms(lambda: run_k(copies_k.pop()), 3)
-        r = dict(at=tag, ms=ms, fused_ms=fused_ms)
-        if plain:
-            r.update(plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound["bound_ms"],
-                     bound_by=bound["bound_by"], work=bound["work"])
+        r = dict(at=tag, ms=ms, fused_ms=fused_ms, plain_ms=plain_ms, max_abs_err=mx,
+                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], work=bound["work"])
         log(f"  {name} ({tag}): {ms:.4f} ms on the card"
             + (f", the fused kernel {fused_ms:.4f} ms" if fused_ms is not None else "")
-            + (f"; plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
-               f"({bound['bound_by']}; {bound['work']})" if plain else ""))
+            + f"; plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}; {bound['work']})")
         if name not in rows:
             rows[name] = dict(name=name, route="cuda", source=forms_cu,
                               replaces=FORM_KERNELS[name], library_ms=None, **r)
@@ -2772,13 +2843,11 @@ def form_kernel_times(device) -> list:
         for d in range(1, cfg.max_depth if not glass else 2):
             idx, n_live = kw.compact(st16)
             live = int(n_live)
-            plain = d == 1
             copies = [st16.clone() for _ in range(4)]
             fused_ms = device_ms(lambda: kw.bounce(copies.pop(), idx, n_live, cset, fb, cfg, d,
                                                    *pk), 3)
             at = f"{tag}, depth {d} ({live} live rays)"
             rows_io = 4 * live * (13 + 14 + 1) + 4
-            nc = 5 if plain else 4
 
             def bounce_sh(st):
                 kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=sh)
@@ -2789,8 +2858,8 @@ def form_kernel_times(device) -> list:
                                        cset_shadow=sh)
                 return st
 
-            row("bounce_shadow", at, bounce_sh, [st16.clone() for _ in range(nc)], bounce_sh_p,
-                geom + geom_sh + rows_io, plain=plain, fused_ms=fused_ms)
+            row("bounce_shadow", at, bounce_sh, [st16.clone() for _ in range(5)], bounce_sh_p,
+                geom + geom_sh + rows_io, fused_ms=fused_ms)
 
             def trace(st):
                 kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk)
@@ -2800,8 +2869,8 @@ def form_kernel_times(device) -> list:
                 tw.trace_listed_stage(st, idx, n_live, cset, *pk)
                 return st
 
-            traced_st = row("trace", at, trace, [st24.clone() for _ in range(nc)], trace_p,
-                            geom + 4 * live * (7 + 6 + 1) + 4, plain=plain, fused_ms=fused_ms)
+            traced_st = row("trace", at, trace, [st24.clone() for _ in range(5)], trace_p,
+                            geom + 4 * live * (7 + 6 + 1) + 4, fused_ms=fused_ms)
 
             def shade(st):
                 kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk)
@@ -2811,8 +2880,8 @@ def form_kernel_times(device) -> list:
                 tw.shade_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
                 return st
 
-            row("shade", at, shade, [traced_st.clone() for _ in range(nc)], shade_p,
-                geom + 4 * live * (13 + 5 + 14 + 1) + 4, plain=plain, fused_ms=fused_ms)
+            row("shade", at, shade, [traced_st.clone() for _ in range(5)], shade_p,
+                geom + 4 * live * (13 + 5 + 14 + 1) + 4, fused_ms=fused_ms)
             # The next depth's input: the fused bounce, and the fission state from it.
             kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk)
             st24[:n] = st16
@@ -3412,14 +3481,383 @@ def mx_phase(device, card: str, full_size: bool = True) -> dict:
     return out
 
 
+# ---- phase 12: the tensor-core pair test in the wavefront's other forms ----
+
+# The new builds (csrc/mx_forms.cu): the TPU kernel form each replaces, the
+# same form's exact build and the fused tensor-core build of the same stage,
+# timed beside it in phase 12c.
+MX_FORM_SOURCE = ("cosig_tpu_torch/csrc/mx_forms.cu + csrc/forms.cuh + csrc/wavefront.cuh + "
+                  "csrc/mx_pair.cuh")
+MX_FORM_KERNELS = {
+    "primary_fission_mx": (MX_REPLACES + "trace_wavefront.py:293 _make_primary_kernel"
+                           "(fission=True)", "primary_fission", "primary_mx"),
+    "trace_mx": (MX_REPLACES + "trace_wavefront.py:439 _make_bounce_kernel(mode=\"trace\")",
+                 "trace", "bounce_mx"),
+    "shade_mx": (MX_REPLACES + "trace_wavefront.py:439 _make_bounce_kernel(mode=\"shade\")",
+                 "shade", "bounce_mx"),
+    "shade_all_mx": (MX_REPLACES + "trace_wavefront.py:873 the primary stage's "
+                     "_make_bounce_kernel(mode=\"shade\")", "shade_all", "primary_mx"),
+    "primary_shadow_mx": (MX_REPLACES + "trace_wavefront.py:293 _make_primary_kernel with :247 "
+                          "_make_shadow_traverse", "primary_shadow", "primary_mx"),
+    "bounce_shadow_mx": (MX_REPLACES + "trace_wavefront.py:439 _make_bounce_kernel with :247 "
+                         "_make_shadow_traverse", "bounce_shadow", "bounce_mx"),
+}
+MX_FORM_DESIGN = {
+    "primary_fission_mx": "tensor-core block walk, stops after the closest hit",
+    "trace_mx": "tensor-core block walk on the compaction list, closest hit only",
+    "shade_mx": "the record, then the tensor-core block walk's any hits, on the list",
+    "shade_all_mx": "the record, then the tensor-core block walk's any hits, every ray",
+    "primary_shadow_mx": "tensor-core closest-hit walk, then handoff to the exact shadow walk",
+    "bounce_shadow_mx": "tensor-core closest-hit walk, then handoff to the exact shadow walk",
+}
+
+
+def mx_form_launches(max_depth: int, forms: dict, mxu: str) -> dict:
+    """Launches of one wavefront frame in the form ``forms`` and mode ``mxu``
+    (the tensor-core builds; the shade's exact builds in closest-only mode
+    and on a separate shadow set)."""
+    d = max_depth - 1
+    if forms["fission"]:
+        if mxu == "full" and forms["cset_shadow"] is None:
+            return dict(primary_fission_mx=1, shade_all_mx=1, compact=d, trace_mx=d,
+                        **({"shade_mx": d} if d else {}))
+        return dict(primary_fission_mx=1, shade=1 + d, compact=d, trace_mx=d)
+    if forms["cset_shadow"] is not None:
+        return dict(primary_shadow_mx=1, compact=d, bounce_shadow_mx=d)
+    return dict(primary_mx=1, compact=d, bounce_mx=d)
+
+
+def mx_form_small(device) -> dict:
+    """Phase 12a: every new tensor-core build against its plain version
+    stage by stage (check_form_stages with mxu: hold_mx's gates, flips
+    counted; lists equal as integers), then each form's frame against the
+    fused tensor-core kernels' frame bit for bit (the same mode's, or
+    closest-only with a separate shadow set): glass_sphere in every form
+    and both modes, large_mesh cut 4 ways (c_pad 1024: the superblock
+    builds; its k = 16 primary set has 749 clusters), the analytic mixed
+    scene and the tiny scene with every effect."""
+    effects = dict(aa_samples=2, enable_soft_shadows=True, light_size=5.0, enable_glossy=True,
+                   surface_roughness=0.05, enable_motion_blur=True, shutter_speed=0.5)
+    cases = [
+        ("glass_sphere", dict(resolution_override=(96, 96)), False, 1, ("full", "closest"),
+         tuple(FORMS)),
+        ("large_mesh", dict(resolution_override=(96, 64), max_depth=3), False, 4, ("full",),
+         ("fission", "all")),
+        ("mixed", dict(resolution_override=(64, 48), max_depth=3), True, 1, ("full",),
+         ("all", "shadow set")),
+        ("tiny", dict(resolution_override=(64, 64), max_depth=3, **effects), False, 1,
+         ("full", "closest"), ("fission", "shadow set", "all")),
+    ]
+    out = {}
+    for name, kw_, analytic, split, modes, forms in cases:
+        t0 = time.perf_counter()
+        s = scene_setup(name, kw_, device, analytic)
+        k = s["cset"].k
+        ks = dict(FORM_KS.get(name, dict(primary=max(4, k // 4), shadow=2 * k)))
+        if split > 1:
+            s["cset"] = mx_split(s["cset"], split)
+        sets = form_sets(s, ks, device)
+        tag = tag_of(name, s["cfg"], analytic) + (f" split {split}" if split > 1 else "")
+        for mode in modes:
+            for form in forms:
+                lengths = check_form_stages(s, form_kwargs(sets, form), f"{tag} {form}", mxu=mode)
+                out[f"{tag} {form} {mode}"] = dict(lists=lengths)
+        out[tag] = dict(clusters=s["cset"].num_clusters, c_pad=int(s["cset"].aabb_t.shape[1]),
+                        sets={n: (c.num_clusters, c.k, int(c.aabb_t.shape[1]))
+                              for n, c in sets.items()})
+        log(f"  {tag} ({out[tag]}): modes {modes}, forms {forms}: every tensor-core kernel held "
+            f"to its plain version, lists equal, frames bit-equal to the fused tensor-core "
+            f"frames ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def mx_form_frames(device, card: str, full_size: bool = True) -> dict:
+    """Phase 12b, the main path of the new builds: glass_sphere (1024x1024,
+    d6, AA 4) and large_mesh (2048x2048, d4) in every form and both modes,
+    eager (render_wavefront) and replayed (FrameGraph), the launch counters
+    set to 0 just before each and read just after: rays within 0.01 % and
+    image mean within 1e-4 of the JAX records, the replay bit-equal to the
+    eager frame, and the eager frame bit-equal to the fused tensor-core
+    kernels' frame of the mode the form's arithmetic gives; then each
+    graph's render_chain slope against the fused exact frame's, in turns."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.ops import frame_graph
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    out = {"launches": {}, "frames": {}}
+    for name in ("glass_sphere", "large_mesh") if full_size else ("glass_sphere",):
+        s = scene_setup(name, {} if full_size else dict(resolution_override=(96, 96)), device)
+        cset, cfg, uni, lights = s["cset"], s["cfg"], s["uni"], s["lights"]
+        sets = form_sets(s, FORM_KS[name], device)
+        tag = tag_of(name, cfg)
+        fused = {m: tw.render_wavefront(cset, uni, lights, cfg, mxu=m)
+                 for m in ("full", "closest")}
+        graphs = {"fused exact": frame_graph.FrameGraph("wavefront", cset, cfg, uni, lights)}
+        rec = {}
+        for mode in ("full", "closest"):
+            for form in FORMS:
+                f = form_kwargs(sets, form)
+                binding.reset_counts()
+                img, rays = tw.render_wavefront(cset, uni, lights, cfg, mxu=mode, **f)
+                eager = {k: v for k, v in binding.LAUNCHES.items() if v}
+                g = frame_graph.FrameGraph("wavefront", cset, cfg, uni, lights, mxu=mode, **f)
+                img_g, rays_g = g.replay(uni, lights)
+                got = {k: v for k, v in binding.LAUNCHES.items() if v}
+                for k, v in got.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+                want = mx_form_launches(cfg.max_depth, f, mode)
+                check(eager == want, tag, form, mode, "eager launches", eager, "expected", want)
+                check({k: v for k, v in g.launches.items() if v} == dict(want, graph=1), tag,
+                      form, mode, "graph launches", g.launches)
+                ref = fused["closest" if f["cset_shadow"] is not None else mode]
+                check(torch.equal(img, ref[0]) and int(rays) == int(ref[1]), tag, form, mode,
+                      "eager frame differs from the fused tensor-core frame")
+                check(torch.equal(img_g, img) and int(rays_g) == int(rays), tag, form, mode,
+                      "graph replay differs from the eager frame")
+                mean = float(img.double().mean())
+                if full_size:
+                    r = RECORDS[name]
+                    check(abs(int(rays) - r["rays"]) <= RAYS_REL * r["rays"], tag, form, mode,
+                          "rays", int(rays), r["rays"])
+                    check(abs(mean - r["mean"]) <= MEAN_ABS, tag, form, mode, "mean", mean)
+                graphs[f"{form} {mode}"] = g
+                rec[f"{form} {mode}"] = dict(rays=int(rays), mean=mean, launches=got,
+                                             pool_bytes=g.pool_bytes)
+                log(f"  [{card}] {tag} {form} mxu={mode}: rays {int(rays)}, mean {mean:.6f} "
+                    f"(record {RECORDS[name]['rays']}, {RECORDS[name]['mean']}); eager bit-equal "
+                    f"to the fused {'closest' if f['cset_shadow'] is not None else mode} frame, "
+                    f"replay to eager; launches {got}")
+        del fused
+        lo, hi = CHAIN_KS
+        slopes = {n: [] for n in graphs}
+        for _ in range(FORM_TURNS):
+            for n, g in graphs.items():
+                ms = {}
+                for k in (lo, hi):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    g.chain(uni, lights, k)
+                    ms[k] = (time.perf_counter() - t0) * 1e3
+                slopes[n].append((ms[hi] - ms[lo]) / (hi - lo))
+        rec["slope_ms"] = slopes
+        log(f"  [{card}] {tag} render_chain slope, ms/frame in {FORM_TURNS} turns: "
+            + "; ".join(f"{n} " + " / ".join(f"{v:.3f}" for v in vs) for n, vs in slopes.items()))
+        out["frames"][tag] = rec
+        del graphs, sets, cset, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def mx_state_rows(st):
+    """The rows a tensor-core stage is held on: 0-12 and, in a 24-row state,
+    the record's 15-19, with a miss's t (INF) as 1e30 so that two misses
+    agree and a turned hit counts as a flip."""
+    import torch
+
+    from cosig_tpu_torch.ops.kernel_core import REC0
+
+    rows = list(range(13)) + (list(range(REC0, REC0 + 5)) if st.shape[0] > 16 else [])
+    return torch.nan_to_num(st[rows], posinf=1e30)
+
+
+def mx_form_kernel_times(device, card: str) -> list:
+    """Phase 12c: each new build at the main path's shapes (glass_sphere
+    1024x1024 d6 AA 4: the primary stage and depth 1; large_mesh 2048x2048:
+    depths 1-3), on the fused tensor-core chain's states: held once to its
+    plain version (hold_mx on mx_state_rows, the plain version timed by that
+    run, its counted WORK giving mx_bound), then timed behind a sleep in
+    turns beside the same form's exact build (exact, mx, mx, exact) and the
+    fused tensor-core build of the stage, with blocks per multiprocessor
+    of each -> the kernels line's rows."""
+    import torch
+
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    rows = {}
+    reps = 3
+
+    def row(name, at, cfg, fresh, run_mx, run_exact, run_fused, run_p, nbytes, occ,
+            fresh_fused=None):
+        """``fresh()`` -> a new copy of the input (None for a primary;
+        ``fresh_fused()`` the fused build's, where it differs); each
+        ``run_*(input)`` -> the state it writes. Held and timed by phase 3's
+        kernel_row (1 + 2 x reps kernel runs and the plain version's one
+        run), then timed in turns."""
+        held = {}
+
+        def hold(a, b):
+            held.update(hold_mx(f"{at} {name}", cfg, mx_state_rows(a), mx_state_rows(b),
+                                int(a[kc.ROW_COUNT].sum()), int(b[kc.ROW_COUNT].sum()),
+                                a.shape[1]))
+            held["err"] = diff(mx_state_rows(a), mx_state_rows(b))[1]
+
+        cps = [fresh() for _ in range(2 + 2 * reps)]
+        rec = kernel_row(name, at, lambda: run_mx(cps.pop()), lambda: run_p(cps.pop()),
+                         lambda _: nbytes, reps_k=reps, reps_p=0, bound=mx_bound, hold=hold)
+        del rec["result"], cps
+
+        def ms_of(run, make=fresh):
+            cps = [make() for _ in range(reps)]
+            return device_ms(lambda: run(cps.pop()), reps)
+
+        e1, m1, m2, e2 = ms_of(run_exact), ms_of(run_mx), ms_of(run_mx), ms_of(run_exact)
+        f_ms = ms_of(run_fused, fresh_fused or fresh)
+        r = dict(rec, ms=(m1 + m2) / 2, ms_turns=[m1, m2], kernel_row_ms=rec["ms"],
+                 exact_ms=[e1, e2], fused_mx_ms=f_ms, max_abs_err=held["err"],
+                 flips=held["flips"], blocks_per_sm=occ)
+        log(f"  [{card}] {name} ({at}): {r['ms']:.4f} ms ({m1:.4f} / {m2:.4f}); the exact "
+            f"build {e1:.4f} / {e2:.4f} ms, the fused tensor-core {f_ms:.4f} ms; plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); blocks "
+            f"per multiprocessor {occ}; flips {held['flips']}")
+        if name not in rows:
+            rows[name] = dict(r, source=MX_FORM_SOURCE, replaces=MX_FORM_KERNELS[name][0])
+        else:
+            rows[name].setdefault("more", []).append(r)
+
+    for name in ("glass_sphere", "large_mesh"):
+        s = scene_setup(name, {}, device)
+        cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
+        mats = cset.mats_host
+        fb = binding.frame_buffer(device, uni, mats, lights)
+        pk = kc.prim_table(None, (0, 0), device)
+        sh = form_sets(s, dict(shadow=FORM_KS[name]["shadow"]), device)["shadow"]
+        geom = 4 * (cset.geom.numel() + cset.aabb_t.numel())
+        geom_sh = 4 * (sh.geom.numel() + sh.aabb_t.numel())
+        band, c, k = cfg.height, cset.num_clusters, cset.k
+        tag = tag_of(name, cfg)
+
+        def occ(mx_name, sh_k=0):
+            return {b: binding.occupancy(b, c, k, device, shadow_k=sh_k)
+                    for b in (mx_name, MX_FORM_KERNELS[mx_name][1])}
+
+        if name == "glass_sphere":
+            def prim(**f):
+                return lambda _: kw.primary(cset, fb, cfg, band, *pk, **f)
+
+            def prim_p(**f):
+                return lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk, **f)
+
+            n_rays = tw.num_rays(cfg, band)
+            row("primary_fission_mx", tag, cfg, lambda: None, prim(fission=True, mxu="full"),
+                prim(fission=True), prim(mxu="full"), prim_p(fission=True, mxu="full"),
+                geom + 4 * n_rays * kc.FISSION_ROWS, occ("primary_fission_mx"))
+            row("primary_shadow_mx", tag, cfg, lambda: None,
+                prim(cset_shadow=sh, mxu="full"), prim(cset_shadow=sh), prim(mxu="full"),
+                prim_p(cset_shadow=sh, mxu="full"), geom + geom_sh + 4 * n_rays * kc.STATE_ROWS,
+                occ("primary_shadow_mx", sh.k))
+            st24 = kw.primary(cset, fb, cfg, band, *pk, fission=True, mxu="full")
+
+            def shade_all(m):
+                def run(st):
+                    kw.shade(st, None, None, cset, fb, cfg, 0, *pk, mxu=m)
+                    return st
+                return run
+
+            def shade_all_p(st):
+                tw.primary_shade(st, cset, uni, mats, lights, cfg, *pk, mxu="full")
+                return st
+
+            row("shade_all_mx", f"{tag}, the primary stage over all rays", cfg, st24.clone,
+                shade_all("full"), shade_all("off"), prim(mxu="full"), shade_all_p,
+                geom + 4 * n_rays * (13 + 5 + 14), occ("shade_all_mx"))
+            del st24
+        # The bounces, on the fused tensor-core chain's states.
+        st16 = kw.primary(cset, fb, cfg, band, *pk, mxu="full")
+        n = kc.STATE_ROWS
+        for d in range(1, 2 if name == "glass_sphere" else cfg.max_depth):
+            idx, n_live = kw.compact(st16)
+            live = int(n_live)
+            at = f"{tag}, depth {d} ({live} live rays)"
+            st24 = torch.zeros((kc.FISSION_ROWS, st16.shape[1]), dtype=torch.float32,
+                               device=device)
+            st24[:n] = st16
+
+            def bounce(**f):
+                def run(st):
+                    kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, **f)
+                    return st
+                return run
+
+            def bounce_sh_p(st):
+                tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                       cset_shadow=sh, mxu="full")
+                return st
+
+            row("bounce_shadow_mx", at, cfg, st16.clone, bounce(cset_shadow=sh, mxu="full"),
+                bounce(cset_shadow=sh), bounce(mxu="full"), bounce_sh_p,
+                geom + geom_sh + 4 * live * (13 + 14 + 1) + 4, occ("bounce_shadow_mx", sh.k))
+
+            def trace(m):
+                def run(st):
+                    kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk, mxu=m)
+                    return st
+                return run
+
+            def trace_p(st):
+                tw.trace_listed_stage(st, idx, n_live, cset, *pk, mxu="full")
+                return st
+
+            row("trace_mx", at, cfg, st24.clone, trace("full"), trace("off"), bounce(mxu="full"),
+                trace_p, geom + 4 * live * (7 + 6 + 1) + 4, occ("trace_mx"),
+                fresh_fused=st16.clone)
+            traced = trace("full")(st24.clone())
+
+            def shade(m):
+                def run(st):
+                    kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk, mxu=m)
+                    return st
+                return run
+
+            def shade_p(st):
+                tw.shade_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                      mxu="full")
+                return st
+
+            row("shade_mx", at, cfg, traced.clone, shade("full"), shade("off"), bounce(mxu="full"),
+                shade_p, geom + 4 * live * (13 + 5 + 14 + 1) + 4, occ("shade_mx"),
+                fresh_fused=st16.clone)
+            kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk, mxu="full")  # the next input
+            del st24, traced
+        del st16, cset, sh
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def mx_form_phase(device, card: str, full_size: bool = True) -> dict:
+    """Phase 12 (mx_form_small, mx_form_frames, mx_form_kernel_times)."""
+    out = {}
+    t0 = time.perf_counter()
+    out["small"] = mx_form_small(device)
+    out["small_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(mx_form_frames(device, card, full_size))
+    out["frames_s"] = time.perf_counter() - t0
+    if full_size:
+        t0 = time.perf_counter()
+        out["kernels"] = mx_form_kernel_times(device, card)
+        out["kernels_s"] = time.perf_counter() - t0
+    log(f"  phase 12: stages {out['small_s']:.1f} s, frames {out['frames_s']:.1f} s, kernel "
+        f"times {out.get('kernels_s', 0.0):.1f} s")
+    return out
+
+
 def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b,
     "superblocks": {the same of the build with the superblock cull}}, ...},
     the other builds under their launch counters' names
     (primary_fission, primary_shadow, bounce_shadow, primary_mx, bounce_mx,
-    megakernel_mx; shade_all, the shade over every ray of the primary
-    stage)."""
+    megakernel_mx, primary_fission_mx, primary_shadow_mx, bounce_shadow_mx,
+    trace_mx, shade_mx; shade_all and shade_all_mx, the shade over every ray
+    of the primary stage), from the template flags of each entry's mangled
+    name: primary_kernel<SB, SH, FISSION, MX>, bounce_kernel<SB, SH, MX>,
+    trace_kernel<SB, MX>, shade_kernel<SB, LISTED, MX>, megakernel<SB,
+    MX>."""
     import re
 
     names = {"primary_kernel": "primary", "bounce_kernel": "bounce", "trace_kernel": "trace",
@@ -3434,19 +3872,16 @@ def ptxas_resources(ptxas: str) -> dict:
             if name:
                 args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[int(m.group(1)):])
                 flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
-                if name == "primary" and flags[3:4] == [True]:
-                    name = "primary_mx"
-                elif name == "bounce" and flags[2:3] == [True]:
-                    name = "bounce_mx"
-                elif name == "megakernel" and flags[1:2] == [True]:
-                    name = "megakernel_mx"
-                elif name == "primary" and flags[2:3] == [True]:
+                flags += [False] * 4
+                mx = {"primary": flags[3], "bounce": flags[2], "trace": flags[1],
+                      "shade": flags[2], "megakernel": flags[1]}.get(name, False)
+                if name == "primary" and flags[2]:
                     name = "primary_fission"
-                elif name in ("primary", "bounce") and flags[1:2] == [True]:
+                elif name in ("primary", "bounce") and flags[1]:
                     name += "_shadow"
-                elif name == "shade" and flags[1:2] == [False]:
+                elif name == "shade" and not flags[1]:
                     name = "shade_all"
-                cur = out.setdefault(name, {})
+                cur = out.setdefault(name + ("_mx" if mx else ""), {})
                 if flags[:1] == [True]:  # built with the superblock cull
                     cur = cur.setdefault("superblocks", {})
             continue
@@ -3486,6 +3921,101 @@ def time_tree(tree: str) -> int:
     return 0
 
 
+DENSE_DEEP_DEPTH = 4
+
+
+def dense_deep(device) -> dict:
+    """``--dense-knot``: the dense knot held to its plain versions at depth
+    DENSE_DEEP_DEPTH, the check that phase 8 cut to depth 2 to keep the
+    script inside its time limit. At DENSE_PLAIN_SIDE: every wavefront
+    stage bit-equal to its plain version on the same input state, in the
+    fused and the fission form, the compaction lists equal as integers
+    (check_form_stages); the whole chain, the megakernel and the debug
+    view in modes 1-3 bit-equal to their plain frames (compare_case). Cut
+    DENSE_FLAT_SPLIT ways (every kernel's flat build) at 16x8, depth 2:
+    the primary, the bounce, the megakernel and the debug view bit-equal to
+    their plain versions (phase 8 runs this case at depth 1: at depth 2
+    its plain frames took 250 s). At full size (2048x2048, d4): the primary
+    and the megakernel against their plain versions bit for bit through
+    phase 3's kernel_row, their times on the card and the bounds from the
+    plain versions' counted work."""
+    from cosig_tpu_torch.kernels import binding
+    from cosig_tpu_torch.kernels import megakernel as km
+    from cosig_tpu_torch.kernels import wavefront as kw
+    from cosig_tpu_torch.ops import kernel_core as kc
+    from cosig_tpu_torch.ops import trace_megakernel as tm
+    from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    out = {}
+    side = DENSE_PLAIN_SIDE
+    kw_ = dict(resolution_override=(side, side), max_depth=DENSE_DEEP_DEPTH)
+    t0 = time.perf_counter()
+    s = scene_setup("dense_knot", kw_, device)
+    tag = tag_of("dense_knot", s["cfg"])
+    for form in ("fused", "fission"):
+        f = dict(fission=form == "fission", cset_primary=None, cset_shadow=None)
+        out[f"{form} lists"] = check_form_stages(s, f, f"{tag} {form}")
+        log(f"  {tag} {form}: every stage bit-equal to its plain version, lists "
+            f"{out[f'{form} lists']} equal ({time.perf_counter() - t0:.1f} s)")
+    out["plain_s"] = compare_case(device, "dense_knot", kw_, False, exact=True)
+    log(f"  {tag}: chain, megakernel and debug modes 1-3 bit-equal to their plain frames "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["flat_plain_s"] = compare_case(device, "dense_knot",
+                                       dict(resolution_override=(16, 8), max_depth=2), False,
+                                       exact=True, split=DENSE_FLAT_SPLIT)
+    log(f"  dense knot split {DENSE_FLAT_SPLIT} ways ({DENSE_FLAT_SPLIT * DENSE_CLUSTERS} "
+        f"clusters, the flat builds) 16x8 d2: primary, bounce, megakernel and debug modes 1-3 "
+        f"bit-equal to their plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    s = scene_setup("dense_knot", {}, device)
+    cfg, cset = s["cfg"], s["cset"]
+    uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
+        cset, s["uni"], s["lights"], 0, None, s["prims"], s["prim_counts"])
+    pk = (prims, n_sph, n_box)
+    fb = binding.frame_buffer(device, uni, mats, lights)
+    geom_bytes = 4 * (cset.geom.numel() + cset.aabb_t.numel() + prims.numel())
+    tag = tag_of("dense_knot", cfg)
+
+    def exact(name):
+        return lambda a, b: check(diff(a, b)[0], tag, name, "not bit-equal to its plain version")
+
+    rows = []
+    for name, run_k, run_p in (
+            ("primary", lambda: kw.primary(cset, fb, cfg, cfg.height, *pk),
+             lambda: tw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk)),
+            ("megakernel", lambda: km.megakernel(cset, fb, cfg, cfg.height, *pk),
+             lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, cfg.height, *pk))):
+        rec = kernel_row(name, tag, run_k, run_p, lambda o: geom_bytes + 4 * o.numel(),
+                         reps_k=3, reps_p=0, hold=exact(name))
+        del rec["result"]
+        rows.append(rec)
+    out["kernels"] = rows
+    return out
+
+
+def dense_main(device) -> int:
+    """``--dense-knot``: build the kernels, run dense_deep, print one
+    ``DENSE {...}`` line, the card line and the result line."""
+    import torch
+
+    from cosig_tpu_torch.kernels import build as kbuild
+
+    card = card_line()
+    log(f"card: {card}")
+    _, build_s, _ = kbuild.build(force=True)
+    log(f"kernels built in {build_s:.2f} s")
+    t0 = time.perf_counter()
+    out = dense_deep(device)
+    out.update(card=card, seconds=time.perf_counter() - t0)
+    print("DENSE " + json.dumps(out), flush=True)
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -3495,7 +4025,8 @@ def main(argv: list) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if argv[:1] == ["--time-kernels"] and len(argv) <= 2:
         return time_tree(argv[1] if len(argv) == 2 else here)
-    if argv:
+    dense = argv == ["--dense-knot"]
+    if argv and not dense:
         print(f"chip_smoke: unknown arguments {argv}\n{__doc__}", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
@@ -3504,6 +4035,8 @@ def main(argv: list) -> int:
     except ImportError as e:
         print(f"chip_smoke: cosig_tpu_torch is not importable from {here}: {e}", file=sys.stderr)
         return 2
+    if dense:
+        return dense_main(torch.device("cuda", 0))
 
     card = card_line()
     log(f"card: {card}")
@@ -3518,7 +4051,8 @@ def main(argv: list) -> int:
     resources = ptxas_resources(ptxas)
     check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug", "trace",
                              "shade", "shade_all", "primary_fission", "primary_shadow",
-                             "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx"},
+                             "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx",
+                             *MX_FORM_KERNELS},
           resources)
     check_no_jax()
 
@@ -3559,6 +4093,9 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     phase11 = mx_phase(device, card)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase12 = mx_form_phase(device, card)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     from cosig_tpu_torch.kernels import binding
@@ -3605,6 +4142,14 @@ def main(argv: list) -> int:
         k["design"] = ("block walk; per warp mma.sync m16n8k16 bf16 on limbs split in "
                        "registers from the ring's f32 rows, a running winner per fragment row")
         kernels.append(k)
+    # The tensor-core builds of the other forms: launches on phase 12's
+    # main path (its full-size frames in every form, eager and replayed).
+    for k in phase12.pop("kernels"):
+        k["launches"] = phase12["launches"].get(k["name"], 0)
+        check(k["launches"] > 0, k["name"], "was not launched on its path")
+        k.update(resources[k["name"]])
+        k["design"] = MX_FORM_DESIGN[k["name"]]
+        kernels.append(k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"oracle": oracle}))
@@ -3613,6 +4158,7 @@ def main(argv: list) -> int:
     log(json.dumps({"phase9": phase9}))
     log(json.dumps({"phase10": phase10}))
     log(json.dumps({"phase11": phase11}))
+    log(json.dumps({"phase12": phase12}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,172 @@
+// Host-side launchers of the wavefront's other kernel forms (wavefront.cuh):
+// the fission primary, the trace and shade kernels, and the primary and
+// bounce builds whose shadow rays walk a separate cluster set, each as a
+// template over MX, the pair test's form. forms.cu instantiates them with
+// MX false (the exact builds), mx_forms.cu with MX true (the tensor-core
+// builds), each behind its own plain C launchers for ctypes, so that nvcc
+// builds the two translation units in parallel.
+//
+// A tensor-core build's block walk lays out tile_layout(k, true): the exact
+// layout and the warps' staged ray operands. A shadow-set build holds the
+// larger of its closest-hit walk's layout and the exact shadow walk's
+// (traverse_tile.cuh handoff).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "wavefront.cuh"
+
+namespace cosig {
+
+// The shadow set's geometry for a launch -> whether it may launch: a
+// shadow set must fit one cull block (no superblocks to test).
+inline bool shadow_geometry(const float* sh_geom, const float* sh_aabb, int sh_clusters, int sh_k,
+                            int sh_c_pad, const float* prims, int n_sph, int n_box, Geometry& g) {
+  g.geom = sh_geom;
+  g.aabb = sh_aabb;
+  g.sb_aabb = nullptr;  // never read: one cull block has no superblocks
+  g.prims = prims;
+  g.n_clusters = sh_clusters;
+  g.k = sh_k;
+  g.c_pad = sh_c_pad;
+  g.n_sph = n_sph;
+  g.n_box = n_box;
+  return sh_geom != nullptr && sh_aabb != nullptr && sh_clusters > 0 && sh_k > 0 &&
+         sh_c_pad >= sh_clusters && sh_c_pad <= SB_CLUSTERS;
+}
+
+// Shared memory of a block that walks k-row clusters (in the MX layout
+// when `mx`), then hands its memory to an exact walk over sh_k-row
+// clusters: the larger layout.
+inline int both_smem(int k, int sh_k, bool mx) {
+  return std::max((int)tile_layout(k, mx).total, (int)tile_layout(sh_k).total);
+}
+
+// Blocks of a build that one multiprocessor holds at once, in the build
+// its launch picks for n_clusters clusters of k rows (with or without the
+// superblock cull), after the same raise of its dynamic shared-memory
+// limit as its launch: which 0 the primary and 1 the bounce whose shadow
+// rays walk a set of sh_k-row clusters, 2 the fission primary, 3 the trace
+// kernel, 4 the shade kernel on a list, 5 the shade kernel over every ray;
+// minus the CUDA error if refused.
+template <bool MX>
+int form_occupancy(int which, int n_clusters, int k, int sh_k) {
+  const bool sb = superblocks(n_clusters) > 0;
+  const int smem = (int)tile_layout(k, MX).total;
+  switch (which) {
+    case 0:
+      return walk_occupancy(sb ? primary_kernel<true, true, false, MX>
+                               : primary_kernel<false, true, false, MX>,
+                            both_smem(k, sh_k, MX));
+    case 1:
+      return walk_occupancy(sb ? bounce_kernel<true, true, MX> : bounce_kernel<false, true, MX>,
+                            both_smem(k, sh_k, MX));
+    case 2:
+      return walk_occupancy(sb ? primary_kernel<true, false, true, MX>
+                               : primary_kernel<false, false, true, MX>,
+                            smem);
+    case 3:
+      return walk_occupancy(sb ? trace_kernel<true, MX> : trace_kernel<false, MX>, smem);
+    case 4:
+      return walk_occupancy(sb ? shade_kernel<true, true, MX> : shade_kernel<false, true, MX>,
+                            smem);
+    default:
+      return walk_occupancy(sb ? shade_kernel<true, false, MX> : shade_kernel<false, false, MX>,
+                            smem);
+  }
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 = launched). The
+// fission primary (fission != 0, sh_geom NULL) into state f32 [24, n_rays],
+// or the primary whose shadow rays walk the set sh_* (fission 0) into
+// state f32 [16, n_rays].
+template <bool MX>
+int primary_form_launch(const Frame* frame, const float* geom, const float* aabb,
+                        const float* sb_aabb, int n_clusters, int k, int c_pad,
+                        const float* prims, int n_sph, int n_box, int fission,
+                        const float* sh_geom, const float* sh_aabb, int sh_clusters, int sh_k,
+                        int sh_c_pad, float* state, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  Geometry sh{};
+  if (fission ? sh_geom != nullptr
+              : !shadow_geometry(sh_geom, sh_aabb, sh_clusters, sh_k, sh_c_pad, prims, n_sph,
+                                 n_box, sh)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const bool sb = superblocks(n_clusters) > 0;
+  const auto kernel = fission ? (sb ? primary_kernel<true, false, true, MX>
+                                    : primary_kernel<false, false, true, MX>)
+                              : (sb ? primary_kernel<true, true, false, MX>
+                                    : primary_kernel<false, true, false, MX>);
+  const int smem = fission ? (int)tile_layout(k, MX).total : both_smem(k, sh_k, MX);
+  return (int)launch_walk(kernel, blocks, smem, (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
+                          n_clusters, k, c_pad, prims, n_sph, n_box, sh, state);
+}
+
+// One bounce on the listed rays idx[0 .. *n_live) of state f32 [16, n_rays],
+// its shadow rays through the set sh_*, on a grid for all n_rays.
+template <bool MX>
+int bounce_shadow_launch(const Frame* frame, const float* geom, const float* aabb,
+                         const float* sb_aabb, int n_clusters, int k, int c_pad,
+                         const float* prims, int n_sph, int n_box, const float* sh_geom,
+                         const float* sh_aabb, int sh_clusters, int sh_k, int sh_c_pad,
+                         const int* idx, const int* n_live, float* state, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  Geometry sh{};
+  if (!superblocks_ok(n_clusters, sb_aabb) ||
+      !shadow_geometry(sh_geom, sh_aabb, sh_clusters, sh_k, sh_c_pad, prims, n_sph, n_box, sh)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const auto kernel = superblocks(n_clusters) > 0 ? bounce_kernel<true, true, MX>
+                                                  : bounce_kernel<false, true, MX>;
+  return (int)launch_walk(kernel, blocks, both_smem(k, sh_k, MX), (cudaStream_t)stream, *frame,
+                          geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, sh, idx,
+                          n_live, state);
+}
+
+// The trace half of a bounce on the listed rays of state f32 [24, n_rays].
+template <bool MX>
+int trace_launch(const Frame* frame, const float* geom, const float* aabb, const float* sb_aabb,
+                 int n_clusters, int k, int c_pad, const float* prims, int n_sph, int n_box,
+                 const int* idx, const int* n_live, float* state, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const auto kernel = superblocks(n_clusters) > 0 ? trace_kernel<true, MX>
+                                                  : trace_kernel<false, MX>;
+  return (int)launch_walk(kernel, blocks, (int)tile_layout(k, MX).total, (cudaStream_t)stream,
+                          *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
+                          idx, n_live, state);
+}
+
+// The shade half on state f32 [24, n_rays], its shadow rays through the
+// cluster set given: on the listed rays idx[0 .. *n_live), or with idx
+// and n_live NULL on every ray (the primary stage's, frame depth 0).
+template <bool MX>
+int shade_launch(const Frame* frame, const float* geom, const float* aabb, const float* sb_aabb,
+                 int n_clusters, int k, int c_pad, const float* prims, int n_sph, int n_box,
+                 const int* idx, const int* n_live, float* state, void* stream) {
+  const int n = frame->n_rays;
+  if (n <= 0) return 0;
+  if (!superblocks_ok(n_clusters, sb_aabb) || (idx == nullptr) != (n_live == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const bool sb = superblocks(n_clusters) > 0;
+  const auto kernel = idx ? (sb ? shade_kernel<true, true, MX> : shade_kernel<false, true, MX>)
+                          : (sb ? shade_kernel<true, false, MX> : shade_kernel<false, false, MX>);
+  return (int)launch_walk(kernel, blocks, (int)tile_layout(k, MX).total, (cudaStream_t)stream,
+                          *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
+                          idx, n_live, state);
+}
+
+}  // namespace cosig

@@ -602,9 +602,14 @@ struct BlockWalk {
 // own k) may put ring rows or boxes over them, and `to.init` sets up its
 // own; the proxy fence orders the block's generic writes before `to`'s
 // bulk copies into the same bytes. The block's shared memory is the larger
-// of the two layouts (the launches size it so).
-template <bool A, bool B>
-__device__ __forceinline__ void handoff(BlockWalk<A>& from, BlockWalk<B>& to) {
+// of the two layouts (the launches size it so). `from` may be the
+// tensor-core walk (MXA): its per-warp staged ray operands (tile_layout's
+// mx region, written and read by generic accesses only) are dead after the
+// barrier, and its mbarriers sit at the same offsets as the exact
+// layout's, so `to`'s ring may land over both. `to` is always exact: the
+// shadow set's walk, as the TPU kernel's shadow traversal gets no geom_mx.
+template <bool A, bool MXA, bool B>
+__device__ __forceinline__ void handoff(BlockWalk<A, MXA>& from, BlockWalk<B>& to) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();  // every thread is done with `from`'s shared memory
   if (threadIdx.x == 0) {

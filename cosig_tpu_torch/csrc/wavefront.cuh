@@ -40,8 +40,9 @@
 // whose 128 consecutive entries are all live and mostly of one octant.
 // Threads past n_rays or past the list, and rays of rows past the image,
 // take part in the walk inactive. The builds with the tensor-core form of
-// the pair test (MX, traverse_tile.cuh and mx_pair.cuh; instantiated by
-// mx.cu) replace the TPU kernels' MXU form of the same stages.
+// the pair test (MX, traverse_tile.cuh and mx_pair.cuh; the fused ones
+// instantiated by mx.cu, the fission and shadow-set ones by mx_forms.cu)
+// replace the TPU kernels' MXU form of the same stages.
 //
 // The fission form and the separate shadow set (cosig_tpu/ops/
 // trace_wavefront.py:115-135, :247-267, :716-888), the TPU kernel forms
@@ -76,6 +77,16 @@
 // the two walks'. Occlusion and the (t, gid) winner do not depend on the
 // cut, so every form gives the fused single-set bits. The fused builds
 // (SH and FISSION false) compile to the code they had without these flags.
+//
+// Every form also has its MX build, as the TPU's MXU switch applies per
+// stage whatever the form (trace_wavefront.py:621-714): the closest hit of
+// the fission primary and of the trace kernel, and the any hits of the
+// shade kernel (full mode, F_MX_SHADOW), take the tensor-core walk; with SH
+// the closest hit takes it and the shadow walk over the shadow set stays
+// exact (JAX's _make_shadow_traverse gets no geom_mx), so the MX walk's
+// mx_any is never set there. A pair's planes are a fixed sum of exact limb
+// products, whichever rays share an mma tile, so each MX form gives the
+// fused MX frame's bits (with SH, the fused closest-only frame's).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false (cosig_tpu_torch/kernels/build.py). --fmad=false and IEEE
@@ -144,8 +155,8 @@ __device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
 // SH: the shadow rays walk the cluster set `sh`; FISSION: stop after the
 // trace and store the hit record (24-row state). Not both: the fission
 // primary traces no shadow ray. MX: the tensor-core form of the pair test
-// (traverse_tile.cuh), neither SH nor FISSION; its shadow rays take it
-// when the frame has F_MX_SHADOW.
+// (traverse_tile.cuh) for the closest hit; without SH its shadow rays take
+// it too when the frame has F_MX_SHADOW.
 template <bool SB, bool SH, bool FISSION, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
@@ -154,12 +165,11 @@ __global__ void __launch_bounds__(THREADS)
                    const float* __restrict__ prims, int n_sph, int n_box,
                    const __grid_constant__ Geometry sh, float* __restrict__ state) {
   static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
-  static_assert(!(MX && (SH || FISSION)), "the tensor-core form has no fission or shadow-set build");
   extern __shared__ __align__(128) unsigned char tile_smem[];
   BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
-  if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
+  if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = f.n_rays;
@@ -230,7 +240,8 @@ __device__ __forceinline__ RayState load(const float* __restrict__ state, int n,
 }
 
 // SH: the shadow rays walk the cluster set `sh`; MX: the tensor-core form
-// (not with SH), its shadow rays too when the frame has F_MX_SHADOW.
+// for the closest hit, and without SH for the shadow rays too when the
+// frame has F_MX_SHADOW.
 template <bool SB, bool SH, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
@@ -242,12 +253,11 @@ __global__ void __launch_bounds__(THREADS)
                   float* __restrict__ state) {
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
-  static_assert(!(MX && SH), "the tensor-core form has no shadow-set build");
   extern __shared__ __align__(128) unsigned char tile_smem[];
   BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
-  if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
+  if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   const int n = f.n_rays;
   const int j = blockIdx.x * THREADS + threadIdx.x;
@@ -273,7 +283,8 @@ __global__ void __launch_bounds__(THREADS)
 
 // The trace half of a bounce on the listed rays of a 24-row state: ray
 // idx[j]'s origin, direction and count in, its count and hit record out.
-template <bool SB>
+// MX: the closest hit in the tensor-core form (both modes).
+template <bool SB, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -284,7 +295,7 @@ __global__ void __launch_bounds__(THREADS)
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
 
@@ -314,8 +325,10 @@ __global__ void __launch_bounds__(THREADS)
 // The shade half on a 24-row state, its shadow rays through the cluster
 // set it is given (the shadow set where there is one). LISTED: the listed
 // rays of a bounce stage; else every ray of the primary stage, whose
-// blocks of consecutive rays are coherent (frustum pre-cull on).
-template <bool SB, bool LISTED>
+// blocks of consecutive rays are coherent (frustum pre-cull on). MX: the
+// any hits in the tensor-core form when the frame has F_MX_SHADOW (full
+// mode; never on a separate shadow set, which the launches keep exact).
+template <bool SB, bool LISTED, bool MX = false>
 __global__ void __launch_bounds__(THREADS)
     shade_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -337,9 +350,10 @@ __global__ void __launch_bounds__(THREADS)
     listed = i < n;  // threads past the last ray walk inactive
   }
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, MX> walk;
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
+  if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   RayState st = load(state, n, i, listed);
   if (!LISTED) st.alive = listed && state[ROW_ALIVE * (size_t)n + i] > 0.0f;

@@ -21,7 +21,11 @@ wavefront's other builds apart: ``primary_fission``, the primary that
 stops after its trace, and ``primary_shadow``/``bounce_shadow``, the
 builds whose shadow rays walk a separate cluster set; the builds with the
 tensor-core pair test ``primary_mx``, ``bounce_mx`` and ``megakernel_mx``,
-in full and closest-only mode alike) and graph replays (``graph``);
+in full and closest-only mode alike, and in the other forms
+``primary_fission_mx``, ``trace_mx``, ``primary_shadow_mx``,
+``bounce_shadow_mx``, and in full mode the shade's ``shade_mx`` (on a
+list) and ``shade_all_mx`` (over every ray of the primary stage)) and
+graph replays (``graph``);
 each wrapper of :mod:`cosig_tpu_torch.kernels.wavefront` and
 :mod:`cosig_tpu_torch.kernels.megakernel` adds one where it launches its
 kernel, a replay adds the kernels its graph holds and one ``graph``, and
@@ -68,6 +72,8 @@ F_MX_SHADOW = 512
 LAUNCHES = {"primary": 0, "compact": 0, "bounce": 0, "trace": 0, "shade": 0,
             "primary_fission": 0, "primary_shadow": 0, "bounce_shadow": 0,
             "primary_mx": 0, "bounce_mx": 0, "megakernel_mx": 0,
+            "primary_fission_mx": 0, "trace_mx": 0, "shade_mx": 0, "shade_all_mx": 0,
+            "primary_shadow_mx": 0, "bounce_shadow_mx": 0,
             "megakernel": 0, "debug": 0, "graph": 0}
 
 
@@ -222,6 +228,10 @@ def library() -> ctypes.CDLL:
         ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
         ("cosig_trace_launch", [ptr, ptr]),  # idx, n_live, state, stream
         ("cosig_shade_launch", [ptr, ptr]),  # idx or NULL, n_live or NULL, state, stream
+        ("cosig_primary_form_mx_launch", [i32] + shadow),  # as their exact builds'
+        ("cosig_bounce_shadow_mx_launch", shadow + [ptr, ptr]),
+        ("cosig_trace_mx_launch", [ptr, ptr]),
+        ("cosig_shade_mx_launch", [ptr, ptr]),
         ("cosig_megakernel_launch", [i32]),  # max_depth, out, stream
         ("cosig_debug_launch", [i32]),  # mode, out, stream
     ):
@@ -244,8 +254,9 @@ def library() -> ctypes.CDLL:
                  "cosig_mx_occupancy"):
         getattr(lib, name).argtypes = [i32, i32, i32]  # which, n_clusters, k
         getattr(lib, name).restype = i32
-    lib.cosig_form_occupancy.argtypes = [i32, i32, i32, i32]  # which, n_clusters, k, shadow k
-    lib.cosig_form_occupancy.restype = i32
+    for name in ("cosig_form_occupancy", "cosig_mx_form_occupancy"):
+        getattr(lib, name).argtypes = [i32, i32, i32, i32]  # which, n_clusters, k, shadow k
+        getattr(lib, name).restype = i32
     for name, size in (("cosig_frame_bytes", ctypes.sizeof(Frame)),
                        ("cosig_frame_data_bytes", FRAME_DATA.itemsize)):
         fn = getattr(lib, name)
@@ -358,16 +369,25 @@ _OCCUPANCY = {"primary": ("cosig_wavefront_occupancy", 0),
               "primary_fission": ("cosig_form_occupancy", 2),
               "trace": ("cosig_form_occupancy", 3),
               "shade": ("cosig_form_occupancy", 4),
+              "shade_all": ("cosig_form_occupancy", 5),
               "primary_mx": ("cosig_mx_occupancy", 0),
               "bounce_mx": ("cosig_mx_occupancy", 1),
-              "megakernel_mx": ("cosig_megakernel_occupancy", 2)}
+              "megakernel_mx": ("cosig_megakernel_occupancy", 2),
+              "primary_shadow_mx": ("cosig_mx_form_occupancy", 0),
+              "bounce_shadow_mx": ("cosig_mx_form_occupancy", 1),
+              "primary_fission_mx": ("cosig_mx_form_occupancy", 2),
+              "trace_mx": ("cosig_mx_form_occupancy", 3),
+              "shade_mx": ("cosig_mx_form_occupancy", 4),
+              "shade_all_mx": ("cosig_mx_form_occupancy", 5)}
 
 
 def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k: int = 0) -> int:
     """Blocks of ray kernel ``kernel`` (primary, bounce, megakernel, debug,
     the wavefront's other builds: primary_shadow, bounce_shadow,
-    primary_fission, trace, shade, and the tensor-core builds primary_mx,
-    bounce_mx, megakernel_mx), in the build its launch picks for
+    primary_fission, trace, shade, shade_all, and the tensor-core builds
+    primary_mx, bounce_mx, megakernel_mx, primary_shadow_mx,
+    bounce_shadow_mx, primary_fission_mx, trace_mx, shade_mx,
+    shade_all_mx), in the build its launch picks for
     ``n_clusters`` clusters (with the superblock cull where
     :func:`~cosig_tpu_torch.accel.clusters.superblocks` is above 0), that
     one multiprocessor of ``dev`` holds at once with the block walk's
@@ -375,7 +395,7 @@ def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k:
     larger of the walks over ``k`` and over the shadow set's ``shadow_k``
     rows); raise if the card refuses that shared memory."""
     name, which = _OCCUPANCY[kernel]
-    args = (which, n_clusters, k) + ((shadow_k,) if name == "cosig_form_occupancy" else ())
+    args = (which, n_clusters, k) + ((shadow_k,) if "form" in name else ())
     with torch.cuda.device(dev):
         blocks = getattr(library(), name)(*args)
     if blocks <= 0:

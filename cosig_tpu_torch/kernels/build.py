@@ -4,7 +4,8 @@
 (``wavefront.cu``: the primary, compaction and bounce kernels;
 ``forms.cu``: the wavefront's fission builds, trace and shade kernels
 and shadow-set builds; ``mx.cu``: the primary and bounce builds with the
-tensor-core pair test and its probe; ``megakernel.cu``: the megakernel
+tensor-core pair test and its probe; ``mx_forms.cu``: the fission and
+shadow-set builds with the tensor-core pair test; ``megakernel.cu``: the megakernel
 in both forms of the pair test and the debug kernel; with their headers) for Hopper, one ``nvcc`` per source, all started at once, and
 links the objects into
 ``cosig_tpu_torch/build/libcosig_kernels_<hash>.so``, a plain C library
@@ -32,9 +33,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("rng.cuh", "traverse.cuh", "mx_pair.cuh", "traverse_tile.cuh", "bounce.cuh",
-           "camera.cuh", "wavefront.cuh", "wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
+           "camera.cuh", "wavefront.cuh", "forms.cuh", "wavefront.cu", "forms.cu", "mx.cu",
+           "mx_forms.cu", "megakernel.cu")
 # One nvcc each, then one link.
-KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
+KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "mx.cu", "mx_forms.cu", "megakernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

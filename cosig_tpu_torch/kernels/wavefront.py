@@ -14,11 +14,18 @@ A bounce stage is ``compact`` then ``bounce`` on its list: the list and
 its length stay on the device, so the host never waits for them. In the
 fission form it is ``compact``, then ``trace`` and ``shade`` on the same
 list, on a 24-row state that ``primary(..., fission=True)`` makes and a
-``shade`` over every ray finishes. ``primary`` and ``bounce`` take
+``shade`` over every ray finishes. Every wrapper but ``compact`` takes
 ``mxu`` (``"off"``, ``"full"``, ``"closest"``): the builds with the
-tensor-core pair test (``csrc/mx.cu``; counters ``primary_mx`` and
-``bounce_mx`` in both modes) where :func:`kernel_core.mxu_mode` keeps it
-for the set, else the exact builds.
+tensor-core pair test (``csrc/mx.cu`` for the fused stages, counters
+``primary_mx`` and ``bounce_mx``; ``csrc/mx_forms.cu`` for the others,
+counters ``primary_fission_mx``, ``primary_shadow_mx``,
+``bounce_shadow_mx`` and ``trace_mx`` in both modes, ``shade_mx`` and
+``shade_all_mx`` in ``"full"``, since in ``"closest"`` the shade's
+shadow rays take the exact builds) where :func:`kernel_core.mxu_mode`
+keeps it for the set, else the exact builds. The shadow rays through a
+separate shadow set always take the exact test; the caller of ``shade``
+passes ``mxu="off"`` for one, as
+:func:`~cosig_tpu_torch.ops.trace_wavefront.stages` does.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: 
     dev = cset.device
     if fission and cset_shadow is not None:
         raise ValueError("the fission primary traces no shadow rays: pass cset_shadow to shade")
-    trace_wavefront.check_mxu(mxu, fission, cset_shadow)
+    trace_wavefront.check_mxu(mxu)
     if dev.type == "cpu":
         return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
                                              prims, n_sph, n_box, fission=fission,
@@ -59,20 +66,18 @@ def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: 
     if cset_shadow is not None:
         binding.check_shadow_set(cset_shadow, dev)
     mxu = kernel_core.mxu_mode(cset, mxu)
-    frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1, mx_shadow=mxu == "full")
+    frame = binding.make_frame(cfg, fb, band, 0, cfg.max_depth == 1,
+                               mx_shadow=mxu == "full" and cset_shadow is None)
     state = torch.empty((state_rows(fission), frame.n_rays), dtype=torch.float32, device=dev)
-    if mxu != "off":
-        binding.launch("cosig_primary_mx_launch", frame, cset, prims, n_sph, n_box, state)
-        binding.LAUNCHES["primary_mx"] += 1
-        return state
+    mx = "_mx" if mxu != "off" else ""
     if fission or cset_shadow is not None:
-        binding.launch("cosig_primary_form_launch", frame, cset, prims, n_sph, n_box, state,
+        binding.launch(f"cosig_primary_form{mx}_launch", frame, cset, prims, n_sph, n_box, state,
                        int(fission), *binding.shadow_args(cset_shadow))
     else:
-        binding.launch("cosig_primary_launch", frame, cset, prims, n_sph, n_box, state)
+        binding.launch(f"cosig_primary{mx}_launch", frame, cset, prims, n_sph, n_box, state)
     name = ("primary_fission" if fission else "primary" if cset_shadow is None
             else "primary_shadow")
-    binding.LAUNCHES[name] += 1
+    binding.LAUNCHES[name + mx] += 1
     return state
 
 
@@ -133,7 +138,7 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
     :func:`compact`); ``cset_shadow``: the build whose shadow rays walk
     that cluster set; ``mxu``: the pair test's form."""
     dev = state.device
-    trace_wavefront.check_mxu(mxu, cset_shadow=cset_shadow)
+    trace_wavefront.check_mxu(mxu)
     if dev.type == "cpu":
         trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
                                             fb.lights, cfg, depth, prims, n_sph, n_box,
@@ -141,67 +146,79 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
         return
     mxu = kernel_core.mxu_mode(cset, mxu)
     frame = _check_stage("bounce", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
-                         n_box, (STATE_ROWS,), mx_shadow=mxu == "full")
-    if mxu != "off":
-        binding.launch("cosig_bounce_mx_launch", frame, cset, prims, n_sph, n_box, state, idx,
-                       n_live)
-        binding.LAUNCHES["bounce_mx"] += 1
-        return
+                         n_box, (STATE_ROWS,), mx_shadow=mxu == "full" and cset_shadow is None)
+    mx = "_mx" if mxu != "off" else ""
     if cset_shadow is None:
-        binding.launch("cosig_bounce_launch", frame, cset, prims, n_sph, n_box, state, idx,
+        binding.launch(f"cosig_bounce{mx}_launch", frame, cset, prims, n_sph, n_box, state, idx,
                        n_live)
-        binding.LAUNCHES["bounce"] += 1
+        binding.LAUNCHES["bounce" + mx] += 1
         return
     binding.check_shadow_set(cset_shadow, dev)
-    binding.launch("cosig_bounce_shadow_launch", frame, cset, prims, n_sph, n_box, state,
+    binding.launch(f"cosig_bounce_shadow{mx}_launch", frame, cset, prims, n_sph, n_box, state,
                    *binding.shadow_args(cset_shadow), idx, n_live)
-    binding.LAUNCHES["bounce_shadow"] += 1
+    binding.LAUNCHES["bounce_shadow" + mx] += 1
 
 
 def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
-          n_sph: int, n_box: int) -> None:
+          n_sph: int, n_box: int, mxu: str = "off") -> None:
     """The trace half of the bounce stage at ``depth`` on the listed rays
     ``idx[:n_live]`` of a 24-row ``state``, in place: each listed ray's
-    count, and its hit record in rows 15-19."""
+    count, and its hit record in rows 15-19; ``mxu``: the closest hit's
+    form (the tensor-core build in both modes)."""
     dev = state.device
+    trace_wavefront.check_mxu(mxu)
     if dev.type == "cpu":
-        trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box)
+        trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box,
+                                           mxu=mxu)
         return
     frame = _check_stage("trace", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
                          n_box, (FISSION_ROWS,))
-    binding.launch("cosig_trace_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
-    binding.LAUNCHES["trace"] += 1
+    mx = "_mx" if kernel_core.mxu_mode(cset, mxu) != "off" else ""
+    binding.launch(f"cosig_trace{mx}_launch", frame, cset, prims, n_sph, n_box, state, idx,
+                   n_live)
+    binding.LAUNCHES["trace" + mx] += 1
 
 
 def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameBuffer,
-          cfg: StaticConfig, depth: int, prims: torch.Tensor, n_sph: int, n_box: int) -> None:
+          cfg: StaticConfig, depth: int, prims: torch.Tensor, n_sph: int, n_box: int,
+          mxu: str = "off") -> None:
     """The shade half of a stage on a 24-row ``state`` in place, its shadow
     rays through ``cset`` (the shadow set where there is one): with ``idx``
     and ``n_live`` (None both) on the listed rays of the bounce stage at
     ``depth``, the list its trace took; without them on every ray of the
     primary stage (``depth`` 0), on the primary kernel's blocks with the
-    frustum cull."""
+    frustum cull. ``mxu``: the shadow rays take the tensor-core build in
+    ``"full"`` (counters ``shade_mx`` on a list, ``shade_all_mx`` over
+    every ray); pass ``"off"`` for a separate shadow set."""
     dev = state.device
     if (idx is None) != (n_live is None) or (idx is None) != (depth == 0):
         raise ValueError("shade takes a list at depth >= 1 and none at depth 0")
+    trace_wavefront.check_mxu(mxu)
     if dev.type == "cpu":
         if idx is None:
             trace_wavefront.primary_shade(state, cset, fb.uniforms, fb.mats, fb.lights, cfg,
-                                          prims, n_sph, n_box)
+                                          prims, n_sph, n_box, mxu=mxu)
         else:
             trace_wavefront.shade_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
-                                               fb.lights, cfg, depth, prims, n_sph, n_box)
+                                               fb.lights, cfg, depth, prims, n_sph, n_box,
+                                               mxu=mxu)
         return
+    full = kernel_core.mxu_mode(cset, mxu) == "full"
     if idx is None:
         _device("shade", dev)
         binding.check_inputs(cset, dev, prims, n_sph, n_box)
         binding.check_buffer(fb, dev)
         per_row = cfg.width * max(1, cfg.aa_samples)
         _check_state(state, per_row, (FISSION_ROWS,))
-        frame = binding.make_frame(cfg, fb, state.shape[1] // per_row, 0, cfg.max_depth == 1)
+        frame = binding.make_frame(cfg, fb, state.shape[1] // per_row, 0, cfg.max_depth == 1,
+                                   mx_shadow=full)
     else:
         frame = _check_stage("shade", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
-                             n_box, (FISSION_ROWS,))
-    binding.launch("cosig_shade_launch", frame, cset, prims, n_sph, n_box, state, idx, n_live)
-    binding.LAUNCHES["shade"] += 1
+                             n_box, (FISSION_ROWS,), mx_shadow=full)
+    binding.launch("cosig_shade_mx_launch" if full else "cosig_shade_launch", frame, cset, prims,
+                   n_sph, n_box, state, idx, n_live)
+    if not full:
+        binding.LAUNCHES["shade"] += 1
+    else:
+        binding.LAUNCHES["shade_mx" if idx is not None else "shade_all_mx"] += 1

@@ -26,8 +26,9 @@ every capture):
 * ``"debug"``: the debug kernel (``cfg.debug_mode`` 1, 2 or 3).
 
 ``mxu`` picks the pair test's form of the wavefront (``"off"``,
-``"full"``, ``"closest"``) and the megakernel (``"off"``, ``"full"``) as
-their eager frames take it; the debug view has the exact test only.
+``"full"``, ``"closest"``; in every form, with or without fission and
+the separate sets) and the megakernel (``"off"``, ``"full"``) as their
+eager frames take it; the debug view has the exact test only.
 
 The kernels read the frame's uniforms, materials and lights through a
 pointer to the device buffer of a
@@ -184,8 +185,7 @@ def _forms(path: str, cset: ClusterSet, forms: dict) -> dict:
             return {}
         trace_megakernel.check_mxu(mxu)
         return dict(mxu=mxu)
-    trace_wavefront.check_forms(cset, forms.get("cset_primary"), forms.get("cset_shadow"),
-                                forms.get("fission", False), mxu)
+    trace_wavefront.check_forms(cset, forms.get("cset_primary"), forms.get("cset_shadow"), mxu)
     return forms
 
 

@@ -36,7 +36,8 @@ whatever order a tensor core takes.
 The validity test, t = num * (1/s), the (t, gid) fold and u = vb * (1/s)
 stay as they are. ``bounce_core(mxu=)`` picks it per traversal: ``"full"``
 for the closest hit and the shadow rays, ``"closest"`` for the closest
-hit only (the JAX package's ``COSIG_MXU_SHADOW=0``); :func:`mxu_mode`
+hit only (the JAX package's ``COSIG_MXU_SHADOW=0``), and shadow rays
+through a separate shadow set always exact; :func:`mxu_mode`
 applies the JAX package's rule that a set past ``STREAM_THRESHOLD_BYTES``
 keeps the exact test.
 
@@ -760,7 +761,10 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
 
     ``mxu``: the pair test's form (:data:`MXU_MODES`): ``"full"`` runs the
     tensor-core form in the closest hit and the shadow rays, ``"closest"``
-    in the closest hit only; the caller has applied :func:`mxu_mode`."""
+    in the closest hit only; the caller has applied :func:`mxu_mode`. The
+    shadow rays through a separate ``cset_shadow`` always take the exact
+    test, as the JAX package's shadow traversal (which gets no ``geom_mx``,
+    ``cosig_tpu/ops/trace_wavefront.py:247-267``)."""
     u = [float(x) for x in uniforms]
     bg = (u[U_BG], u[U_BG + 1], u[U_BG + 2])
     intensity = u[U_INTENSITY]
@@ -825,7 +829,8 @@ def bounce_core(cfg: StaticConfig, uniforms: np.ndarray, mats: np.ndarray,
             state[ROW_COUNT] = state[ROW_COUNT] + shadow_active.to(torch.float32)
             s_occ = traverse(
                 shadow_set, hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
-                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True, mx=mxu == "full",
+                ldx, ldy, ldz, shadow_active, max_t=dist_l, any_hit=True,
+                mx=mxu == "full" and cset_shadow is None,
                 **pk,
             )[0]
             gate = ~s_occ & (ndl > 0.0) & alive

@@ -30,14 +30,18 @@ here (``render_wavefront(cset_primary=, cset_shadow=)`` and its
 * ``cset_shadow``: every shadow ray of every stage walks this cut, which
   must fit one cull block (c_pad <= 512, ``:716-753``).
 
-``mxu`` picks the pair test's form in the primary and bounce stages, the
-counterpart of the JAX package's ``COSIG_MXU`` and ``COSIG_MXU_SHADOW``
-switches (``:651-662``): ``"off"`` (the default) the exact test, ``"full"``
-the tensor-core form (:func:`kernel_core.traverse` ``mx``) for the closest
-hit and the shadow rays, ``"closest"`` for the closest hit only. A stage
-whose set is past ``STREAM_THRESHOLD_BYTES`` keeps the exact test, as the
-JAX package's streamed stages do (:func:`kernel_core.mxu_mode`). It has no
-fission form and no separate shadow set yet: those are refused.
+``mxu`` picks the pair test's form in every stage, the counterpart of the
+JAX package's ``COSIG_MXU`` and ``COSIG_MXU_SHADOW`` switches, which
+``_stage_resources`` applies per stage whatever the form (``:621-714``):
+``"off"`` (the default) the exact test, ``"full"`` the tensor-core form
+(:func:`kernel_core.traverse` ``mx``) for the closest hit and the shadow
+rays, ``"closest"`` for the closest hit only. In the fission form the
+trace takes it in both modes and the shade (the shadow rays) in
+``"full"``; the shadow rays through a separate ``cset_shadow`` always take
+the exact test, as JAX's shadow traversal does (``:247-267``, no
+``geom_mx``). A stage whose set is past ``STREAM_THRESHOLD_BYTES`` keeps
+the exact test, as the JAX package's streamed stages do
+(:func:`kernel_core.mxu_mode`).
 
 Rays are enumerated in plain order, ``id = (py_local * W + px) * aa + s``
 with N = band * W * aa and no tile padding. The RNG seeds (px, py, s) are
@@ -90,24 +94,20 @@ def _seed_planes(rid: torch.Tensor, cfg: StaticConfig, row_offset: float):
     return px, py, s_i.to(torch.float32)
 
 
-def check_mxu(mxu: str, fission: bool = False, cset_shadow=None) -> None:
-    """Raise on an unknown ``mxu`` and on the tensor-core form together with
-    the fission form or a separate shadow set, which it has no build of."""
+def check_mxu(mxu: str) -> None:
+    """Raise on an unknown ``mxu``."""
     if mxu not in kernel_core.MXU_MODES:
         raise ValueError(f"mxu must be one of {kernel_core.MXU_MODES}, got {mxu!r}")
-    if mxu != "off" and (fission or cset_shadow is not None):
-        raise ValueError(f"the tensor-core pair test (mxu={mxu!r}) has no fission form and no "
-                         "separate shadow set (cset_shadow)")
 
 
-def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None, fission: bool = False,
+def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None,
                 mxu: str = "off") -> None:
     """Raise unless the optional cluster sets can stand in for ``cset``:
     on its device, over as many triangles, and a shadow set within one cull
     block (c_pad <= 512, as cosig_tpu/ops/trace_wavefront.py:733 asserts);
-    a wider shadow set is refused, never clipped; and unless ``mxu`` goes
-    with the forms (:func:`check_mxu`)."""
-    check_mxu(mxu, fission, cset_shadow)
+    a wider shadow set is refused, never clipped; and unless ``mxu`` is a
+    known mode (:func:`check_mxu`): every form takes every mode."""
+    check_mxu(mxu)
     for name, other in (("cset_primary", cset_primary), ("cset_shadow", cset_shadow)):
         if other is None:
             continue
@@ -139,7 +139,7 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     in rows 15-19 (:func:`primary_shade` finishes it); ``cset_shadow``: the
     cluster set the shadow rays walk; ``mxu``: the pair test's form (module
     docstring)."""
-    check_mxu(mxu, fission, cset_shadow)
+    check_mxu(mxu)
     mxu = kernel_core.mxu_mode(cset, mxu)
     dev = cset.device
     n = num_rays(cfg, band)
@@ -161,7 +161,8 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
               packets=kernel_core.linear_packets(n).to(dev), frustum=True)
     if fission:
-        kernel_core.rec_store(state, kernel_core.bounce_trace(cset, state, **pk))
+        kernel_core.rec_store(state, kernel_core.bounce_trace(cset, state, mx=mxu != "off",
+                                                              **pk))
         return state
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=0, is_last=cfg.max_depth == 1,
@@ -189,7 +190,7 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     (bounce rays are incoherent: no frustum cull, as
     trace_wavefront.py:459); ``cset_shadow``: the cluster set the shadow
     rays walk; ``mxu``: the pair test's form (module docstring)."""
-    check_mxu(mxu, cset_shadow=cset_shadow)
+    check_mxu(mxu)
     mxu = kernel_core.mxu_mode(cset, mxu)
     px, py, s = _seeds_of(state, cfg, uniforms)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
@@ -202,29 +203,35 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
 def shade_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                 mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig, depth: int,
                 prims: torch.Tensor, n_sph: int, n_box: int, warps=None, packets=None,
-                frustum: bool = False) -> None:
+                frustum: bool = False, mxu: str = "off") -> None:
     """The shade half of a bounce at ``depth`` on every column of a 24-row
     ``state`` in place (``mode="shade"``, trace_wavefront.py:439-507): the
     hit record of rows 15-19, then ambient, per light a shadow ray through
     ``cset`` (the shadow set where there is one), Lambert and Blinn-Phong,
     and the secondary ray. The primary stage's shade is depth 0 over every
-    ray, with ``packets`` its kernel's blocks and the frustum cull on."""
+    ray, with ``packets`` its kernel's blocks and the frustum cull on.
+    ``mxu``: the shadow rays take the tensor-core form in ``"full"`` (the
+    caller passes ``"off"`` for a separate shadow set, whose walk is always
+    exact)."""
+    check_mxu(mxu)
+    mxu = kernel_core.mxu_mode(cset, mxu)
     px, py, s = _seeds_of(state, cfg, uniforms)
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state, px, py, s, depth=depth,
                             is_last=depth == cfg.max_depth - 1, prims=prims, n_sph=n_sph,
                             n_box=n_box, warps=warps, packets=packets, frustum=frustum,
-                            rec=kernel_core.rec_load(state))
+                            rec=kernel_core.rec_load(state), mxu=mxu)
 
 
 def primary_shade(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                   mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
-                  prims: torch.Tensor, n_sph: int, n_box: int, warps=None) -> None:
+                  prims: torch.Tensor, n_sph: int, n_box: int, warps=None,
+                  mxu: str = "off") -> None:
     """Plain version of the shade kernel over every ray of a fission
     primary stage: depth 0 on the primary kernel's blocks, frustum cull on
-    (the fused primary's shadow rays)."""
+    (the fused primary's shadow rays); ``mxu`` as in :func:`shade_stage`."""
     shade_stage(state, cset, uniforms, mats, lights, cfg, 0, prims, n_sph, n_box, warps=warps,
                 packets=kernel_core.linear_packets(state.shape[1]).to(state.device),
-                frustum=True)
+                frustum=True, mxu=mxu)
 
 
 def compact_plain(state: torch.Tensor):
@@ -273,23 +280,28 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
 
 def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, prims: torch.Tensor, n_sph: int, n_box: int,
-                       warps=None) -> None:
+                       warps=None, mxu: str = "off") -> None:
     """Plain version of the trace kernel (``_make_bounce_kernel(mode="trace")``,
     trace_wavefront.py:439-499) on the listed rays of a 24-row ``state``,
-    in place: count and trace them, store the hit record in rows 15-19."""
+    in place: count and trace them, store the hit record in rows 15-19;
+    ``mxu``: the closest hit takes the tensor-core form in either mode."""
+    check_mxu(mxu)
+    mx = kernel_core.mxu_mode(cset, mxu) != "off"
     _on_list(state, idx, n_live, warps, lambda st, **kw: kernel_core.rec_store(
-        st, kernel_core.bounce_trace(cset, st, prims=prims, n_sph=n_sph, n_box=n_box, **kw)))
+        st, kernel_core.bounce_trace(cset, st, prims=prims, n_sph=n_sph, n_box=n_box, mx=mx,
+                                     **kw)))
 
 
 def shade_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                        lights: np.ndarray, cfg: StaticConfig, depth: int,
-                       prims: torch.Tensor, n_sph: int, n_box: int, warps=None) -> None:
+                       prims: torch.Tensor, n_sph: int, n_box: int, warps=None,
+                       mxu: str = "off") -> None:
     """Plain version of the shade kernel on a bounce's list: :func:`shade_stage`
     on the listed rays, the same list the depth's trace took (``cset``: the
-    set the shadow rays walk)."""
+    set the shadow rays walk; ``mxu`` as there)."""
     _on_list(state, idx, n_live, warps, lambda st, **kw: shade_stage(
-        st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box, **kw))
+        st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box, mxu=mxu, **kw))
 
 
 def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: bool = False):
@@ -341,7 +353,8 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     dispatch by device. ``fission``, ``cset_primary``, ``cset_shadow``: the
     forms of the module docstring; with ``fission`` a frame is primary
     trace, shade, then per depth compaction, trace and shade; ``mxu``: the
-    pair test's form of the primary and bounce stages. Nothing here
+    pair test's form of every stage (the shade's shadow rays exact on a
+    separate shadow set). Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -353,17 +366,20 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     pk = (prims, n_sph, n_box)
     # The fission primary traces no shadow rays: its shade walks p_sh.
     primary_shadow = None if fission else cset_shadow
+    # The shade's shadow rays: exact on a separate shadow set.
+    sh_mxu = mxu if cset_shadow is None else "off"
     if plain:
         u, m, li = fb.uniforms, fb.mats, fb.lights
         state = primary_stage(pcs, u, m, li, cfg, band, *pk, fission=fission,
                               cset_shadow=primary_shadow, mxu=mxu)
         if fission:
-            primary_shade(state, p_sh, u, m, li, cfg, *pk)
+            primary_shade(state, p_sh, u, m, li, cfg, *pk, mxu=sh_mxu)
         for depth in range(1, cfg.max_depth):
             idx, n_live = compact_plain(state)
             if fission:
-                trace_listed_stage(state, idx, n_live, cset, *pk)
-                shade_listed_stage(state, idx, n_live, b_sh, u, m, li, cfg, depth, *pk)
+                trace_listed_stage(state, idx, n_live, cset, *pk, mxu=mxu)
+                shade_listed_stage(state, idx, n_live, b_sh, u, m, li, cfg, depth, *pk,
+                                   mxu=sh_mxu)
             else:
                 bounce_listed_stage(state, idx, n_live, cset, u, m, li, cfg, depth, *pk,
                                     cset_shadow=cset_shadow, mxu=mxu)
@@ -371,12 +387,12 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     state = kw.primary(pcs, fb, cfg, band, *pk, fission=fission, cset_shadow=primary_shadow,
                        mxu=mxu)
     if fission:
-        kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk)
+        kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu)
     for depth in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state)
         if fission:
-            kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk)
-            kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk)
+            kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu)
+            kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu)
         else:
             kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow,
                       mxu=mxu)
@@ -404,7 +420,7 @@ def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
     as in :func:`render_wavefront`)."""
     from cosig_tpu_torch.kernels import binding
 
-    check_forms(cset, cset_primary, cset_shadow, fission, mxu)
+    check_forms(cset, cset_primary, cset_shadow, mxu)
     band = cfg.height if rows is None else int(rows)
     uniforms, lights, mats, prims, n_sph, n_box = frame_inputs(
         cset, uniforms, lights, row_offset, device, prims, prim_counts)

@@ -19,7 +19,8 @@ fails.
 
 ``--device cpu --n N`` runs the same on N bands of ``[cpu] * N`` at 64 x
 64, to rehearse the script without a card (the CPU times are not a
-measurement of anything here).
+measurement of anything here). ``--mxu full`` renders every band in the
+tensor-core form of the pair test (both paths take it).
 """
 
 from __future__ import annotations
@@ -91,7 +92,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--n", type=int, default=None, help="bands on --device cpu (default 4)")
+    ap.add_argument("--mxu", choices=("off", "full"), default="off",
+                    help="the pair test's form of both paths")
     args = ap.parse_args(argv)
+    mx = dict(mxu=args.mxu)
     if args.device == "cuda":
         if torch.cuda.device_count() < 2:
             print(f"needs two or more CUDA devices, found {torch.cuda.device_count()}",
@@ -105,21 +109,22 @@ def main(argv=None) -> int:
         side = 64
     card = _card_line() if args.device == "cuda" else "cpu"
     print(card, flush=True)
-    result = {"card": card, "devices": [str(d) for d in many], "frames": {}}
+    result = {"card": card, "devices": [str(d) for d in many], "mxu": args.mxu, "frames": {}}
     ok = True
     for name in FRAMES:
         cset, uniforms, lights, cfg = _inputs(name, side)
         for path, (render, single, band_of) in PATHS.items():
-            img_many, rays_many = render(cset, uniforms, lights, cfg, many)
-            img_one, rays_one = render(cset, uniforms, lights, cfg, one)
+            img_many, rays_many = render(cset, uniforms, lights, cfg, many, **mx)
+            img_one, rays_one = render(cset, uniforms, lights, cfg, one, **mx)
             same = torch.equal(img_many.cpu(), img_one.cpu()) and rays_many == rays_one
             ok &= same
-            ms_many = _frame_ms(lambda: render(cset, uniforms, lights, cfg, many), many)
-            ms_one = _frame_ms(lambda: render(cset, uniforms, lights, cfg, one), one)
+            ms_many = _frame_ms(lambda: render(cset, uniforms, lights, cfg, many, **mx), many)
+            ms_one = _frame_ms(lambda: render(cset, uniforms, lights, cfg, one, **mx), one)
             band = band_of(cset, cfg, len(many))
             dev_cset = cset.to(many[0])
             band_ms = [statistics.median(_frame_ms(
-                lambda off=off: single(dev_cset, uniforms, lights, cfg, rows=band, row_offset=off),
+                lambda off=off: single(dev_cset, uniforms, lights, cfg, rows=band, row_offset=off,
+                                       **mx),
                 many[:1])) for off in sharding.band_offsets(cfg.height, band, len(many))]
             row = dict(bit_equal=same, rays=rays_many, ms_n_cards=ms_many, ms_one_card=ms_one,
                        speedup=statistics.median(ms_one) / statistics.median(ms_many),
@@ -134,8 +139,9 @@ def main(argv=None) -> int:
             del img_many, img_one
     if args.device == "cuda":  # the bands ran through the kernels, not their plain versions
         result["launches"] = dict(binding.LAUNCHES)
-        ok &= all(result["launches"][k] > 0 for k in ("primary", "compact", "bounce",
-                                                       "megakernel"))
+        sfx = "_mx" if args.mxu != "off" else ""
+        ok &= all(result["launches"][k + (sfx if k != "compact" else "")] > 0
+                  for k in ("primary", "compact", "bounce", "megakernel"))
     print(json.dumps(result))
     return 0 if ok else 1
 

@@ -32,7 +32,11 @@ the call raises before it queues any work.
 
 The list of devices may repeat a device (``[cuda:0] * 4`` renders four
 bands on one card, one after another) and may hold ``cpu``, where the
-kernels' plain versions run. There is no ``render_sharded_jit``: PyTorch
+kernels' plain versions run. The kernel paths take ``mxu``, the pair
+test's form, as their single renders do (the JAX package's sharded frames
+run the MXU form whenever its stages do): a pair's planes do not depend on
+which rays share a tile, so the banded tensor-core frame is the single
+one bit for bit, as the exact one is. There is no ``render_sharded_jit``: PyTorch
 runs eagerly, so there is nothing to compile.
 """
 
@@ -146,14 +150,15 @@ def render_sharded(arrays: SceneArrays, params, cfg: StaticConfig,
 
 
 def _sharded(render, cset: ClusterSet, uniforms, lights, cfg: StaticConfig,
-             devices: list, band: int):
-    """Queue ``render`` of each band on its device, then gather the image
-    and read the ray counts -> (image [H, W, 3] on devices[0], rays)."""
+             devices: list, band: int, **kw):
+    """Queue ``render`` of each band on its device (with the keywords
+    ``kw``), then gather the image and read the ray counts -> (image [H,
+    W, 3] on devices[0], rays)."""
     copies = _replicas(cset, devices, lambda c, d: c.to(d))
     images, rays = [], []
     for dev, off in zip(devices, band_offsets(cfg.height, band, len(devices))):
         img, r = render(copies[dev], uniforms, lights, cfg, rows=band, row_offset=off,
-                        device=dev, rays_on_device=True)
+                        device=dev, rays_on_device=True, **kw)
         images.append(img)
         rays.append(r)
     image = _gather(images, devices, cfg.height)
@@ -161,26 +166,30 @@ def _sharded(render, cset: ClusterSet, uniforms, lights, cfg: StaticConfig,
 
 
 def render_sharded_megakernel(cset: ClusterSet, uniforms, lights, cfg: StaticConfig,
-                              devices: list, tile=None):
+                              devices: list, tile=None, mxu: str = "off"):
     """The megakernel (:func:`cosig_tpu_torch.ops.trace_megakernel.render_clusters`)
     in bands of a multiple of its tile rows -> ``(image [H, W, 3] on
     devices[0], rays traced as an int)``; the counterpart of
     ``render_sharded_pallas``. ``tile``: the JAX (rows, cols) tile whose
-    rows set the band height (default: the JAX package's choice)."""
+    rows set the band height (default: the JAX package's choice);
+    ``mxu``: the pair test's form (``"off"`` or ``"full"``)."""
+    trace_megakernel.check_mxu(mxu)  # raise before any band is queued
     devices = make_mesh(devices=devices)
     band = megakernel_band(cset, cfg.height, len(devices), tile)
     return _sharded(trace_megakernel.render_clusters, cset, uniforms, lights, cfg, devices,
-                    band)
+                    band, mxu=mxu)
 
 
 def render_sharded_wavefront(cset: ClusterSet, uniforms, lights, cfg: StaticConfig,
-                             devices: list):
+                             devices: list, mxu: str = "off"):
     """The wavefront (:func:`cosig_tpu_torch.ops.trace_wavefront.render_wavefront`)
     in bands of a multiple of the JAX primary block's rows -> ``(image [H,
-    W, 3] on devices[0], rays traced as an int)``. Raises the wavefront's
+    W, 3] on devices[0], rays traced as an int)``; ``mxu``: the pair test's
+    form (``"off"``, ``"full"``, ``"closest"``). Raises the wavefront's
     ``ValueError`` if a band holds 2^24 rays or more."""
+    trace_wavefront.check_mxu(mxu)
     devices = make_mesh(devices=devices)
     band = wavefront_band(cfg, len(devices))
     trace_wavefront.num_rays(cfg, band)  # raise before any band is queued
     return _sharded(trace_wavefront.render_wavefront, cset, uniforms, lights, cfg, devices,
-                    band)
+                    band, mxu=mxu)

@@ -39,8 +39,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # A job: key, scene ("tiny", "demo_cornell" or a generate.CONFIGS name),
 # settings (RenderSettings keywords), path ("wavefront" or "megakernel"),
 # mxu (the MXU form: COSIG_MXU=force, or trace_pallas._MXU_ENV = "force"),
-# fission (trace_wavefront._FISSION), ks ({"main"/"primary"/"shadow": k or
-# None, the cluster sets of the render; default the auto-k main set).
+# closest (with mxu: closest-only mode, COSIG_MXU_SHADOW=0, which
+# trace_wavefront._stage_resources reads at each call), fission
+# (trace_wavefront._FISSION), ks ({"main"/"primary"/"shadow": k or None,
+# the cluster sets of the render; default the auto-k main set).
 _CHILD = r"""
 import json, os, sys
 import numpy as np
@@ -71,6 +73,7 @@ for job in jobs:
     sets = {n: jcl.build_clusters(arrays, k=k) for n, k in job.get("ks", {"main": None}).items()}
     mxu = "force" if job.get("mxu") else "0"
     os.environ["COSIG_MXU"] = mxu
+    os.environ["COSIG_MXU_SHADOW"] = "0" if job.get("closest") else "1"
     trace_pallas._MXU_ENV = mxu
     jtw._FISSION = bool(job.get("fission"))
     if job["path"] == "megakernel":
@@ -91,8 +94,8 @@ def jax_references(jobs: list, tmp_path) -> dict:
     [H, W, 3] numpy, rays)}."""
     out = pathlib.Path(tmp_path) / "jax_refs.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
-    env.pop("COSIG_MXU", None)
-    env.pop("COSIG_WF_FISSION", None)
+    for var in ("COSIG_MXU", "COSIG_MXU_SHADOW", "COSIG_WF_FISSION"):
+        env.pop(var, None)
     proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(jobs), str(out)], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]

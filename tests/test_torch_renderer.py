@@ -139,7 +139,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
     binding.reset_counts()
     zero = dict(primary=0, compact=0, bounce=0, trace=0, shade=0, primary_fission=0,
                 primary_shadow=0, bounce_shadow=0, primary_mx=0, bounce_mx=0, megakernel_mx=0,
-                megakernel=0, debug=0, graph=0)
+                primary_fission_mx=0, trace_mx=0, shade_mx=0, shade_all_mx=0,
+                primary_shadow_mx=0, bounce_shadow_mx=0, megakernel=0, debug=0, graph=0)
     assert binding.LAUNCHES == zero
     st = cosig_tpu_torch.RenderSettings(resolution_override=(8, 8), max_depth=3)
     params = tsoa.frame_params(tiny, st)
@@ -154,8 +155,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing(tiny):
         r.render(tiny, st.replace(debug_mode=2))
         r.render_chain(tiny, st, 2)
     cset = r._geometry_for(tiny)[0]
-    ttw.render_wavefront(cset, tkc.build_uniforms(params), tkc.build_lights(params, False), cfg,
-                         fission=True, cset_shadow=cset)
+    for mxu in ("off", "full"):
+        ttw.render_wavefront(cset, tkc.build_uniforms(params), tkc.build_lights(params, False),
+                             cfg, fission=True, cset_shadow=cset, mxu=mxu)
     assert binding.LAUNCHES == zero
 
 
@@ -202,7 +204,8 @@ def test_check_inputs_rejects_misaligned_geom(tiny):
 def test_nvcc_command_keeps_ieee_arithmetic():
     """Every kernel source compiles with the IEEE flags for sm_90a, one
     nvcc each; one link makes the library."""
-    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "forms.cu", "mx.cu", "megakernel.cu")
+    assert kbuild.KERNEL_SOURCES == ("wavefront.cu", "forms.cu", "mx.cu", "mx_forms.cu",
+                                     "megakernel.cu")
     for src in kbuild.KERNEL_SOURCES:
         cmd = kbuild.nvcc_command("nvcc", src, "/tmp/x.o")
         joined = " ".join(cmd)
@@ -319,7 +322,9 @@ def test_kernels_match_plain_on_card(tiny, card):
     counts = dict(binding.LAUNCHES)
     assert counts == dict(primary=1, compact=2, bounce=2, trace=0, shade=0, primary_fission=0,
                           primary_shadow=0, bounce_shadow=0, primary_mx=0, bounce_mx=0,
-                          megakernel_mx=0, megakernel=1, debug=1, graph=0)
+                          megakernel_mx=0, primary_fission_mx=0, trace_mx=0, shade_mx=0,
+                          shade_all_mx=0, primary_shadow_mx=0, bounce_shadow_mx=0, megakernel=1,
+                          debug=1, graph=0)
     st_p = ttw.trace_state(cset, uni, lights, cfg, plain=True)
     img_mp, rays_mp = ttm.render_clusters(cset, uni, lights, cfg, plain=True)
     img_dp, _ = ttm.render_debug(cset, uni, lights, tsoa.static_config(tiny, st.replace(debug_mode=2)),

@@ -116,6 +116,23 @@ def test_sharded_bit_equal_to_single(single, n):
     assert torch.equal(img, s["xla"])
 
 
+@pytest.mark.parametrize("path", ["wavefront", "megakernel"])
+def test_sharded_tensor_core_frame_bit_equal_to_single(path):
+    """Two bands on ``["cpu"] * 2`` in the tensor-core form (``mxu="full"``)
+    are the single tensor-core frame bit for bit, as the JAX package's
+    sharded frames run its MXU form whenever its stages do: a pair's planes
+    are a fixed sum of exact limb products, whichever rays share a band or
+    a tile. The case whose bands have padding rows, with every effect."""
+    s = _port("tiny", **SINGLE_CASES["32x50 d3 effects"])
+    a = (s["cset"], s["uni"], s["lights"], s["cfg"])
+    single, sharded = {"wavefront": (ttw.render_wavefront, tsh.render_sharded_wavefront),
+                       "megakernel": (ttm.render_clusters, tsh.render_sharded_megakernel)}[path]
+    img_1, rays_1 = single(*a, mxu="full")
+    img, rays = sharded(*a, _cpus(2), mxu="full")
+    assert torch.equal(img, img_1) and rays == rays_1
+    assert not torch.equal(img_1, single(*a)[0])  # the tensor-core form ran
+
+
 def test_band_heights_follow_the_jax_formulas():
     """The rows each device gets are the TPU's: the oracle's ceil(H / n),
     the megakernel's multiple of 32 (16 past one cull superblock), the
