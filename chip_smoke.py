@@ -2917,7 +2917,7 @@ FLIP_SHARE = 1e-4  # 0.01 %
 MX_MODES = {"wavefront": ("full", "closest"), "megakernel": ("full",)}
 # The bound of a tensor-core kernel: the limb products a pair needs
 # (kernel_core.MX_PRODUCTS, 147: those not zero by construction, fewer
-# than the 5 x 48 the kernel's mma tiles issue) over the dense bf16 rate
+# than the 5 x 48 the kernel's wgmma tiles issue) over the dense bf16 rate
 # (989 TFLOP/s, 494.5 T multiply-adds/s), plus its fp32 operations (the
 # slab, pre-filter and primitive tests as above, and about 15 a pair for
 # the selection: a reciprocal, t, 9 compares and the fold) over
@@ -2934,6 +2934,10 @@ MX_KERNELS = {
                       MX_REPLACES + "trace_pallas.py:132 _make_kernel"),
 }
 MX_EXACT = {"primary_mx": "primary", "bounce_mx": "bounce", "megakernel_mx": "megakernel"}
+MX_DESIGN = ("block walk; the block's warpgroup issues wgmma m64n32k16 + m64n8k16 bf16 per "
+             "8-row n-tile, the two 64-ray m-tiles one after the other, the ray limbs in "
+             "registers, the geometry split once per block into a double-buffered "
+             "shared-memory B tile; a running winner per fragment row")
 MX_TURNS = 2
 
 
@@ -3502,7 +3506,7 @@ MX_FORM_KERNELS = {
     "bounce_shadow_mx": (MX_REPLACES + "trace_wavefront.py:439 _make_bounce_kernel with :247 "
                          "_make_shadow_traverse", "bounce_shadow", "bounce_mx"),
 }
-MX_FORM_DESIGN = {
+MX_FORM_DESIGN = {  # the tensor-core block walk: MX_DESIGN
     "primary_fission_mx": "tensor-core block walk, stops after the closest hit",
     "trace_mx": "tensor-core block walk on the compaction list, closest hit only",
     "shade_mx": "the record, then the tensor-core block walk's any hits, on the list",
@@ -3850,39 +3854,25 @@ def ptxas_resources(ptxas: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``:
     {"primary": {"registers": r, "spill_stores": b, "spill_loads": b,
     "superblocks": {the same of the build with the superblock cull}}, ...},
-    the other builds under their launch counters' names
-    (primary_fission, primary_shadow, bounce_shadow, primary_mx, bounce_mx,
-    megakernel_mx, primary_fission_mx, primary_shadow_mx, bounce_shadow_mx,
-    trace_mx, shade_mx; shade_all and shade_all_mx, the shade over every ray
-    of the primary stage), from the template flags of each entry's mangled
-    name: primary_kernel<SB, SH, FISSION, MX>, bounce_kernel<SB, SH, MX>,
-    trace_kernel<SB, MX>, shade_kernel<SB, LISTED, MX>, megakernel<SB,
-    MX>."""
+    each build under the name ``kernels.sass.build_label`` gives its
+    mangled name (the launch counters' names: primary_fission,
+    primary_shadow, bounce_shadow, primary_mx, bounce_mx, megakernel_mx,
+    primary_fission_mx, primary_shadow_mx, bounce_shadow_mx, trace_mx,
+    shade_mx; shade_all and shade_all_mx, the shade over every ray of the
+    primary stage; mx_probe)."""
     import re
 
-    names = {"primary_kernel": "primary", "bounce_kernel": "bounce", "trace_kernel": "trace",
-             "shade_kernel": "shade", "megakernel": "megakernel", "debug_kernel": "debug",
-             "compact_kernel": "compact"}
+    from cosig_tpu_torch.kernels.sass import build_label
+
     out, cur = {}, None
     for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '_ZN5cosig(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '(_ZN5cosig\w+)'", line)
         if m:
-            name = names.get(m.group(2)[: int(m.group(1))])
+            label = build_label(m.group(1))
             cur = None
-            if name:
-                args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[int(m.group(1)):])
-                flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
-                flags += [False] * 4
-                mx = {"primary": flags[3], "bounce": flags[2], "trace": flags[1],
-                      "shade": flags[2], "megakernel": flags[1]}.get(name, False)
-                if name == "primary" and flags[2]:
-                    name = "primary_fission"
-                elif name in ("primary", "bounce") and flags[1]:
-                    name += "_shadow"
-                elif name == "shade" and not flags[1]:
-                    name = "shade_all"
-                cur = out.setdefault(name + ("_mx" if mx else ""), {})
-                if flags[:1] == [True]:  # built with the superblock cull
+            if label:
+                cur = out.setdefault(label[0], {})
+                if label[1]:  # built with the superblock cull
                     cur = cur.setdefault("superblocks", {})
             continue
         if cur is None:
@@ -3894,6 +3884,34 @@ def ptxas_resources(ptxas: str) -> dict:
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+# Every tensor-core build: the launch counters' names (kernels.sass.build_label).
+MX_BUILDS = ("primary_mx", "bounce_mx", "megakernel_mx", "primary_fission_mx", "trace_mx",
+             "shade_mx", "shade_all_mx", "primary_shadow_mx", "bounce_shadow_mx")
+
+
+def check_tensor_ops(path: str) -> dict:
+    """The SASS of the library at ``path`` (kernels.sass): every
+    tensor-core build, with and without the superblock cull, issues wgmma
+    (HGMMA) in its pair loop and has no mma.sync (HMMA) anywhere; no exact
+    build has either -> {build: kernels.sass.tensor_ops' counts}."""
+    from cosig_tpu_torch.kernels import sass
+
+    ops = sass.tensor_ops(sass.disassemble(path))
+    for name in MX_BUILDS:
+        for label in (name, name + " (superblocks)"):
+            check(label in ops, label, "not found in the library's SASS", sorted(ops))
+            c = ops[label]
+            check(c["pair_loop_hgmma"] > 0, label, "issues no HGMMA in its pair loop", c)
+            check(c["hmma"] == 0, label, "still has HMMA", c)
+    for label, c in ops.items():
+        if label.split(" ")[0] not in MX_BUILDS and label != "mx_probe":
+            check(c["hgmma"] == 0 and c["hmma"] == 0, label, "exact build with tensor ops", c)
+    log("  SASS: HGMMA (pair loop / function) and HMMA of the tensor-core builds: "
+        + "; ".join(f"{n} {c['pair_loop_hgmma']} / {c['hgmma']}, {c['hmma']}"
+                    for n, c in sorted(ops.items()) if n.split(" ")[0] in MX_BUILDS))
+    return ops
 
 
 def time_tree(tree: str) -> int:
@@ -3938,7 +3956,8 @@ def dense_deep(device) -> dict:
     its plain frames took 250 s). At full size (2048x2048, d4): the primary
     and the megakernel against their plain versions bit for bit through
     phase 3's kernel_row, their times on the card and the bounds from the
-    plain versions' counted work."""
+    plain versions' counted work; then the bounce at depths 1-3 of the
+    kernels' own chain the same way."""
     from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import megakernel as km
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -3987,8 +4006,36 @@ def dense_deep(device) -> dict:
              lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, cfg.height, *pk))):
         rec = kernel_row(name, tag, run_k, run_p, lambda o: geom_bytes + 4 * o.numel(),
                          reps_k=3, reps_p=0, hold=exact(name))
-        del rec["result"]
+        result = rec.pop("result")
+        if name == "primary":
+            st16 = result
         rows.append(rec)
+    # The bounces of the wavefront chain, each on the kernels' own state and
+    # the compaction kernel's list: bit-equal to the plain bounce, its time
+    # and the bound of its plain version's counted work (the bytes as phase
+    # 3 counts them).
+    rows_in = 13 + int(cfg.enable_soft_shadows or cfg.enable_glossy)
+    for d in range(1, cfg.max_depth):
+        idx, n_live = kw.compact(st16)
+        live = int(n_live)
+        copies = [st16.clone() for _ in range(8)]  # 1 + 2 x 3 kernel runs, one plain run
+
+        def run_k():
+            st = copies.pop()
+            kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk)
+            return st
+
+        def run_p():
+            st = copies.pop()
+            tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+            return st
+
+        rec = kernel_row("bounce", f"{tag}, depth {d} ({live} live rays)", run_k, run_p,
+                         lambda st: geom_bytes + 4 * live * (rows_in + 14 + 1) + 4,
+                         reps_k=3, reps_p=0, hold=exact("bounce"))
+        del rec["result"], copies
+        rows.append(dict(rec, live=live))
+        kw.bounce(st16, idx, n_live, cset, fb, cfg, d, *pk)  # the next depth's input
     out["kernels"] = rows
     return out
 
@@ -4046,9 +4093,13 @@ def main(argv: list) -> int:
     log(f"kernels built in {build_s:.2f} s, one nvcc per source in parallel: "
         f"{os.path.relpath(path, here)}")
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "warning" in line):
             log(f"  ptxas: {line.strip()}")
+    serialized = [line.strip() for line in ptxas.splitlines() if "wgmma" in line.lower()]
+    log(f"  ptxas lines on wgmma (C7510/C7515: serialized): {len(serialized)}")
     resources = ptxas_resources(ptxas)
+    tensor_ops = check_tensor_ops(path)
     check(set(resources) >= {"primary", "compact", "bounce", "megakernel", "debug", "trace",
                              "shade", "shade_all", "primary_fission", "primary_shadow",
                              "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx",
@@ -4139,8 +4190,8 @@ def main(argv: list) -> int:
         k["launches"] = phase11["launches"].get(k["name"], 0)
         check(k["launches"] > 0, k["name"], "was not launched on its path")
         k.update(resources[k["name"]])
-        k["design"] = ("block walk; per warp mma.sync m16n8k16 bf16 on limbs split in "
-                       "registers from the ring's f32 rows, a running winner per fragment row")
+        k["design"] = MX_DESIGN
+        k["tensor_ops"] = {b: tensor_ops[b] for b in (k["name"], k["name"] + " (superblocks)")}
         kernels.append(k)
     # The tensor-core builds of the other forms: launches on phase 12's
     # main path (its full-size frames in every form, eager and replayed).
@@ -4149,6 +4200,7 @@ def main(argv: list) -> int:
         check(k["launches"] > 0, k["name"], "was not launched on its path")
         k.update(resources[k["name"]])
         k["design"] = MX_FORM_DESIGN[k["name"]]
+        k["tensor_ops"] = {b: tensor_ops[b] for b in (k["name"], k["name"] + " (superblocks)")}
         kernels.append(k)
     log(json.dumps({"models": models}))
     log(json.dumps({"frames": frames}))
@@ -4159,6 +4211,7 @@ def main(argv: list) -> int:
     log(json.dumps({"phase10": phase10}))
     log(json.dumps({"phase11": phase11}))
     log(json.dumps({"phase12": phase12}))
+    log(json.dumps({"ptxas_wgmma": serialized}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

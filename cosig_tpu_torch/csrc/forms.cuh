@@ -7,7 +7,7 @@
 // builds the two translation units in parallel.
 //
 // A tensor-core build's block walk lays out tile_layout(k, true): the exact
-// layout and the warps' staged ray operands. A shadow-set build holds the
+// layout and the two B tiles of the pair test. A shadow-set build holds the
 // larger of its closest-hit walk's layout and the exact shadow walk's
 // (traverse_tile.cuh handoff).
 #pragma once

@@ -62,9 +62,15 @@ __device__ __forceinline__ bool tile_pixel(const Frame& f, int& x, int& y) {
 
 // MX: the tensor-core form of the pair test (traverse_tile.cuh), for the
 // closest hits and the shadow rays alike (the TPU megakernel's MXU form
-// has full mode only, trace_pallas.py:88-106).
+// has full mode only, trace_pallas.py:88-106). Its build holds 3 blocks a
+// multiprocessor (168 registers, 168-176 B spilled): with its frame loop's
+// state at 4 blocks and 128 registers it spilled 388-396 B and ran 7 %
+// slower (PERF.md). The exact build keeps ptxas's own choice: a minimum
+// of 0 adds no bound.
+constexpr int MEGA_MX_MIN_BLOCKS = 3;
+
 template <bool SB, bool MX = false>
-__global__ void __launch_bounds__(MEGA_THREADS)
+__global__ void __launch_bounds__(MEGA_THREADS, MX ? MEGA_MX_MIN_BLOCKS : 0)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                int n_clusters, int k, int c_pad,

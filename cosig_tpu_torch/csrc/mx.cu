@@ -17,15 +17,19 @@
 
 namespace cosig {
 
-// The geometry limb j of MX_COMBOS[ci] ((0,0),(0,1),(1,0),(0,2),(1,1),(2,0)).
-__device__ __forceinline__ int combo_j(int ci) { return ci == 2 || ci == 4 ? 1 : ci == 5 ? 2 : 0; }
+// Shared memory of mx_probe_kernel over k rows: the rows, then one B tile.
+__host__ __device__ inline int probe_tile_offset(int k) {
+  return (k * GEOM_COMPS * 4 + MX_B_ALIGN - 1) / MX_B_ALIGN * MX_B_ALIGN;
+}
 
-// One block of four warps, 32 rays each (ray i = blockIdx.x * 128 +
+// One block of 128 threads, one warpgroup (ray i = blockIdx.x * 128 +
 // threadIdx.x; zeros past n): the cluster's k rows [k, GEOM_COMPS] into
-// shared memory, each warp's ray operand staged (mx_stage), every n-tile's
-// geometry operand split (mx_load_b) and the planes multiplied
-// (mx_planes), as the block walk does. Out: planes f32 [5, k, n] (va, vb,
-// vc, s, num) and, from block 0, the geometry limbs as bf16 bits in the
+// shared memory, each lane's fragment rays split (mx_stage), and per
+// n-tile the block's split into a B tile (mx_split) and the wgmma
+// products through its descriptors (mx_issue), as the block walk runs
+// them. Out: planes f32 [5, k, n] (va, vb, vc, s, num) and, from block 0,
+// the geometry limbs read back from the B tile at the core each k-step's
+// descriptor reads for its combo (mx_step_core), as bf16 bits in the
 // layout of clusters.pack_mx, [5 k, 64] (the caller zeroes it: only the
 // columns of each plane's inputs are written).
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -33,8 +37,7 @@ __global__ void __launch_bounds__(TILE_THREADS)
                     unsigned short* __restrict__ limbs, float* __restrict__ planes) {
   extern __shared__ __align__(128) unsigned char probe_smem[];
   float* rows = reinterpret_cast<float*>(probe_smem);
-  unsigned* frag = reinterpret_cast<unsigned*>(probe_smem + 16 * ((k * GEOM_COMPS * 4 + 15) / 16)) +
-                   (threadIdx.x >> 5) * MX_WARP_WORDS;
+  unsigned char* tile = probe_smem + probe_tile_offset(k);
   for (int j = threadIdx.x; j < k * GEOM_COMPS; j += TILE_THREADS) rows[j] = geom[j];
   __syncthreads();
   const int i = blockIdx.x * TILE_THREADS + threadIdx.x;
@@ -42,39 +45,45 @@ __global__ void __launch_bounds__(TILE_THREADS)
   const Ray r = make_ray(in ? rays[0 * n + i] : 0.0f, in ? rays[1 * n + i] : 0.0f,
                          in ? rays[2 * n + i] : 0.0f, in ? rays[3 * n + i] : 0.0f,
                          in ? rays[4 * n + i] : 0.0f, in ? rays[5 * n + i] : 0.0f);
+  MxRays a;
   float mt[2][2];
-  mx_stage(r, INF, frag, mt);
+  mx_stage(r, INF, a, mt);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int ray0 = blockIdx.x * TILE_THREADS + (threadIdx.x & ~31);
+  MxPlanes d;
   for (int nt = 0; MX_TILE_ROWS * nt < k; ++nt) {
-    unsigned bf[5][3];
-    mx_load_b(rows, k, nt, bf);
-    const int row = MX_TILE_ROWS * nt + g;
-    if (blockIdx.x == 0 && threadIdx.x < 32 && row < k) {
-      for (int p = 0; p < 5; ++p) {
-        for (int ci = 0; ci < 6; ++ci) {
-          for (int e = 0; e < 2; ++e) {
-            const int q = 2 * t + e;  // slot: X = d, w (planes 0-3), Z = o, 1 (num)
-            const int input = p < 4 ? (q < 6 ? 3 + q : -1) : (q < 3 ? q : q == 3 ? 9 : -1);
-            if (input < 0) continue;
-            limbs[(p * k + row) * 64 + ci * 10 + input] =
-                (unsigned short)((bf[p][combo_j(ci)] >> (16 * e)) & 0xffffu);
-          }
+    mx_split(rows, k, nt, tile);
+    mx_publish();
+    const int p = threadIdx.x >> 3, rr = threadIdx.x & 7, row = MX_TILE_ROWS * nt + rr;
+    if (blockIdx.x == 0 && p < MX_PLANES && row < k) {
+      for (int ci = 0; ci < 6; ++ci) {
+        const int core = mx_step_core(ci >> 1, ci & 1);
+        for (int q = 0; q < MX_SLOTS; ++q) {
+          // slot q: X = d, w (planes 0-3), Z = o, 1 (num)
+          const int input = p < 4 ? (q < 6 ? 3 + q : -1) : (q < 3 ? q : q == 3 ? 9 : -1);
+          if (input < 0) continue;
+          limbs[(p * k + row) * 64 + ci * 10 + input] =
+              *reinterpret_cast<const unsigned short*>(tile + mx_b_offset(p, core, rr, q));
         }
       }
     }
+#pragma unroll
     for (int m = 0; m < 2; ++m) {
-      unsigned ax[MX_REGS], az[MX_REGS];
-      mx_load_a(frag, m, ax, az);
-      float d[5][4];
-      mx_planes(ax, az, bf, d);
+      mx_issue(a, smem_u32(tile), m, d);
+      wg_wait<0>();
+      mx_hold(d);
+#pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ray = ray0 + 16 * m + g + 8 * (e >> 1);
         const int rw = MX_TILE_ROWS * nt + 2 * t + (e & 1);
         if (ray >= n || rw >= k) continue;
-        for (int p = 0; p < 5; ++p) planes[((size_t)p * k + rw) * n + ray] = d[p][e];
+#pragma unroll
+        for (int pl = 0; pl < MX_PLANES; ++pl) {
+          planes[((size_t)pl * k + rw) * n + ray] = pl < 4 ? d.x[4 * pl + e] : d.z[e];
+        }
       }
     }
+    __syncthreads();  // every thread is done with the tile
   }
 }
 
@@ -145,8 +154,7 @@ int cosig_bounce_mx_launch(const cosig::Frame* frame, const float* geom, const f
 int cosig_mx_probe_launch(const float* geom, int k, const float* rays, int n,
                           unsigned short* limbs, float* planes, void* stream) {
   if (k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = 16 * ((k * cosig::GEOM_COMPS * 4 + 15) / 16) +
-                   cosig::TILE_WARPS * cosig::MX_WARP_BYTES;
+  const int smem = cosig::probe_tile_offset(k) + cosig::MX_B_BYTES;
   const int blocks = (n + cosig::TILE_THREADS - 1) / cosig::TILE_THREADS;
   return (int)cosig::launch_walk(cosig::mx_probe_kernel, blocks, smem, (cudaStream_t)stream,
                                  geom, k, rays, n, limbs, planes);

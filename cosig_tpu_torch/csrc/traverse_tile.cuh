@@ -63,15 +63,18 @@
 // unchanged.
 //
 // MX (BlockWalk<SB, true>): the same walk with the tensor-core form of the
-// pair test in step 3 (mx_pair.cuh, the TPU's MXU form): each warp stages
-// its rays' limbs once per walk (mx_stage, tile_layout's mx region), runs
-// mma.sync on every listed cluster's rows as they land in the ring (the
-// per-warp ballot branch is already warp-uniform; lanes outside the box
-// take part in the mma but do not fold), keeps a running winner per
-// fragment row, and hands each ray its winner at the end (mx_finish). The
-// any hit takes that form when mx_any is set (full mode), else the exact
-// test (closest-only mode, a runtime flag of the same build). The exact
-// builds keep their code: every MX branch is `if constexpr`.
+// pair test in step 3 (mx_pair.cuh, the TPU's MXU form): each lane splits
+// its fragment rays' limbs once per walk into registers (mx_stage, the
+// wgmma register operand); for every listed cluster, once its rows land in
+// the ring, every thread of the block waits for them, 40 threads split
+// each n-tile into a B tile in shared memory (tile_layout's mxb region,
+// two tiles) and the block's one warpgroup issues wgmma on it, a running
+// winner per fragment row, and each ray gets its winner at the end
+// (mx_finish). Lanes outside the box take part in the products but do not
+// fold; a warp with no ray in the box skips only the selection. The any
+// hit takes that form when mx_any is set (full mode), else the exact test
+// (closest-only mode, a runtime flag of the same build). The exact builds
+// keep their code: every MX branch is `if constexpr`.
 #pragma once
 
 #include "mx_pair.cuh"
@@ -93,10 +96,11 @@ constexpr int HULL_SLOTS = 16;  // a warp's partial hull: 13 floats and the flag
 // frustum candidates (the clusters of a pass the block's hull passes, in
 // order) and their flag words, the warps' partial hulls
 // [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers and the two
-// list lengths, and with `mx` the warps' staged ray operands
-// (mx_pair.cuh, MX_WARP_BYTES a warp). Every offset is a multiple of 16.
+// list lengths, and with `mx` the two B tiles of the tensor-core pair
+// test (mx_layout.h, MX_B_BYTES each, at a multiple of MX_B_ALIGN). Every
+// offset is a multiple of 16.
 struct TileLayout {
-  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, mxa, total;
+  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, mxb, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int k, bool mx = false) {
@@ -111,13 +115,10 @@ __host__ __device__ inline TileLayout tile_layout(int k, bool mx = false) {
   l.hull = l.partial + TILE_WARPS * HULL_SLOTS * 4;
   l.bars = l.hull + 16 * (((unsigned)sizeof(Hull) + 4 + 15) / 16);
   l.count = l.bars + 16 * ((RING_STAGES * 8 + 15) / 16);
-  l.mxa = l.count + 16;
-  l.total = l.mxa + (mx ? (unsigned)(TILE_WARPS * MX_WARP_BYTES) : 0u);
+  l.mxb = l.count + 16;
+  if (mx) l.mxb = (l.mxb + MX_B_ALIGN - 1) / MX_B_ALIGN * MX_B_ALIGN;
+  l.total = l.mxb + (mx ? 2u * MX_B_BYTES : 0u);
   return l;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
@@ -236,10 +237,8 @@ struct BlockWalk {
   __device__ __forceinline__ Hull* hull() const {
     return reinterpret_cast<Hull*>(smem + lay().hull);
   }
-  // MX: this warp's staged ray operand.
-  __device__ __forceinline__ unsigned* mx_frag() const {
-    return reinterpret_cast<unsigned*>(smem + lay().mxa) + warp() * MX_WARP_WORDS;
-  }
+  // MX: the two B tiles.
+  __device__ __forceinline__ unsigned char* mx_tiles() const { return smem + lay().mxb; }
 
   // The block's hull of the rays with `in` set, into shared memory ->
   // whether some ray is in (the same in every thread). Each warp reduces
@@ -464,11 +463,12 @@ struct BlockWalk {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     Best b = no_hit();
     Best bm[2][2];  // MX: the running winners of the lane's fragment rows
+    MxRays mx;      // MX: the lane's fragment rays' limbs
     float mt_unused[2][2];
     if constexpr (MX) {
       for (int m = 0; m < 2; ++m)
         for (int h = 0; h < 2; ++h) bm[m][h] = no_hit();
-      mx_stage(r, INF, mx_frag(), mt_unused);
+      mx_stage(r, INF, mx, mt_unused);
     }
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
     sb_open = true;
@@ -485,21 +485,23 @@ struct BlockWalk {
         const unsigned q = base + j;
         const int c = lst[j];
         const unsigned w = bal[c * TILE_WARPS + warp()];
-        if (w != 0u) {
+        if constexpr (MX) {
+          // Every thread: the block splits the rows and issues the products.
+          wait_copy(q);
+          mx_closest_cluster(
+              reinterpret_cast<const float*>(smem + lay().ring + (q % RING_STAGES) * bytes),
+              g.k, (c0 + c) * g.k, w, mx, mx_tiles(), bm);
+        } else if (w != 0u) {
           wait_copy(q);
           const bool mine = (w >> lane()) & 1u;
           const float4* rows =
               reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);
           const int row0 = (c0 + c) * g.k;
-          if constexpr (MX) {
-            mx_closest_cluster(reinterpret_cast<const float*>(rows), g.k, row0, w, mx_frag(), bm);
-          } else {
-            for (int k = 0; k < g.k; ++k) {
-              const float4* p = rows + 9 * k;
-              const float gid = p[8].w;
-              if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
-              if (mine) fold_pair(b, row_smem(p), gid, r, row0 + k);
-            }
+          for (int k = 0; k < g.k; ++k) {
+            const float4* p = rows + 9 * k;
+            const float gid = p[8].w;
+            if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
+            if (mine) fold_pair(b, row_smem(p), gid, r, row0 + k);
           }
         }
         __syncthreads();  // every warp is done with this slot
@@ -520,9 +522,10 @@ struct BlockWalk {
                                       float dz, float max_t, bool active, bool frustum) {
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     bool walking = active;  // active and no occluder found yet
+    MxRays mx;       // MX: the lane's fragment rays' limbs
     float mt[2][2];  // MX: max_t of the lane's fragment rows
     if constexpr (MX) {
-      if (mx_any) mx_stage(r, max_t, mx_frag(), mt);
+      if (mx_any) mx_stage(r, max_t, mx, mt);
     }
     const unsigned bytes = (unsigned)g.k * ROW_BYTES;
     sb_open = true;
@@ -543,20 +546,21 @@ struct BlockWalk {
         const int c = lst[j];
         // Every warp that entered the box waits for its rows, walking or
         // not: a copy that no thread waited for could still be landing
-        // when its slot is refilled.
+        // when its slot is refilled. In the tensor-core form every thread
+        // waits: the block splits the rows.
         const unsigned entered = bal[c * TILE_WARPS + warp()];
-        if (entered != 0u) wait_copy(q);
+        bool mx_walk = false;  // the same in every thread
+        if constexpr (MX) mx_walk = mx_any;
+        if (entered != 0u || mx_walk) wait_copy(q);
         const unsigned w = entered & __ballot_sync(FULL_MASK, walking);
-        bool mx_done = false;
         if constexpr (MX) {
-          if (mx_any && w != 0u) {
+          if (mx_walk) {
             mx_any_cluster(
                 reinterpret_cast<const float*>(smem + lay().ring + (q % RING_STAGES) * bytes),
-                g.k, w, mx_frag(), mt, walking);
-            mx_done = true;
+                g.k, w, mx, mt, mx_tiles(), walking);
           }
         }
-        if (w != 0u && !mx_done) {
+        if (w != 0u && !mx_walk) {
           bool mine = (w >> lane()) & 1u;
           const float4* rows =
               reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);
@@ -603,11 +607,12 @@ struct BlockWalk {
 // own; the proxy fence orders the block's generic writes before `to`'s
 // bulk copies into the same bytes. The block's shared memory is the larger
 // of the two layouts (the launches size it so). `from` may be the
-// tensor-core walk (MXA): its per-warp staged ray operands (tile_layout's
-// mx region, written and read by generic accesses only) are dead after the
-// barrier, and its mbarriers sit at the same offsets as the exact
-// layout's, so `to`'s ring may land over both. `to` is always exact: the
-// shadow set's walk, as the TPU kernel's shadow traversal gets no geom_mx.
+// tensor-core walk (MXA): its B tiles (tile_layout's mxb region, written by
+// generic stores, read by wgmma, whose reads completed at each tile's
+// wait) are dead after the barrier, and its mbarriers sit at the same
+// offsets as the exact layout's, so `to`'s ring may land over both. `to`
+// is always exact: the shadow set's walk, as the TPU kernel's shadow
+// traversal gets no geom_mx.
 template <bool A, bool MXA, bool B>
 __device__ __forceinline__ void handoff(BlockWalk<A, MXA>& from, BlockWalk<B>& to) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");

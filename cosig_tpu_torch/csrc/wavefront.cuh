@@ -85,8 +85,12 @@
 // the closest hit takes it and the shadow walk over the shadow set stays
 // exact (JAX's _make_shadow_traverse gets no geom_mx), so the MX walk's
 // mx_any is never set there. A pair's planes are a fixed sum of exact limb
-// products, whichever rays share an mma tile, so each MX form gives the
-// fused MX frame's bits (with SH, the fused closest-only frame's).
+// products, whichever rays share a wgmma tile, so each MX form gives the
+// fused MX frame's bits (with SH, the fused closest-only frame's). The MX
+// builds carry __launch_bounds__(THREADS, MX_MIN_BLOCKS), 128 registers
+// (mx_pair.cuh); the exact builds a minimum of 0, which adds no bound, so
+// ptxas keeps its own choice (a minimum of 1 gave the exact bounce 156
+// registers in place of 128, 3 blocks a multiprocessor in place of 4).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false (cosig_tpu_torch/kernels/build.py). --fmad=false and IEEE
@@ -158,7 +162,7 @@ __device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
 // (traverse_tile.cuh) for the closest hit; without SH its shadow rays take
 // it too when the frame has F_MX_SHADOW.
 template <bool SB, bool SH, bool FISSION, bool MX = false>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                    const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                    int n_clusters, int k, int c_pad,
@@ -243,7 +247,7 @@ __device__ __forceinline__ RayState load(const float* __restrict__ state, int n,
 // for the closest hit, and without SH for the shadow rays too when the
 // frame has F_MX_SHADOW.
 template <bool SB, bool SH, bool MX = false>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                   int n_clusters, int k, int c_pad,
@@ -285,7 +289,7 @@ __global__ void __launch_bounds__(THREADS)
 // idx[j]'s origin, direction and count in, its count and hit record out.
 // MX: the closest hit in the tensor-core form (both modes).
 template <bool SB, bool MX = false>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                  int n_clusters, int k, int c_pad,
@@ -329,7 +333,7 @@ __global__ void __launch_bounds__(THREADS)
 // any hits in the tensor-core form when the frame has F_MX_SHADOW (full
 // mode; never on a separate shadow set, which the launches keep exact).
 template <bool SB, bool LISTED, bool MX = false>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     shade_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                  int n_clusters, int k, int c_pad,

@@ -4,7 +4,9 @@
 
 Disassembles each library (default: the one :mod:`cosig_tpu_torch.kernels.build`
 builds from this checkout) with the CUDA toolkit's ``cuobjdump -sass`` and
-finds, in each of the four ray kernels, the pair loops: the innermost loops
+finds, in each build of each ray kernel (named as :func:`build_label`
+names it: ``bounce``, ``bounce_mx``, ``primary_fission``, ..., with `` (superblocks)``
+for the build with the superblock cull), the pair loops: the innermost loops
 (a backward branch and its target) whose body compares a gid with the
 padding gid 2^24 (``gid >= GID_PAD``, the row loop's break) and takes a
 reciprocal (``1 / s``, MUFU.RCP); and the block walk's cull loops: the
@@ -13,10 +15,12 @@ innermost loops that run slab tests (FMNMX) and store a warp ballot
 test), by class: loads from global memory, shared memory, the constant
 bank and the stack (spills), fp32 arithmetic and compares, and control
 flow. A loop the compiler unrolled holds several tests: the counts are
-divided by its reciprocals (its ballots). Every kernel walks with the
-block walk; a library built before it had a per-ray walk, whose slab test
-shares the cluster loop with the pair loop, so it shows no cull loop. The
-script prints one JSON line per library.
+divided by its reciprocals (its ballots). In the tensor-core builds the
+pair loop is the walk over a cluster's n-tiles (mx_pair.cuh), whose
+products are wgmma: :func:`tensor_ops` counts the tensor-core
+instructions (HGMMA: wgmma; HMMA: mma.sync) in each build, in its pair
+loops and in the whole function. The script prints one JSON line per
+library.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import re
 import subprocess
 import sys
 
-KERNELS = {"primary_kernel": "primary", "bounce_kernel": "bounce",
-           "megakernel": "megakernel", "debug_kernel": "debug"}
+KERNELS = {"primary_kernel": "primary", "bounce_kernel": "bounce", "trace_kernel": "trace",
+           "shade_kernel": "shade", "megakernel": "megakernel", "debug_kernel": "debug",
+           "compact_kernel": "compact", "mx_probe_kernel": "mx_probe"}
 GID_PAD = "16777216"
 CLASSES = {
     "global_loads": ("LDG",),
@@ -47,17 +52,48 @@ def cuobjdump() -> str:
     return os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
 
 
+def build_label(mangled: str) -> tuple | None:
+    """(label, superblocks) of a kernel's mangled name, or None for another
+    function: the launch counter's name of the build its template flags
+    give (primary_kernel<SB, SH, FISSION, MX>, bounce_kernel<SB, SH, MX>,
+    trace_kernel<SB, MX>, shade_kernel<SB, LISTED, MX>, megakernel<SB, MX>,
+    debug_kernel<SB>): primary_fission, primary_shadow, bounce_shadow,
+    shade_all (the shade over every ray of the primary stage), with
+    ``_mx`` for the tensor-core builds; superblocks: built with the
+    superblock cull."""
+    m = re.match(r"_ZN5cosig(\d+)(\w+)", mangled)
+    if not m:
+        return None
+    n = int(m.group(1))
+    name = KERNELS.get(m.group(2)[:n])
+    if name is None:
+        return None
+    args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[n:])
+    flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
+    flags += [False] * 4
+    mx = {"primary": flags[3], "bounce": flags[2], "trace": flags[1], "shade": flags[2],
+          "megakernel": flags[1]}.get(name, False)
+    if name == "primary" and flags[2]:
+        name = "primary_fission"
+    elif name in ("primary", "bounce") and flags[1]:
+        name += "_shadow"
+    elif name == "shade" and not flags[1]:
+        name = "shade_all"
+    return name + ("_mx" if mx else ""), bool(args) and flags[0]
+
+
 def functions(sass: str) -> dict:
-    """{kernel label: [(address, opcode, operands), ...]} of the four ray
-    kernels, each in its builds without and with the superblock cull."""
+    """{build label: [(address, opcode, operands), ...]} of every kernel
+    build, `` (superblocks)`` appended for the builds with the superblock
+    cull."""
     out, cur = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : _ZN5cosig(\d+)(\w+)", line)
+        m = re.search(r"Function : (_ZN5cosig\w+)", line)
         if m:
-            cur = KERNELS.get(m.group(2)[: int(m.group(1))])
-            if cur and m.group(2)[int(m.group(1)):].startswith("ILb1E"):
-                cur += " (superblocks)"  # the build with the superblock cull
-            if cur:
+            label = build_label(m.group(1))
+            cur = None
+            if label:
+                cur = label[0] + (" (superblocks)" if label[1] else "")
                 out[cur] = []
             continue
         m = _INSN.search(line)
@@ -100,14 +136,32 @@ def mix(body: list, unit: str) -> dict:
     return row
 
 
-def library_mix(path: str) -> dict:
-    sass = subprocess.run([cuobjdump(), "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
+def disassemble(path: str) -> dict:
+    """functions() of the library at ``path``."""
+    return functions(subprocess.run([cuobjdump(), "-sass", path], capture_output=True,
+                                    text=True, check=True).stdout)
+
+
+def library_mix(path: str, funcs: dict | None = None) -> dict:
+    funcs = disassemble(path) if funcs is None else funcs
     return {name: {kind: [dict(span=f"{lo:#x}-{hi:#x}", **mix(body, unit))
                           for lo, hi, body in loops(ins, wanted)]
                    for kind, wanted, unit in (("pair_loops", is_pair_loop, "MUFU.RCP"),
                                               ("cull_loops", is_cull_loop, "VOTE"))}
-            for name, ins in functions(sass).items()}
+            for name, ins in funcs.items() if name != "mx_probe"}
+
+
+def tensor_ops(funcs: dict) -> dict:
+    """{build label: {"hgmma", "hmma": counts in the whole function,
+    "pair_loop_hgmma", "pair_loop_hmma": in its pair loops}} of every
+    kernel build (functions())."""
+    out = {}
+    for name, ins in funcs.items():
+        pair = [i for _, _, body in loops(ins, is_pair_loop) for i in body]
+        out[name] = {f"{where}{op.lower()}": sum(o.split(".")[0] == op for _, o, _ in body)
+                     for where, body in (("", ins), ("pair_loop_", pair))
+                     for op in ("HGMMA", "HMMA")}
+    return out
 
 
 def main(argv: list) -> int:
@@ -116,7 +170,9 @@ def main(argv: list) -> int:
 
         argv = [build()[0]]
     for path in argv:
-        print(json.dumps({"library": path, "kernels": library_mix(path)}), flush=True)
+        funcs = disassemble(path)
+        print(json.dumps({"library": path, "kernels": library_mix(path, funcs),
+                          "tensor_ops": tensor_ops(funcs)}), flush=True)
     return 0
 
 

@@ -145,7 +145,7 @@ TILE_C = 256
 # The tensor-core form (traverse(..., mx=True)): the modes a caller picks,
 # each plane's contraction inputs (0:3 origin, 3:6 direction, 6:9 moment
 # w, 9 the constant 1), and the rows a kernel's any hit tests at a time
-# (csrc/mx_pair.cuh: an mma tile of 8 triangles), by which WORK counts a
+# (csrc/mx_pair.cuh: an n-tile of 8 triangles), by which WORK counts a
 # shadow ray's pair tests in that form. MX_PRODUCTS is the limb products
 # a pair needs, those not zero by construction (the constant's limbs 1 and
 # 2 are 0): 36 each for va, vb and vc, 18 for s, 21 for num.

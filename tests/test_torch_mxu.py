@@ -28,6 +28,8 @@
 The kernels run on a card: the ``gpu`` test below and chip_smoke.py
 phase 11."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -148,6 +150,194 @@ def test_mx_any_hit_counts_whole_row_tiles():
         counts[mx] = tkc.WORK["pair_tests"]
     assert torch.equal(occ[True], occ[False]) and bool(occ[True].any())
     assert counts[True] >= counts[False]
+
+
+# ---- the geometry operand's shared-memory tile (csrc/mx_layout.h) ----
+
+_LAYOUT_SRC = """
+#include "mx_layout.h"
+extern "C" {
+int b_offset(int p, int c, int r, int q) { return cosig::mx_b_offset(p, c, r, q); }
+int core_limb(int c) { return cosig::mx_core_limb(c); }
+int step_core(int s, int h) { return cosig::mx_step_core(s, h); }
+unsigned long long desc(unsigned tile, int p0, int s) { return cosig::mx_desc(tile, p0, s); }
+int constant(int i) {
+  const int v[] = {cosig::MX_TILE_ROWS, cosig::MX_PLANES, cosig::MX_SLOTS, cosig::MX_CORES,
+                   cosig::MX_CORE_BYTES, cosig::MX_GROUP_BYTES, cosig::MX_B_BYTES,
+                   cosig::MX_B_ALIGN};
+  return v[i];
+}
+}
+"""
+_LAYOUT_NAMES = ("TILE_ROWS", "PLANES", "SLOTS", "CORES", "CORE_BYTES", "GROUP_BYTES",
+                 "B_BYTES", "B_ALIGN")
+# The operands of the kernel's k-steps: (first plane, columns).
+_OPERANDS = {"X": (0, 32), "Z": (4, 8)}
+
+
+@pytest.fixture(scope="module")
+def mx_layout(tmp_path_factory):
+    """csrc/mx_layout.h built by g++ into a small library (as
+    cosig_tpu_torch/native builds its sources) -> (ctypes library, its
+    constants by name)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build csrc/mx_layout.h")
+    d = tmp_path_factory.mktemp("mx_layout")
+    (d / "layout.cc").write_text(_LAYOUT_SRC)
+    csrc = os.path.join(os.path.dirname(cosig_tpu_torch.__file__), "csrc")
+    subprocess.run([cxx, "-O2", "-std=c++17", "-fPIC", "-shared", "-I", csrc, "-o",
+                    str(d / "layout.so"), str(d / "layout.cc")], check=True)
+    lib = ctypes.CDLL(str(d / "layout.so"))
+    lib.desc.restype = ctypes.c_ulonglong
+    lib.desc.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+    return lib, {n: lib.constant(i) for i, n in enumerate(_LAYOUT_NAMES)}
+
+
+def _canonical(desc: int, n_cols: int) -> np.ndarray:
+    """The PTX ISA's canonical K-major layout without swizzle (wgmma's
+    shared-memory matrix descriptor, layout type 0) read from a
+    descriptor's fields: the byte address of element (column n, k) of a
+    k16 bf16 operand, [n_cols, 16]. Core matrices are 8 columns x 16
+    bytes, column r of a core at 16 r; the two cores along K are LBO apart,
+    the next 8 columns SBO."""
+    start = (desc & 0x3FFF) << 4
+    lbo = ((desc >> 16) & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    n = np.arange(n_cols)[:, None]
+    k = np.arange(16)[None, :]
+    return start + (n % 8) * 16 + (n // 8) * sbo + (k % 8) * 2 + (k // 8) * lbo
+
+
+def test_mx_b_tile_layout_is_canonical(mx_layout):
+    """The tile writer's offsets (mx_b_offset: plane, core, row, slot) fill
+    the tile once, 16-byte aligned core rows; each k-step's descriptor
+    (mx_desc, no swizzle, base offset 0) reads, through the canonical
+    K-major layout, every (column, k) of its operand at a distinct byte of
+    the tile, at the core-matrix offsets, and finds there the limb that
+    MX_COMBOS puts in that column: geometry limb j of input slot k % 8 of
+    plane 8 p0 + column's row."""
+    lib, c = mx_layout
+    assert (c["TILE_ROWS"], c["PLANES"], c["SLOTS"]) == (tkc.MX_ROWS, tcl.MX_PLANES, 8)
+    assert c["CORE_BYTES"] == 8 * 16 and c["B_BYTES"] == c["PLANES"] * c["GROUP_BYTES"]
+    writer = {}
+    for p in range(c["PLANES"]):
+        for core in range(c["CORES"]):
+            for r in range(c["TILE_ROWS"]):
+                for q in range(c["SLOTS"]):
+                    off = lib.b_offset(p, core, r, q)
+                    assert off % 2 == 0 and (off - 2 * q) % 16 == 0
+                    writer[off] = (p, lib.core_limb(core), r, q)
+    assert sorted(writer) == list(range(0, c["B_BYTES"], 2))
+    tile = 3 * c["B_ALIGN"]  # a shared-memory address of a tile
+    for s in range(3):
+        for name, (p0, n_cols) in _OPERANDS.items():
+            dsc = lib.desc(tile, p0, s)
+            assert dsc >> 62 == 0 and (dsc >> 49) & 7 == 0, (name, s)  # no swizzle
+            addr = _canonical(dsc, n_cols)
+            assert len(np.unique(addr)) == addr.size, (name, s)
+            assert addr.min() >= tile and addr.max() < tile + c["B_BYTES"], (name, s)
+            for n in range(n_cols):
+                for k in range(16):
+                    p, j, r, q = writer[int(addr[n, k]) - tile]
+                    want = (p0 + n // 8, tcl.MX_COMBOS[2 * s + k // 8][0], n % 8, k % 8)
+                    assert (p, j, r, q) == want, (name, s, n, k)
+
+
+def test_mx_b_tile_products_give_the_planes(mx_layout):
+    """The kernel's data path in numpy: a cluster's rows split into tiles as
+    mx_split writes them (the limbs of clusters.limbs, pack_mx's bits),
+    each k-step's B read through its descriptor's canonical layout, A the
+    rays' limbs in MX_COMBOS order, the three k-steps' products summed in
+    float64: the plain planes (kernel_core.mx_planes, float64) within 1e-12
+    of sum |coef x input| (the same exact products in another order)."""
+    lib, c = mx_layout
+    s = chip_smoke.scene_setup("glass_sphere", dict(resolution_override=(8, 8)), "cpu")
+    cset = s["cset"]
+    k = cset.k
+    rng = np.random.default_rng(5)
+    n = 64
+    o = torch.from_numpy((rng.normal(size=(3, n)) * 4.0).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    d = d / d.norm(dim=0)
+    ox, oy, oz = o
+    dx, dy, dz = d
+    w = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx)
+    rl = tkc.ray_limbs(ox, oy, oz, dx, dy, dz, *w).double().numpy()  # [10, 3, n]
+    # Input slots of the two operands: X = d, w; Z = o, 1 (ray_limbs' order).
+    slots = {"X": (3, 4, 5, 6, 7, 8), "Z": (0, 1, 2, 9)}
+    tile = c["B_ALIGN"]
+    for cl in (0, cset.num_clusters - 1):
+        g = cset.geom[cl].double().numpy()
+        coef = [g[:, tcl.VA:tcl.VA + 6], g[:, tcl.VB:tcl.VB + 6], g[:, tcl.VC:tcl.VC + 6],
+                g[:, tcl.GN:tcl.GN + 3], np.concatenate([-g[:, tcl.GN:tcl.GN + 3],
+                                                         g[:, tcl.NDA:tcl.NDA + 1]], 1)]
+        lim = [np.stack([x.numpy() for x in tcl.limbs(torch.from_numpy(cf.astype(np.float32)))])
+               for cf in coef]  # [3, k, slots] per plane
+        exact = tkc.mx_planes(cset.geom_mx[cl], torch.from_numpy(rl).float(), f64=True)
+        for nt in range(k // c["TILE_ROWS"]):
+            buf = np.zeros(c["B_BYTES"] // 2)  # the tile's bf16 values, by 2-byte slot
+            for p in range(c["PLANES"]):
+                for core in range(c["CORES"]):
+                    for r in range(c["TILE_ROWS"]):
+                        for q in range(lim[p].shape[2]):
+                            buf[lib.b_offset(p, core, r, q) // 2] = \
+                                lim[p][lib.core_limb(core), 8 * nt + r, q]
+            for name, (p0, n_cols) in _OPERANDS.items():
+                acc = np.zeros((n, n_cols))
+                for st in range(3):
+                    b = buf[(_canonical(lib.desc(tile, p0, st), n_cols) - tile) // 2]  # [N, 16]
+                    a = np.zeros((n, 16))
+                    for k16 in range(16):
+                        if k16 % 8 < len(slots[name]):
+                            a[:, k16] = rl[slots[name][k16 % 8],
+                                           tcl.MX_COMBOS[2 * st + k16 // 8][1]]
+                    acc += a @ b.T
+                for col in range(n_cols):
+                    p, r = p0 + col // 8, 8 * nt + col % 8
+                    want = exact[p][:, r].numpy()
+                    inputs = [rl[i].sum(0) for i in slots[name]]
+                    mag = sum(np.abs(x * cf) for x, cf in zip(inputs, coef[p][r]))
+                    assert np.all(np.abs(acc[:, col] - want) <= 1e-12 * mag + 1e-300), \
+                        (cl, nt, name, col)
+
+
+# (template, its flags, the launch counter's name): every build of a ray kernel.
+_BUILDS = [("primary_kernel", (0, 0, 0), "primary"), ("primary_kernel", (0, 0, 1), "primary_mx"),
+           ("primary_kernel", (0, 1, 0), "primary_fission"),
+           ("primary_kernel", (0, 1, 1), "primary_fission_mx"),
+           ("primary_kernel", (1, 0, 0), "primary_shadow"),
+           ("primary_kernel", (1, 0, 1), "primary_shadow_mx"),
+           ("bounce_kernel", (0, 0), "bounce"), ("bounce_kernel", (0, 1), "bounce_mx"),
+           ("bounce_kernel", (1, 0), "bounce_shadow"), ("bounce_kernel", (1, 1), "bounce_shadow_mx"),
+           ("trace_kernel", (0,), "trace"), ("trace_kernel", (1,), "trace_mx"),
+           ("shade_kernel", (1, 0), "shade"), ("shade_kernel", (1, 1), "shade_mx"),
+           ("shade_kernel", (0, 0), "shade_all"), ("shade_kernel", (0, 1), "shade_all_mx"),
+           ("megakernel", (0,), "megakernel"), ("megakernel", (1,), "megakernel_mx"),
+           ("debug_kernel", (), "debug")]
+
+
+@pytest.mark.parametrize("sb", [0, 1])
+def test_build_labels_name_every_build(sb):
+    """kernels.sass.build_label reads each ray kernel build's template flags
+    from its mangled name (the first, SB, the superblock cull) and names
+    it as its launch counter does, so chip_smoke.check_tensor_ops finds
+    every tensor-core build (and ptxas_resources every build)."""
+    from cosig_tpu_torch.kernels import sass
+
+    for base, flags, label in _BUILDS:
+        args = "".join(f"Lb{f}E" for f in (sb, *flags))
+        mangled = f"_ZN5cosig{len(base)}{base}I{args}EEvNS_5FrameEPKf"
+        assert sass.build_label(mangled) == (label, bool(sb)), mangled
+        assert label in binding.LAUNCHES or label == "shade_all"
+    assert sass.build_label("_ZN5cosig14compact_kernelEPKfiPiS2_") == ("compact", False)
+    assert sass.build_label("_ZN5cosig9some_funcEv") is None
+    names = {label for _, _, label in _BUILDS}
+    assert set(chip_smoke.MX_BUILDS) == {n for n in names if n.endswith("_mx")}
 
 
 # ---- against the JAX package's MXU form (interpret mode, no FMA) ----

@@ -216,7 +216,8 @@ def test_nvcc_command_keeps_ieee_arithmetic():
         assert "-v" in kbuild.nvcc_command("nvcc", src, "/tmp/x.o", verbose=True)
     link = kbuild.link_command("nvcc", ["/tmp/a.o", "/tmp/b.o"], "/tmp/x.so")
     assert "-shared" in link and link[-2:] == ["/tmp/a.o", "/tmp/b.o"]
-    assert set(kbuild.SOURCES) == {p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+    assert set(kbuild.SOURCES) == {p.name for p in CSRC.iterdir()
+                                   if p.suffix in (".cu", ".cuh", ".h")}
     assert re.fullmatch(r".*libcosig_kernels_[0-9a-f]{16}\.so", kbuild.library_path())
 
 
