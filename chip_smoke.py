@@ -35,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
 3. print models of the block walk at the main path's shapes (the
    pair-loop efficiency of the kernels' warps, from the plain traversal's
    count of warp slots, for the bounce's warps in pixel order and in list
-   order too; the trip fill of the megakernel's block-uniform depth loop,
+   order too, and for the trace kernel's closest hit its warps beside its
+   compacted schedule; the trip fill of the megakernel's block-uniform depth loop,
    from the wavefront's live rows), then time each kernel against its
    plain version at the main path's shapes (glass_sphere, 1024x1024, depth
    6, AA 4; the bounce also at large_mesh's depths 1-3, and on an empty
@@ -121,13 +122,17 @@ Phases (any failure raises and the script exits non-zero):
    kernel bit-equal to its plain version stage by stage, record rows and
    lists included, on glass_sphere, large_mesh cut 4 ways (c_pad 1024),
    the dense knot at 128x128, the analytic mixed scene and cosig_walls and the tiny scene with every
-   effect; the k the dense knot's shadow set would need against the
-   shared memory a block may take; every form's full-size frame
-   (glass_sphere, large_mesh, the dense knot), eager and as a graph
-   replay, bit-equal to the fused frame, with its launches read around
-   it; render_chain slopes of each form against the fused frame in
-   turns; and the new kernels timed beside the fused kernel of the same
-   stage, with their plain versions and bounds;
+   effect, and cluster sets past 128 rows (the builds whose walk has
+   slots: large_mesh's main set at k = 512 in every form, the tensor-core
+   form and the megakernel and debug kernel too, and a shadow set at
+   k = 1024); the k of the dense knot's shadow set (1024, the first that
+   fits one cull block) and its shared memory against what a block may
+   take; every form's full-size frame (glass_sphere, large_mesh, the
+   dense knot with that shadow set), eager and as a graph replay,
+   bit-equal to the fused frame, with its launches read around it;
+   render_chain slopes of each form against the fused frame in turns; and
+   the new kernels timed beside the fused kernel of the same stage, with
+   their plain versions, bounds and blocks per multiprocessor;
 11. the tensor-core form of the pair test (``mx_phase``; the JAX
    package's MXU form, ``mxu="full"`` and ``"closest"``): (a) the device
    functions on single clusters of glass_sphere, large_mesh and large_mesh
@@ -654,7 +659,7 @@ def check_lists(cset, uni, lights, cfg, rows, row_off, pk) -> list:
 
 
 def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
-                 lists=None) -> dict:
+                 lists=None, k=None) -> dict:
     """One small frame: the wavefront kernels and the megakernel against
     their plain versions (``exact``: bit for bit), the compaction kernel's
     list against the plain one at every depth (``lists``: the lengths it
@@ -662,8 +667,9 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
     at AA 1 and 4; at other AA the wavefront's sample sum times
     float32(1/aa)), and on some frames the debug kernel. ``band``: (rows,
     row_offset), rows inside the image; ``split``: the scene's clusters cut
-    that many ways (split_clusters). Returns the plain wavefront's and
-    megakernel's seconds."""
+    that many ways (split_clusters); ``k``: the scene's clusters built at
+    that size instead (past 128 rows, the builds whose walk has slots).
+    Returns the plain wavefront's and megakernel's seconds."""
     import numpy as np
 
     from cosig_tpu_torch.models.soa import static_config
@@ -674,6 +680,8 @@ def compare_case(device, name, kw, analytic, exact=False, band=None, split=1,
     cfg, cset, uni, lights = s["cfg"], s["cset"], s["uni"], s["lights"]
     if split > 1:
         cset = split_clusters(cset, split)
+    if k is not None:
+        cset = form_sets(s, dict(k=k), device)["k"]
     pk = dict(prims=s["prims"], prim_counts=s["prim_counts"])
     rows, row_off = band if band else (cfg.height, 0)
     bk = dict(rows=rows, row_offset=row_off) if band else {}
@@ -901,7 +909,11 @@ def model_walks(device) -> dict:
       at AA 4) and for the megakernel's warps of 8 x 4 pixels and of the
       parent's 32 x 1; and per depth for the bounce's warps in pixel order
       (the parent's: 32 consecutive ray ids, dead lanes idle) and in list
-      order (32 consecutive entries of the compaction list).
+      order (32 consecutive entries of the compaction list); and for the
+      trace kernel's closest hit alone (large_mesh's depths, glass's
+      first) its warps in list order beside its compacted schedule
+      (``WORK["pair_slots"]``: per block, cluster and 32-row piece, 128 x
+      ceil(pairs / 128)).
     * Trip fill of the megakernel's depth loop: trips per (pixel, sample)
       from the wavefront's live rows (one, plus one per bounce the ray
       enters alive); for the parent's per-thread loop in 32 x 1 strips, a
@@ -965,6 +977,25 @@ def model_walks(device) -> dict:
                 w = dict(kc.WORK)
                 row[order] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
                                   efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
+            if name == "large_mesh" or d == 1:
+                # The trace kernel's closest hit alone, on the same list: its
+                # warps in list order against its compacted schedule.
+                st24 = torch.zeros((kc.FISSION_ROWS, n), dtype=torch.float32, device=device)
+                st24[:kc.STATE_ROWS] = state
+                kc.reset_work()
+                tw.trace_listed_stage(st24, idx, n_live, cset, *pk, warps=list_warps)
+                torch.cuda.synchronize()
+                w = dict(kc.WORK)
+                row["trace"] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
+                                    pair_slots=w["pair_slots"],
+                                    per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
+                                    compacted=w["pair_tests"] / max(1, w["pair_slots"]))
+                del st24
+                log(f"  {name} trace {d} ({m} live rays) pair-loop efficiency: warps in list "
+                    f"order {100 * row['trace']['per_warp']:.1f} %, compacted (the trace "
+                    f"kernel's schedule) {100 * row['trace']['compacted']:.1f} % "
+                    f"({w['pair_tests']} pair tests, {w['warp_slots']} warp slots, "
+                    f"{w['pair_slots']} compacted slots)")
             bounce_eff.append(dict(depth=d, live=m, **row))
             log(f"  {name} bounce {d} ({m} live rays) pair-loop efficiency: pixel order "
                 f"{100 * row['pixel order']['efficiency']:.1f} %, list order "
@@ -2470,11 +2501,16 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
 # record in state rows 15-19) and its separate primary and shadow cluster
 # sets (cosig_tpu/ops/trace_wavefront.py:115-135, :247-267, :716-888).
 # Cluster sizes of the forms' sets per scene: a finer primary cut and a
-# coarser shadow cut within one cull block (the dense knot's would need
-# k = KNOT_SHADOW_K, whose ring the block walk's shared memory cannot hold).
+# coarser shadow cut within one cull block (the dense knot's first such cut
+# is k = 1024, 298 clusters: knot_shadow_k finds it among KNOT_SHADOW_KS;
+# its walk goes in slots of the main walk's 128 rows).
 FORM_KS = {"glass_sphere": dict(primary=8, shadow=64), "large_mesh": dict(primary=16, shadow=128),
-           "dense_knot": dict(primary=32)}
+           "dense_knot": dict(primary=32, shadow=1024)}
 KNOT_SHADOW_KS = (512, 1024)
+# Phase 10a's sets past 128 rows (the builds whose walk has slots): a
+# main set at k = 512 (with a primary set of 128 rows and a shadow set of
+# 1024), and a shadow set at k = 1024 behind the scene's own k = 64.
+SLOT_KS = dict(main=512, primary=128, shadow=1024)
 # name -> (fission, primary set, shadow set)
 FORMS = {"fission": (True, False, False), "primary set": (False, True, False),
          "shadow set": (False, False, True), "all": (True, True, True)}
@@ -2598,7 +2634,8 @@ def form_small(device) -> dict:
     builds), the dense knot at 128x128, depth 3, the analytic mixed scene
     and cosig_walls, and the tiny scene with soft shadows, glossy and AA
     2 (the shade's RNG). The knot's primary set (9,447 clusters) is held
-    to the fused frame at full size (form_frames)."""
+    to the fused frame at full size (form_frames). Then the sizes past 128
+    rows (slot_sizes)."""
     effects = dict(aa_samples=2, enable_soft_shadows=True, light_size=5.0, enable_glossy=True,
                    surface_roughness=0.05)
     cases = [
@@ -2633,14 +2670,63 @@ def form_small(device) -> dict:
                         for n, c in sets.items())
             + f"): forms {forms}: every kernel bit-equal to its plain version, lists equal, "
             f"frames equal to the fused one ({time.perf_counter() - t0:.1f} s)")
+    out.update(slot_sizes(device))
+    return out
+
+
+def slot_sizes(device) -> dict:
+    """Phase 10a's sizes past 128 rows (SLOT_KS; every k JAX's
+    build_clusters takes), on large_mesh at 128x96 d4, each kernel bit for
+    bit against its plain version stage by stage (check_form_stages) and
+    each form's frame against the fused one: a main set at k = 512 in the
+    fused form, every other form (its primary set of 128 rows and shadow
+    set of 1024) and the tensor-core form in full mode, then its
+    megakernel and debug kernel (compare_case); the scene's own k = 64
+    with a shadow set at k = 1024."""
+    out = {}
+    kw_ = dict(resolution_override=(128, 96), max_depth=4)
+    t0 = time.perf_counter()
+    s = scene_setup("large_mesh", kw_, device)
+    own_k = s["cset"].k
+    sets = form_sets(s, SLOT_KS, device)
+    main = sets.pop("main")
+    base = tag_of("large_mesh", s["cfg"])
+    fused = dict(fission=False, cset_primary=None, cset_shadow=None)
+    for label, cset, forms in ((f"main k = {main.k}", main,
+                                ("fused", "fission", "primary set", "shadow set", "all")),
+                               (f"k = {own_k}", s["cset"], ("shadow set", "all"))):
+        sm = dict(s, cset=cset)
+        for form in forms:
+            f = fused if form == "fused" else form_kwargs(sets, form)
+            tag = f"{base} {label} {form}"
+            out[tag] = dict(lists=check_form_stages(sm, f, tag),
+                            sets={n: (c.num_clusters, c.k, int(c.aabb_t.shape[1]))
+                                  for n, c in dict(sets, main=cset).items()})
+        log(f"  {base} {label} (clusters {cset.num_clusters}; sets "
+            + ", ".join(f"{n} {c.num_clusters} of k = {c.k}, c_pad {c.aabb_t.shape[1]}"
+                        for n, c in sets.items())
+            + f"): forms {forms}: every kernel bit-equal to its plain version, frames equal to "
+            f"the fused one ({time.perf_counter() - t0:.1f} s)")
+    sm = dict(s, cset=main)
+    for form in ("fused", "fission"):
+        f = dict(fused, fission=form == "fission")
+        tag = f"{base} main k = {main.k} {form}"
+        out[f"{tag} full"] = check_form_stages(sm, f, tag, mxu="full")
+    log(f"  {base} main k = {main.k}: the tensor-core builds (full mode) within phase 11's gates, "
+        f"frames bit-equal to the fused tensor-core frame ({time.perf_counter() - t0:.1f} s)")
+    compare_case(device, "large_mesh", kw_, False, exact=True, k=main.k)
+    log(f"  {base} main k = {main.k}: megakernel and debug modes 1-3 bit-equal to their plain "
+        f"frames ({time.perf_counter() - t0:.1f} s)")
     return out
 
 
 def knot_shadow_k(device) -> dict:
     """The dense knot's shadow set: the smallest k of KNOT_SHADOW_KS whose
-    cut fits one cull block, and whether the block walk's shared memory
-    (tile_layout(k), the ring of 3 x k x 144 B) fits what a block may opt
-    into on this card."""
+    cut fits one cull block, which must be phase 10b's (FORM_KS), and
+    whether the block walk's shared memory over it (walk_layout.h: slots
+    of at most 128 rows, so 70,064 B; a ring of whole clusters, 3 x k x
+    144 B, outgrew the card past k = 503) fits what a block may opt into
+    on this card."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
@@ -2658,6 +2744,9 @@ def knot_shadow_k(device) -> dict:
             out["k"] = k
             break
     log(f"  dense knot shadow set: {out} (a block may opt into {optin} B)")
+    k = out.get("k")
+    check(k == FORM_KS["dense_knot"]["shadow"] and out[str(k)]["fits"],
+          "the dense knot's shadow set", out, "is not phase 10b's, or does not fit")
     return out
 
 
@@ -2689,7 +2778,7 @@ def form_frames(device, card: str, full_size: bool = True) -> dict:
         rec = {"sets": {n: (c.num_clusters, c.k, int(c.aabb_t.shape[1]))
                         for n, c in sets.items()}}
         # Blocks per multiprocessor of each build at this scene's sets (the
-        # shadow builds hold the larger of the two walks' shared memory).
+        # shadow builds hold the main walk's shared memory: walk_layout.h both_smem).
         c, k = cset.num_clusters, cset.k
         occ = {n: binding.occupancy(n, c, k, device)
                for n in ("primary", "bounce", "trace", "primary_fission")}
@@ -2769,7 +2858,8 @@ def form_kernel_times(device) -> list:
     from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
-    forms_cu = "cosig_tpu_torch/csrc/forms.cu + csrc/wavefront.cuh"
+    forms_cu = ("cosig_tpu_torch/csrc/forms.cu + csrc/wavefront.cuh + csrc/traverse_tile.cuh "
+                "+ csrc/walk_layout.h")
     rows = {}
 
     def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None):
@@ -2784,7 +2874,8 @@ def form_kernel_times(device) -> list:
         del st_p
         ms = device_ms(lambda: run_k(copies_k.pop()), 3)
         r = dict(at=tag, ms=ms, fused_ms=fused_ms, plain_ms=plain_ms, max_abs_err=mx,
-                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], work=bound["work"])
+                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], work=bound["work"],
+                 blocks_per_sm=occ.get(name))
         log(f"  {name} ({tag}): {ms:.4f} ms on the card"
             + (f", the fused kernel {fused_ms:.4f} ms" if fused_ms is not None else "")
             + f"; plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
@@ -2808,6 +2899,13 @@ def form_kernel_times(device) -> list:
         band, n = cfg.height, kc.state_rows(False)
         tag = f"{name} {cfg.width}x{cfg.height} d{cfg.max_depth} aa{cfg.aa_samples}"
         glass = name == "glass_sphere"
+        c, k = cset.num_clusters, cset.k
+        occ = {n_: binding.occupancy(n_, c, k, device, shadow_k=sh.k)
+               for n_ in ("bounce", "trace", "shade", "primary_fission", "bounce_shadow",
+                          "primary_shadow")}
+        log(f"  {tag}: blocks per multiprocessor {occ} (the shadow set's k = {sh.k}; shared "
+            f"memory: walk {binding.library().cosig_tile_smem_bytes(k)} B, trace "
+            f"{binding.library().cosig_trace_smem_bytes(k)} B)")
         # The primary stage: fused, fission, with the shadow set.
         st16 = kw.primary(cset, fb, cfg, band, *pk)
         n_rays = st16.shape[1]
@@ -3914,9 +4012,20 @@ def check_tensor_ops(path: str) -> dict:
     return ops
 
 
+def _row_times(rows: list) -> dict:
+    """{kernel: [[at, ms], ...]} of a kernels line's rows and their "more"."""
+    out = {}
+    for r in rows:
+        for x in [r] + r.get("more", []):
+            out.setdefault(r["name"], []).append([x.get("at"), x["ms"]])
+    return out
+
+
 def time_tree(tree: str) -> int:
     """``--time-kernels``: phase 3's kernel times of the checkout ``tree``,
-    from its own ``chip_smoke.py`` and package, as one ``TIMES`` line."""
+    from its own ``chip_smoke.py`` and package, then those of phases 10c,
+    11d and 12c (the forms, the tensor-core builds and their forms) where
+    the tree has them, as one ``TIMES`` line."""
     import importlib
 
     import torch
@@ -3928,13 +4037,18 @@ def time_tree(tree: str) -> int:
     sys.path.insert(0, tree)
     os.chdir(tree)
     smoke = importlib.import_module("chip_smoke")
-    rows = smoke.time_kernels(torch.device("cuda", 0))
-    out = {"tree": tree, "card": smoke.card_line()}
+    dev = torch.device("cuda", 0)
+    rows = smoke.time_kernels(dev)
+    card = smoke.card_line()
+    out = {"tree": tree, "card": card}
     for r in rows:
         out[r["name"]] = r["ms"]
         if r["name"] == "bounce":
             out["bounce large_mesh"] = [x["ms"] for x in r["large_mesh"]]
             out["bounce empty"] = r["empty_list_ms"]
+    out["forms"] = _row_times(smoke.form_kernel_times(dev))
+    out["mx"] = _row_times(smoke.mx_kernel_times(dev, card))
+    out["mx_forms"] = _row_times(smoke.mx_form_kernel_times(dev, card))
     print("TIMES " + json.dumps(out), flush=True)
     return 0
 
@@ -3947,7 +4061,8 @@ def dense_deep(device) -> dict:
     DENSE_DEEP_DEPTH, the check that phase 8 cut to depth 2 to keep the
     script inside its time limit. At DENSE_PLAIN_SIDE: every wavefront
     stage bit-equal to its plain version on the same input state, in the
-    fused and the fission form, the compaction lists equal as integers
+    fused and the fission form and with the shadow set of phase 10b (k =
+    1024, walked in slots), the compaction lists equal as integers
     (check_form_stages); the whole chain, the megakernel and the debug
     view in modes 1-3 bit-equal to their plain frames (compare_case). Cut
     DENSE_FLAT_SPLIT ways (every kernel's flat build) at 16x8, depth 2:
@@ -3971,8 +4086,10 @@ def dense_deep(device) -> dict:
     t0 = time.perf_counter()
     s = scene_setup("dense_knot", kw_, device)
     tag = tag_of("dense_knot", s["cfg"])
-    for form in ("fused", "fission"):
-        f = dict(fission=form == "fission", cset_primary=None, cset_shadow=None)
+    shadow = form_sets(s, dict(shadow=FORM_KS["dense_knot"]["shadow"]), device)["shadow"]
+    for form in ("fused", "fission", "shadow set"):
+        f = dict(fission=form == "fission", cset_primary=None,
+                 cset_shadow=shadow if form == "shadow set" else None)
         out[f"{form} lists"] = check_form_stages(s, f, f"{tag} {form}")
         log(f"  {tag} {form}: every stage bit-equal to its plain version, lists "
             f"{out[f'{form} lists']} equal ({time.perf_counter() - t0:.1f} s)")
@@ -4105,6 +4222,12 @@ def main(argv: list) -> int:
                              "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx",
                              *MX_FORM_KERNELS},
           resources)
+    # Every ray kernel's builds whose walk has slots (k > 128), but the
+    # exact trace's, whose compacted walk has slots at every k.
+    slot_builds = {n + " slots" for n in resources if n not in ("compact", "mx_probe", "trace")
+                   and not n.endswith(" slots")}
+    check(set(resources) >= slot_builds, "builds with slots missing",
+          sorted(slot_builds - set(resources)))
     check_no_jax()
 
     t0 = time.perf_counter()
@@ -4161,6 +4284,7 @@ def main(argv: list) -> int:
         if k["name"] != "debug":
             k["dense_knot_launches"] = dense_launches[k["name"]]
         k.update(resources[k["name"]])
+        k["slots_build"] = resources.get(k["name"] + " slots")
         if k["name"] == "compact":
             k["design"] = ("one cooperative launch: key bytes in shared memory, one grid "
                            "barrier, offsets from the per-block counts in every block; no "
@@ -4176,13 +4300,18 @@ def main(argv: list) -> int:
         k["launches"] = phase10["launches"].get(k["name"], 0)
         check(k["launches"] > 0, k["name"], "was not launched on its path")
         k.update(resources[k["name"]])
+        k["slots_build"] = resources.get(k["name"] + " slots")
         if k["name"] == "shade":
             k["primary_stage_build"] = resources["shade_all"]
-        k["design"] = {"trace": "block walk on the compaction list, closest hit only",
+        shadow = ("two block walks, one shared memory (handoff); the shadow walk in slots of "
+                  "at most the main walk's rows, its any hit stopped after every slot")
+        k["design"] = {"trace": "block walk on the compaction list, closest hit only, its pair "
+                                "loop compacted: per 32-row slot the (ray, row) pairs of the "
+                                "rays in the box over the block, a 64-bit (t, gid) atomicMin "
+                                "key per ray",
                        "shade": "the record, then the block walk's any hits",
                        "primary_fission": "block walk, stops after the closest hit",
-                       "primary_shadow": "two block walks, one shared memory (handoff)",
-                       "bounce_shadow": "two block walks, one shared memory (handoff)"}[k["name"]]
+                       "primary_shadow": shadow, "bounce_shadow": shadow}[k["name"]]
         kernels.append(k)
     # The tensor-core builds: launches on phase 11's main path (its
     # Renderer frames: warm-up, capture's warm-up and replays).
@@ -4190,6 +4319,7 @@ def main(argv: list) -> int:
         k["launches"] = phase11["launches"].get(k["name"], 0)
         check(k["launches"] > 0, k["name"], "was not launched on its path")
         k.update(resources[k["name"]])
+        k["slots_build"] = resources.get(k["name"] + " slots")
         k["design"] = MX_DESIGN
         k["tensor_ops"] = {b: tensor_ops[b] for b in (k["name"], k["name"] + " (superblocks)")}
         kernels.append(k)
@@ -4199,6 +4329,7 @@ def main(argv: list) -> int:
         k["launches"] = phase12["launches"].get(k["name"], 0)
         check(k["launches"] > 0, k["name"], "was not launched on its path")
         k.update(resources[k["name"]])
+        k["slots_build"] = resources.get(k["name"] + " slots")
         k["design"] = MX_FORM_DESIGN[k["name"]]
         k["tensor_ops"] = {b: tensor_ops[b] for b in (k["name"], k["name"] + " (superblocks)")}
         kernels.append(k)

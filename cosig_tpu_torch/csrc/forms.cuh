@@ -6,16 +6,17 @@
 // builds), each behind its own plain C launchers for ctypes, so that nvcc
 // builds the two translation units in parallel.
 //
-// A tensor-core build's block walk lays out tile_layout(k, true): the exact
-// layout and the two B tiles of the pair test. A shadow-set build holds the
-// larger of its closest-hit walk's layout and the exact shadow walk's
-// (traverse_tile.cuh handoff).
+// A tensor-core build's block walk lays out tile_layout(rows, true): the
+// exact layout and the two B tiles of the pair test. A shadow-set build
+// holds its closest-hit walk's layout, which the exact shadow walk's,
+// slots of no more rows, never outgrows (walk_layout.h both_smem); the
+// exact trace its compacted walk's (trace_smem). Every kernel has builds
+// with and without slots (PC, picked by k > SLOT_MAX), beside those with
+// and without the superblock cull.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 #include "wavefront.cuh"
 
@@ -38,43 +39,46 @@ inline bool shadow_geometry(const float* sh_geom, const float* sh_aabb, int sh_c
          sh_c_pad >= sh_clusters && sh_c_pad <= SB_CLUSTERS;
 }
 
-// Shared memory of a block that walks k-row clusters (in the MX layout
-// when `mx`), then hands its memory to an exact walk over sh_k-row
-// clusters: the larger layout.
-inline int both_smem(int k, int sh_k, bool mx) {
-  return std::max((int)tile_layout(k, mx).total, (int)tile_layout(sh_k).total);
+// The trace's build for n_clusters clusters of k rows: the tensor-core one
+// by SB and PC; the exact one by SB only, its compacted walk in slots at
+// every k.
+template <bool MX>
+auto trace_build(int n_clusters, int k) {
+  if constexpr (MX) {
+    return pick_build(n_clusters, k, COSIG_BUILDS(trace_kernel, true));
+  } else {
+    return superblocks(n_clusters) > 0 ? trace_kernel<true, false> : trace_kernel<false, false>;
+  }
 }
 
 // Blocks of a build that one multiprocessor holds at once, in the build
 // its launch picks for n_clusters clusters of k rows (with or without the
-// superblock cull), after the same raise of its dynamic shared-memory
-// limit as its launch: which 0 the primary and 1 the bounce whose shadow
-// rays walk a set of sh_k-row clusters, 2 the fission primary, 3 the trace
-// kernel, 4 the shade kernel on a list, 5 the shade kernel over every ray;
-// minus the CUDA error if refused.
+// superblock cull, with or without slots), after the same raise of its
+// dynamic shared-memory limit as its launch: which 0 the primary and 1 the
+// bounce whose shadow rays walk a set of sh_k-row clusters, 2 the fission
+// primary, 3 the trace kernel, 4 the shade kernel on a list, 5 the shade
+// kernel over every ray; minus the CUDA error if refused.
 template <bool MX>
 int form_occupancy(int which, int n_clusters, int k, int sh_k) {
-  const bool sb = superblocks(n_clusters) > 0;
-  const int smem = (int)tile_layout(k, MX).total;
+  const int smem = walk_smem(k, MX);
   switch (which) {
     case 0:
-      return walk_occupancy(sb ? primary_kernel<true, true, false, MX>
-                               : primary_kernel<false, true, false, MX>,
-                            both_smem(k, sh_k, MX));
+      return walk_occupancy(
+          pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, true, false, MX)),
+          both_smem(k, sh_k, MX));
     case 1:
-      return walk_occupancy(sb ? bounce_kernel<true, true, MX> : bounce_kernel<false, true, MX>,
+      return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(bounce_kernel, true, MX)),
                             both_smem(k, sh_k, MX));
     case 2:
-      return walk_occupancy(sb ? primary_kernel<true, false, true, MX>
-                               : primary_kernel<false, false, true, MX>,
-                            smem);
+      return walk_occupancy(
+          pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, false, true, MX)), smem);
     case 3:
-      return walk_occupancy(sb ? trace_kernel<true, MX> : trace_kernel<false, MX>, smem);
+      return walk_occupancy(trace_build<MX>(n_clusters, k), MX ? smem : trace_smem(k));
     case 4:
-      return walk_occupancy(sb ? shade_kernel<true, true, MX> : shade_kernel<false, true, MX>,
+      return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, true, MX)),
                             smem);
     default:
-      return walk_occupancy(sb ? shade_kernel<true, false, MX> : shade_kernel<false, false, MX>,
+      return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, MX)),
                             smem);
   }
 }
@@ -99,12 +103,10 @@ int primary_form_launch(const Frame* frame, const float* geom, const float* aabb
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  const bool sb = superblocks(n_clusters) > 0;
-  const auto kernel = fission ? (sb ? primary_kernel<true, false, true, MX>
-                                    : primary_kernel<false, false, true, MX>)
-                              : (sb ? primary_kernel<true, true, false, MX>
-                                    : primary_kernel<false, true, false, MX>);
-  const int smem = fission ? (int)tile_layout(k, MX).total : both_smem(k, sh_k, MX);
+  const auto kernel =
+      fission ? pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, false, true, MX))
+              : pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, true, false, MX));
+  const int smem = fission ? walk_smem(k, MX) : both_smem(k, sh_k, MX);
   return (int)launch_walk(kernel, blocks, smem, (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
                           n_clusters, k, c_pad, prims, n_sph, n_box, sh, state);
 }
@@ -125,8 +127,7 @@ int bounce_shadow_launch(const Frame* frame, const float* geom, const float* aab
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  const auto kernel = superblocks(n_clusters) > 0 ? bounce_kernel<true, true, MX>
-                                                  : bounce_kernel<false, true, MX>;
+  const auto kernel = pick_build(n_clusters, k, COSIG_BUILDS(bounce_kernel, true, MX));
   return (int)launch_walk(kernel, blocks, both_smem(k, sh_k, MX), (cudaStream_t)stream, *frame,
                           geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, sh, idx,
                           n_live, state);
@@ -141,11 +142,10 @@ int trace_launch(const Frame* frame, const float* geom, const float* aabb, const
   if (n <= 0) return 0;
   if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS;
-  const auto kernel = superblocks(n_clusters) > 0 ? trace_kernel<true, MX>
-                                                  : trace_kernel<false, MX>;
-  return (int)launch_walk(kernel, blocks, (int)tile_layout(k, MX).total, (cudaStream_t)stream,
-                          *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
-                          idx, n_live, state);
+  return (int)launch_walk(trace_build<MX>(n_clusters, k), blocks,
+                          MX ? walk_smem(k, MX) : trace_smem(k), (cudaStream_t)stream, *frame,
+                          geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, idx,
+                          n_live, state);
 }
 
 // The shade half on state f32 [24, n_rays], its shadow rays through the
@@ -161,12 +161,11 @@ int shade_launch(const Frame* frame, const float* geom, const float* aabb, const
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  const bool sb = superblocks(n_clusters) > 0;
-  const auto kernel = idx ? (sb ? shade_kernel<true, true, MX> : shade_kernel<false, true, MX>)
-                          : (sb ? shade_kernel<true, false, MX> : shade_kernel<false, false, MX>);
-  return (int)launch_walk(kernel, blocks, (int)tile_layout(k, MX).total, (cudaStream_t)stream,
-                          *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
-                          idx, n_live, state);
+  const auto kernel = idx ? pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, true, MX))
+                          : pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, MX));
+  return (int)launch_walk(kernel, blocks, walk_smem(k, MX), (cudaStream_t)stream, *frame, geom,
+                          aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live,
+                          state);
 }
 
 }  // namespace cosig

@@ -69,7 +69,8 @@ __device__ __forceinline__ bool tile_pixel(const Frame& f, int& x, int& y) {
 // of 0 adds no bound.
 constexpr int MEGA_MX_MIN_BLOCKS = 3;
 
-template <bool SB, bool MX = false>
+// PC: the walk in slots (traverse_tile.cuh), the build for k > SLOT_MAX.
+template <bool SB, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(MEGA_THREADS, MX ? MEGA_MX_MIN_BLOCKS : 0)
     megakernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -77,7 +78,8 @@ __global__ void __launch_bounds__(MEGA_THREADS, MX ? MEGA_MX_MIN_BLOCKS : 0)
                const float* __restrict__ prims, int n_sph, int n_box, int max_depth,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX> walk;
+  BlockWalk<SB, MX, PC> walk;
+  walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX) walk.mx_any = true;
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(MEGA_THREADS, MX ? MEGA_MX_MIN_BLOCKS : 0)
   out[3 * (size_t)n + i] = st.count;
 }
 
-template <bool SB>
+template <bool SB, bool PC = false>
 __global__ void __launch_bounds__(MEGA_THREADS)
     debug_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -126,7 +128,8 @@ __global__ void __launch_bounds__(MEGA_THREADS)
                  const float* __restrict__ prims, int n_sph, int n_box, int mode,
                  float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB> walk;
+  BlockWalk<SB, false, PC> walk;
+  walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
 
@@ -191,23 +194,27 @@ extern "C" {
 
 // Blocks of the megakernel (which 0), the debug kernel (1) or the
 // megakernel with the tensor-core pair test (2), in the
-// build their launch picks for n_clusters clusters (with or without the
-// superblock cull), that one multiprocessor holds at once with the block
-// walk's shared memory for clusters of k rows,
+// build their launch picks for n_clusters clusters of k rows (with or
+// without the superblock cull, with or without slots), that one
+// multiprocessor holds at once with the block walk's shared memory,
 // after the same raise of the kernel's dynamic shared-memory limit as its
 // launch; minus the CUDA error if refused.
 int cosig_megakernel_occupancy(int which, int n_clusters, int k) {
-  const int smem = (int)cosig::tile_layout(k).total;
-  const bool sb = cosig::superblocks(n_clusters) > 0;
   if (which == 2) {  // the build with the tensor-core pair test
-    return cosig::walk_occupancy(sb ? cosig::megakernel<true, true> : cosig::megakernel<false, true>,
-                                 (int)cosig::tile_layout(k, true).total);
+    return cosig::walk_occupancy(
+        cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::megakernel, true)),
+        cosig::walk_smem(k, true));
   }
   if (which == 0) {
-    return cosig::walk_occupancy(sb ? cosig::megakernel<true> : cosig::megakernel<false>, smem);
+    return cosig::walk_occupancy(
+        cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::megakernel, false)),
+        cosig::walk_smem(k));
   }
-  return cosig::walk_occupancy(sb ? cosig::debug_kernel<true> : cosig::debug_kernel<false>,
-                               smem);
+  return cosig::walk_occupancy(
+      cosig::pick_build(n_clusters, k, cosig::debug_kernel<false, false>,
+                        cosig::debug_kernel<false, true>, cosig::debug_kernel<true, false>,
+                        cosig::debug_kernel<true, true>),
+      cosig::walk_smem(k));
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). frame->n_rays
@@ -219,12 +226,10 @@ int cosig_megakernel_launch(const cosig::Frame* frame, const float* geom, const 
                             void* stream) {
   if (frame->n_rays <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::megakernel<true>
-                                                         : cosig::megakernel<false>;
-  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
-                                 (int)cosig::tile_layout(k).total, (cudaStream_t)stream, *frame,
-                                 geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
-                                 max_depth, out);
+  const auto kernel = cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::megakernel, false));
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame), cosig::walk_smem(k),
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters, k,
+                                 c_pad, prims, n_sph, n_box, max_depth, out);
 }
 
 // The megakernel with the tensor-core pair test (full mode), as above.
@@ -234,12 +239,10 @@ int cosig_megakernel_mx_launch(const cosig::Frame* frame, const float* geom, con
                                float* out, void* stream) {
   if (frame->n_rays <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::megakernel<true, true>
-                                                         : cosig::megakernel<false, true>;
-  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
-                                 (int)cosig::tile_layout(k, true).total, (cudaStream_t)stream,
-                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
-                                 n_box, max_depth, out);
+  const auto kernel = cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::megakernel, true));
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame), cosig::walk_smem(k, true),
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters, k,
+                                 c_pad, prims, n_sph, n_box, max_depth, out);
 }
 
 int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
@@ -248,12 +251,12 @@ int cosig_debug_launch(const cosig::Frame* frame, const float* geom, const float
                        void* stream) {
   if (frame->n_rays <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::debug_kernel<true>
-                                                         : cosig::debug_kernel<false>;
-  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame),
-                                 (int)cosig::tile_layout(k).total, (cudaStream_t)stream, *frame,
-                                 geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box,
-                                 mode, out);
+  const auto kernel = cosig::pick_build(
+      n_clusters, k, cosig::debug_kernel<false, false>, cosig::debug_kernel<false, true>,
+      cosig::debug_kernel<true, false>, cosig::debug_kernel<true, true>);
+  return (int)cosig::launch_walk(kernel, cosig::tile_blocks(*frame), cosig::walk_smem(k),
+                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters, k,
+                                 c_pad, prims, n_sph, n_box, mode, out);
 }
 
 }  // extern "C"

@@ -93,22 +93,20 @@ extern "C" {
 
 // Dynamic shared memory of a block walk over clusters of k rows in the
 // tensor-core builds.
-int cosig_mx_smem_bytes(int k) { return (int)cosig::tile_layout(k, true).total; }
+int cosig_mx_smem_bytes(int k) { return cosig::walk_smem(k, true); }
 
 // Blocks of the tensor-core primary (which 0) or bounce (1) that one
 // multiprocessor holds at once, in the build its launch picks for
 // n_clusters clusters of k rows; minus the CUDA error if refused.
 int cosig_mx_occupancy(int which, int n_clusters, int k) {
-  const int smem = (int)cosig::tile_layout(k, true).total;
-  const bool sb = cosig::superblocks(n_clusters) > 0;
+  const int smem = cosig::walk_smem(k, true);
   if (which == 0) {
-    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true, false, false, true>
-                                    : cosig::primary_kernel<false, false, false, true>,
-                                 smem);
+    return cosig::walk_occupancy(
+        cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, true)),
+        smem);
   }
-  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true, false, true>
-                                  : cosig::bounce_kernel<false, false, true>,
-                               smem);
+  return cosig::walk_occupancy(
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::bounce_kernel, false, true)), smem);
 }
 
 // The primary stage with the tensor-core pair test into state f32 [16,
@@ -121,12 +119,11 @@ int cosig_primary_mx_launch(const cosig::Frame* frame, const float* geom, const 
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0
-                          ? cosig::primary_kernel<true, false, false, true>
-                          : cosig::primary_kernel<false, false, false, true>;
-  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k, true).total,
-                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, state);
+  const auto kernel =
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, true));
+  return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k, true), (cudaStream_t)stream,
+                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
+                                 n_box, cosig::Geometry{}, state);
 }
 
 // One bounce with the tensor-core pair test on the listed rays idx[0 ..
@@ -139,13 +136,11 @@ int cosig_bounce_mx_launch(const cosig::Frame* frame, const float* geom, const f
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0
-                          ? cosig::bounce_kernel<true, false, true>
-                          : cosig::bounce_kernel<false, false, true>;
-  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k, true).total,
-                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, idx, n_live,
-                                 state);
+  const auto kernel =
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::bounce_kernel, false, true));
+  return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k, true), (cudaStream_t)stream,
+                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
+                                 n_box, cosig::Geometry{}, idx, n_live, state);
 }
 
 // mx_probe_kernel on one cluster geom f32 [k, 36] and rays f32 [6, n]

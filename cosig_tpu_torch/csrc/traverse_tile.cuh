@@ -45,10 +45,25 @@
 //     stops when __syncthreads_or finds no lane still walking; copies
 //     still in flight are waited for, so the ring is idle between walks.
 //
+// Slots (BlockWalk<SB, MX, true>, "PC"; walk_layout.h): a slot holds
+// `rows` rows, fewer than k, and a listed cluster is copied and walked in
+// slot_pieces(k, rows) consecutive pieces over the same ring, in order; a
+// unit of the walk is one piece, so the any hit checks for a ray still
+// walking after every piece. The padding-row break ends a piece at its
+// first padding row, and the later pieces of that cluster, all padding,
+// at their first (they are copied all the same). The launches take the
+// builds with slots where k > SLOT_MAX, so every k a cluster set may have
+// fits a block (the ring of whole clusters, 3 x k x 144 B, outgrew the
+// H100's 232,448 B past k = 503), and keep the builds without (one piece
+// a cluster, the code they had) up to k = 128. Shadow walks always have
+// slots: no more rows than the main walk's, so their layout is never
+// larger than the block's (handoff). The trace's closest hit is the
+// compacted walk (closest_pairs, below), in slots of TRACE_SLOT rows.
+//
 // A slot's mbarrier completes one phase per copy; copy q (counted over the
 // block's whole life, `seq`) uses slot q % RING_STAGES and waits on parity
 // (q / RING_STAGES) & 1. A slot is refilled only after the block barrier
-// that ends the visit of its previous cluster, so no thread can fall two
+// that ends the visit of its previous piece, so no thread can fall two
 // phases behind.
 //
 // Bound: the pair tests. What this walk removes is issue pressure: a pair
@@ -79,47 +94,14 @@
 
 #include "mx_pair.cuh"
 #include "traverse.cuh"
+#include "walk_layout.h"
 
 namespace cosig {
 
-constexpr int TILE_THREADS = 128;
-constexpr int TILE_WARPS = TILE_THREADS / 32;
-constexpr int TILE_C = 256;      // clusters culled and listed per pass
-constexpr int RING_STAGES = 3;   // clusters in flight
-constexpr int ROW_BYTES = GEOM_COMPS * 4;  // 144 = 9 sixteen-byte words
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-constexpr int HULL_SLOTS = 16;  // a warp's partial hull: 13 floats and the flag bits
-
-// Dynamic shared memory of a walk over clusters of k rows: the ring, the
-// boxes [TILE_C][8], the ballots [TILE_C][TILE_WARPS], the list, the
-// frustum candidates (the clusters of a pass the block's hull passes, in
-// order) and their flag words, the warps' partial hulls
-// [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers and the two
-// list lengths, and with `mx` the two B tiles of the tensor-core pair
-// test (mx_layout.h, MX_B_BYTES each, at a multiple of MX_B_ALIGN). Every
-// offset is a multiple of 16.
-struct TileLayout {
-  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, mxb, total;
-};
-
-__host__ __device__ inline TileLayout tile_layout(int k, bool mx = false) {
-  TileLayout l;
-  l.ring = 0;
-  l.boxes = (unsigned)(RING_STAGES * k * ROW_BYTES);
-  l.ballots = l.boxes + TILE_C * 32;
-  l.list = l.ballots + TILE_C * TILE_WARPS * 4;
-  l.cand = l.list + TILE_C * 4;
-  l.pre = l.cand + TILE_C * 4;
-  l.partial = l.pre + 16 * ((TILE_C / 32 * 4 + 15) / 16);
-  l.hull = l.partial + TILE_WARPS * HULL_SLOTS * 4;
-  l.bars = l.hull + 16 * (((unsigned)sizeof(Hull) + 4 + 15) / 16);
-  l.count = l.bars + 16 * ((RING_STAGES * 8 + 15) / 16);
-  l.mxb = l.count + 16;
-  if (mx) l.mxb = (l.mxb + MX_B_ALIGN - 1) / MX_B_ALIGN * MX_B_ALIGN;
-  l.total = l.mxb + (mx ? 2u * MX_B_BYTES : 0u);
-  return l;
-}
+static_assert(ROW_BYTES == GEOM_COMPS * 4, "a ring row is one geometry row");
+static_assert(sizeof(Hull) == HULL_BYTES, "walk_layout.h sizes the hull");
+static_assert(TRACE_SLOT == 32, "the compacted walk finds a slot's real rows with one ballot");
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -194,14 +176,17 @@ __device__ __forceinline__ PairRow row_smem(const float4* p) {
 // ways and its launch picks SB = (superblocks(n_clusters) > 0), so that a
 // scene of at most 512 clusters (or past 65,536, where the walk is flat)
 // runs none of its code: present but unused, it cost the bounce 2-3 %
-// (PERF.md). MX: the tensor-core form of the pair test (see the top).
-template <bool SB, bool MX = false>
+// (PERF.md). MX: the tensor-core form of the pair test (see the top). PC:
+// slots of `rows` rows, a cluster in pieces (see the top); without PC a
+// slot is one cluster, and every piece expression below folds to it.
+template <bool SB, bool MX = false, bool PC = false>
 struct BlockWalk {
   Geometry g;
-  unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(g.k, MX)
+  unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(slot(), MX)
   unsigned seq;  // bulk copies issued so far; the same in every thread
   bool sb_open;  // some ray of the block enters the current superblock; the same in every thread
   bool mx_any;  // MX: the any hit takes the tensor-core form too (full mode); the same in every thread
+  int rows;  // PC: a slot's rows (slot_rows of k), set before init
 
   // Every thread of the block, once, before the first walk.
   __device__ __forceinline__ void init(const Geometry& geo, unsigned char* base) {
@@ -218,7 +203,10 @@ struct BlockWalk {
     __syncthreads();
   }
 
-  __device__ __forceinline__ TileLayout lay() const { return tile_layout(g.k, MX); }
+  // A slot's rows, and the pieces of a cluster.
+  __device__ __forceinline__ int slot() const { return PC ? rows : g.k; }
+  __device__ __forceinline__ int pieces() const { return PC ? slot_pieces(g.k, rows) : 1; }
+  __device__ __forceinline__ TileLayout lay() const { return tile_layout(slot(), MX); }
   __device__ __forceinline__ int lane() const { return threadIdx.x & 31; }
   __device__ __forceinline__ int warp() const { return threadIdx.x >> 5; }
 
@@ -239,6 +227,11 @@ struct BlockWalk {
   }
   // MX: the two B tiles.
   __device__ __forceinline__ unsigned char* mx_tiles() const { return smem + lay().mxb; }
+  // The rows in the slot of copy q.
+  __device__ __forceinline__ const float4* ring_rows(unsigned q) const {
+    return reinterpret_cast<const float4*>(smem + lay().ring +
+                                           (q % RING_STAGES) * ((unsigned)slot() * ROW_BYTES));
+  }
 
   // The block's hull of the rays with `in` set, into shared memory ->
   // whether some ray is in (the same in every thread). Each warp reduces
@@ -326,12 +319,25 @@ struct BlockWalk {
     }
   }
 
-  // Thread 0: copy cluster c's rows into the slot of copy q.
-  __device__ __forceinline__ void issue(unsigned q, int c) {
-    const unsigned slot = q % RING_STAGES;
-    const unsigned bytes = (unsigned)g.k * ROW_BYTES;
-    bulk_copy(smem_u32(smem + lay().ring + slot * bytes), g.geom + (size_t)c * g.k * GEOM_COMPS,
-              bytes, smem_u32(smem + lay().bars + 8 * slot));
+  // Thread 0: copy piece p of cluster c's rows into the slot of copy q.
+  __device__ __forceinline__ void issue(unsigned q, int c, int p = 0) {
+    const unsigned slot_id = q % RING_STAGES;
+    const unsigned stride = (unsigned)slot() * ROW_BYTES;
+    const unsigned bytes = (unsigned)(PC ? piece_rows(g.k, rows, p) : g.k) * ROW_BYTES;
+    bulk_copy(smem_u32(smem + lay().ring + slot_id * stride),
+              g.geom + ((size_t)c * g.k + (size_t)(PC ? piece_first(p, rows) : 0)) * GEOM_COMPS,
+              bytes, smem_u32(smem + lay().bars + 8 * slot_id));
+  }
+
+  // Thread 0: copy unit u of a pass whose list is lst (cluster u / pieces,
+  // piece u % pieces) into the slot of copy q.
+  __device__ __forceinline__ void issue_unit(unsigned q, int c0, const int* lst, int u) {
+    if constexpr (PC) {
+      const int j = u / pieces();
+      issue(q, c0 + lst[j], u - j * pieces());
+    } else {
+      issue(q, c0 + lst[u]);
+    }
   }
 
   __device__ __forceinline__ void wait_copy(unsigned q) {
@@ -470,44 +476,45 @@ struct BlockWalk {
         for (int h = 0; h < 2; ++h) bm[m][h] = no_hit();
       mx_stage(r, INF, mx, mt_unused);
     }
-    const unsigned bytes = (unsigned)g.k * ROW_BYTES;
+    const int np = pieces();
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<false>(r, active, INFINITY, frustum, c0, n);
+      const int m = cull<false>(r, active, INFINITY, frustum, c0, n) * np;  // units
       const int* lst = list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
       if (threadIdx.x == 0) {
-        for (int j = 0; j < min(RING_STAGES, m); ++j) issue(base + j, c0 + lst[j]);
+        for (int j = 0; j < min(RING_STAGES, m); ++j) issue_unit(base + j, c0, lst, j);
       }
       for (int j = 0; j < m; ++j) {
         const unsigned q = base + j;
-        const int c = lst[j];
+        const int jc = PC ? j / np : j;  // the unit's cluster in the list, and its piece
+        const int p = j - jc * np;
+        const int c = lst[jc];
         const unsigned w = bal[c * TILE_WARPS + warp()];
+        const int kr = PC ? piece_rows(g.k, rows, p) : g.k;
+        const int row0 = (c0 + c) * g.k + (PC ? piece_first(p, rows) : 0);
         if constexpr (MX) {
           // Every thread: the block splits the rows and issues the products.
           wait_copy(q);
-          mx_closest_cluster(
-              reinterpret_cast<const float*>(smem + lay().ring + (q % RING_STAGES) * bytes),
-              g.k, (c0 + c) * g.k, w, mx, mx_tiles(), bm);
+          mx_closest_cluster(reinterpret_cast<const float*>(ring_rows(q)), kr, row0, w, mx,
+                             mx_tiles(), bm);
         } else if (w != 0u) {
           wait_copy(q);
           const bool mine = (w >> lane()) & 1u;
-          const float4* rows =
-              reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);
-          const int row0 = (c0 + c) * g.k;
-          for (int k = 0; k < g.k; ++k) {
-            const float4* p = rows + 9 * k;
-            const float gid = p[8].w;
+          const float4* rows_q = ring_rows(q);
+          for (int k = 0; k < kr; ++k) {
+            const float4* pr = rows_q + 9 * k;
+            const float gid = pr[8].w;
             if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
-            if (mine) fold_pair(b, row_smem(p), gid, r, row0 + k);
+            if (mine) fold_pair(b, row_smem(pr), gid, r, row0 + k);
           }
         }
         __syncthreads();  // every warp is done with this slot
         if (threadIdx.x == 0 && j + RING_STAGES < m) {
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          issue(q + RING_STAGES, c0 + lst[j + RING_STAGES]);
+          issue_unit(q + RING_STAGES, c0, lst, j + RING_STAGES);
         }
       }
       seq = base + m;
@@ -527,23 +534,25 @@ struct BlockWalk {
     if constexpr (MX) {
       if (mx_any) mx_stage(r, max_t, mx, mt);
     }
-    const unsigned bytes = (unsigned)g.k * ROW_BYTES;
+    const int np = pieces();
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       if (c0 > 0 && !__syncthreads_or(walking)) break;
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<true>(r, walking, max_t, frustum, c0, n);
+      const int m = cull<true>(r, walking, max_t, frustum, c0, n) * np;  // units
       const int* lst = list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
       const int first = min(RING_STAGES, m);
       if (threadIdx.x == 0) {
-        for (int j = 0; j < first; ++j) issue(base + j, c0 + lst[j]);
+        for (int j = 0; j < first; ++j) issue_unit(base + j, c0, lst, j);
       }
       int issued = first, j = 0;
       while (j < m) {
         const unsigned q = base + j;
-        const int c = lst[j];
+        const int jc = PC ? j / np : j;  // the unit's cluster in the list, and its piece
+        const int c = lst[jc];
+        const int kr = PC ? piece_rows(g.k, rows, j - jc * np) : g.k;
         // Every warp that entered the box waits for its rows, walking or
         // not: a copy that no thread waited for could still be landing
         // when its slot is refilled. In the tensor-core form every thread
@@ -555,21 +564,19 @@ struct BlockWalk {
         const unsigned w = entered & __ballot_sync(FULL_MASK, walking);
         if constexpr (MX) {
           if (mx_walk) {
-            mx_any_cluster(
-                reinterpret_cast<const float*>(smem + lay().ring + (q % RING_STAGES) * bytes),
-                g.k, w, mx, mt, mx_tiles(), walking);
+            mx_any_cluster(reinterpret_cast<const float*>(ring_rows(q)), kr, w, mx, mt,
+                           mx_tiles(), walking);
           }
         }
         if (w != 0u && !mx_walk) {
           bool mine = (w >> lane()) & 1u;
-          const float4* rows =
-              reinterpret_cast<const float4*>(smem + lay().ring + (q % RING_STAGES) * bytes);
-          for (int k = 0; k < g.k; ++k) {
-            const float4* p = rows + 9 * k;
-            if (p[8].w >= GID_PAD) break;
+          const float4* rows_q = ring_rows(q);
+          for (int k = 0; k < kr; ++k) {
+            const float4* pr = rows_q + 9 * k;
+            if (pr[8].w >= GID_PAD) break;
             if (mine) {
               float t, vb, vc, inv_s;
-              if (pair_test(row_smem(p), r, t, vb, vc, inv_s) && t <= max_t) {
+              if (pair_test(row_smem(pr), r, t, vb, vc, inv_s) && t <= max_t) {
                 mine = false;
                 walking = false;
               }
@@ -581,7 +588,7 @@ struct BlockWalk {
         if (!__syncthreads_or(walking)) break;  // also: every warp is done with this slot
         if (threadIdx.x == 0 && issued < m) {
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          issue(base + issued, c0 + lst[issued]);
+          issue_unit(base + issued, c0, lst, issued);
         }
         if (issued < m) ++issued;
       }
@@ -591,6 +598,146 @@ struct BlockWalk {
     }
     // Occluded by a triangle (active, no longer walking), else by a primitive.
     return active && (!walking || prims_occlude(g, r, max_t));
+  }
+
+  // The trace's closest hit (exact, PC, slots of TRACE_SLOT rows), the
+  // pair loop compacted: for each listed piece, the rays that entered the
+  // cluster's box are listed (a prefix over the 4 warp ballots) and the
+  // n x rows (ray, row) pairs spread over the block's threads
+  // (walk_layout.h pair_first / pair_next: a warp reads one row as a
+  // broadcast, its lanes' rays' operands from `pairs` [PAIR_OPERANDS][128],
+  // staged once per walk). A pair that beats the key its thread reads
+  // (stale or not: it only lets more through) folds hit_key(t, gid) into
+  // its ray's key with a 64-bit atomicMin; the key's minimum is the (t,
+  // gid) winner of the per-ray fold, which does not depend on the order.
+  // Then each ray whose key fell in this piece finds the winning row by its
+  // gid among the slot's rows and runs pair_test on it again, for the row
+  // and the barycentrics (the same operands, so the same bits). The
+  // region: PAIR_BYTES of shared memory past the walk's layout
+  // (trace_smem). Two block barriers a piece: after the list (and the
+  // previous piece's owners), after the pairs.
+  __device__ __forceinline__ Hit closest_pairs(float ox, float oy, float oz, float dx, float dy,
+                                               float dz, bool active) {
+    static_assert(PC && !MX, "the compacted walk is the exact trace's, in slots");
+    const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
+    unsigned char* pairs = smem + tile_layout(rows, false, true).pairs;
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(pairs);
+    float* ops = reinterpret_cast<float*>(pairs + TILE_THREADS * 8);
+    int* in_box = reinterpret_cast<int*>(pairs + TILE_THREADS * (8 + 4 * PAIR_OPERANDS));
+    const int tid = threadIdx.x;
+    const unsigned long long no_key = hit_key(__float_as_uint(INF), (unsigned)GID_PAD);
+    keys[tid] = no_key;
+    const float op[PAIR_OPERANDS] = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.wx, r.wy, r.wz};
+#pragma unroll
+    for (int i = 0; i < PAIR_OPERANDS; ++i) ops[i * TILE_THREADS + tid] = op[i];
+    // cull() holds block barriers before any thread reads these.
+    Best b = no_hit();
+    unsigned long long own = no_key;  // the ray's key after the last piece it entered
+    const int np = pieces();
+    sb_open = true;
+    for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
+      const int n = min(TILE_C, g.n_clusters - c0);
+      const int m = cull<false>(r, active, INFINITY, false, c0, n) * np;  // units
+      const int* lst = list();
+      const unsigned* bal = ballots();
+      const unsigned base = seq;
+      if (tid == 0) {
+        for (int j = 0; j < min(RING_STAGES, m); ++j) issue_unit(base + j, c0, lst, j);
+      }
+      bool entered = false;  // the ray entered the previous unit's box
+      int kr_prev = 0, row0_prev = 0;  // the previous unit's rows and first row
+      for (int j = 0; j < m; ++j) {
+        const unsigned q = base + j;
+        const int jc = j / np;
+        const int p = j - jc * np;
+        const int c = lst[jc];
+        const int kr = piece_rows(g.k, rows, p);
+        const int row0 = (c0 + c) * g.k + piece_first(p, rows);
+        const uint4 w4 = *reinterpret_cast<const uint4*>(bal + c * TILE_WARPS);
+        const unsigned wv[TILE_WARPS] = {w4.x, w4.y, w4.z, w4.w};
+        wait_copy(q);
+        const float4* rows_q = ring_rows(q);
+        // The list of this piece's rays, and the previous piece's owners.
+        if (entered) {
+          own = resolve(keys[tid], own, r, b, ring_rows(q - 1), kr_prev, row0_prev);
+        }
+        int n_in = 0, at = 0;
+#pragma unroll
+        for (int w = 0; w < TILE_WARPS; ++w) {
+          if (w == warp()) at = n_in;
+          n_in += __popc(wv[w]);
+        }
+        entered = (wv[warp()] >> lane()) & 1u;
+        if (entered) in_box[at + __popc(wv[warp()] & ((1u << lane()) - 1u))] = tid;
+        // Real rows of the piece: before its first padding row.
+        const unsigned pad =
+            __ballot_sync(FULL_MASK, lane() < kr && rows_q[9 * lane() + 8].w >= GID_PAD);
+        const int real = pad ? __ffs(pad) - 1 : kr;
+        __syncthreads();  // the list is written; the previous piece's owners are done
+        if (tid == 0 && j >= 1 && j - 1 + RING_STAGES < m) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          issue_unit(q - 1 + RING_STAGES, c0, lst, j - 1 + RING_STAGES);
+        }
+        const int total = n_in * real;
+        if (tid < total) {
+          PairCursor cur = pair_first(tid, n_in);
+          for (int pp = tid; pp < total; pp += TILE_THREADS) {
+            const float4* pr = rows_q + 9 * cur.row;
+            const int ray = in_box[cur.ray];
+            Ray x;
+            x.ox = ops[0 * TILE_THREADS + ray];
+            x.oy = ops[1 * TILE_THREADS + ray];
+            x.oz = ops[2 * TILE_THREADS + ray];
+            x.dx = ops[3 * TILE_THREADS + ray];
+            x.dy = ops[4 * TILE_THREADS + ray];
+            x.dz = ops[5 * TILE_THREADS + ray];
+            x.wx = ops[6 * TILE_THREADS + ray];
+            x.wy = ops[7 * TILE_THREADS + ray];
+            x.wz = ops[8 * TILE_THREADS + ray];
+            float t, vb, vc, inv_s;
+            if (pair_test(row_smem(pr), x, t, vb, vc, inv_s)) {
+              const unsigned long long key = hit_key(__float_as_uint(t), (unsigned)pr[8].w);
+              if (key < *(volatile unsigned long long*)(keys + ray)) atomicMin(keys + ray, key);
+            }
+            pair_next(cur, n_in);
+          }
+        }
+        __syncthreads();  // every pair of this piece is folded
+        kr_prev = kr;
+        row0_prev = row0;
+        if (j + 1 == m) {
+          if (entered) own = resolve(keys[tid], own, r, b, rows_q, kr, row0);
+          __syncthreads();  // the owners are done with the last slot
+        }
+      }
+      seq = base + m;
+    }
+    return finish_closest(g, r, b);
+  }
+
+  // A ray's owner after a piece it entered (its slot rows_q: kr rows from
+  // flat row row0): when the ray's key fell below `own`, the winner is the
+  // piece's row with the key's gid (gids are unique); pair_test on it
+  // again gives the barycentrics -> the new own key.
+  __device__ __forceinline__ unsigned long long resolve(unsigned long long key,
+                                                        unsigned long long own, const Ray& r,
+                                                        Best& b, const float4* rows_q, int kr,
+                                                        int row0) {
+    if (key >= own) return own;
+    const float gid = (float)(unsigned)(key & 0xffffffffull);
+    for (int k = 0; k < kr; ++k) {
+      const float4* pr = rows_q + 9 * k;
+      if (pr[8].w != gid) continue;
+      float t, vb, vc, inv_s;
+      pair_test(row_smem(pr), r, t, vb, vc, inv_s);
+      b.t = t;
+      b.gid = gid;
+      b.row = row0 + k;
+      b.u = vb * inv_s;
+      b.v = vc * inv_s;
+      break;
+    }
+    return key;
   }
 };
 
@@ -603,18 +750,20 @@ struct BlockWalk {
 // issued has landed (a closest hit waits for each listed cluster's rows,
 // an any hit for the copies still in flight when it stops). Thread 0
 // invalidates `from`'s mbarriers, since `to`'s layout (tile_layout of its
-// own k) may put ring rows or boxes over them, and `to.init` sets up its
-// own; the proxy fence orders the block's generic writes before `to`'s
-// bulk copies into the same bytes. The block's shared memory is the larger
-// of the two layouts (the launches size it so). `from` may be the
+// own slot) may put ring rows or boxes over them, and `to.init` sets up
+// its own; the proxy fence orders the block's generic writes before `to`'s
+// bulk copies into the same bytes. `to` walks in slots of no more rows
+// than `from`'s (walk_layout.h shadow_rows), so its layout is never the
+// larger and the block holds `from`'s (both_smem). `from` may be the
 // tensor-core walk (MXA): its B tiles (tile_layout's mxb region, written by
 // generic stores, read by wgmma, whose reads completed at each tile's
 // wait) are dead after the barrier, and its mbarriers sit at the same
 // offsets as the exact layout's, so `to`'s ring may land over both. `to`
 // is always exact: the shadow set's walk, as the TPU kernel's shadow
 // traversal gets no geom_mx.
-template <bool A, bool MXA, bool B>
-__device__ __forceinline__ void handoff(BlockWalk<A, MXA>& from, BlockWalk<B>& to) {
+template <bool A, bool MXA, bool PCA, bool B>
+__device__ __forceinline__ void handoff(BlockWalk<A, MXA, PCA>& from,
+                                        BlockWalk<B, false, true>& to) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();  // every thread is done with `from`'s shared memory
   if (threadIdx.x == 0) {
@@ -622,6 +771,23 @@ __device__ __forceinline__ void handoff(BlockWalk<A, MXA>& from, BlockWalk<B>& t
   }
   to.init(to.g, from.smem);
 }
+
+// The build of a ray kernel that a launch over n_clusters clusters of k
+// rows takes, from its four builds <SB, PC> = <false, false>, <false,
+// true>, <true, false>, <true, true>: the superblock cull where
+// superblocks(n_clusters) > 0, slots where k > SLOT_MAX (the builds
+// without keep whole clusters in the ring, the code they had).
+template <typename Kernel>
+Kernel pick_build(int n_clusters, int k, Kernel flat, Kernel flat_pc, Kernel sb, Kernel sb_pc) {
+  const bool pc = k > SLOT_MAX;
+  return superblocks(n_clusters) > 0 ? (pc ? sb_pc : sb) : (pc ? flat_pc : flat);
+}
+
+// The four builds of kernel template K for pick_build, its template
+// arguments between SB (first) and PC (last) given.
+#define COSIG_BUILDS(K, ...)                                                              \
+  K<false, __VA_ARGS__, false>, K<false, __VA_ARGS__, true>, K<true, __VA_ARGS__, false>, \
+      K<true, __VA_ARGS__, true>
 
 // Launch `kernel` (a ray kernel's instantiation) on a grid of `blocks`
 // blocks of TILE_THREADS with `smem` bytes of dynamic shared memory on

@@ -210,26 +210,26 @@ extern "C" {
 int cosig_frame_bytes() { return (int)sizeof(cosig::Frame); }
 int cosig_frame_data_bytes() { return (int)sizeof(cosig::FrameData); }
 
-// Dynamic shared memory of a block walk over clusters of k rows.
-int cosig_tile_smem_bytes(int k) { return (int)cosig::tile_layout(k).total; }
+// Dynamic shared memory of a block walk over clusters of k rows (its
+// slots: walk_layout.h), and of the trace's compacted walk.
+int cosig_tile_smem_bytes(int k) { return cosig::walk_smem(k); }
+int cosig_trace_smem_bytes(int k) { return cosig::trace_smem(k); }
 
 // Blocks of the primary (which 0) or the bounce kernel (1), in the
-// build their launch picks for n_clusters clusters (with or without the
-// superblock cull), that one multiprocessor holds at once with the block
-// walk's shared memory for clusters of k rows,
+// build their launch picks for n_clusters clusters of k rows (with or
+// without the superblock cull, with or without slots), that one
+// multiprocessor holds at once with the block walk's shared memory,
 // after the same raise of the kernel's dynamic shared-memory limit as its
 // launch; minus the CUDA error if refused.
 int cosig_wavefront_occupancy(int which, int n_clusters, int k) {
-  const int smem = (int)cosig::tile_layout(k).total;
-  const bool sb = cosig::superblocks(n_clusters) > 0;
+  const int smem = cosig::walk_smem(k);
   if (which == 0) {
-    return cosig::walk_occupancy(sb ? cosig::primary_kernel<true, false, false>
-                                    : cosig::primary_kernel<false, false, false>,
-                                 smem);
+    return cosig::walk_occupancy(
+        cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, false)),
+        smem);
   }
-  return cosig::walk_occupancy(sb ? cosig::bounce_kernel<true, false>
-                                  : cosig::bounce_kernel<false, false>,
-                               smem);
+  return cosig::walk_occupancy(
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::bounce_kernel, false, false)), smem);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). sb_aabb:
@@ -241,12 +241,11 @@ int cosig_primary_launch(const cosig::Frame* frame, const float* geom, const flo
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0
-                          ? cosig::primary_kernel<true, false, false>
-                          : cosig::primary_kernel<false, false, false>;
-  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
-                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, state);
+  const auto kernel =
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, false));
+  return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k), (cudaStream_t)stream,
+                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
+                                 n_box, cosig::Geometry{}, state);
 }
 
 // The compaction's grid for n rays: blocks and rays per block (0 and 0
@@ -298,12 +297,11 @@ int cosig_bounce_launch(const cosig::Frame* frame, const float* geom, const floa
   if (n <= 0) return 0;
   if (!cosig::superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + cosig::THREADS - 1) / cosig::THREADS;
-  const auto kernel = cosig::superblocks(n_clusters) > 0 ? cosig::bounce_kernel<true, false>
-                                                         : cosig::bounce_kernel<false, false>;
-  return (int)cosig::launch_walk(kernel, blocks, (int)cosig::tile_layout(k).total,
-                                 (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters,
-                                 k, c_pad, prims, n_sph, n_box, cosig::Geometry{}, idx, n_live,
-                                 state);
+  const auto kernel =
+      cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::bounce_kernel, false, false));
+  return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k), (cudaStream_t)stream,
+                                 *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
+                                 n_box, cosig::Geometry{}, idx, n_live, state);
 }
 
 }  // extern "C"

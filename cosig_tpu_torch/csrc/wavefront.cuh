@@ -73,10 +73,19 @@
 // stage's set, then the block hands its shared memory to a second walk
 // over the shadow set, a coarser cut within one cull block (c_pad <= 512,
 // so that walk has no superblock cull), for every shadow ray
-// (traverse_tile.cuh handoff). The block's shared memory is the larger of
-// the two walks'. Occlusion and the (t, gid) winner do not depend on the
-// cut, so every form gives the fused single-set bits. The fused builds
-// (SH and FISSION false) compile to the code they had without these flags.
+// (traverse_tile.cuh handoff). That walk goes in slots of no more rows
+// than the main walk's (shadow_walk), so the block's shared memory is the
+// main walk's and the shadow-set builds hold as many blocks a
+// multiprocessor as the fused ones; its any hit stops the block after the
+// first slot in which no shadow ray still walks. Occlusion and the (t,
+// gid) winner do not depend on the cut, so every form gives the fused
+// single-set bits. The fused builds (SH and FISSION false) compile to the
+// code they had without these flags.
+//
+// PC (every ray kernel): the main walk in slots of SLOT_MAX rows, the
+// builds the launches pick for k > SLOT_MAX (traverse_tile.cuh
+// pick_build), so every k a cluster set may have fits a block; up to
+// k = 128 they pick the builds without, whose code is the one they had.
 //
 // Every form also has its MX build, as the TPU's MXU switch applies per
 // stage whatever the form (trace_wavefront.py:621-714): the closest hit of
@@ -109,6 +118,10 @@ namespace cosig {
 constexpr int ROW_ALIVE = 12, ROW_COUNT = 13, ROW_ID = 14, STATE_ROWS = 16;
 constexpr int REC0 = 15, FISSION_ROWS = 24;  // the fission form's hit record, rows 15-19
 constexpr int THREADS = TILE_THREADS;
+// Blocks a multiprocessor holds of the exact trace (its __launch_bounds__
+// minimum): left to ptxas, the compacted walk took 128 registers and 4
+// blocks, and timed 6-10 % slower than at 5 (PERF.md).
+constexpr int TRACE_MIN_BLOCKS = 5;
 
 // (px, py, s) RNG seeds of ray id i: the inverse of the enumeration, py global.
 __device__ __forceinline__ void seeds(const Frame& f, int i, float& px, float& py,
@@ -149,10 +162,15 @@ __device__ __forceinline__ void store_rec(float* __restrict__ state, int n, int 
 }
 
 // The block walk over the shadow set `sh` (no superblocks: it fits one
-// cull block), before its handoff: geometry only, no shared memory yet.
-__device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
-  BlockWalk<false> w;
+// cull block) after a main walk over k-row clusters, before its handoff:
+// geometry and slots only, no shared memory yet. Its slots hold no more
+// rows than the main walk's (walk_layout.h shadow_rows), so the block's
+// shared memory is the main walk's, and its any hit checks for a ray still
+// walking after every slot.
+__device__ __forceinline__ BlockWalk<false, false, true> shadow_walk(const Geometry& sh, int k) {
+  BlockWalk<false, false, true> w;
   w.g = sh;
+  w.rows = shadow_rows(k, sh.k);
   return w;
 }
 
@@ -160,8 +178,9 @@ __device__ __forceinline__ BlockWalk<false> shadow_walk(const Geometry& sh) {
 // trace and store the hit record (24-row state). Not both: the fission
 // primary traces no shadow ray. MX: the tensor-core form of the pair test
 // (traverse_tile.cuh) for the closest hit; without SH its shadow rays take
-// it too when the frame has F_MX_SHADOW.
-template <bool SB, bool SH, bool FISSION, bool MX = false>
+// it too when the frame has F_MX_SHADOW. PC: the walk in slots
+// (traverse_tile.cuh), the build for k > SLOT_MAX.
+template <bool SB, bool SH, bool FISSION, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                    const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -170,7 +189,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
                    const __grid_constant__ Geometry sh, float* __restrict__ state) {
   static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX> walk;
+  BlockWalk<SB, MX, PC> walk;
+  walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
@@ -207,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     for (int r = REC0 + 5; r < FISSION_ROWS; ++r) state[r * (size_t)n + i] = 0.0f;  // pad rows
     return;
   } else if constexpr (SH) {
-    BlockWalk<false> shadow = shadow_walk(sh);
+    BlockWalk<false, false, true> shadow = shadow_walk(sh, k);
     bounce_core(f, walk, shadow, st, px, py, s, 0.0f, f.is_last != 0, true);
   } else {
     bounce_core(f, walk, st, px, py, s, 0.0f, f.is_last != 0, true);
@@ -245,8 +265,8 @@ __device__ __forceinline__ RayState load(const float* __restrict__ state, int n,
 
 // SH: the shadow rays walk the cluster set `sh`; MX: the tensor-core form
 // for the closest hit, and without SH for the shadow rays too when the
-// frame has F_MX_SHADOW.
-template <bool SB, bool SH, bool MX = false>
+// frame has F_MX_SHADOW; PC: the walk in slots, for k > SLOT_MAX.
+template <bool SB, bool SH, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     bounce_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                   const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -258,7 +278,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread: no barrier is left
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX> walk;
+  BlockWalk<SB, MX, PC> walk;
+  walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
@@ -275,7 +296,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   }
   // Bounce rays are incoherent: superblock cull only (trace_wavefront.py:459).
   if constexpr (SH) {
-    BlockWalk<false> shadow = shadow_walk(sh);
+    BlockWalk<false, false, true> shadow = shadow_walk(sh, k);
     bounce_core(f, walk, shadow, st, px, py, s, (float)f.depth, f.is_last != 0, false);
   } else {
     bounce_core(f, walk, st, px, py, s, (float)f.depth, f.is_last != 0, false);
@@ -287,9 +308,12 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
 
 // The trace half of a bounce on the listed rays of a 24-row state: ray
 // idx[j]'s origin, direction and count in, its count and hit record out.
-// MX: the closest hit in the tensor-core form (both modes).
-template <bool SB, bool MX = false>
-__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
+// MX: the closest hit in the tensor-core form (both modes), PC its walk in
+// slots (for k > SLOT_MAX). Exact: the compacted walk
+// (traverse_tile.cuh closest_pairs) in slots of TRACE_SLOT rows, at every k
+// (PC unused), held to TRACE_MIN_BLOCKS blocks a multiprocessor.
+template <bool SB, bool MX = false, bool PC = false>
+__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS)
     trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                  int n_clusters, int k, int c_pad,
@@ -299,7 +323,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX> walk;
+  BlockWalk<SB, MX, MX ? PC : true> walk;
+  walk.rows = MX ? walk_rows(k) : slot_rows(k, TRACE_SLOT);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
 
@@ -320,7 +345,13 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   }
   st.alive = listed;  // the list holds exactly the live rays
   // Bounce rays are incoherent: superblock cull only.
-  const Hit h = bounce_trace(walk, st, false);
+  Hit h;
+  if constexpr (MX) {
+    h = bounce_trace(walk, st, false);
+  } else {  // bounce_trace's count, then the compacted closest hit
+    st.count = st.count + (st.alive ? 1.0f : 0.0f);
+    h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive);
+  }
   if (!listed) return;
   state[ROW_COUNT * (size_t)n + i] = st.count;
   store_rec(state, n, i, h);
@@ -332,7 +363,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
 // blocks of consecutive rays are coherent (frustum pre-cull on). MX: the
 // any hits in the tensor-core form when the frame has F_MX_SHADOW (full
 // mode; never on a separate shadow set, which the launches keep exact).
-template <bool SB, bool LISTED, bool MX = false>
+// PC: the walk in slots, for k > SLOT_MAX.
+template <bool SB, bool LISTED, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     shade_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
@@ -354,7 +386,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     listed = i < n;  // threads past the last ray walk inactive
   }
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX> walk;
+  BlockWalk<SB, MX, PC> walk;
+  walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;

@@ -244,7 +244,7 @@ def library() -> ctypes.CDLL:
     # n, &blocks, &range
     lib.cosig_compact_grid.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.cosig_compact_grid.restype = i32
-    for name in ("cosig_tile_smem_bytes", "cosig_mx_smem_bytes"):
+    for name in ("cosig_tile_smem_bytes", "cosig_mx_smem_bytes", "cosig_trace_smem_bytes"):
         getattr(lib, name).argtypes = [i32]  # k
         getattr(lib, name).restype = i32
     # geom, k, rays, n, limbs, planes, stream
@@ -388,12 +388,13 @@ def occupancy(kernel: str, n_clusters: int, k: int, dev: torch.device, shadow_k:
     primary_mx, bounce_mx, megakernel_mx, primary_shadow_mx,
     bounce_shadow_mx, primary_fission_mx, trace_mx, shade_mx,
     shade_all_mx), in the build its launch picks for
-    ``n_clusters`` clusters (with the superblock cull where
-    :func:`~cosig_tpu_torch.accel.clusters.superblocks` is above 0), that
-    one multiprocessor of ``dev`` holds at once with the block walk's
-    shared memory for clusters of ``k`` rows (for the shadow builds, the
-    larger of the walks over ``k`` and over the shadow set's ``shadow_k``
-    rows); raise if the card refuses that shared memory."""
+    ``n_clusters`` clusters of ``k`` rows (with the superblock cull where
+    :func:`~cosig_tpu_torch.accel.clusters.superblocks` is above 0, with
+    slots of 128 rows where k > 128), that one multiprocessor of ``dev``
+    holds at once with the block walk's shared memory (the shadow builds,
+    whose walk over the shadow set's ``shadow_k`` rows has slots no larger,
+    the main walk's; the exact trace its compacted walk's); raise if the
+    card refuses that shared memory."""
     name, which = _OCCUPANCY[kernel]
     args = (which, n_clusters, k) + ((shadow_k,) if "form" in name else ())
     with torch.cuda.device(dev):

@@ -32,9 +32,9 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("rng.cuh", "traverse.cuh", "mx_layout.h", "mx_pair.cuh", "traverse_tile.cuh", "bounce.cuh",
-           "camera.cuh", "wavefront.cuh", "forms.cuh", "wavefront.cu", "forms.cu", "mx.cu",
-           "mx_forms.cu", "megakernel.cu")
+SOURCES = ("rng.cuh", "traverse.cuh", "mx_layout.h", "walk_layout.h", "mx_pair.cuh",
+           "traverse_tile.cuh", "bounce.cuh", "camera.cuh", "wavefront.cuh", "forms.cuh",
+           "wavefront.cu", "forms.cu", "mx.cu", "mx_forms.cu", "megakernel.cu")
 # One nvcc each, then one link.
 KERNEL_SOURCES = ("wavefront.cu", "forms.cu", "mx.cu", "mx_forms.cu", "megakernel.cu")
 NVCC_FLAGS = (

@@ -55,12 +55,13 @@ def cuobjdump() -> str:
 def build_label(mangled: str) -> tuple | None:
     """(label, superblocks) of a kernel's mangled name, or None for another
     function: the launch counter's name of the build its template flags
-    give (primary_kernel<SB, SH, FISSION, MX>, bounce_kernel<SB, SH, MX>,
-    trace_kernel<SB, MX>, shade_kernel<SB, LISTED, MX>, megakernel<SB, MX>,
-    debug_kernel<SB>): primary_fission, primary_shadow, bounce_shadow,
-    shade_all (the shade over every ray of the primary stage), with
-    ``_mx`` for the tensor-core builds; superblocks: built with the
-    superblock cull."""
+    give (primary_kernel<SB, SH, FISSION, MX, PC>, bounce_kernel<SB, SH,
+    MX, PC>, trace_kernel<SB, MX, PC>, shade_kernel<SB, LISTED, MX, PC>,
+    megakernel<SB, MX, PC>, debug_kernel<SB, PC>): primary_fission,
+    primary_shadow, bounce_shadow, shade_all (the shade over every ray of
+    the primary stage), with ``_mx`` for the tensor-core builds and
+    `` slots`` for the builds whose walk has slots (PC, the launches' pick
+    for k > 128); superblocks: built with the superblock cull."""
     m = re.match(r"_ZN5cosig(\d+)(\w+)", mangled)
     if not m:
         return None
@@ -70,16 +71,18 @@ def build_label(mangled: str) -> tuple | None:
         return None
     args = re.match(r"I((?:Lb[01]E)+)", m.group(2)[n:])
     flags = [f == "1" for f in re.findall(r"Lb([01])E", args.group(1))] if args else []
-    flags += [False] * 4
+    flags += [False] * 5
     mx = {"primary": flags[3], "bounce": flags[2], "trace": flags[1], "shade": flags[2],
           "megakernel": flags[1]}.get(name, False)
+    pc = {"primary": flags[4], "bounce": flags[3], "trace": flags[2], "shade": flags[3],
+          "megakernel": flags[2], "debug": flags[1]}.get(name, False)
     if name == "primary" and flags[2]:
         name = "primary_fission"
     elif name in ("primary", "bounce") and flags[1]:
         name += "_shadow"
     elif name == "shade" and not flags[1]:
         name = "shade_all"
-    return name + ("_mx" if mx else ""), bool(args) and flags[0]
+    return name + ("_mx" if mx else "") + (" slots" if pc else ""), bool(args) and flags[0]
 
 
 def functions(sass: str) -> dict:

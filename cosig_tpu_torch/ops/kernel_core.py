@@ -133,13 +133,30 @@ _PAIR_CHUNK = 1 << 20
 # the pair-loop slots the warps spend: a warp in which some ray (still
 # walking, for an any hit) enters a cluster runs its real rows on all 32
 # lanes, so each such (warp, cluster) counts 32 x the cluster's real rows.
+# For a closest hit also the slots of the trace kernel's compacted walk
+# (``pair_slots``, :func:`compact_slots`), its blocks the warps' groups of
+# four.
 WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
-        "frustum_tests": 0, "superblock_tests": 0}
+        "pair_slots": 0, "frustum_tests": 0, "superblock_tests": 0}
 
 # The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
-# block walk together, and its cull takes TILE_C clusters a pass.
+# block walk together, and its cull takes TILE_C clusters a pass; the
+# trace's compacted walk streams a cluster in slots of TRACE_SLOT rows
+# (csrc/walk_layout.h).
 BLOCK_RAYS = 128
 TILE_C = 256
+TRACE_SLOT = 32
+
+
+def compact_slots(n_in: torch.Tensor, rows: int) -> int:
+    """Pair-loop slots of the trace's compacted walk on one cluster of
+    ``rows`` real rows, ``n_in`` [B] the rays of each block in its box: per
+    block and slot piece of r real rows, the n x r pairs spread over the
+    block's threads take BLOCK_RAYS x ceil(n r / BLOCK_RAYS) slots."""
+    full, rest = divmod(rows, TRACE_SLOT)
+    pieces = [TRACE_SLOT] * full + ([rest] if rest else [])
+    return sum(BLOCK_RAYS * int(((n_in * r + BLOCK_RAYS - 1) // BLOCK_RAYS).sum())
+               for r in pieces)
 
 
 # The tensor-core form (traverse(..., mx=True)): the modes a caller picks,
@@ -438,7 +455,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     miss. ``prims`` is the [P, 22] table of :func:`prim_table` with its
     first ``n_sph`` rows spheres and the next ``n_box`` boxes. ``warps``
     ([N] warp id of each ray on the rays' device, or None) adds the warps'
-    pair-loop slots to ``WORK["warp_slots"]``.
+    pair-loop slots to ``WORK["warp_slots"]`` and, for a closest hit, the
+    compacted walk's (blocks of four warps) to ``WORK["pair_slots"]``.
 
     ``packets`` ([N] thread block of each ray on the rays' device, or None)
     runs the kernels' pre-filters before the per-ray slab test, as their
@@ -540,6 +558,9 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
         if warps is not None:
             WORK["warp_slots"] += 32 * rows_real[c] * int(torch.unique(warps[rays]).numel())
+            if not any_hit:
+                n_in = torch.unique(warps[rays] // (BLOCK_RAYS // 32), return_counts=True)[1]
+                WORK["pair_slots"] += compact_slots(n_in, rows_real[c])
         g = geom[c]  # [K, 36]
 
         def col(j):

@@ -91,6 +91,48 @@ def test_form_bit_equal_to_fused(frames, case, form):
     assert img.shape == (s["cfg"].height, s["cfg"].width, 3)
 
 
+# Sets past 128 rows, which the kernels walk in slots (csrc/walk_layout.h):
+# large_mesh (k = 64) with its main set at k = 512 (a primary set of 128
+# rows and a shadow set of 1024 beside it), or a shadow set at k = 512 or
+# 1024 (and a primary set of 16) beside its own k = 64 set; (case, form)
+# pairs.
+SLOT_SETS = {"main512": dict(main=512, primary=128, shadow=1024),
+             "shadow512": dict(primary=16, shadow=512),
+             "shadow1024": dict(primary=16, shadow=1024)}
+SLOT_CASES = [("main512", f) for f in ("fused", "fission", "primary", "shadow", "all")] + \
+    [(c, f) for c in ("shadow512", "shadow1024") for f in ("shadow", "all")]
+
+
+@pytest.fixture(scope="module")
+def slot_frames():
+    """large_mesh at 48x48 d3 with the sets of SLOT_SETS, per case."""
+    name, kw_, analytic = CASES["large_mesh"]
+    out = {}
+    for case, ks in SLOT_SETS.items():
+        s = chip_smoke.scene_setup(name, kw_, "cpu", analytic)
+        sets = chip_smoke.form_sets(s, ks, "cpu")
+        s["own"] = s["cset"]
+        s["cset"] = sets.pop("main", s["cset"])
+        s.update(sets)
+        out[case] = s
+    return out
+
+
+@pytest.mark.parametrize("case,form", SLOT_CASES, ids=[f"{c}-{f}" for c, f in SLOT_CASES])
+def test_slot_sizes_bit_equal_to_fused(slot_frames, case, form):
+    """Cluster sets past 128 rows in every form through the wrappers (the
+    plain versions on the CPU), each frame equal to the port's fused
+    frame on the scene's own k = 64 set bit for bit: the (t, gid) winner
+    and occlusion do not depend on the cut; the shadow sets fit one cull
+    block."""
+    s = slot_frames[case]
+    if "shadow" in s:
+        assert int(s["shadow"].aabb_t.shape[1]) <= 512
+    img0, rays0 = _render(dict(s, cset=s["own"]), plain=True)
+    img, rays = _render(s, FORMS.get(form, {}).items())
+    assert torch.equal(img, img0) and rays == rays0
+
+
 def test_fission_state_rows(frames):
     """The fission state has 24 rows: rows 0-14 equal to the fused state's,
     the record of each ray's last trace in rows 15-19 (hit exactly where
@@ -268,6 +310,18 @@ def test_forms_match_jax_interpret(name, kw_, ks, monkeypatch):
     """Fission with both separate sets against the JAX package's
     render_wavefront with the same sets and _FISSION on, at the slice
     tolerances; and bit-equal to the port's own fused single-set render."""
+    _match_jax_interpret(name, kw_, ks, monkeypatch)
+
+
+def test_shadow_set_k512_matches_jax_interpret(monkeypatch):
+    """A shadow set past 128 rows (k = 512, which the kernels walk in
+    slots) as test_forms_match_jax_interpret holds the others: glass_sphere
+    with its main set at k = 32 and a primary set at k = 8."""
+    _match_jax_interpret("glass_sphere", dict(resolution_override=(48, 48), max_depth=3),
+                         (32, 8, 512), monkeypatch)
+
+
+def _match_jax_interpret(name, kw_, ks, monkeypatch):
     import cosig_tpu
     from cosig_tpu.ops import trace_wavefront as jtw
 
@@ -321,3 +375,40 @@ def test_forms_on_card(card, form):
         assert binding.LAUNCHES["primary_shadow"] == 1 and binding.LAUNCHES["bounce_shadow"] == 2
     img0, rays0 = _render(s, plain=True)
     assert torch.equal(img, img0) and rays == rays0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["main512", "shadow1024"])
+def test_slot_sizes_on_card(card, case):
+    """Sets past 128 rows render on a card: large_mesh with its main set at
+    k = 512 through the primary, bounce, megakernel and debug kernels, or
+    with a shadow set at k = 1024 through the shadow-set primary and
+    bounce, each frame bit-equal to its plain version (before the walk had
+    slots, the card refused a block walk over clusters of more than 503
+    rows)."""
+    from cosig_tpu_torch.ops import trace_megakernel as ttm
+
+    name, kw_, _ = CASES["large_mesh"]
+    s = chip_smoke.scene_setup(name, kw_, card)
+    sets = chip_smoke.form_sets(s, SLOT_SETS[case], card)
+    cset = sets.get("main", s["cset"])
+    sh = sets["shadow"] if case == "shadow1024" else None
+    a = (cset, s["uni"], s["lights"], s["cfg"])
+    binding.reset_counts()
+    img, rays = ttw.render_wavefront(*a, cset_shadow=sh)
+    img0, rays0 = ttw.render_wavefront(s["cset"], *a[1:], plain=True)
+    assert torch.equal(img, img0) and rays == rays0
+    if sh is None:
+        assert binding.LAUNCHES["primary"] == 1 and binding.LAUNCHES["bounce"] == 2
+        img_m, rays_m = ttm.render_clusters(*a)
+        assert binding.LAUNCHES["megakernel"] == 1
+        assert (torch.equal(img_m, ttm.render_clusters(*a, plain=True)[0])
+                and rays_m == rays0)
+        dcfg = tsoa.static_config(s["scene"], s["settings"].replace(debug_mode=1))
+        img_d, _ = ttm.render_debug(cset, s["uni"], s["lights"], dcfg)
+        assert binding.LAUNCHES["debug"] == 1
+        assert torch.equal(img_d, ttm.render_debug(cset, s["uni"], s["lights"], dcfg,
+                                                   plain=True)[0])
+    else:
+        assert binding.LAUNCHES["primary_shadow"] == 1
+        assert binding.LAUNCHES["bounce_shadow"] == 2
