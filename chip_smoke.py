@@ -35,8 +35,10 @@ Phases (any failure raises and the script exits non-zero):
 3. print models of the block walk at the main path's shapes (the
    pair-loop efficiency of the kernels' warps, from the plain traversal's
    count of warp slots, for the bounce's warps in pixel order and in list
-   order too, and for the trace kernel's closest hit its warps beside its
-   compacted schedule; the trip fill of the megakernel's block-uniform depth loop,
+   order too, for the closest hits of the trace and the fission primary
+   their warps beside their compacted schedule, and for the shade's any
+   hits the per-warp walk beside the compacted one; the trip fill of the
+   megakernel's block-uniform depth loop,
    from the wavefront's live rows), then time each kernel against its
    plain version at the main path's shapes (glass_sphere, 1024x1024, depth
    6, AA 4; the bounce also at large_mesh's depths 1-3, and on an empty
@@ -122,7 +124,10 @@ Phases (any failure raises and the script exits non-zero):
    kernel bit-equal to its plain version stage by stage, record rows and
    lists included, on glass_sphere, large_mesh cut 4 ways (c_pad 1024),
    the dense knot at 128x128, the analytic mixed scene and cosig_walls and the tiny scene with every
-   effect, and cluster sets past 128 rows (the builds whose walk has
+   effect (both in the fission form alone too), demo_cornell at 61x37 at
+   AA 1, 3 and 4 and as a band, on 32- and 64-row clusters, in the
+   fission form (``form_edges``: partial blocks of rays and of lists, one
+   and two 32-row slots a cluster), and cluster sets past 128 rows (the builds whose walk has
    slots: large_mesh's main set at k = 512 in every form, the tensor-core
    form and the megakernel and debug kernel too, and a shadow set at
    k = 1024); the k of the dense knot's shadow set (1024, the first that
@@ -913,7 +918,15 @@ def model_walks(device) -> dict:
       trace kernel's closest hit alone (large_mesh's depths, glass's
       first) its warps in list order beside its compacted schedule
       (``WORK["pair_slots"]``: per block, cluster and 32-row piece, 128 x
-      ceil(pairs / 128)).
+      ceil(pairs / 128)); the fission primary's closest hit in its warps (32
+      consecutive ray ids) beside the same compacted schedule; and the
+      shade's any hits (glass's primary stage over every ray, large_mesh's
+      depths, glass's first) in the per-warp walk, a warp leaving a cluster
+      once none of its lanes still walks (``WORK["any_warp_slots"]``; beside
+      ``warp_slots``, which counts all the real rows), against the shade
+      kernel's compacted any hit (``WORK["any_pair_slots"]``: per block and
+      32-row piece, 128 x ceil(n x rows / 128), n the block's rays still
+      walking at the start of the piece).
     * Trip fill of the megakernel's depth loop: trips per (pixel, sample)
       from the wavefront's live rows (one, plus one per bounce the ray
       enters alive); for the parent's per-thread loop in 32 x 1 strips, a
@@ -928,6 +941,25 @@ def model_walks(device) -> dict:
     from cosig_tpu_torch.ops import kernel_core as kc
     from cosig_tpu_torch.ops import trace_megakernel as tm
     from cosig_tpu_torch.ops import trace_wavefront as tw
+
+    def shade_model(tag, run) -> dict:
+        """The any hits of one plain shade stage: pair tests, the per-warp
+        walk's slots (all real rows, and up to the lanes' first occluders)
+        and the compacted schedule's."""
+        kc.reset_work()
+        run()
+        torch.cuda.synchronize()
+        w = dict(kc.WORK)
+        rec = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
+                   any_warp_slots=w["any_warp_slots"], any_pair_slots=w["any_pair_slots"],
+                   per_warp=w["pair_tests"] / max(1, w["any_warp_slots"]),
+                   compacted=w["pair_tests"] / max(1, w["any_pair_slots"]))
+        log(f"  {tag} any-hit pair-loop efficiency: per-warp walk "
+            f"{100 * rec['per_warp']:.1f} %, compacted (the shade kernel's schedule) "
+            f"{100 * rec['compacted']:.1f} % ({w['pair_tests']} pair tests, "
+            f"{w['any_warp_slots']} per-warp slots, {w['warp_slots']} warp slots of all real "
+            f"rows, {w['any_pair_slots']} compacted slots)")
+        return rec
 
     out = {}
     for name in ("glass_sphere", "large_mesh"):
@@ -954,6 +986,26 @@ def model_walks(device) -> dict:
                               efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
             log(f"  {name} pair-loop efficiency, {label} warps: {w['pair_tests']} pair tests / "
                 f"{w['warp_slots']} warp slots = {100 * eff[label]['efficiency']:.1f} %")
+        # The fission primary's closest hit, then the shade's any hits over
+        # every ray of its stage, in the primary kernel's warps.
+        lin = kc.warp_of_rays(kc.linear_slots(n), n).to(device)
+        kc.reset_work()
+        st24 = tw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk, warps=lin,
+                                fission=True)
+        torch.cuda.synchronize()
+        w = dict(kc.WORK)
+        eff["primary_fission"] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
+                                      pair_slots=w["pair_slots"],
+                                      per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
+                                      compacted=w["pair_tests"] / max(1, w["pair_slots"]))
+        log(f"  {name} fission primary pair-loop efficiency: warps of 32 rays "
+            f"{100 * eff['primary_fission']['per_warp']:.1f} %, compacted (the kernel's "
+            f"schedule) {100 * eff['primary_fission']['compacted']:.1f} % ({w['pair_tests']} "
+            f"pair tests, {w['warp_slots']} warp slots, {w['pair_slots']} compacted slots)")
+        eff["shade_all"] = shade_model(
+            f"{name} shade of the primary stage (all rays)",
+            lambda: tw.primary_shade(st24, cset, uni, mats, lights, cfg, *pk, warps=lin))
+        del st24
         # Trips per (pixel, sample) from the wavefront kernels' alive rows,
         # and the bounce's pair-loop efficiency per depth in both orders.
         state = kw.primary(cset, fb, cfg, cfg.height, *pk)
@@ -990,12 +1042,17 @@ def model_walks(device) -> dict:
                                     pair_slots=w["pair_slots"],
                                     per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
                                     compacted=w["pair_tests"] / max(1, w["pair_slots"]))
-                del st24
                 log(f"  {name} trace {d} ({m} live rays) pair-loop efficiency: warps in list "
                     f"order {100 * row['trace']['per_warp']:.1f} %, compacted (the trace "
                     f"kernel's schedule) {100 * row['trace']['compacted']:.1f} % "
                     f"({w['pair_tests']} pair tests, {w['warp_slots']} warp slots, "
                     f"{w['pair_slots']} compacted slots)")
+                # The shade's any hits on the same list, after that trace.
+                row["shade"] = shade_model(
+                    f"{name} shade {d} ({m} live rays)",
+                    lambda: tw.shade_listed_stage(st24, idx, n_live, cset, uni, mats, lights, cfg,
+                                                  d, *pk, warps=list_warps))
+                del st24
             bounce_eff.append(dict(depth=d, live=m, **row))
             log(f"  {name} bounce {d} ({m} live rays) pair-loop efficiency: pixel order "
                 f"{100 * row['pixel order']['efficiency']:.1f} %, list order "
@@ -2547,12 +2604,13 @@ def form_launches(max_depth: int, forms: dict) -> dict:
     return wavefront_launches(max_depth)
 
 
-def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off") -> list:
+def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off", band=None) -> list:
     """The wavefront chain of one frame in the form ``forms`` with each
     kernel held bit for bit to its plain version on the same input state
     (all rows, the hit record's included) and each compaction list to the
     plain one as integers; then the frame's image and rays to the fused
-    single-set kernels' -> the list lengths. With ``mxu`` ("full" or
+    single-set kernels' -> the list lengths. ``band``: (rows, row_offset),
+    a band of the frame's rows. With ``mxu`` ("full" or
     "closest", phase 12) every stage runs the tensor-core form and a kernel
     is held to its plain version by hold_mx (rows 0-12 and the record's
     15-19, flips counted) instead, and the frame, bit for bit, to the fused
@@ -2567,8 +2625,9 @@ def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off") -> list:
     from cosig_tpu_torch.ops import trace_wavefront as tw
 
     cset, cfg = s["cset"], s["cfg"]
+    rows, row_off = band if band else (cfg.height, 0)
     uni, lights, mats, prims, n_sph, n_box = tw.frame_inputs(
-        cset, s["uni"], s["lights"], 0, None, s["prims"], s["prim_counts"])
+        cset, s["uni"], s["lights"], row_off, None, s["prims"], s["prim_counts"])
     pk = (prims, n_sph, n_box)
     fb = binding.frame_buffer(cset.device, uni, mats, lights)
     fission, csp, css = forms["fission"], forms["cset_primary"], forms["cset_shadow"]
@@ -2585,8 +2644,8 @@ def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off") -> list:
                 int(st_k[kc.ROW_COUNT].sum()), int(st_p[kc.ROW_COUNT].sum()), st_k.shape[1])
 
     prim_sh = None if fission else css
-    st = kw.primary(pcs, fb, cfg, cfg.height, *pk, fission=fission, cset_shadow=prim_sh, mxu=mxu)
-    same("primary", st, tw.primary_stage(pcs, uni, mats, lights, cfg, cfg.height, *pk,
+    st = kw.primary(pcs, fb, cfg, rows, *pk, fission=fission, cset_shadow=prim_sh, mxu=mxu)
+    same("primary", st, tw.primary_stage(pcs, uni, mats, lights, cfg, rows, *pk,
                                          fission=fission, cset_shadow=prim_sh, mxu=mxu))
     if fission:
         ref = st.clone()
@@ -2615,9 +2674,10 @@ def check_form_stages(s: dict, forms: dict, tag: str, mxu: str = "off") -> list:
             tw.bounce_listed_stage(ref, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
                                    cset_shadow=css, mxu=mxu)
             same(f"bounce at depth {d}", st, ref)
-    img, rays = tw.finalize(st, cfg, cfg.height)
+    img, rays = tw.finalize(st, cfg, rows)
     fused = "off" if mxu == "off" else "closest" if css is not None else mxu
-    img0, rays0 = tw.render_wavefront(cset, s["uni"], s["lights"], cfg, prims=s["prims"],
+    img0, rays0 = tw.render_wavefront(cset, s["uni"], s["lights"], cfg, rows=rows,
+                                      row_offset=row_off, prims=s["prims"],
                                       prim_counts=s["prim_counts"], mxu=fused)
     if not (torch.equal(img, img0) and rays == rays0):
         log(f"  {tag} {mxu}: frame apart from the fused {fused} frame at pixels "
@@ -2644,9 +2704,10 @@ def form_small(device) -> dict:
         ("dense_knot", dict(resolution_override=(128, 128), max_depth=3), False, 1,
          ("fission",)),
         ("mixed", dict(resolution_override=(64, 48), max_depth=3), True, 1, ("all", "shadow set")),
-        ("cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True, 1, ("all",)),
+        ("cosig_walls", dict(resolution_override=(128, 128), max_depth=2), True, 1,
+         ("fission", "all")),
         ("tiny", dict(resolution_override=(64, 64), max_depth=3, **effects), False, 1,
-         ("all", "shadow set")),
+         ("fission", "all", "shadow set")),
     ]
     out = {}
     for name, kw_, analytic, split, forms in cases:
@@ -2670,7 +2731,32 @@ def form_small(device) -> dict:
                         for n, c in sets.items())
             + f"): forms {forms}: every kernel bit-equal to its plain version, lists equal, "
             f"frames equal to the fused one ({time.perf_counter() - t0:.1f} s)")
+    out.update(form_edges(device))
     out.update(slot_sizes(device))
+    return out
+
+
+def form_edges(device) -> dict:
+    """Phase 10a's edges of the compacted walks in the fission form, stage
+    by stage (check_form_stages): demo_cornell at 61 x 37 d3, AA 1, 3 and 4
+    (partial blocks of rays and of each depth's list, non-power-of-two AA)
+    and as a band of rows 9..29, on the scene's own 32-row clusters (one
+    slot each) and on a 64-row cut (two slots each)."""
+    out = {}
+    t0 = time.perf_counter()
+    f = form_kwargs({}, "fission")
+    for aa in (1, 3, 4):
+        s = scene_setup("demo_cornell", dict(resolution_override=(61, 37), max_depth=3,
+                                             aa_samples=aa), device)
+        for cset in (s["cset"], form_sets(s, dict(k=64), device)["k"]):
+            tag = f"{tag_of('demo_cornell', s['cfg'])} k = {cset.k} fission"
+            sk = dict(s, cset=cset)
+            out[tag] = check_form_stages(sk, f, tag)
+            out[f"{tag} rows 9..29"] = check_form_stages(sk, f, f"{tag} rows 9..29",
+                                                         band=(21, 9))
+    log(f"  demo_cornell 61x37 d3 AA 1/3/4 at k = 32 and 64, whole and rows 9..29: the "
+        f"fission form's kernels bit-equal to their plain versions, frames equal to the "
+        f"fused one ({time.perf_counter() - t0:.1f} s)")
     return out
 
 
@@ -2844,13 +2930,18 @@ def form_frames(device, card: str, full_size: bool = True) -> dict:
 
 def form_kernel_times(device) -> list:
     """Phase 10c: the new kernels alone against their plain versions, with
-    the fused kernel of the same stage on the same input in this call:
-    glass_sphere's primary stage (the fission primary and the shade over
-    every ray; the primary with the shadow set) and depth 1 (trace, shade,
-    the bounce with the shadow set; plain versions timed here), then
-    large_mesh's depths 1-3 (plain versions at each). Bounds from
+    the fused kernel of the same stage on the same input in this call: the
+    primary stage of glass_sphere (the fission primary and the shade over
+    every ray, per-warp on its 32-row clusters; the primary with the shadow
+    set) and of large_mesh (the fission primary and the shade over every
+    ray, compacted on its 64-row clusters), then glass_sphere's depth 1 and
+    large_mesh's depths 1-3 (trace, shade, the bounce with the shadow set;
+    plain versions timed at each). Bounds from
     the plain versions' counted work (WORK) and the bytes each kernel must
-    move -> the kernels line's rows."""
+    move; each row with its build's blocks per multiprocessor (the shade
+    over every ray: shade_all's) -> the kernels line's rows. The parent's
+    times of the same rows: ``--time-kernels`` on the parent's tree, in
+    turns with this one's."""
     import torch
 
     from cosig_tpu_torch.kernels import binding
@@ -2862,9 +2953,10 @@ def form_kernel_times(device) -> list:
                 "+ csrc/walk_layout.h")
     rows = {}
 
-    def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None):
+    def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None, build=None):
         """Time ``run_k(state)`` on fresh copies; hold it to ``run_p(state)``
-        once; the bound from the plain run's WORK."""
+        once; the bound from the plain run's WORK; ``build``: the build's
+        name for its blocks per multiprocessor, if not ``name``."""
         st_k = run_k(copies_k.pop())
         kc.reset_work()
         st_p, plain_ms = timed(lambda: run_p(copies_k.pop()))
@@ -2875,7 +2967,7 @@ def form_kernel_times(device) -> list:
         ms = device_ms(lambda: run_k(copies_k.pop()), 3)
         r = dict(at=tag, ms=ms, fused_ms=fused_ms, plain_ms=plain_ms, max_abs_err=mx,
                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], work=bound["work"],
-                 blocks_per_sm=occ.get(name))
+                 blocks_per_sm=occ.get(build or name))
         log(f"  {name} ({tag}): {ms:.4f} ms on the card"
             + (f", the fused kernel {fused_ms:.4f} ms" if fused_ms is not None else "")
             + f"; plain {plain_ms:.1f} ms, bound {bound['bound_ms']:.4f} ms "
@@ -2901,40 +2993,39 @@ def form_kernel_times(device) -> list:
         glass = name == "glass_sphere"
         c, k = cset.num_clusters, cset.k
         occ = {n_: binding.occupancy(n_, c, k, device, shadow_k=sh.k)
-               for n_ in ("bounce", "trace", "shade", "primary_fission", "bounce_shadow",
-                          "primary_shadow")}
+               for n_ in ("bounce", "trace", "shade", "shade_all", "primary_fission",
+                          "bounce_shadow", "primary_shadow")}
         log(f"  {tag}: blocks per multiprocessor {occ} (the shadow set's k = {sh.k}; shared "
             f"memory: walk {binding.library().cosig_tile_smem_bytes(k)} B, trace "
             f"{binding.library().cosig_trace_smem_bytes(k)} B)")
         # The primary stage: fused, fission, with the shadow set.
         st16 = kw.primary(cset, fb, cfg, band, *pk)
         n_rays = st16.shape[1]
+        fused_ms = device_ms(lambda: kw.primary(cset, fb, cfg, band, *pk), 3)
+        row("primary_fission", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk, fission=True),
+            [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
+                                                  fission=True),
+            geom + 4 * n_rays * (6 + 14), fused_ms=fused_ms)
         if glass:
-            fused_ms = device_ms(lambda: kw.primary(cset, fb, cfg, band, *pk), 3)
-            row("primary_fission", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk,
-                                                            fission=True),
-                [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
-                                                      fission=True),
-                geom + 4 * n_rays * (6 + 14), fused_ms=fused_ms)
             row("primary_shadow", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk,
                                                            cset_shadow=sh),
                 [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
                                                       cset_shadow=sh),
                 geom + geom_sh + 4 * n_rays * 16, fused_ms=fused_ms)
-            st24 = kw.primary(cset, fb, cfg, band, *pk, fission=True)
+        st24 = kw.primary(cset, fb, cfg, band, *pk, fission=True)
 
-            def shade_all(st):
-                kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
-                return st
+        def shade_all(st):
+            kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
+            return st
 
-            def shade_all_p(st):
-                tw.primary_shade(st, cset, uni, mats, lights, cfg, *pk)
-                return st
+        def shade_all_p(st):
+            tw.primary_shade(st, cset, uni, mats, lights, cfg, *pk)
+            return st
 
-            row("shade", f"{tag}, the primary stage over all rays", shade_all,
-                [st24.clone() for _ in range(5)], shade_all_p,
-                geom + 4 * n_rays * (13 + 5 + 14), fused_ms=fused_ms)
-            del st24
+        row("shade", f"{tag}, the primary stage over all rays", shade_all,
+            [st24.clone() for _ in range(5)], shade_all_p,
+            geom + 4 * n_rays * (13 + 5 + 14), fused_ms=fused_ms, build="shade_all")
+        del st24
         # The bounces: the fused bounce, trace then shade, the shadow-set bounce.
         st24 = torch.zeros((kc.FISSION_ROWS, n_rays), dtype=torch.float32, device=device)
         st24[:n] = st16
@@ -3984,6 +4075,10 @@ def ptxas_resources(ptxas: str) -> dict:
     return out
 
 
+# The exact builds whose walk is compacted, in slots of 32 rows at every k:
+# no other build (the fission primary's and the shade over every ray's
+# "slots" builds are their compacted walks, for k > 32).
+COMPACTED_BUILDS = ("trace", "shade")
 # Every tensor-core build: the launch counters' names (kernels.sass.build_label).
 MX_BUILDS = ("primary_mx", "bounce_mx", "megakernel_mx", "primary_fission_mx", "trace_mx",
              "shade_mx", "shade_all_mx", "primary_shadow_mx", "bounce_shadow_mx")
@@ -4063,7 +4158,9 @@ def dense_deep(device) -> dict:
     stage bit-equal to its plain version on the same input state, in the
     fused and the fission form and with the shadow set of phase 10b (k =
     1024, walked in slots), the compaction lists equal as integers
-    (check_form_stages); the whole chain, the megakernel and the debug
+    (check_form_stages; the knot's 2,355 clusters take the superblock
+    builds, so the fission form runs the compacted fission primary and
+    shade with the superblock cull); the whole chain, the megakernel and the debug
     view in modes 1-3 bit-equal to their plain frames (compare_case). Cut
     DENSE_FLAT_SPLIT ways (every kernel's flat build) at 16x8, depth 2:
     the primary, the bounce, the megakernel and the debug view bit-equal to
@@ -4071,8 +4168,10 @@ def dense_deep(device) -> dict:
     its plain frames took 250 s). At full size (2048x2048, d4): the primary
     and the megakernel against their plain versions bit for bit through
     phase 3's kernel_row, their times on the card and the bounds from the
-    plain versions' counted work; then the bounce at depths 1-3 of the
-    kernels' own chain the same way."""
+    plain versions' counted work; the fission primary and the shade over
+    every ray (their compacted superblock builds) the same way; then the
+    bounce at depths 1-3 of the kernels' own chain."""
+    from cosig_tpu_torch.accel.clusters import superblocks
     from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import megakernel as km
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -4086,6 +4185,7 @@ def dense_deep(device) -> dict:
     t0 = time.perf_counter()
     s = scene_setup("dense_knot", kw_, device)
     tag = tag_of("dense_knot", s["cfg"])
+    check(superblocks(s["cset"].num_clusters) > 0, tag, "takes no superblock build")
     shadow = form_sets(s, dict(shadow=FORM_KS["dense_knot"]["shadow"]), device)["shadow"]
     for form in ("fused", "fission", "shadow set"):
         f = dict(fission=form == "fission", cset_primary=None,
@@ -4127,6 +4227,38 @@ def dense_deep(device) -> dict:
         if name == "primary":
             st16 = result
         rows.append(rec)
+    # The fission form's primary stage (the compacted superblock builds of
+    # the fission primary and the shade over every ray): each bit-equal to
+    # its plain version, the shade on the kernel's own fission state; the
+    # bytes as phase 10c counts them.
+    n_rays = st16.shape[1]
+    rec = kernel_row("primary_fission", tag,
+                     lambda: kw.primary(cset, fb, cfg, cfg.height, *pk, fission=True),
+                     lambda: tw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk,
+                                              fission=True),
+                     lambda _: geom_bytes + 4 * n_rays * (6 + 14), reps_k=3, reps_p=0,
+                     hold=exact("primary_fission"))
+    st24 = rec.pop("result")
+    rows.append(dict(rec, blocks_per_sm=binding.occupancy(
+        "primary_fission", cset.num_clusters, cset.k, device)))
+    copies = [st24.clone() for _ in range(8)]  # 1 + 2 x 3 kernel runs, one plain run
+
+    def shade_all():
+        st = copies.pop()
+        kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
+        return st
+
+    def shade_all_p():
+        st = copies.pop()
+        tw.primary_shade(st, cset, uni, mats, lights, cfg, *pk)
+        return st
+
+    rec = kernel_row("shade", f"{tag}, the primary stage over all rays", shade_all, shade_all_p,
+                     lambda _: geom_bytes + 4 * n_rays * (13 + 5 + 14), reps_k=3, reps_p=0,
+                     hold=exact("shade"))
+    del rec["result"], copies, st24
+    rows.append(dict(rec, blocks_per_sm=binding.occupancy(
+        "shade_all", cset.num_clusters, cset.k, device)))
     # The bounces of the wavefront chain, each on the kernels' own state and
     # the compaction kernel's list: bit-equal to the plain bounce, its time
     # and the bound of its plain version's counted work (the bytes as phase
@@ -4222,9 +4354,12 @@ def main(argv: list) -> int:
                              "bounce_shadow", "primary_mx", "bounce_mx", "megakernel_mx",
                              *MX_FORM_KERNELS},
           resources)
-    # Every ray kernel's builds whose walk has slots (k > 128), but the
-    # exact trace's, whose compacted walk has slots at every k.
-    slot_builds = {n + " slots" for n in resources if n not in ("compact", "mx_probe", "trace")
+    # Every ray kernel's builds whose walk has slots (k > 128; the exact
+    # fission primary's and shade over every ray's: the compacted walk, k >
+    # 32), but the exact trace's and shade on a list's, whose compacted
+    # walks have slots at every k.
+    slot_builds = {n + " slots" for n in resources
+                   if n not in ("compact", "mx_probe", *COMPACTED_BUILDS)
                    and not n.endswith(" slots")}
     check(set(resources) >= slot_builds, "builds with slots missing",
           sorted(slot_builds - set(resources)))
@@ -4309,8 +4444,15 @@ def main(argv: list) -> int:
                                 "loop compacted: per 32-row slot the (ray, row) pairs of the "
                                 "rays in the box over the block, a 64-bit (t, gid) atomicMin "
                                 "key per ray",
-                       "shade": "the record, then the block walk's any hits",
-                       "primary_fission": "block walk, stops after the closest hit",
+                       "shade": "the record, then per light the any hit, its pair loop "
+                                "compacted: per 32-row slot the (ray, row) pairs of the rays "
+                                "in the box still walking over the block, an occluding pair "
+                                "flags its ray (a plain store), the block stops when no ray "
+                                "walks; over every ray with clusters of at most 32 rows, the "
+                                "block walk's per-warp any hit",
+                       "primary_fission": "the frustum cull, then the block walk's closest "
+                                          "hit, compacted (the trace's) past 32-row clusters, "
+                                          "stops after it",
                        "primary_shadow": shadow, "bounce_shadow": shadow}[k["name"]]
         kernels.append(k)
     # The tensor-core builds: launches on phase 11's main path (its

@@ -126,8 +126,10 @@ __device__ __forceinline__ Hit bounce_trace(Walk& walk, RayState& st, bool frust
 // the ray, then the background or the shading, the shadow rays through
 // `walk`, and the secondary ray. px/py/s are the RNG seeds, depth the
 // bounce index; is_last retires the ray after shading; frustum runs the
-// frustum pre-cull in the shadow rays' walks.
-template <class Walk>
+// frustum pre-cull in the shadow rays' walks. PAIRS: the shadow rays take
+// the compacted any hit (traverse_tile.cuh any_pairs; the exact shade
+// kernel's), else any().
+template <bool PAIRS = false, class Walk>
 __device__ __forceinline__ void bounce_shade(const Frame& f, Walk& walk, RayState& st,
                                              const Hit& h, float px, float py, float s,
                                              float depth, bool is_last, bool frustum) {
@@ -190,8 +192,14 @@ __device__ __forceinline__ void bounce_shade(const Frame& f, Walk& walk, RayStat
     if (f.flags & F_DIFFUSE) {
       const bool shadow_active = alive && (ndl > 0.0f);
       st.count = st.count + (shadow_active ? 1.0f : 0.0f);
-      const bool occluded = walk.any(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET,
-                                     ldx, ldy, ldz, dist_l, shadow_active, frustum);
+      bool occluded;
+      if constexpr (PAIRS) {
+        occluded = walk.any_pairs(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET, ldx, ldy,
+                                  ldz, dist_l, shadow_active, frustum);
+      } else {
+        occluded = walk.any(hx + nx * OFFSET, hy + ny * OFFSET, hz + nz * OFFSET, ldx, ldy, ldz,
+                            dist_l, shadow_active, frustum);
+      }
       const bool gate = !occluded && (ndl > 0.0f) && alive;
       float dr = cr * kd * ndl;
       float dg = cg * kd * ndl;

@@ -10,9 +10,13 @@
 // exact layout and the two B tiles of the pair test. A shadow-set build
 // holds its closest-hit walk's layout, which the exact shadow walk's,
 // slots of no more rows, never outgrows (walk_layout.h both_smem); the
-// exact trace its compacted walk's (trace_smem). Every kernel has builds
-// with and without slots (PC, picked by k > SLOT_MAX), beside those with
-// and without the superblock cull.
+// exact trace and shade on a list their compacted walk's (trace_smem), in
+// slots at every k, so they are built with and without the superblock cull
+// only; the exact fission primary and shade over every ray the compacted
+// walk's in their PC builds, which the launches pick for k > PER_WARP_ROWS,
+// and the per-warp walk's of whole clusters (walk_smem) in the others.
+// Every other kernel has builds with and without slots (PC, picked by
+// k > SLOT_MAX), beside those with and without the superblock cull.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,9 +43,12 @@ inline bool shadow_geometry(const float* sh_geom, const float* sh_aabb, int sh_c
          sh_c_pad >= sh_clusters && sh_c_pad <= SB_CLUSTERS;
 }
 
-// The trace's build for n_clusters clusters of k rows: the tensor-core one
-// by SB and PC; the exact one by SB only, its compacted walk in slots at
-// every k.
+// The builds for n_clusters clusters of k rows of the trace, the fission
+// primary and the shade (`listed`: on a list, else over every ray): the
+// tensor-core ones by SB and PC; the exact trace and shade on a list by SB
+// only, their compacted walks in slots at every k; the exact fission
+// primary and shade over every ray by SB and k > PER_WARP_ROWS (their
+// compacted PC builds; the per-warp walk up to it, wavefront.cuh).
 template <bool MX>
 auto trace_build(int n_clusters, int k) {
   if constexpr (MX) {
@@ -49,6 +56,34 @@ auto trace_build(int n_clusters, int k) {
   } else {
     return superblocks(n_clusters) > 0 ? trace_kernel<true, false> : trace_kernel<false, false>;
   }
+}
+
+template <bool MX>
+auto fission_build(int n_clusters, int k) {
+  return pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, false, true, MX),
+                    MX ? SLOT_MAX : PER_WARP_ROWS);
+}
+
+template <bool MX>
+auto shade_build(int n_clusters, int k, bool listed) {
+  if constexpr (MX) {
+    return listed ? pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, true, true))
+                  : pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, true));
+  } else {
+    return listed ? (superblocks(n_clusters) > 0 ? shade_kernel<true, true>
+                                                 : shade_kernel<false, true>)
+                  : pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, false),
+                               PER_WARP_ROWS);
+  }
+}
+
+// The shared memory of those builds over clusters of k rows: the trace
+// and the shade on a list (`listed`), else the fission primary and the
+// shade over every ray.
+template <bool MX>
+int pairs_smem(int k, bool listed) {
+  if (MX) return walk_smem(k, true);
+  return listed || k > PER_WARP_ROWS ? trace_smem(k) : walk_smem(k);
 }
 
 // Blocks of a build that one multiprocessor holds at once, in the build
@@ -60,7 +95,6 @@ auto trace_build(int n_clusters, int k) {
 // kernel over every ray; minus the CUDA error if refused.
 template <bool MX>
 int form_occupancy(int which, int n_clusters, int k, int sh_k) {
-  const int smem = walk_smem(k, MX);
   switch (which) {
     case 0:
       return walk_occupancy(
@@ -70,16 +104,12 @@ int form_occupancy(int which, int n_clusters, int k, int sh_k) {
       return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(bounce_kernel, true, MX)),
                             both_smem(k, sh_k, MX));
     case 2:
-      return walk_occupancy(
-          pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, false, true, MX)), smem);
+      return walk_occupancy(fission_build<MX>(n_clusters, k), pairs_smem<MX>(k, false));
     case 3:
-      return walk_occupancy(trace_build<MX>(n_clusters, k), MX ? smem : trace_smem(k));
-    case 4:
-      return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, true, MX)),
-                            smem);
+      return walk_occupancy(trace_build<MX>(n_clusters, k), pairs_smem<MX>(k, true));
     default:
-      return walk_occupancy(pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, MX)),
-                            smem);
+      return walk_occupancy(shade_build<MX>(n_clusters, k, which == 4),
+                            pairs_smem<MX>(k, which == 4));
   }
 }
 
@@ -104,9 +134,9 @@ int primary_form_launch(const Frame* frame, const float* geom, const float* aabb
   }
   const int blocks = (n + THREADS - 1) / THREADS;
   const auto kernel =
-      fission ? pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, false, true, MX))
+      fission ? fission_build<MX>(n_clusters, k)
               : pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, true, false, MX));
-  const int smem = fission ? walk_smem(k, MX) : both_smem(k, sh_k, MX);
+  const int smem = fission ? pairs_smem<MX>(k, false) : both_smem(k, sh_k, MX);
   return (int)launch_walk(kernel, blocks, smem, (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
                           n_clusters, k, c_pad, prims, n_sph, n_box, sh, state);
 }
@@ -142,10 +172,9 @@ int trace_launch(const Frame* frame, const float* geom, const float* aabb, const
   if (n <= 0) return 0;
   if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS;
-  return (int)launch_walk(trace_build<MX>(n_clusters, k), blocks,
-                          MX ? walk_smem(k, MX) : trace_smem(k), (cudaStream_t)stream, *frame,
-                          geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, idx,
-                          n_live, state);
+  return (int)launch_walk(trace_build<MX>(n_clusters, k), blocks, pairs_smem<MX>(k, true),
+                          (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad,
+                          prims, n_sph, n_box, idx, n_live, state);
 }
 
 // The shade half on state f32 [24, n_rays], its shadow rays through the
@@ -161,11 +190,9 @@ int shade_launch(const Frame* frame, const float* geom, const float* aabb, const
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
-  const auto kernel = idx ? pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, true, MX))
-                          : pick_build(n_clusters, k, COSIG_BUILDS(shade_kernel, false, MX));
-  return (int)launch_walk(kernel, blocks, walk_smem(k, MX), (cudaStream_t)stream, *frame, geom,
-                          aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live,
-                          state);
+  return (int)launch_walk(shade_build<MX>(n_clusters, k, idx != nullptr), blocks,
+                          pairs_smem<MX>(k, idx != nullptr), (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
+                          n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live, state);
 }
 
 }  // namespace cosig

@@ -57,8 +57,9 @@
 // H100's 232,448 B past k = 503), and keep the builds without (one piece
 // a cluster, the code they had) up to k = 128. Shadow walks always have
 // slots: no more rows than the main walk's, so their layout is never
-// larger than the block's (handoff). The trace's closest hit is the
-// compacted walk (closest_pairs, below), in slots of TRACE_SLOT rows.
+// larger than the block's (handoff). The compacted walks (closest_pairs
+// and any_pairs, below) go in slots of TRACE_SLOT rows: the closest hit of
+// the trace and of the fission primary, the any hit of the exact shade.
 //
 // A slot's mbarrier completes one phase per copy; copy q (counted over the
 // block's whole life, `seq`) uses slot q % RING_STAGES and waits on parity
@@ -600,13 +601,37 @@ struct BlockWalk {
     return active && (!walking || prims_occlude(g, r, max_t));
   }
 
-  // The trace's closest hit (exact, PC, slots of TRACE_SLOT rows), the
-  // pair loop compacted: for each listed piece, the rays that entered the
-  // cluster's box are listed (a prefix over the 4 warp ballots) and the
-  // n x rows (ray, row) pairs spread over the block's threads
-  // (walk_layout.h pair_first / pair_next: a warp reads one row as a
-  // broadcast, its lanes' rays' operands from `pairs` [PAIR_OPERANDS][128],
-  // staged once per walk). A pair that beats the key its thread reads
+  // A compacted walk's ray operands into the region's [PAIR_OPERANDS][128]:
+  // the values pair_test reads of the ray (make_ray's).
+  __device__ __forceinline__ void stage_ops(float* ops, const Ray& r) const {
+    const float op[PAIR_OPERANDS] = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.wx, r.wy, r.wz};
+#pragma unroll
+    for (int i = 0; i < PAIR_OPERANDS; ++i) ops[i * TILE_THREADS + threadIdx.x] = op[i];
+  }
+
+  // Ray `ray`'s operands from the region, for pair_test.
+  __device__ __forceinline__ Ray staged_ray(const float* ops, int ray) const {
+    Ray x;
+    x.ox = ops[0 * TILE_THREADS + ray];
+    x.oy = ops[1 * TILE_THREADS + ray];
+    x.oz = ops[2 * TILE_THREADS + ray];
+    x.dx = ops[3 * TILE_THREADS + ray];
+    x.dy = ops[4 * TILE_THREADS + ray];
+    x.dz = ops[5 * TILE_THREADS + ray];
+    x.wx = ops[6 * TILE_THREADS + ray];
+    x.wy = ops[7 * TILE_THREADS + ray];
+    x.wz = ops[8 * TILE_THREADS + ray];
+    return x;
+  }
+
+  // The closest hit of a compacted walk (exact, PC, slots of TRACE_SLOT
+  // rows): the trace's, and the fission primary's with `frustum` (the
+  // frustum pre-cull, as closest()). The pair loop is compacted: for each
+  // listed piece, the rays that entered the cluster's box are listed (a
+  // prefix over the 4 warp ballots) and the n x rows (ray, row) pairs
+  // spread over the block's threads (walk_layout.h pair_first / pair_next:
+  // a warp reads one row as a broadcast, its lanes' rays' operands from
+  // `pairs` [PAIR_OPERANDS][128], staged once per walk). A pair that beats the key its thread reads
   // (stale or not: it only lets more through) folds hit_key(t, gid) into
   // its ray's key with a 64-bit atomicMin; the key's minimum is the (t,
   // gid) winner of the per-ray fold, which does not depend on the order.
@@ -617,19 +642,17 @@ struct BlockWalk {
   // (trace_smem). Two block barriers a piece: after the list (and the
   // previous piece's owners), after the pairs.
   __device__ __forceinline__ Hit closest_pairs(float ox, float oy, float oz, float dx, float dy,
-                                               float dz, bool active) {
-    static_assert(PC && !MX, "the compacted walk is the exact trace's, in slots");
+                                               float dz, bool active, bool frustum) {
+    static_assert(PC && !MX, "the compacted walk is exact, in slots");
     const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
     unsigned char* pairs = smem + tile_layout(rows, false, true).pairs;
-    unsigned long long* keys = reinterpret_cast<unsigned long long*>(pairs);
-    float* ops = reinterpret_cast<float*>(pairs + TILE_THREADS * 8);
-    int* in_box = reinterpret_cast<int*>(pairs + TILE_THREADS * (8 + 4 * PAIR_OPERANDS));
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(pairs + PAIR_KEYS);
+    float* ops = reinterpret_cast<float*>(pairs + PAIR_OPS);
+    int* in_box = reinterpret_cast<int*>(pairs + PAIR_LIST);
     const int tid = threadIdx.x;
     const unsigned long long no_key = hit_key(__float_as_uint(INF), (unsigned)GID_PAD);
     keys[tid] = no_key;
-    const float op[PAIR_OPERANDS] = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.wx, r.wy, r.wz};
-#pragma unroll
-    for (int i = 0; i < PAIR_OPERANDS; ++i) ops[i * TILE_THREADS + tid] = op[i];
+    stage_ops(ops, r);
     // cull() holds block barriers before any thread reads these.
     Best b = no_hit();
     unsigned long long own = no_key;  // the ray's key after the last piece it entered
@@ -637,7 +660,7 @@ struct BlockWalk {
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<false>(r, active, INFINITY, false, c0, n) * np;  // units
+      const int m = cull<false>(r, active, INFINITY, frustum, c0, n) * np;  // units
       const int* lst = list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
@@ -684,18 +707,8 @@ struct BlockWalk {
           for (int pp = tid; pp < total; pp += TILE_THREADS) {
             const float4* pr = rows_q + 9 * cur.row;
             const int ray = in_box[cur.ray];
-            Ray x;
-            x.ox = ops[0 * TILE_THREADS + ray];
-            x.oy = ops[1 * TILE_THREADS + ray];
-            x.oz = ops[2 * TILE_THREADS + ray];
-            x.dx = ops[3 * TILE_THREADS + ray];
-            x.dy = ops[4 * TILE_THREADS + ray];
-            x.dz = ops[5 * TILE_THREADS + ray];
-            x.wx = ops[6 * TILE_THREADS + ray];
-            x.wy = ops[7 * TILE_THREADS + ray];
-            x.wz = ops[8 * TILE_THREADS + ray];
             float t, vb, vc, inv_s;
-            if (pair_test(row_smem(pr), x, t, vb, vc, inv_s)) {
+            if (pair_test(row_smem(pr), staged_ray(ops, ray), t, vb, vc, inv_s)) {
               const unsigned long long key = hit_key(__float_as_uint(t), (unsigned)pr[8].w);
               if (key < *(volatile unsigned long long*)(keys + ray)) atomicMin(keys + ray, key);
             }
@@ -739,6 +752,122 @@ struct BlockWalk {
     }
     return key;
   }
+
+  // The any hit of a compacted walk (exact, PC, slots of TRACE_SLOT rows;
+  // the exact shade's), with any()'s cull, tn > max_t skip and `frustum`,
+  // its pair loop compacted as closest_pairs': for each listed piece, the
+  // rays that entered the cluster's box and still walk are listed (a prefix
+  // over the 4 warps' masks) and their n x rows (ray, row) pairs spread over
+  // the block's threads. A pair whose ray is flagged already is skipped (a
+  // stale read only lets more tests through); an occluding pair (pair_test
+  // valid, t <= the ray's max_t) flags its ray, every writer with the same
+  // value, so no atomic. A ray is occluded iff some row of a box it enters
+  // occludes it, or a primitive does (cosig_tpu/ops/kernel_core.py:302-303),
+  // whatever the order of the tests and however far it walks past its first
+  // occluder, so the result is any()'s. After each piece every thread reads
+  // every warp's walking lanes from the flags (4 loads and ballots; the same
+  // in every thread), and the block stops when none walks. Two block
+  // barriers a piece: after the list, after the pairs. The region:
+  // closest_pairs', a flag and max_t in place of the key (PAIR_FLAGS,
+  // PAIR_MAX_T). Every thread of the block calls it, once per shadow ray.
+  __device__ __forceinline__ bool any_pairs(float ox, float oy, float oz, float dx, float dy,
+                                            float dz, float max_t, bool active, bool frustum) {
+    static_assert(PC && !MX, "the compacted walk is exact, in slots");
+    const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
+    unsigned char* pairs = smem + tile_layout(rows, false, true).pairs;
+    int* flags = reinterpret_cast<int*>(pairs + PAIR_FLAGS);  // 1: occluded or not walking
+    float* mts = reinterpret_cast<float*>(pairs + PAIR_MAX_T);
+    float* ops = reinterpret_cast<float*>(pairs + PAIR_OPS);
+    int* in_box = reinterpret_cast<int*>(pairs + PAIR_LIST);
+    const int tid = threadIdx.x;
+    __syncthreads();  // every thread is done with the previous walk's region
+    flags[tid] = active ? 0 : 1;
+    mts[tid] = max_t;
+    stage_ops(ops, r);
+    // cull() holds block barriers before any thread reads these.
+    bool walking = active;  // active and no occluder found yet
+    const int np = pieces();
+    sb_open = true;
+    for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
+      if (c0 > 0 && !__syncthreads_or(walking)) break;
+      const int n = min(TILE_C, g.n_clusters - c0);
+      const int m = cull<true>(r, walking, max_t, frustum, c0, n) * np;  // units
+      const int* lst = list();
+      const unsigned* bal = ballots();
+      const unsigned base = seq;
+      const int first = min(RING_STAGES, m);
+      if (tid == 0) {
+        for (int j = 0; j < first; ++j) issue_unit(base + j, c0, lst, j);
+      }
+      int issued = first, j = 0;
+      while (j < m) {
+        // Every warp's lanes still walking.
+        unsigned walk_w[TILE_WARPS];
+        unsigned some = 0u;
+#pragma unroll
+        for (int w = 0; w < TILE_WARPS; ++w) {
+          walk_w[w] = __ballot_sync(FULL_MASK, flags[w * 32 + lane()] == 0);
+          some |= walk_w[w];
+        }
+        if (some == 0u) break;  // the same in every thread
+        const unsigned q = base + j;
+        const int jc = j / np;
+        const int c = lst[jc];
+        const int kr = piece_rows(g.k, rows, j - jc * np);
+        const uint4 w4 = *reinterpret_cast<const uint4*>(bal + c * TILE_WARPS);
+        const unsigned wv[TILE_WARPS] = {w4.x & walk_w[0], w4.y & walk_w[1], w4.z & walk_w[2],
+                                         w4.w & walk_w[3]};
+        wait_copy(q);
+        const float4* rows_q = ring_rows(q);
+        // The list of this piece's rays.
+        int n_in = 0, at = 0;
+        unsigned mine = 0u;  // this warp's lanes in the list
+#pragma unroll
+        for (int w = 0; w < TILE_WARPS; ++w) {
+          if (w == warp()) {
+            at = n_in;
+            mine = wv[w];
+          }
+          n_in += __popc(wv[w]);
+        }
+        if ((mine >> lane()) & 1u) in_box[at + __popc(mine & ((1u << lane()) - 1u))] = tid;
+        // Real rows of the piece: before its first padding row.
+        const unsigned pad =
+            __ballot_sync(FULL_MASK, lane() < kr && rows_q[9 * lane() + 8].w >= GID_PAD);
+        const int real = pad ? __ffs(pad) - 1 : kr;
+        __syncthreads();  // the list is written; every thread has read the flags
+        const int total = n_in * real;
+        if (tid < total) {
+          PairCursor cur = pair_first(tid, n_in);
+          for (int pp = tid; pp < total; pp += TILE_THREADS) {
+            const int ray = in_box[cur.ray];
+            if (*(volatile int*)(flags + ray) == 0) {
+              float t, vb, vc, inv_s;
+              if (pair_test(row_smem(rows_q + 9 * cur.row), staged_ray(ops, ray), t, vb, vc,
+                            inv_s) &&
+                  t <= mts[ray]) {
+                flags[ray] = 1;
+              }
+            }
+            pair_next(cur, n_in);
+          }
+        }
+        __syncthreads();  // every pair of this piece is tested; every warp is done with this slot
+        ++j;
+        if (tid == 0 && issued < m) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          issue_unit(base + issued, c0, lst, issued);
+        }
+        if (issued < m) ++issued;
+      }
+      // Copies still in flight after an early stop land before the ring is reused.
+      for (int jj = j; jj < issued; ++jj) wait_copy(base + jj);
+      seq = base + issued;
+      walking = flags[tid] == 0;  // after the pass's last barrier
+    }
+    // Occluded by a triangle (active, no longer walking), else by a primitive.
+    return active && (!walking || prims_occlude(g, r, max_t));
+  }
 };
 
 // Hand the block's dynamic shared memory from walk `from` to walk `to`,
@@ -775,11 +904,13 @@ __device__ __forceinline__ void handoff(BlockWalk<A, MXA, PCA>& from,
 // The build of a ray kernel that a launch over n_clusters clusters of k
 // rows takes, from its four builds <SB, PC> = <false, false>, <false,
 // true>, <true, false>, <true, true>: the superblock cull where
-// superblocks(n_clusters) > 0, slots where k > SLOT_MAX (the builds
-// without keep whole clusters in the ring, the code they had).
+// superblocks(n_clusters) > 0, slots where k > slot_max (SLOT_MAX; the
+// builds without keep whole clusters in the ring, the code they had; the
+// exact fission primary and shade over every ray: TRACE_SLOT, forms.cuh).
 template <typename Kernel>
-Kernel pick_build(int n_clusters, int k, Kernel flat, Kernel flat_pc, Kernel sb, Kernel sb_pc) {
-  const bool pc = k > SLOT_MAX;
+Kernel pick_build(int n_clusters, int k, Kernel flat, Kernel flat_pc, Kernel sb, Kernel sb_pc,
+                  int slot_max = SLOT_MAX) {
+  const bool pc = k > slot_max;
   return superblocks(n_clusters) > 0 ? (pc ? sb_pc : sb) : (pc ? flat_pc : flat);
 }
 

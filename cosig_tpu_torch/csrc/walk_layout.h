@@ -14,8 +14,10 @@
 // layout of every build before slots), then slots of 128 rows, so no k
 // outgrows what a block may opt into (232,448 B on the H100). A shadow
 // walk takes shadow_rows(k, sh_k), no more rows than the main walk's slot,
-// so the block's shared memory is the main walk's (both_smem). The trace's
-// compacted walk takes slots of TRACE_SLOT rows and PAIR_BYTES more.
+// so the block's shared memory is the main walk's (both_smem). The
+// compacted walks (the trace's and the fission primary's closest hit, the
+// exact shade's any hit) take slots of TRACE_SLOT rows and PAIR_BYTES
+// more.
 #pragma once
 
 #include <stdint.h>
@@ -33,10 +35,17 @@ constexpr int HULL_SLOTS = 16;   // a warp's partial hull: 13 floats and the fla
 constexpr int HULL_BYTES = 84;   // sizeof(Hull) (traverse.cuh; checked there)
 constexpr int SLOT_MAX = 128;    // rows of a main walk's slot past k = 128
 constexpr int TRACE_SLOT = 32;   // rows of the trace's slot: one warp ballot
-// The compacted walk's region: a (t, gid) key per ray, the ray operands
+// The compacted walks' region, byte offsets within it: per ray the closest
+// hit's (t, gid) key (8 bytes), or in the same bytes the any hit's flag
+// (4: occluded, or not walking) and max_t (4); then the ray operands
 // [PAIR_OPERANDS][TILE_THREADS] and the list of the rays in the box.
 constexpr int PAIR_OPERANDS = 9;  // ox, oy, oz, dx, dy, dz, wx, wy, wz
-constexpr int PAIR_BYTES = TILE_THREADS * (8 + 4 * PAIR_OPERANDS + 4);  // 6,144
+constexpr int PAIR_KEYS = 0;
+constexpr int PAIR_FLAGS = 0;
+constexpr int PAIR_MAX_T = TILE_THREADS * 4;
+constexpr int PAIR_OPS = TILE_THREADS * 8;
+constexpr int PAIR_LIST = PAIR_OPS + TILE_THREADS * 4 * PAIR_OPERANDS;
+constexpr int PAIR_BYTES = PAIR_LIST + TILE_THREADS * 4;  // 6,144
 
 // Rows of a slot of at most `cap` rows over clusters of k rows.
 MX_HD constexpr int slot_rows(int k, int cap) { return k < cap ? k : cap; }
@@ -94,7 +103,8 @@ MX_HD inline int both_smem(int k, int sh_k, bool mx = false) {
   const int main = walk_smem(k, mx);
   return main > sh ? main : sh;
 }
-// The trace's compacted walk over clusters of k rows.
+// A compacted walk over clusters of k rows (the trace's, the fission
+// primary's, the exact shade's).
 MX_HD inline int trace_smem(int k) {
   return (int)tile_layout(slot_rows(k, TRACE_SLOT), false, true).total;
 }

@@ -118,10 +118,22 @@ namespace cosig {
 constexpr int ROW_ALIVE = 12, ROW_COUNT = 13, ROW_ID = 14, STATE_ROWS = 16;
 constexpr int REC0 = 15, FISSION_ROWS = 24;  // the fission form's hit record, rows 15-19
 constexpr int THREADS = TILE_THREADS;
-// Blocks a multiprocessor holds of the exact trace (its __launch_bounds__
-// minimum): left to ptxas, the compacted walk took 128 registers and 4
-// blocks, and timed 6-10 % slower than at 5 (PERF.md).
+// Blocks a multiprocessor holds of the exact trace, fission primary and
+// shade builds (their __launch_bounds__ minimum; 0 adds no bound), and the
+// rows of a cluster up to which the fission primary and the shade over
+// every ray keep the per-warp walk of whole clusters (past it they walk
+// compacted), each the fastest in turns on the card (PERF.md;
+// kernels/variants.py times the candidates): left to ptxas, the trace took
+// 128 registers and 4 blocks, 6-10 % slower than at 5; the compacted
+// fission primary and shade 6 (80 registers; 4 and 5 were slower); the
+// fission primary's per-warp walk 7 (72 registers; 5 and 6 were slower),
+// the shade's over every ray left to ptxas (5, 6 and 7 were slower).
 constexpr int TRACE_MIN_BLOCKS = 5;
+constexpr int FISSION_PAIRS_MIN_BLOCKS = 6;
+constexpr int FISSION_MIN_BLOCKS = 7;
+constexpr int SHADE_MIN_BLOCKS = 6;
+constexpr int SHADE_ALL_MIN_BLOCKS = 0;
+constexpr int PER_WARP_ROWS = TRACE_SLOT;
 
 // (px, py, s) RNG seeds of ray id i: the inverse of the enumeration, py global.
 __device__ __forceinline__ void seeds(const Frame& f, int i, float& px, float& py,
@@ -179,18 +191,25 @@ __device__ __forceinline__ BlockWalk<false, false, true> shadow_walk(const Geome
 // primary traces no shadow ray. MX: the tensor-core form of the pair test
 // (traverse_tile.cuh) for the closest hit; without SH its shadow rays take
 // it too when the frame has F_MX_SHADOW. PC: the walk in slots
-// (traverse_tile.cuh), the build for k > SLOT_MAX.
+// (traverse_tile.cuh), the build for k > SLOT_MAX. The exact fission
+// primary's PC build instead: the compacted closest hit (closest_pairs)
+// behind the frustum cull, in slots of TRACE_SLOT rows, the build for
+// k > PER_WARP_ROWS (forms.cuh fission_build); without PC the per-warp
+// walk of whole clusters.
 template <bool SB, bool SH, bool FISSION, bool MX = false, bool PC = false>
-__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
+__global__ void __launch_bounds__(
+    THREADS,
+    MX ? MX_MIN_BLOCKS : (FISSION ? (PC ? FISSION_PAIRS_MIN_BLOCKS : FISSION_MIN_BLOCKS) : 0))
     primary_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                    const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                    int n_clusters, int k, int c_pad,
                    const float* __restrict__ prims, int n_sph, int n_box,
                    const __grid_constant__ Geometry sh, float* __restrict__ state) {
   static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
+  constexpr bool PAIRS = FISSION && !MX && PC;  // the compacted closest hit
   extern __shared__ __align__(128) unsigned char tile_smem[];
   BlockWalk<SB, MX, PC> walk;
-  walk.rows = walk_rows(k);
+  walk.rows = PAIRS ? slot_rows(k, TRACE_SLOT) : walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
@@ -213,7 +232,13 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   // Camera rays and their shadow rays are coherent: frustum pre-cull on
   // (trace_wavefront.py:412-424).
   if constexpr (FISSION) {
-    Hit h = bounce_trace(walk, st, true);
+    Hit h;
+    if constexpr (PAIRS) {  // bounce_trace's count, then the compacted closest hit
+      st.count = st.count + (st.alive ? 1.0f : 0.0f);
+      h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive, true);
+    } else {
+      h = bounce_trace(walk, st, true);
+    }
     if (!in_range) return;
     if (!st.alive) {  // a dead ray's record is a miss, as the plain traversal's
       h.t = INF;
@@ -350,7 +375,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
     h = bounce_trace(walk, st, false);
   } else {  // bounce_trace's count, then the compacted closest hit
     st.count = st.count + (st.alive ? 1.0f : 0.0f);
-    h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive);
+    h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive, false);
   }
   if (!listed) return;
   state[ROW_COUNT * (size_t)n + i] = st.count;
@@ -363,9 +388,15 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
 // blocks of consecutive rays are coherent (frustum pre-cull on). MX: the
 // any hits in the tensor-core form when the frame has F_MX_SHADOW (full
 // mode; never on a separate shadow set, which the launches keep exact).
-// PC: the walk in slots, for k > SLOT_MAX.
+// PC: the walk in slots, for k > SLOT_MAX. Exact: the compacted any hit
+// (traverse_tile.cuh any_pairs) in slots of TRACE_SLOT rows, held to
+// SHADE_MIN_BLOCKS blocks a multiprocessor: on a list at every k (PC
+// unused); over every ray in the PC build, the build for k > PER_WARP_ROWS
+// (forms.cuh shade_build), and without PC the per-warp walk of whole
+// clusters (any()).
 template <bool SB, bool LISTED, bool MX = false, bool PC = false>
-__global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
+__global__ void __launch_bounds__(THREADS,
+                                  MX ? MX_MIN_BLOCKS : (LISTED || PC ? SHADE_MIN_BLOCKS : SHADE_ALL_MIN_BLOCKS))
     shade_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
                  const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                  int n_clusters, int k, int c_pad,
@@ -385,9 +416,10 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
     i = blockIdx.x * THREADS + threadIdx.x;
     listed = i < n;  // threads past the last ray walk inactive
   }
+  constexpr bool PAIRS = !MX && (LISTED || PC);  // the compacted any hit
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  BlockWalk<SB, MX, PC> walk;
-  walk.rows = walk_rows(k);
+  BlockWalk<SB, MX, PAIRS || PC> walk;
+  walk.rows = PAIRS ? slot_rows(k, TRACE_SLOT) : walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
             tile_smem);
   if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
@@ -412,7 +444,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   if (listed && (f.flags & (F_SOFT_SHADOWS | F_GLOSSY))) {
     seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
   }
-  bounce_shade(f, walk, st, h, px, py, s, (float)f.depth, f.is_last != 0, !LISTED);
+  bounce_shade<PAIRS>(f, walk, st, h, px, py, s, (float)f.depth, f.is_last != 0, !LISTED);
   if (listed) store(state, n, i, st);
 }
 

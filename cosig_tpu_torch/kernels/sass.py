@@ -60,8 +60,14 @@ def build_label(mangled: str) -> tuple | None:
     megakernel<SB, MX, PC>, debug_kernel<SB, PC>): primary_fission,
     primary_shadow, bounce_shadow, shade_all (the shade over every ray of
     the primary stage), with ``_mx`` for the tensor-core builds and
-    `` slots`` for the builds whose walk has slots (PC, the launches' pick
-    for k > 128); superblocks: built with the superblock cull."""
+    `` slots`` for the builds whose walk has slots of 128 rows (PC, the
+    launches' pick for k > 128); superblocks: built with the superblock
+    cull. The exact trace and shade on a list walk in the compacted form,
+    in slots of 32 rows at every k, and are built only with PC false: their
+    labels are their counters' names, and they have no `` slots`` build.
+    The exact fission primary's and shade over every ray's `` slots``
+    builds are their compacted walks, in slots of 32 rows (the launches'
+    pick for k > 32)."""
     m = re.match(r"_ZN5cosig(\d+)(\w+)", mangled)
     if not m:
         return None

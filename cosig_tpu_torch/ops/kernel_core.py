@@ -133,11 +133,16 @@ _PAIR_CHUNK = 1 << 20
 # the pair-loop slots the warps spend: a warp in which some ray (still
 # walking, for an any hit) enters a cluster runs its real rows on all 32
 # lanes, so each such (warp, cluster) counts 32 x the cluster's real rows.
-# For a closest hit also the slots of the trace kernel's compacted walk
-# (``pair_slots``, :func:`compact_slots`), its blocks the warps' groups of
-# four.
+# For a closest hit also the slots of the compacted walk (the trace's and
+# the fission primary's: ``pair_slots``, :func:`compact_slots`), its blocks
+# the warps' groups of four. For an any hit also the slots of a per-warp
+# walk that leaves a cluster once none of its lanes still walks
+# (``any_warp_slots``: per (warp, cluster) 32 x the most rows a lane tests,
+# up to its first occluder) and of the compacted any hit (the exact
+# shade's: ``any_pair_slots``, :func:`any_compact_slots`).
 WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
-        "pair_slots": 0, "frustum_tests": 0, "superblock_tests": 0}
+        "pair_slots": 0, "any_warp_slots": 0, "any_pair_slots": 0, "frustum_tests": 0,
+        "superblock_tests": 0}
 
 # The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
 # block walk together, and its cull takes TILE_C clusters a pass; the
@@ -157,6 +162,24 @@ def compact_slots(n_in: torch.Tensor, rows: int) -> int:
     pieces = [TRACE_SLOT] * full + ([rest] if rest else [])
     return sum(BLOCK_RAYS * int(((n_in * r + BLOCK_RAYS - 1) // BLOCK_RAYS).sum())
                for r in pieces)
+
+
+def any_compact_slots(blocks: torch.Tensor, stop: torch.Tensor, rows: int) -> int:
+    """Pair-loop slots of the compacted any hit (csrc/traverse_tile.cuh
+    any_pairs) on one cluster of ``rows`` real rows: ``blocks`` [R] the
+    block of each ray in its box, ``stop`` [R] the last piece of TRACE_SLOT
+    rows each walks (the piece of its first occluder in the cluster, else
+    the last). Per block and piece of r real rows, the n rays still walking
+    at the start of the piece take BLOCK_RAYS x ceil(n r / BLOCK_RAYS)
+    slots."""
+    total = 0
+    for p, first in enumerate(range(0, rows, TRACE_SLOT)):
+        r = min(TRACE_SLOT, rows - first)
+        walking = blocks[stop >= p]
+        if walking.numel():
+            n_in = torch.unique(walking, return_counts=True)[1]
+            total += BLOCK_RAYS * int(((n_in * r + BLOCK_RAYS - 1) // BLOCK_RAYS).sum())
+    return total
 
 
 # The tensor-core form (traverse(..., mx=True)): the modes a caller picks,
@@ -456,7 +479,10 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     first ``n_sph`` rows spheres and the next ``n_box`` boxes. ``warps``
     ([N] warp id of each ray on the rays' device, or None) adds the warps'
     pair-loop slots to ``WORK["warp_slots"]`` and, for a closest hit, the
-    compacted walk's (blocks of four warps) to ``WORK["pair_slots"]``.
+    compacted walk's (blocks of four warps) to ``WORK["pair_slots"]``; for
+    an any hit, the slots of a per-warp walk that stops at its lanes' first
+    occluders to ``WORK["any_warp_slots"]`` and the compacted any hit's to
+    ``WORK["any_pair_slots"]``.
 
     ``packets`` ([N] thread block of each ray on the rays' device, or None)
     runs the kernels' pre-filters before the per-ray slab test, as their
@@ -567,6 +593,9 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             return g[:, j].unsqueeze(0)  # [1, K]
 
         gid = col(_GID)
+        if any_hit and warps is not None:
+            # Each ray's first occluding row in the cluster (rows_real: none).
+            first_occ = torch.full((rays.numel(),), rows_real[c], dtype=torch.int64, device=dev)
         for lo in range(0, int(rays.numel()), chunk):
             r = rays[lo:lo + chunk]
             if mx:
@@ -605,6 +634,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                     tested_rows = torch.clamp((first // MX_ROWS + 1) * MX_ROWS, max=rows_real[c])
                 WORK["pair_tests"] += int(torch.where(hit_here, tested_rows, rows_real[c]).sum())
                 occ[r] |= hit_here
+                if warps is not None:
+                    first_occ[lo:lo + chunk] = torch.where(hit_here, first, rows_real[c])
                 continue
             tm = torch.where(valid, t, INF)
             tmin = tm.min(dim=1).values
@@ -622,6 +653,15 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             best_row[rb] = c * K + j[better]
             best_u[rb] = u[better]
             best_v[rb] = v[better]
+        if any_hit and warps is not None:
+            wr = warps[rays]
+            tested = torch.clamp(first_occ + 1, max=rows_real[c])
+            top = torch.zeros(int(wr.max()) + 1, dtype=torch.int64, device=dev)
+            top.scatter_reduce_(0, wr, tested, "amax")
+            WORK["any_warp_slots"] += 32 * int(top.sum())
+            stop = first_occ.clamp(max=max(0, rows_real[c] - 1)) // TRACE_SLOT
+            WORK["any_pair_slots"] += any_compact_slots(wr // (BLOCK_RAYS // 32), stop,
+                                                        rows_real[c])
 
     if not any_hit:
         # Winner attributes: columns n0 | n1 | n2 | material of the winning

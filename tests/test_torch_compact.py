@@ -240,21 +240,24 @@ def test_render_through_lists_matches_jax_wavefront(monkeypatch):
 
 
 def test_compact_variants_rewrite_the_kernel_constants():
-    """The variant timer (kernels/compact_variants.py) finds the compaction
-    kernel's three grid constants in wavefront.cu and replaces each, so its
-    variants differ from the kernel only where it says."""
+    """The variant timer (kernels/variants.py, set ``compact``) finds the
+    compaction kernel's three grid constants in wavefront.cu and replaces
+    each, so its variants differ from the kernel only where they say."""
     import pathlib
 
     from cosig_tpu_torch.kernels import build as kbuild
-    from cosig_tpu_torch.kernels import compact_variants as cv
+    from cosig_tpu_torch.kernels import variants as cv
 
     text = (pathlib.Path(kbuild.CSRC_DIR) / "wavefront.cu").read_text()
-    out = cv.variant_source(text, 1024, "1", 8)
+    edits = [(name, value) for _, name, value in cv.VARIANTS["compact"]["1024x1-unroll8"]]
+    out = cv.edit_text(text, edits)
     for line in ("constexpr int COMPACT_THREADS = 1024;", "constexpr int COMPACT_UNROLL = 8;",
                  "constexpr int COMPACT_MAX_PER_SM = 1;"):
         assert line in out
-    assert not any(line in out for line in cv.CONSTANTS)
+    assert "constexpr int COMPACT_THREADS = 512;" not in out
     assert out.count("\n") == text.count("\n")
-    assert cv.variant_source(text, 512, "2048 / COMPACT_THREADS", 4) == text
-    with pytest.raises(ValueError, match="no longer holds"):
-        cv.variant_source(text.replace(cv.CONSTANTS[1], ""), 512, "1", 4)
+    assert cv.edit_text(text, [("COMPACT_THREADS", 512), ("COMPACT_UNROLL", 4)]) == text
+    assert all(f.endswith("wavefront.cu") for v in cv.VARIANTS["compact"].values()
+               for f, _, _ in v)
+    with pytest.raises(ValueError, match="does not define"):
+        cv.edit_text(text.replace("constexpr int COMPACT_UNROLL = 4;", ""), [("COMPACT_UNROLL", 8)])

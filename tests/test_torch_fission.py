@@ -412,3 +412,39 @@ def test_slot_sizes_on_card(card, case):
     else:
         assert binding.LAUNCHES["primary_shadow"] == 1
         assert binding.LAUNCHES["bounce_shadow"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [32, 64, 512])
+def test_compacted_fission_kernels_on_card(card, k):
+    """The fission primary and the shade kernel over every ray (past 32
+    rows their compacted walks: the closest hit behind the frustum cull and
+    the any hit; at 32 rows the per-warp walk) and the shade on each depth's
+    list (compacted at every k), bit-equal to their plain versions stage by
+    stage on large_mesh at 128x96 d4, its own 64-row clusters and cuts of
+    32 and 512 rows: every row of the state, the hit record's included."""
+    s = chip_smoke.scene_setup("large_mesh", dict(resolution_override=(128, 96), max_depth=4),
+                               card)
+    cset = s["cset"] if k == s["cset"].k else chip_smoke.form_sets(s, dict(k=k), card)["k"]
+    cfg = s["cfg"]
+    uni, lights, mats, prims, n_sph, n_box = ttw.frame_inputs(
+        cset, s["uni"], s["lights"], 0, None, s["prims"], s["prim_counts"])
+    pk = (prims, n_sph, n_box)
+    fb = binding.frame_buffer(card, uni, mats, lights)
+    binding.reset_counts()
+    st = kw.primary(cset, fb, cfg, cfg.height, *pk, fission=True)
+    assert torch.equal(st, ttw.primary_stage(cset, uni, mats, lights, cfg, cfg.height, *pk,
+                                             fission=True))
+    ref = st.clone()
+    kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
+    ttw.primary_shade(ref, cset, uni, mats, lights, cfg, *pk)
+    assert torch.equal(st, ref)
+    for d in range(1, cfg.max_depth):
+        idx, n_live = kw.compact(st)
+        kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk)
+        ref = st.clone()
+        kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk)
+        ttw.shade_listed_stage(ref, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+        assert torch.equal(st, ref), d
+    assert binding.LAUNCHES["primary_fission"] == 1
+    assert binding.LAUNCHES["shade"] == cfg.max_depth

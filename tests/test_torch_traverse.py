@@ -340,3 +340,134 @@ def test_split_clusters_render_bit_equal(ways):
     img_w, rays_w = ttw.finalize(whole, s["cfg"], s["cfg"].height)
     img_p, rays_p = ttw.finalize(parts, s["cfg"], s["cfg"].height)
     assert torch.equal(img_w, img_p) and rays_w == rays_p > 0
+
+
+# The compacted any hit (csrc/traverse_tile.cuh any_pairs, the exact shade
+# kernel's walk): cluster cuts of the bench scenes, each piece TRACE_SLOT rows.
+ANY_CUTS = {"large_mesh k64": ("large_mesh", None), "large_mesh k128": ("large_mesh", 128),
+            "glass_sphere k32": ("glass_sphere", None)}
+ANY_RAYS = 384  # three blocks of 128
+
+
+def _any_cut(name):
+    import chip_smoke
+
+    scene, k = ANY_CUTS[name]
+    s = chip_smoke.scene_setup(scene, dict(resolution_override=(8, 8)), "cpu")
+    return s["cset"] if k is None else chip_smoke.form_sets(s, dict(k=k), "cpu")["k"]
+
+
+def _any_rays(cset, seed, scale):
+    """Seeded rays from inside the scene's (grown) bounds, unit directions,
+    max_t a random share of ``scale`` x the bounds' diagonal, every seventh
+    ray inactive -> numpy (o [N, 3], d [N, 3], max_t [N], active [N])."""
+    F = np.float32
+    box = cset.aabb_t[:6, :cset.num_clusters].numpy()
+    lo, hi = box[:3].min(axis=1), box[3:].max(axis=1)
+    grow = 0.1 * (hi - lo)
+    r = np.random.default_rng(seed)
+    o = r.uniform(lo - grow, hi + grow, (ANY_RAYS, 3)).astype(F)
+    d = r.normal(size=(ANY_RAYS, 3)).astype(F)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(F)
+    diag = float(np.linalg.norm(hi - lo))
+    max_t = (r.uniform(0.05, 1.0, ANY_RAYS) * scale * diag).astype(F)
+    active = np.ones(ANY_RAYS, bool)
+    active[::7] = False
+    return o, d, max_t, active
+
+
+def _numpy_any_pairs(cset, o, d, max_t, active, seed):
+    """The compacted any hit in numpy: per block of 128 rays, the clusters in
+    order, each in pieces of TRACE_SLOT rows; per piece the rays still
+    walking whose box test passes (slab, and not entered beyond max_t) and
+    the piece's real rows give the (ray, row) pairs, tested in a seeded
+    random order, a pair of an occluded ray skipped, an occluding pair
+    (valid, t <= max_t) stopping its ray at the end of the piece ->
+    (occluded [N], the schedule's slots: 128 x ceil(n r / 128) per block
+    and piece, the per-warp walk's slots: 32 x the most rows a lane still
+    walking tests per warp and cluster)."""
+    F = np.float32
+    geom = cset.geom.numpy()
+    C, K = geom.shape[:2]
+    b = cset.aabb_t.numpy()[:6, :C]
+    real = (geom[:, :, 35] != F(2 ** 24)).sum(axis=1)
+    with np.errstate(all="ignore"):
+        inv = F(1.0) / d
+        t0 = [(b[a][None, :] - o[:, a:a + 1]) * inv[:, a:a + 1] for a in range(3)]
+        t1 = [(b[a + 3][None, :] - o[:, a:a + 1]) * inv[:, a:a + 1] for a in range(3)]
+    tn = np.maximum(np.maximum(np.minimum(t0[0], t1[0]), np.minimum(t0[1], t1[1])),
+                    np.minimum(t0[2], t1[2]))
+    tf = np.minimum(np.minimum(np.maximum(t0[0], t1[0]), np.maximum(t0[1], t1[1])),
+                    np.maximum(t0[2], t1[2]))
+    enters = ~(tn > tf) & ~(tf < 0.0) & ~(tn > max_t[:, None])  # [N, C]
+    valid, t, *_ = _numpy_pairs(geom.reshape(-1, 36), o, d)
+    occl = (valid & (t <= max_t[:, None])).reshape(-1, C, K)
+    rng = np.random.default_rng(seed)
+    flag = ~active  # occluded, or not walking
+    slots = warp_slots = 0
+    for b0 in range(0, len(o), tkc.BLOCK_RAYS):
+        blk = np.arange(b0, min(b0 + tkc.BLOCK_RAYS, len(o)))
+        for c in range(C):
+            for w0 in range(b0, blk[-1] + 1, 32):  # the per-warp walk of this cluster
+                lanes = [i for i in range(w0, min(w0 + 32, len(o))) if not flag[i] and enters[i, c]]
+                if lanes:
+                    occ_rows = [np.nonzero(occl[i, c, :real[c]])[0] for i in lanes]
+                    warp_slots += 32 * max(int(x[0]) + 1 if x.size else int(real[c])
+                                           for x in occ_rows)
+            for first in range(0, K, tkc.TRACE_SLOT):
+                rows = min(tkc.TRACE_SLOT, max(0, int(real[c]) - first))
+                walking = blk[~flag[blk] & enters[blk, c]]
+                if rows == 0 or walking.size == 0:
+                    continue
+                slots += tkc.BLOCK_RAYS * -(-walking.size * rows // tkc.BLOCK_RAYS)
+                pairs = [(i, first + j) for i in walking for j in range(rows)]
+                hit = set()
+                for p in rng.permutation(len(pairs)):
+                    i, row = pairs[p]
+                    if i not in hit and occl[i, c, row]:
+                        hit.add(i)
+                flag[list(hit)] = True  # the ray stops after this piece
+    return active & flag, slots, warp_slots
+
+
+def _plain_any(cset, o, d, max_t, active):
+    planes = [torch.from_numpy(np.ascontiguousarray(a[:, i])) for a in (o, d) for i in range(3)]
+    tkc.reset_work()
+    occ = tkc.traverse(cset, *planes, torch.from_numpy(active), max_t=torch.from_numpy(max_t),
+                       any_hit=True, warps=torch.arange(len(o)) // 32)[0]
+    return occ.numpy(), dict(tkc.WORK)
+
+
+@pytest.mark.parametrize("scale", [0.15, 2.0])
+@pytest.mark.parametrize("cut", list(ANY_CUTS))
+def test_compacted_any_hit_gives_the_plain_occlusion(cut, scale):
+    """The compacted any hit's schedule (pairs in a random order, rays
+    stopped between pieces, a pair of a stopped ray skipped) gives the plain
+    traversal's occlusion exactly: a ray is occluded iff some row of a box
+    it enters occludes it, whatever the order and however far it walks past
+    its first occluder. Short and long max_t, some rays inactive."""
+    cset = _any_cut(cut)
+    o, d, max_t, active = _any_rays(cset, seed=len(cut) + int(10 * scale), scale=scale)
+    occ, _ = _plain_any(cset, o, d, max_t, active)
+    model, _, _ = _numpy_any_pairs(cset, o, d, max_t, active, seed=3)
+    assert 0 < int(occ.sum()) < int(active.sum())
+    assert np.array_equal(occ, model)
+    assert not occ[~active].any()
+
+
+@pytest.mark.parametrize("cut", ["large_mesh k64", "large_mesh k128"])
+def test_any_slots_follow_the_compacted_schedule(cut):
+    """kernel_core.WORK["any_pair_slots"] (phase 3's model of the shade's
+    compacted any hit) and WORK["any_warp_slots"] (its per-warp walk, a warp
+    leaving a cluster once none of its lanes still walks) equal the numpy
+    schedule's counts on the same rays; both cover the pair tests the walk
+    needs, and the per-warp count stays within the flat one
+    (WORK["warp_slots"])."""
+    cset = _any_cut(cut)
+    o, d, max_t, active = _any_rays(cset, seed=11, scale=1.0)
+    _, work = _plain_any(cset, o, d, max_t, active)
+    _, slots, warp_slots = _numpy_any_pairs(cset, o, d, max_t, active, seed=4)
+    assert work["any_pair_slots"] == slots > 0
+    assert work["any_warp_slots"] == warp_slots > 0
+    assert work["pair_tests"] <= min(slots, warp_slots)
+    assert warp_slots <= work["warp_slots"]

@@ -11,7 +11,9 @@ builds' shared memory equal to the main walk's; the compacted loop's pair
 map a bijection, and the 64-bit (t, gid) key's minimum the lexicographic
 one. The slot count of the compacted walk that ``kernel_core.WORK``
 counts (``pair_slots``, chip_smoke.py phase 3) is held to a numpy model of
-the schedule."""
+the schedule. The compacted any hit's flags and max_t lie in that walk's
+region at every k, and the fission builds fit the blocks their
+``__launch_bounds__`` ask for at every k they run at."""
 
 import ctypes
 import os
@@ -65,12 +67,14 @@ int thread_pairs(int t, int n, int rows, int* out) {
 unsigned long long hit_key(unsigned t_bits, unsigned gid) { return cosig::hit_key(t_bits, gid); }
 int constant(int i) {
   const int v[] = {cosig::TILE_THREADS, cosig::RING_STAGES, cosig::ROW_BYTES, cosig::SLOT_MAX,
-                   cosig::TRACE_SLOT, cosig::PAIR_BYTES};
+                   cosig::TRACE_SLOT, cosig::PAIR_BYTES, cosig::PAIR_KEYS, cosig::PAIR_FLAGS,
+                   cosig::PAIR_MAX_T, cosig::PAIR_OPS, cosig::PAIR_LIST, cosig::PAIR_OPERANDS};
   return v[i];
 }
 }
 """
-_NAMES = ("TILE_THREADS", "RING_STAGES", "ROW_BYTES", "SLOT_MAX", "TRACE_SLOT", "PAIR_BYTES")
+_NAMES = ("TILE_THREADS", "RING_STAGES", "ROW_BYTES", "SLOT_MAX", "TRACE_SLOT", "PAIR_BYTES",
+          "PAIR_KEYS", "PAIR_FLAGS", "PAIR_MAX_T", "PAIR_OPS", "PAIR_LIST", "PAIR_OPERANDS")
 _FIELDS = ("ring", "boxes", "ballots", "list", "cand", "pre", "partial", "hull", "bars",
            "count", "mxb", "pairs", "total")
 
@@ -183,6 +187,69 @@ def test_trace_layout(walk):
     assert lay["boxes"] == 13_824 and lay["total"] == lay["pairs"] + 6_144
     for k in (8, 32, 64, 128, 1024):
         assert lib.trace_smem(k) == _layout(lib, min(k, 32), pairs=True)["total"]
+
+
+def test_any_hit_region_lies_inside_the_compacted_layout(walk):
+    """The compacted any hit's per-ray flag and max_t (4 bytes each) take
+    the bytes of the closest hit's 8-byte key, before the operands and the
+    list, so the region stays PAIR_BYTES and the walk trace_smem(k) at every
+    k of 1-2048: each array of 128 words lies inside [pairs, total) and
+    none overlaps another."""
+    lib, c = walk
+    t = c["TILE_THREADS"]
+    spans = {"flags": (c["PAIR_FLAGS"], 4 * t), "max_t": (c["PAIR_MAX_T"], 4 * t),
+             "ops": (c["PAIR_OPS"], 4 * t * c["PAIR_OPERANDS"]), "list": (c["PAIR_LIST"], 4 * t)}
+    assert (c["PAIR_KEYS"], c["PAIR_OPS"]) == (0, 8 * t)  # the closest hit's key: 8 bytes a ray
+    ends = sorted((lo, lo + n) for lo, n in spans.values())
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))  # disjoint
+    assert ends[0][0] >= 0 and ends[-1][1] == c["PAIR_BYTES"]
+    for k in range(1, 2049):
+        lay = _layout(lib, min(k, c["TRACE_SLOT"]), pairs=True)
+        assert lay["total"] == lib.trace_smem(k) <= OPTIN_BYTES, k
+        for lo, n in spans.values():
+            assert lay["pairs"] <= lay["pairs"] + lo and lay["pairs"] + lo + n <= lay["total"], k
+            assert (lay["pairs"] + lo) % 16 == 0, k
+
+
+# Dynamic shared memory a Hopper multiprocessor holds (228 KiB), and what
+# the runtime reserves a block beside a kernel's own.
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+
+
+def _min_blocks(name: str) -> int:
+    """A __launch_bounds__ minimum of csrc/wavefront.cuh by its constant's name."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(cosig_tpu_torch.__file__), "csrc",
+                            "wavefront.cuh")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# (build, its __launch_bounds__ minimum, the k its launches pick it for)
+FISSION_BUILDS = (("trace", "TRACE_MIN_BLOCKS", range(1, 2049)),
+                  ("shade", "SHADE_MIN_BLOCKS", range(1, 2049)),
+                  ("shade_all slots", "SHADE_MIN_BLOCKS", range(33, 2049)),
+                  ("primary_fission slots", "FISSION_PAIRS_MIN_BLOCKS", range(33, 2049)),
+                  ("primary_fission", "FISSION_MIN_BLOCKS", range(1, 33)))
+
+
+def test_fission_builds_fit_their_blocks_at_every_k(walk):
+    """The exact trace and shade on a list walk in the compacted layout
+    (trace_smem) at every k, the fission primary and the shade over every
+    ray past 32 rows (their slots builds); the fission primary's per-warp
+    walk holds whole clusters (walk_smem) up to 32 rows: each within what a
+    block may opt into, and small enough that a multiprocessor's shared
+    memory holds the blocks its __launch_bounds__ asks for (its registers
+    held to it by ptxas), at every k its launches pick it for."""
+    lib, _ = walk
+    for kernel, bound, ks in FISSION_BUILDS:
+        blocks = _min_blocks(bound)
+        assert 4 <= blocks <= 8, (kernel, blocks)
+        for k in ks:
+            smem = lib.walk_smem(k, 0) if kernel == "primary_fission" else lib.trace_smem(k)
+            assert smem <= OPTIN_BYTES, (kernel, k)
+            assert SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES) >= blocks, (kernel, k, smem)
 
 
 @pytest.mark.parametrize("rows", [1, 5, 32])
@@ -307,3 +374,11 @@ def test_build_labels_name_the_slot_builds(sb):
             mangled = f"_ZN5cosig{len(base)}{base}I{args}EEvNS_5FrameEPKf"
             want = label + (" slots" if pc else "")
             assert sass.build_label(mangled) == (want, bool(sb)), mangled
+    # The exact builds with a compacted walk at every k (PC false) carry
+    # their counters' names, which the kernels line looks their ptxas lines
+    # up by (chip_smoke.COMPACTED_BUILDS).
+    compacted = [("trace_kernel", (0,)), ("shade_kernel", (1, 0))]
+    got = [sass.build_label(f"_ZN5cosig{len(b)}{b}I"
+                            + "".join(f"Lb{f}E" for f in (sb, *fl, 0)) + "EEvNS_5FrameEPKf")
+           for b, fl in compacted]
+    assert got == [(n, bool(sb)) for n in chip_smoke.COMPACTED_BUILDS]
