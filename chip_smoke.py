@@ -117,8 +117,8 @@ Phases (any failure raises and the script exits non-zero):
    path on one capture; two renderers on two scenes interleaved;
    ``render_chain`` at k = 2 and 12 (k times the rays, ms/frame from the
    slope); and eager against graph in turns: ms/frame, the host's ms to
-   queue a frame, the device's busy share in torch.profiler, each graph's
-   capture time and pool bytes;
+   queue a frame, the graph frame's runtime calls in torch.profiler, each
+   graph's capture time and pool bytes;
 10. the wavefront's fission form (trace and shade kernels) and its
    separate primary and shadow cluster sets (``form_phase``): each new
    kernel bit-equal to its plain version stage by stage, record rows and
@@ -2305,16 +2305,6 @@ def traced(fn, kernels: int, calls: dict | None = None) -> tuple:
     return acts, tries
 
 
-def busy(acts, kernels: int) -> tuple:
-    """(device busy share, span ms) of a frame's activities: the sum of
-    their times over the span from the first start to the last end;
-    (None, None) when the trace lost any of the frame's ``kernels``."""
-    if sum("cosig" in a[0] for a in acts) != kernels:
-        return None, None
-    span = (max(a[1] + 1e3 * a[2] for a in acts) - acts[0][1]) / 1e3
-    return sum(a[2] for a in acts) / span, span
-
-
 def graph_frames(device, card: str, full_size: bool = True) -> dict:
     """Phase 9 on the card: (a) Renderer frames (one replay of the
     renderer's cached graph each) bit-equal to the eager frames
@@ -2329,10 +2319,9 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
     ``render_chain`` at k = 2 and 12: k times the frame's rays, the
     frame's image, ms/frame from the slope; (e) eager against graph in
     turns (eager, graph, graph, eager): ms/frame as the host waits for it,
-    the host's ms to queue a frame, the device's busy share of one frame
-    and its activities in torch.profiler (one ``cudaGraphLaunch`` a graph
-    frame and at most one device-to-host copy, the ray count; the busy
-    share only from a trace that holds every kernel launch of the frame).
+    the host's ms to queue a frame, and a graph frame's activities in
+    torch.profiler (one ``cudaGraphLaunch`` and at most one device-to-host
+    copy, the ray count).
     ``full_size=False`` cuts every frame to 96 x 96 and the dense knot out
     (a first check on the card)."""
     import torch
@@ -2519,13 +2508,10 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
         want = sum(v for k, v in g.launches.items() if k != "graph")
         calls = {}
         acts_g, tries_g = traced(graph_frame, want, calls)
-        acts_e, tries_e = traced(eager_frame, want)
         check(calls.get("cudaGraphLaunch", 0) == 1, name, backend, "graph launches", calls)
         to_host = [a for a in acts_g if "DtoH" in a[0]]
         check(len(to_host) <= 1, name, backend, "device-to-host copies in a graph frame",
               to_host)
-        share_g, span_g = busy(acts_g, want)
-        share_e, span_e = busy(acts_e, want)
         # The replay's copies of its outputs: the image's is the longest
         # device-to-device copy of the frame.
         copy_ms = max((a[2] for a in acts_g if "DtoD" in a[0]), default=None)
@@ -2533,19 +2519,14 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
         ms_g = [t for w, t in turns if w == "graph"]
         tag = f"{backend} {tag_of(name, cfg)}"
         times[tag] = dict(eager_ms=ms_e, graph_ms=ms_g, host_ms_eager=host_e, host_ms_graph=host_g,
-                          busy_eager=share_e, busy_graph=share_g, span_eager_ms=span_e,
-                          span_graph_ms=span_g, traces_eager=tries_e, traces_graph=tries_g,
+                          traces_graph=tries_g,
                           frames_per_turn=n, graph_runtime_calls=calls, kernels=want,
                           image_copy_ms=copy_ms,
                           capture_s=g.capture_s, pool_bytes=g.pool_bytes)
 
-        def pct(share, span):
-            return "not measured" if share is None else f"{100 * share:.1f} % of {span:.3f} ms"
-
         log(f"  [{card}] {tag}: ms/frame eager {ms_e[0]:.3f} / {ms_e[1]:.3f}, graph "
             f"{ms_g[0]:.3f} / {ms_g[1]:.3f}; host ms to queue a frame eager {host_e:.3f}, graph "
-            f"{host_g:.3f}; device busy eager {pct(share_e, span_e)} ({tries_e} traces), graph "
-            f"{pct(share_g, span_g)} ({tries_g}); the image's copy {copy_ms} ms; pool "
+            f"{host_g:.3f}; {tries_g} traces; the image's copy {copy_ms} ms; pool "
             f"{g.pool_bytes} B, capture {g.capture_s * 1e3:.1f} ms; runtime calls of a graph "
             f"frame {calls}")
     out["times"] = times

@@ -18,7 +18,8 @@ port's renderer backends (``auto``, ``xla``, ``xla-brute``, ``wavefront``,
 ``megakernel``) and ``pallas``, the JAX package's name of the megakernel,
 so that package's commands run unchanged. ``--profile DIR`` records the
 render with ``torch.profiler`` (CUDA activity on the card) and writes a
-Chrome trace into DIR.
+Chrome trace into DIR, the port's own steps in it as ``cosig.frame.*`` and
+``cosig.setup.*`` ranges (:mod:`cosig_tpu_torch.utils.trace`).
 
     python -m cosig_tpu_torch.cli render scenes/demo_cornell.txt -o out.png --device cuda
 """
@@ -67,7 +68,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug-mode", type=int, default=0, choices=[0, 1, 2, 3])
     p.add_argument("--preset", help="load settings from a preset JSON first")
     p.add_argument("--profile", metavar="DIR",
-                   help="record the render with torch.profiler; write a Chrome trace into DIR")
+                   help="record the render with torch.profiler (the port's cosig.* spans in "
+                        "it); write a Chrome trace into DIR")
 
 
 def _load_scene_arg(arg: str):

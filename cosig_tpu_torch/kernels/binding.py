@@ -47,6 +47,7 @@ from cosig_tpu_torch.kernels import build as kbuild
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import camera, trace_wavefront
 from cosig_tpu_torch.ops.kernel_core import UNIFORMS_LEN
+from cosig_tpu_torch.utils import trace
 
 F32 = np.float32
 
@@ -208,7 +209,13 @@ def make_frame(cfg: StaticConfig, buffer: FrameBuffer, band: int, depth: int, is
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library (all its kernels)."""
+    """Build (if needed) and load the kernel library (all its kernels): the
+    set-up span ``cosig.setup.kernels``, once a process."""
+    with trace.setup("cosig.setup.kernels"):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     path, _, _ = kbuild.build()
     lib = ctypes.CDLL(path)
     # frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box

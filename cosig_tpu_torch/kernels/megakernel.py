@@ -7,7 +7,9 @@ cluster set they launch the hand-written kernel (``csrc/megakernel.cu``)
 on the current stream, without synchronising, count the launch in
 :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and raise if the launch
 is refused; on the CPU they run the plain PyTorch version
-(:mod:`cosig_tpu_torch.ops.trace_megakernel`) and count nothing. There is
+(:mod:`cosig_tpu_torch.ops.trace_megakernel`) and count nothing; on
+either they name the kernel for the plan being recorded
+(:func:`cosig_tpu_torch.utils.trace.plan_step`). There is
 no fallback from a CUDA tensor to the plain version. ``megakernel(mxu=
 "full")`` launches the build with the tensor-core pair test (counter
 ``megakernel_mx``) where :func:`kernel_core.mxu_mode` keeps it for the set.
@@ -21,6 +23,7 @@ from cosig_tpu_torch.accel.clusters import ClusterSet
 from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import kernel_core, trace_megakernel
+from cosig_tpu_torch.utils import trace
 
 
 def megakernel(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
@@ -31,6 +34,7 @@ def megakernel(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, ban
     or ``"full"``, the pair test's form."""
     dev = cset.device
     trace_megakernel.check_mxu(mxu)
+    trace.plan_step("megakernel")
     if dev.type == "cpu":
         return trace_megakernel.megakernel_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg,
                                                  band, prims, n_sph, n_box, mxu=mxu)
@@ -58,6 +62,7 @@ def debug(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, prims: t
           n_sph: int, n_box: int) -> torch.Tensor:
     """Debug view ``cfg.debug_mode`` -> f32 [4, H * W] (rgb, count 1)."""
     dev = cset.device
+    trace.plan_step("debug")
     if dev.type == "cpu":
         return trace_megakernel.debug_plain(cset, fb.uniforms, fb.mats, fb.lights, cfg, prims,
                                             n_sph, n_box)

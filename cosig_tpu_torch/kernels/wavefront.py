@@ -9,7 +9,10 @@ on the current stream, without synchronising,
 count the launch in :data:`cosig_tpu_torch.kernels.binding.LAUNCHES`, and
 raise if the launch is refused; on a CPU tensor they run the plain
 PyTorch version (:mod:`cosig_tpu_torch.ops.trace_wavefront`) and count
-nothing. There is no fallback from a CUDA tensor to the plain version.
+nothing. On either, each names its kernel (and ``compact`` its list's
+length) for the plan being recorded
+(:func:`cosig_tpu_torch.utils.trace.plan_step`). There is no fallback
+from a CUDA tensor to the plain version.
 A bounce stage is ``compact`` then ``bounce`` on its list: the list and
 its length stay on the device, so the host never waits for them. In the
 fission form it is ``compact``, then ``trace`` and ``shade`` on the same
@@ -37,6 +40,7 @@ from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import kernel_core, trace_wavefront
 from cosig_tpu_torch.ops.kernel_core import FISSION_ROWS, STATE_ROWS, state_rows
+from cosig_tpu_torch.utils import trace as tracing  # ``trace`` is a wrapper here
 
 
 def _device(name: str, dev: torch.device) -> None:
@@ -56,6 +60,7 @@ def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: 
     if fission and cset_shadow is not None:
         raise ValueError("the fission primary traces no shadow rays: pass cset_shadow to shade")
     trace_wavefront.check_mxu(mxu)
+    tracing.plan_step("primary")
     if dev.type == "cpu":
         return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
                                              prims, n_sph, n_box, fission=fission,
@@ -92,20 +97,29 @@ def _check_state(state: torch.Tensor, per_row: int, rows=(STATE_ROWS, FISSION_RO
         )
 
 
-def compact(state: torch.Tensor) -> tuple:
+def compact(state: torch.Tensor, n_live: torch.Tensor | None = None) -> tuple:
     """List the live rays of ``state`` f32 [16 or 24, N] -> ``(idx, n_live)``:
     int32 [N] and int32 [1] on the state's device, ``idx[:n_live]`` the ids
     of the rays with alive > 0 by direction octant, then by id (entries
-    past ``n_live`` are unspecified)."""
+    past ``n_live`` are unspecified). ``n_live``: where the kernel writes
+    the length (contiguous int32 [1] on the device), else a new tensor."""
     dev = state.device
     if dev.type == "cpu":
-        return trace_wavefront.compact_plain(state)
+        idx, n_live = trace_wavefront.compact_plain(state)
+        tracing.plan_step("compact", n_live=n_live)
+        return idx, n_live
     _device("compaction", dev)
     _check_state(state, 1)
     idx = torch.empty(state.shape[1], dtype=torch.int32, device=dev)
-    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    if n_live is None:
+        n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    elif (n_live.device != dev or n_live.dtype != torch.int32 or not n_live.is_contiguous()
+          or tuple(n_live.shape) != (1,)):
+        raise ValueError(f"n_live must be contiguous int32 [1] on {dev}, got {n_live.dtype} "
+                         f"{tuple(n_live.shape)} on {n_live.device}")
     binding.launch_compact(state, idx, n_live)
     binding.LAUNCHES["compact"] += 1
+    tracing.plan_step("compact", n_live=n_live)
     return idx, n_live
 
 
@@ -139,6 +153,7 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
     that cluster set; ``mxu``: the pair test's form."""
     dev = state.device
     trace_wavefront.check_mxu(mxu)
+    tracing.plan_step("bounce", depth)
     if dev.type == "cpu":
         trace_wavefront.bounce_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
                                             fb.lights, cfg, depth, prims, n_sph, n_box,
@@ -168,6 +183,7 @@ def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: Cl
     form (the tensor-core build in both modes)."""
     dev = state.device
     trace_wavefront.check_mxu(mxu)
+    tracing.plan_step("trace", depth)
     if dev.type == "cpu":
         trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box,
                                            mxu=mxu)
@@ -195,6 +211,7 @@ def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameB
     if (idx is None) != (n_live is None) or (idx is None) != (depth == 0):
         raise ValueError("shade takes a list at depth >= 1 and none at depth 0")
     trace_wavefront.check_mxu(mxu)
+    tracing.plan_step("shade" if depth else "shade_all", depth)
     if dev.type == "cpu":
         if idx is None:
             trace_wavefront.primary_shade(state, cset, fb.uniforms, fb.mats, fb.lights, cfg,

@@ -47,7 +47,6 @@ nothing falls back to the eager stages.
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
@@ -57,6 +56,7 @@ from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import trace_megakernel, trace_wavefront
 from cosig_tpu_torch.ops.kernel_core import U_ROW_OFF
+from cosig_tpu_torch.utils import trace
 
 F32 = np.float32
 
@@ -83,10 +83,15 @@ class FrameGraph:
     forms, as in ``render_wavefront``; a graph is captured for one form.
     ``mxu``: the pair test's form of the wavefront and the megakernel.
 
-    ``launches``: what one replay adds to ``binding.LAUNCHES`` (the
-    kernels the graph holds, and ``graph`` 1); ``capture_s``: the host's
-    seconds for the capture and the graph's instantiation; ``pool_bytes``:
-    the device memory the capture reserved for the graph's pool."""
+    ``capture``: the capture's :class:`~cosig_tpu_torch.utils.trace.Capture`
+    (its set-up steps' seconds, the plan of its kernels, ``pool_bytes``:
+    the device memory the capture reserved for the graph's pool,
+    ``launches``: what one replay adds to ``binding.LAUNCHES``, the kernels
+    the graph holds and ``graph`` 1); ``capture_s``, ``pool_bytes`` and
+    ``launches`` read it. The eager warm-up frame and the capture are the
+    set-up spans ``cosig.setup.warmup`` and ``cosig.setup.capture``; a
+    replay's steps are the frame spans ``cosig.frame.write``, ``.launch``
+    and ``.copy_out`` (:mod:`cosig_tpu_torch.utils.trace`)."""
 
     def __init__(self, path: str, cset: ClusterSet, cfg: StaticConfig, uniforms: np.ndarray,
                  lights: np.ndarray, prims=None, prim_counts=(0, 0), rows: int | None = None,
@@ -119,42 +124,67 @@ class FrameGraph:
             with torch.cuda.stream(side):
                 # The warm-up frame builds and loads the kernel library,
                 # computes the compaction's grid and loads each kernel.
-                run()
+                with trace.setup("cosig.setup.warmup"):
+                    run()
                 before = dict(binding.LAUNCHES)
                 reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
-                self.graph.capture_begin()  # into a private memory pool
-                try:
-                    self.image, self.rays = run()
-                finally:
-                    self.graph.capture_end()
-                    # The captured launches did not run; a replay runs them.
-                    self.launches = {k: binding.LAUNCHES[k] - before[k] for k in before}
-                    binding.LAUNCHES.update(before)
-                self.capture_s = time.perf_counter() - t0
-                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+                with trace.setup("cosig.setup.capture"), trace.recording() as plan:
+                    self.graph.capture_begin()  # into a private memory pool
+                    try:
+                        self.image, self.rays = run()
+                    finally:
+                        self.graph.capture_end()
+                        # The captured launches did not run; a replay runs them.
+                        launches = {k: binding.LAUNCHES[k] - before[k] for k in before}
+                        binding.LAUNCHES.update(before)
+                pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             current.wait_stream(side)
-        self.launches["graph"] = 1
+        launches["graph"] = 1
+        self.capture = trace.captured(path, plan, pool_bytes, launches)
+        # The compactions' list lengths in the graph's pool, and the pinned
+        # copy that a traced replay fills (None on paths with no compaction).
+        self._lives = trace.live_tensor(plan.n_live)
+        self.lives_host = (None if self._lives is None else
+                           torch.empty(self._lives.shape, dtype=torch.int32, pin_memory=True))
+
+    @property
+    def capture_s(self) -> float:
+        """The host's seconds for the capture and the graph's instantiation."""
+        return self.capture.steps["cosig.setup.capture"]
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.capture.pool_bytes
+
+    @property
+    def launches(self) -> dict:
+        return self.capture.launches
 
     def launch(self, uniforms: np.ndarray, lights: np.ndarray) -> None:
         """Write the frame's inputs and replay the graph on the current
         stream; ``self.image`` and ``self.rays`` are then the frame's until
         the next replay."""
-        uniforms = np.array(uniforms, F32)
-        uniforms[U_ROW_OFF] = F32(self.row_offset)
         with torch.cuda.device(self.device):
-            self.fb.write(uniforms, self.mats, np.ascontiguousarray(lights, F32))
-            self.graph.replay()
-        for name, n in self.launches.items():
-            binding.LAUNCHES[name] += n
+            with trace.span("cosig.frame.write"):
+                uniforms = np.array(uniforms, F32)
+                uniforms[U_ROW_OFF] = F32(self.row_offset)
+                self.fb.write(uniforms, self.mats, np.ascontiguousarray(lights, F32))
+            with trace.span("cosig.frame.launch"):
+                self.graph.replay()
+                for name, n in self.capture.launches.items():
+                    binding.LAUNCHES[name] += n
 
     def replay(self, uniforms: np.ndarray, lights: np.ndarray):
         """Render one frame -> ``(image [band, W, 3], rays as an int64
         tensor)`` on the device, queued with no host read. Both are copies
         of the graph's outputs (one device copy of the image), so a caller
-        may keep them across later replays, as a JAX array is kept."""
+        may keep them across later replays, as a JAX array is kept. While
+        tracing is on, the compactions' list lengths (depth 1 up) are copied
+        to ``lives_host`` too, to be read once the frame is done."""
         self.launch(uniforms, lights)
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), trace.span("cosig.frame.copy_out"):
+            if self._lives is not None and trace.on():
+                self.lives_host.copy_(self._lives, non_blocking=True)
             return self.image.clone(), self.rays.clone()
 
     def chain(self, uniforms: np.ndarray, lights: np.ndarray, k: int):
@@ -167,7 +197,10 @@ class FrameGraph:
             for _ in range(k):
                 self.launch(uniforms, lights)
                 total += self.rays
-            return self.image.clone(), int(total)
+            with trace.span("cosig.frame.copy_out"):
+                img = self.image.clone()
+            with trace.span("cosig.frame.wait"):
+                return img, int(total)
 
 
 def _forms(path: str, cset: ClusterSet, forms: dict) -> dict:
@@ -204,9 +237,12 @@ def render_chain(path: str, cset: ClusterSet, uniforms: np.ndarray, lights: np.n
     forms = _forms(path, cset, forms)
     uniforms, lights, mats, prims, n_sph, n_box = trace_wavefront.frame_inputs(
         cset, uniforms, lights, 0, None, prims, prim_counts)
-    fb = binding.frame_buffer(cset.device, uniforms, mats, lights)
+    with trace.span("cosig.frame.write"):
+        fb = binding.frame_buffer(cset.device, uniforms, mats, lights)
     total = 0
-    for _ in range(k):
-        img, rays = PATHS[path](cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box, **forms)
-        total = total + rays
-    return img, int(total)
+    with trace.span("cosig.frame.launch"):
+        for _ in range(k):
+            img, rays = PATHS[path](cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box, **forms)
+            total = total + rays
+    with trace.span("cosig.frame.wait"):
+        return img, int(total)

@@ -388,8 +388,10 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
                        mxu=mxu)
     if fission:
         kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu)
+    # The list lengths side by side, so a traced frame reads them with one copy.
+    lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
     for depth in range(1, cfg.max_depth):
-        idx, n_live = kw.compact(state)
+        idx, n_live = kw.compact(state, lives[depth - 1:depth])
         if fission:
             kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu)
             kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu)

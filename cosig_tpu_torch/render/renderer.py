@@ -39,7 +39,13 @@ other per-frame values replays it; a change of resolution, depth, AA,
 a toggle or the debug mode captures a new one, which replaces it;
 ``invalidate_cache`` frees it. Its private memory pool holds the frame's
 buffers (the wavefront's state [16, N] is 64 B a ray). The oracle path
-runs eagerly.
+runs eagerly. ``Renderer.last_capture`` is the graph's capture record
+(set-up steps' seconds, the plan of its kernels, pool bytes, launches).
+
+A frame's steps are spans of :mod:`cosig_tpu_torch.utils.trace`
+(``cosig.frame`` and its children), profiler ranges while torch.profiler
+records and a flag check otherwise; building the geometry is the set-up
+span ``cosig.setup.geometry``.
 
 ``Renderer(..., mxu=)`` picks the pair test's form on the kernel paths:
 ``"off"`` (the default) the exact test, ``"full"`` the tensor-core form
@@ -70,6 +76,7 @@ from cosig_tpu_torch.models.soa import compile_scene, frame_params, materials_ho
 from cosig_tpu_torch.ops import bvh_traverse, frame_graph, kernel_core, trace_megakernel, trace_xla
 from cosig_tpu_torch.ops.analytic import closest_hit_analytic, compile_analytic, pack_prims_host
 from cosig_tpu_torch.scene.tessellate import extract_triangles
+from cosig_tpu_torch.utils import trace
 
 log = logging.getLogger("cosig_tpu_torch.render")
 
@@ -124,6 +131,7 @@ class Renderer:
         # Kernel paths on the card: (graph_key, scene, FrameGraph); the scene
         # is held so that the id in its key stays its own.
         self._graph: Optional[tuple] = None
+        self._geometry_s = 0.0  # the set-up seconds of the kernel paths' cached geometry
         self.last_stats = RenderStats()
 
     def invalidate_cache(self) -> None:
@@ -146,11 +154,13 @@ class Renderer:
         uploads nothing."""
         c = self._cached
         if c is None or c[0] is not scene or c[1] != analytic:
-            tris = extract_triangles(scene, include_primitives=not analytic)
-            mats = np.concatenate(materials_host(scene), axis=1)
-            cset = build_clusters(tris, mats).to(self.device)
-            table, n_sph, n_box = pack_prims_host(scene) if analytic else (None, 0, 0)
-            prims, n_sph, n_box = kernel_core.prim_table(table, (n_sph, n_box), self.device)
+            with trace.setup("cosig.setup.geometry") as step:
+                tris = extract_triangles(scene, include_primitives=not analytic)
+                mats = np.concatenate(materials_host(scene), axis=1)
+                cset = build_clusters(tris, mats).to(self.device)
+                table, n_sph, n_box = pack_prims_host(scene) if analytic else (None, 0, 0)
+                prims, n_sph, n_box = kernel_core.prim_table(table, (n_sph, n_box), self.device)
+            self._geometry_s = step.seconds
             self._cached = (scene, analytic, cset, prims, (n_sph, n_box))
         return self._cached[2:]
 
@@ -160,9 +170,10 @@ class Renderer:
         instance tables (analytic), else the whole mesh."""
         c = self._cached_xla
         if c is None or c[0] is not scene or c[1] != analytic:
-            tris = extract_triangles(scene, include_primitives=not analytic)
-            arrays = compile_scene(scene, tris, device=self.device)
-            extra = compile_analytic(scene, device=self.device) if analytic else None
+            with trace.setup("cosig.setup.geometry"):
+                tris = extract_triangles(scene, include_primitives=not analytic)
+                arrays = compile_scene(scene, tris, device=self.device)
+                extra = compile_analytic(scene, device=self.device) if analytic else None
             self._cached_xla = c = [scene, analytic, tris, arrays, extra]
         return c
 
@@ -204,8 +215,15 @@ class Renderer:
         toggles, debug mode) and the pair test's form (``mxu``). Frames with
         equal keys replay one graph."""
         cfg = static_config(scene, settings)
-        path = self.kernel_path(cfg)
+        return self._key(scene, settings, cfg, self.kernel_path(cfg))
+
+    def _key(self, scene, settings, cfg, path) -> tuple:
         return (id(scene), settings.analytic_primitives, path, cfg, self._mxu_of(path))
+
+    @property
+    def last_capture(self) -> Optional[trace.Capture]:
+        """The capture record of the graph the renderer holds, or None."""
+        return None if self._graph is None else self._graph[2].capture
 
     def _mxu_of(self, path) -> str:
         """The pair test's form a frame of ``path`` runs: the renderer's on
@@ -215,53 +233,66 @@ class Renderer:
             raise ValueError(f"mxu={self.mxu!r}: the debug view has only the exact pair test")
         return self.mxu if path in ("wavefront", "megakernel") else "off"
 
-    def _frame_graph(self, scene, settings, cfg, uniforms, lights):
+    def _frame_graph(self, key, scene, cfg, uniforms, lights, cset, prims, prim_counts):
         """The cached graph of this frame's key, captured (in place of the
         last one) if the key changed."""
-        key = self.graph_key(scene, settings)
         if self._graph is None or self._graph[0] != key:
             self._graph = None  # free the last graph's pool before capturing
-            cset, prims, prim_counts = self._geometry_for(scene, settings.analytic_primitives)
             graph = frame_graph.FrameGraph(key[2], cset, cfg, uniforms, lights, prims,
                                            prim_counts, mxu=key[4])
+            # The geometry's own set-up, where an earlier capture built it.
+            graph.capture.steps.setdefault("cosig.setup.geometry", self._geometry_s)
             self._graph = (key, scene, graph)
             log.info("captured a %s frame graph: %.3f s, %d pool bytes", key[2],
-                     graph.capture_s, graph.pool_bytes)
+                     graph.capture.steps["cosig.setup.capture"], graph.capture.pool_bytes)
         return self._graph[2]
 
     def _frames(self, scene: SceneData, settings: RenderSettings, k: int):
         """``k`` frames queued with no host read in between -> (last image,
         rays of the k frames as an int); sets ``last_stats``."""
-        params = frame_params(scene, settings)
-        cfg = static_config(scene, settings)
-        backend = self.resolve_backend()
-        analytic = settings.analytic_primitives
-        path = self.kernel_path(cfg)
+        with trace.frame() as fr:
+            with trace.span("cosig.frame.settings"):
+                params = frame_params(scene, settings)
+                cfg = static_config(scene, settings)
+                backend = self.resolve_backend()
+                analytic = settings.analytic_primitives
+                path = self.kernel_path(cfg)
+                on_card = path is not None and self.device.type == "cuda"
+                key = self._key(scene, settings, cfg, path) if on_card else None
 
-        t0 = time.perf_counter()
-        if path is None:
-            rays = 0
-            for _ in range(k):
-                img, r, triangles = self._render_xla(scene, params, cfg, backend, analytic)
-                rays += r
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        else:
-            uniforms = kernel_core.build_uniforms(params)
-            lights = kernel_core.build_lights(params, cfg.multi_light)
-            cset, prims, prim_counts = self._geometry_for(scene, analytic)
-            triangles = cset.num_triangles
-            if self.device.type == "cuda":
-                graph = self._frame_graph(scene, settings, cfg, uniforms, lights)
-                if k == 1:
+            t0 = time.perf_counter()
+            if path is None:
+                with trace.span("cosig.frame.launch"):
+                    rays = 0
+                    for _ in range(k):
+                        img, r, triangles = self._render_xla(scene, params, cfg, backend, analytic)
+                        rays += r
+                with trace.span("cosig.frame.wait"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+            else:
+                with trace.span("cosig.frame.uniforms"):
+                    uniforms = kernel_core.build_uniforms(params)
+                    lights = kernel_core.build_lights(params, cfg.multi_light)
+                with trace.span("cosig.frame.lookup"):
+                    cset, prims, prim_counts = self._geometry_for(scene, analytic)
+                    if on_card:
+                        graph = self._frame_graph(key, scene, cfg, uniforms, lights, cset,
+                                                  prims, prim_counts)
+                triangles = cset.num_triangles
+                if not on_card:
+                    img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k,
+                                                         prims, prim_counts,
+                                                         mxu=self._mxu_of(path))
+                elif k == 1:
                     img, rays = graph.replay(uniforms, lights)
-                    rays = int(rays)  # the one read: the frame is done
+                    with trace.span("cosig.frame.wait"):
+                        rays = int(rays)  # the one read: the frame is done
                 else:
                     img, rays = graph.chain(uniforms, lights, k)
-            else:
-                img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k, prims,
-                                                     prim_counts, mxu=self._mxu_of(path))
-        dt = (time.perf_counter() - t0) * 1e3
+                if on_card and fr is not None:  # a chain copies out no list lengths
+                    fr.replayed(graph.capture, graph.lives_host if k == 1 else None)
+            dt = (time.perf_counter() - t0) * 1e3
         self.last_stats = RenderStats(
             width=cfg.width,
             height=cfg.height,

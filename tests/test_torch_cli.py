@@ -215,6 +215,10 @@ def test_profile_writes_a_chrome_trace(tmp_path, capsys):
     trace = json.loads((prof / "render_trace.json").read_text())
     assert trace["traceEvents"]
     assert "profiler trace ->" in capsys.readouterr().out
+    # The port's own steps: the oracle path's frame on the CPU, and its set-up.
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"cosig.frame", "cosig.frame.settings", "cosig.frame.launch", "cosig.frame.wait",
+            "cosig.setup.geometry"} <= names
 
 
 @pytest.mark.parametrize("cmd", ["render", "turntable", "preview"])
