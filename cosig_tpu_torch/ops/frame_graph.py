@@ -84,8 +84,8 @@ class FrameGraph:
     ``mxu``: the pair test's form of the wavefront and the megakernel.
 
     ``capture``: the capture's :class:`~cosig_tpu_torch.utils.trace.Capture`
-    (its set-up steps' seconds, the plan of its kernels, ``pool_bytes``:
-    the device memory the capture reserved for the graph's pool,
+    (its set-up steps' seconds, its ``form``, the plan of its kernels,
+    ``pool_bytes``: the device memory the capture reserved for the graph's pool,
     ``launches``: what one replay adds to ``binding.LAUNCHES``, the kernels
     the graph holds and ``graph`` 1); ``capture_s``, ``pool_bytes`` and
     ``launches`` read it. The eager warm-up frame and the capture are the
@@ -140,7 +140,8 @@ class FrameGraph:
                 pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             current.wait_stream(side)
         launches["graph"] = 1
-        self.capture = trace.captured(path, plan, pool_bytes, launches)
+        self.capture = trace.captured(path, plan, pool_bytes, launches,
+                                      "fission" if forms.get("fission") else "fused")
         # The compactions' list lengths in the graph's pool, and the pinned
         # copy that a traced replay fills (None on paths with no compaction).
         self._lives = trace.live_tensor(plan.n_live)

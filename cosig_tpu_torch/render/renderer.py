@@ -6,7 +6,8 @@ Counterpart of :class:`cosig_tpu.render.renderer.Renderer`
 device; ``backend`` picks the path:
 
 * ``"wavefront"`` (the default; the JAX package's ``"wavefront"``): one
-  primary and ``max_depth - 1`` compaction and bounce stages;
+  primary and ``max_depth - 1`` compaction and bounce stages, in the form
+  :func:`wavefront_form` picks;
 * ``"megakernel"`` (the JAX package's ``"pallas"``): one kernel a frame;
 * ``"xla"``: the oracle path of plain PyTorch operations
   (:mod:`cosig_tpu_torch.ops.trace_xla`), switching to the per-ray BVH
@@ -33,14 +34,21 @@ On ``"cuda"`` a frame of the kernel paths (wavefront, megakernel, debug
 view, analytic mode) is one replay of a CUDA graph
 (:class:`~cosig_tpu_torch.ops.frame_graph.FrameGraph`), the counterpart
 of the JAX package's jitted frame. The renderer keeps one graph, under
-:meth:`Renderer.graph_key` (the scene object, analytic mode, the path and
-the ``StaticConfig``): a change of camera, lights, background or the
-other per-frame values replays it; a change of resolution, depth, AA,
-a toggle or the debug mode captures a new one, which replaces it;
-``invalidate_cache`` frees it. Its private memory pool holds the frame's
-buffers (the wavefront's state [16, N] is 64 B a ray). The oracle path
-runs eagerly. ``Renderer.last_capture`` is the graph's capture record
-(set-up steps' seconds, the plan of its kernels, pool bytes, launches).
+:meth:`Renderer.graph_key` (the scene object, analytic mode, the path,
+the ``StaticConfig`` and the forms): a change of camera, lights,
+background or the other per-frame values replays it; a change of
+resolution, depth, AA, a toggle or the debug mode captures a new one,
+which replaces it; ``invalidate_cache`` frees it. Its private memory
+pool holds the frame's buffers. The oracle path runs eagerly.
+``Renderer.last_capture`` is the graph's capture record (set-up steps'
+seconds, the form and the plan of its kernels, pool bytes, launches).
+
+The wavefront's form follows :func:`wavefront_form`: with the exact pair
+test a frame runs the fission form (the primary's trace, a shade over
+every ray, then per depth a compaction, a trace and a shade; the state
+[24, N], 96 B a ray), with a tensor-core form the fused primary and
+bounce kernels. Both forms give the same bits, on the card and on the
+CPU alike.
 
 A frame's steps are spans of :mod:`cosig_tpu_torch.utils.trace`
 (``cosig.frame`` and its children), profiler ranges while torch.profiler
@@ -82,6 +90,16 @@ log = logging.getLogger("cosig_tpu_torch.render")
 
 BACKENDS = ("auto", "xla", "xla-brute", "wavefront", "megakernel")
 BVH_ABOVE_TRIANGLES = 4096  # the oracle path walks a BVH above this many triangles
+
+
+def wavefront_form(path: Optional[str], mxu: str) -> str:
+    """The form of the wavefront stages a frame of the kernel ``path`` with
+    the pair test ``mxu`` launches: ``"fission"`` (a trace and a shade
+    kernel per stage) on the wavefront with the exact test, where its
+    compacted walks make it the faster frame; ``"fused"`` (the primary and
+    bounce kernels) with a tensor-core form, where fission is the slower
+    frame, and on every other path."""
+    return "fission" if path == "wavefront" and mxu == "off" else "fused"
 
 
 @dataclass
@@ -212,13 +230,15 @@ class Renderer:
     def graph_key(self, scene: SceneData, settings: RenderSettings) -> tuple:
         """What a captured frame is specific to: the scene object, analytic
         mode, the kernel path, the ``StaticConfig`` (size, depth, AA,
-        toggles, debug mode) and the pair test's form (``mxu``). Frames with
-        equal keys replay one graph."""
+        toggles, debug mode), the pair test's form (``mxu``) and the
+        wavefront's form (:func:`wavefront_form`). Frames with equal keys
+        replay one graph."""
         cfg = static_config(scene, settings)
         return self._key(scene, settings, cfg, self.kernel_path(cfg))
 
     def _key(self, scene, settings, cfg, path) -> tuple:
-        return (id(scene), settings.analytic_primitives, path, cfg, self._mxu_of(path))
+        mxu = self._mxu_of(path)
+        return (id(scene), settings.analytic_primitives, path, cfg, mxu, wavefront_form(path, mxu))
 
     @property
     def last_capture(self) -> Optional[trace.Capture]:
@@ -239,12 +259,13 @@ class Renderer:
         if self._graph is None or self._graph[0] != key:
             self._graph = None  # free the last graph's pool before capturing
             graph = frame_graph.FrameGraph(key[2], cset, cfg, uniforms, lights, prims,
-                                           prim_counts, mxu=key[4])
+                                           prim_counts, mxu=key[4],
+                                           fission=key[5] == "fission")
             # The geometry's own set-up, where an earlier capture built it.
             graph.capture.steps.setdefault("cosig.setup.geometry", self._geometry_s)
             self._graph = (key, scene, graph)
-            log.info("captured a %s frame graph: %.3f s, %d pool bytes", key[2],
-                     graph.capture.steps["cosig.setup.capture"], graph.capture.pool_bytes)
+            log.info("captured a %s %s frame graph: %.3f s, %d pool bytes", graph.capture.form,
+                     key[2], graph.capture.steps["cosig.setup.capture"], graph.capture.pool_bytes)
         return self._graph[2]
 
     def _frames(self, scene: SceneData, settings: RenderSettings, k: int):
@@ -258,7 +279,7 @@ class Renderer:
                 analytic = settings.analytic_primitives
                 path = self.kernel_path(cfg)
                 on_card = path is not None and self.device.type == "cuda"
-                key = self._key(scene, settings, cfg, path) if on_card else None
+                key = None if path is None else self._key(scene, settings, cfg, path)
 
             t0 = time.perf_counter()
             if path is None:
@@ -282,8 +303,8 @@ class Renderer:
                 triangles = cset.num_triangles
                 if not on_card:
                     img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k,
-                                                         prims, prim_counts,
-                                                         mxu=self._mxu_of(path))
+                                                         prims, prim_counts, mxu=key[4],
+                                                         fission=key[5] == "fission")
                 elif k == 1:
                     img, rays = graph.replay(uniforms, lights)
                     with trace.span("cosig.frame.wait"):

@@ -30,11 +30,13 @@ graph's instantiation in it). A capture takes the steps run since the
 last one into its :class:`Capture`, :func:`last_capture`.
 
 Counters, in the style of ``binding.LAUNCHES``: :data:`COUNTS`
-``captures``, one per graph capture, always. A capture's ``plan``: the
-ordered labels of the port's kernels its frame launches, recorded by the
-launch wrappers (:func:`plan_step`): ``primary``, then ``compact.1``,
-``bounce.1``, ... (fused) or ``shade_all``, ``compact.1``, ``trace.1``,
-``shade.1``, ... (fission), ``megakernel``, ``debug``. The k-th
+``captures``, one per graph capture, always; a capture's ``form``
+(``"fission"`` or ``"fused"``), so a record says which form ran. A
+capture's ``plan``: the ordered labels of the port's kernels its frame
+launches, recorded by the launch wrappers (:func:`plan_step`):
+``primary``, then ``compact.1``, ``bounce.1``, ... (fused) or
+``shade_all``, ``compact.1``, ``trace.1``, ``shade.1``, ... (fission),
+``megakernel``, ``debug``. The k-th
 ``cosig::`` kernel of a traced frame on the card is the plan's k-th.
 While on, each frame leaves a :class:`FrameRecord` (:func:`frames`) with
 its plan and ``live_rays``: the length of the list each compaction hands
@@ -97,8 +99,9 @@ class Capture:
     it), the kernel ``path``, its ``plan``, ``steps`` (seconds of each
     ``cosig.setup.*`` step run for it, and the geometry's of its scene),
     ``parents`` (the set-up span that enclosed a step, or None),
-    ``pool_bytes`` and ``launches`` (what one replay adds to
-    ``binding.LAUNCHES``)."""
+    ``pool_bytes``, ``launches`` (what one replay adds to
+    ``binding.LAUNCHES``) and ``form``: ``"fission"`` where the wavefront's
+    stages are split into trace and shade kernels, else ``"fused"``."""
 
     index: int
     path: str
@@ -107,6 +110,7 @@ class Capture:
     parents: dict
     pool_bytes: int = 0
     launches: dict = field(default_factory=dict)
+    form: str = "fused"
 
 
 @dataclass
@@ -233,13 +237,13 @@ def pending_setup() -> dict:
     return dict(_pending)
 
 
-def captured(path: str, plan: _Plan, pool_bytes: int, launches: dict) -> Capture:
+def captured(path: str, plan: _Plan, pool_bytes: int, launches: dict, form: str) -> Capture:
     """Count a capture and keep its record, which takes the set-up steps
     run since the last one."""
     global _last_capture
     COUNTS["captures"] += 1
     _last_capture = Capture(COUNTS["captures"], path, tuple(plan.labels), dict(_pending),
-                            {k: _parents.get(k) for k in _pending}, pool_bytes, launches)
+                            {k: _parents.get(k) for k in _pending}, pool_bytes, launches, form)
     _pending.clear()
     return _last_capture
 

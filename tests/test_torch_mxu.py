@@ -452,14 +452,15 @@ def test_refusals_and_graph_key():
                                       np.full((8, 128), np.nan, np.float32), np.zeros((1, 8)))
     assert big.streamed and tkc.mxu_mode(big, "full") == "off"
     assert tkc.mxu_mode(cset, "closest") == "closest" and not cset.streamed
-    # graph_key includes the form.
+    # graph_key includes the form: the pair test's, then the wavefront's.
     scene, settings = chip_smoke.load("demo_cornell")
     keys = {m: cosig_tpu_torch.Renderer(device="cpu", mxu=m).graph_key(scene, settings)
             for m in tkc.MXU_MODES}
-    assert len(set(keys.values())) == 3 and keys["full"][-1] == "full"
+    assert len(set(keys.values())) == 3 and keys["full"][4:] == ("full", "fused")
+    assert keys["off"][4:] == ("off", "fission") and keys["closest"][4:] == ("closest", "fused")
     # The debug view and the oracle path have only the exact test: refused.
     debug = settings.replace(debug_mode=1)
-    assert cosig_tpu_torch.Renderer(device="cpu").graph_key(scene, debug)[-1] == "off"
+    assert cosig_tpu_torch.Renderer(device="cpu").graph_key(scene, debug)[4:] == ("off", "fused")
     with pytest.raises(ValueError, match="debug"):
         cosig_tpu_torch.Renderer(device="cpu", mxu="full").graph_key(scene, debug)
     with pytest.raises(ValueError, match="debug"):

@@ -19,10 +19,13 @@ from cosig_tpu_torch.kernels import build as kbuild
 from cosig_tpu_torch.kernels import megakernel as km
 from cosig_tpu_torch.kernels import wavefront as kw
 from cosig_tpu_torch.models import soa as tsoa
+from cosig_tpu_torch.ops import frame_graph
 from cosig_tpu_torch.ops import kernel_core as tkc
 from cosig_tpu_torch.ops import trace_megakernel as ttm
 from cosig_tpu_torch.ops import trace_wavefront as ttw
+from cosig_tpu_torch.render import renderer as trender
 from cosig_tpu_torch.scene.generate import CONFIGS
+from cosig_tpu_torch.utils import trace
 
 CSRC = pathlib.Path(kbuild.CSRC_DIR)
 
@@ -131,6 +134,71 @@ def test_unported_options_raise(tiny, kw_):
         cosig_tpu_torch.Renderer(device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="debug_mode"):
         cosig_tpu_torch.Renderer(device="cpu").render(tiny, st.replace(debug_mode=4))
+
+
+FUSED_PLAN = ["primary", "compact.1", "bounce.1", "compact.2", "bounce.2"]
+FISSION_PLAN = ["primary", "shade_all", "compact.1", "trace.1", "shade.1", "compact.2",
+                "trace.2", "shade.2"]
+
+
+def _frame_inputs(scene, st, renderer):
+    params, cfg = tsoa.frame_params(scene, st), tsoa.static_config(scene, st)
+    cset, prims, counts = renderer._geometry_for(scene, st.analytic_primitives)
+    return (cset, tkc.build_uniforms(params), tkc.build_lights(params, cfg.multi_light), cfg,
+            dict(prims=prims, prim_counts=counts))
+
+
+@pytest.mark.parametrize("analytic", [False, True])
+@pytest.mark.parametrize("mxu", ["off", "full"])
+def test_wavefront_form_follows_the_pair_test(tiny, mxu, analytic):
+    """The Renderer's wavefront frame runs the fission form with the exact
+    pair test and the fused kernels with the tensor-core form; the graph key
+    carries the form, and either frame is the fused frame bit for bit,
+    image and rays."""
+    st = cosig_tpu_torch.RenderSettings(resolution_override=(64, 48), max_depth=3,
+                                        analytic_primitives=analytic)
+    r = cosig_tpu_torch.Renderer(device="cpu", backend="wavefront", mxu=mxu)
+    form = "fission" if mxu == "off" else "fused"
+    assert trender.wavefront_form("wavefront", mxu) == form
+    assert r.graph_key(tiny, st)[4:] == (mxu, form)
+    with trace.recording() as plan:
+        img = r.render_to_device(tiny, st)
+    cset, uni, lights, cfg, pk = _frame_inputs(tiny, st, r)
+    with trace.recording() as fused:
+        ref, rays = frame_graph.render_chain("wavefront", cset, uni, lights, cfg, 1, **pk,
+                                             mxu=mxu, fission=False)
+    assert torch.equal(img, ref) and r.last_stats.rays_traced == rays
+    assert fused.labels == FUSED_PLAN
+    assert plan.labels == (FISSION_PLAN if form == "fission" else FUSED_PLAN)
+    assert [d for d, _ in plan.n_live] == [1, 2]
+
+
+@pytest.mark.parametrize("backend,mxu,kw_", [("wavefront", "closest", {}),
+                                             ("megakernel", "off", {}),
+                                             ("megakernel", "full", {}),
+                                             ("wavefront", "off", dict(debug_mode=1))])
+def test_other_paths_keep_their_kernels(tiny, backend, mxu, kw_):
+    """Every frame but the exact wavefront's launches the kernels it did
+    before the form rule: the fused primary and bounces with
+    ``mxu="closest"``, the megakernel, the debug kernel; its key says
+    ``"fused"``."""
+    st = cosig_tpu_torch.RenderSettings(resolution_override=(32, 24), max_depth=3, **kw_)
+    r = cosig_tpu_torch.Renderer(device="cpu", backend=backend, mxu=mxu)
+    path = r.kernel_path(tsoa.static_config(tiny, st))
+    assert trender.wavefront_form(path, mxu) == "fused" and r.graph_key(tiny, st)[5] == "fused"
+    with trace.recording() as plan:
+        img = r.render_to_device(tiny, st)
+    cset, uni, lights, cfg, pk = _frame_inputs(tiny, st, r)
+    with trace.recording() as before:
+        if path == "debug":
+            ref, rays = ttm.render_debug(cset, uni, lights, cfg, **pk)
+        elif path == "megakernel":
+            ref, rays = ttm.render_clusters(cset, uni, lights, cfg, **pk, mxu=mxu)
+        else:
+            ref, rays = ttw.render_wavefront(cset, uni, lights, cfg, **pk, mxu=mxu)
+    assert torch.equal(img, ref) and r.last_stats.rays_traced == rays
+    assert plan.labels == before.labels == {"debug": ["debug"], "megakernel": ["megakernel"],
+                                            "wavefront": FUSED_PLAN}[path]
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing(tiny):

@@ -14,12 +14,15 @@ import chip_smoke
 import cosig_tpu_torch
 from cosig_tpu_torch.kernels import binding
 from cosig_tpu_torch.models import soa as tsoa
+from cosig_tpu_torch.ops import frame_graph
 from cosig_tpu_torch.ops import kernel_core as tkc
 from cosig_tpu_torch.ops import trace_megakernel as ttm
 from cosig_tpu_torch.ops import trace_wavefront as ttw
 from cosig_tpu_torch.utils import trace
 
 FRAME_STEPS = ("settings", "uniforms", "lookup", "write", "launch", "copy_out", "wait")
+FISSION_PLAN = ("primary", "shade_all", "compact.1", "trace.1", "shade.1", "compact.2", "trace.2",
+                "shade.2")
 
 
 def _tiny():
@@ -69,8 +72,8 @@ def test_frame_spans_nest_in_order_under_the_profiler():
     for (_, s, e), (_, s2, _) in zip(children, children[1:] + [("", r1, r1)]):
         assert r0 <= s <= e <= s2 <= r1
     rec = trace.frames()[-1]
-    assert rec.capture is None and rec.plan == ("primary", "compact.1", "bounce.1", "compact.2",
-                                                 "bounce.2")
+    # The Renderer's wavefront form with the exact pair test: fission.
+    assert rec.capture is None and rec.plan == FISSION_PLAN
 
 
 def test_first_frame_records_the_geometry_and_no_capture(monkeypatch):
@@ -172,7 +175,7 @@ def test_setup_and_captures_on_card(card):
     assert all(v > 0 for v in cap.steps.values())
     assert cap.parents["cosig.setup.kernels"] == "cosig.setup.warmup"
     assert r._graph[2].capture_s == cap.steps["cosig.setup.capture"] and cap.pool_bytes > 0
-    assert cap.plan == ("primary", "compact.1", "bounce.1", "compact.2", "bounce.2")
+    assert cap.form == "fission" and cap.plan == FISSION_PLAN
     r.render_to_device(scene, _settings(camera_rotation_override=(0.0, 0.0, 20.0)))
     assert trace.COUNTS["captures"] == captures + 1 and r.last_capture is cap
     r.render_to_device(scene, _settings(resolution_override=(24, 16)))
@@ -227,3 +230,35 @@ def test_spans_hold_the_frames_device_work_on_card(card, kw):
                              cfg)
     want = {d: int(n.item()) for d, n in eager.n_live}
     assert records[-1].live_rays == want and list(want) == list(range(1, cfg.max_depth))
+
+
+@pytest.mark.gpu
+def test_renderer_replays_the_fission_form_on_card(card):
+    """The Renderer's wavefront graph is the fission form: over four orbit
+    poses each replay equals a fused FrameGraph of the same key bit for
+    bit, image and rays; its capture record names the form, its plan and
+    launches the fission kernels and no bounce, and the camera moves
+    capture nothing."""
+    r = cosig_tpu_torch.Renderer(device=card)
+    scene, st = _tiny(), _settings(resolution_override=(40, 24), aa_samples=2)
+    r.render_to_device(scene, st)
+    cap, captures = r.last_capture, trace.COUNTS["captures"]
+    assert r.graph_key(scene, st)[4:] == ("off", "fission")
+    assert cap.form == "fission" and cap.plan == FISSION_PLAN
+    assert {k: v for k, v in cap.launches.items() if v} == dict(
+        primary_fission=1, shade=3, compact=2, trace=2, graph=1)
+    cset, prims, counts = r._geometry_for(scene)
+    fused = None
+    for i in range(4):
+        st_i = st.replace(camera_rotation_override=(0.0, 0.0, 10.0 * i))
+        img = r.render_to_device(scene, st_i)
+        params, cfg = tsoa.frame_params(scene, st_i), tsoa.static_config(scene, st_i)
+        uni, lights = tkc.build_uniforms(params), tkc.build_lights(params, cfg.multi_light)
+        if fused is None:
+            fused = frame_graph.FrameGraph("wavefront", cset, cfg, uni, lights, prims, counts,
+                                           fission=False)
+        ref, rays = fused.replay(uni, lights)
+        assert torch.equal(img, ref) and r.last_stats.rays_traced == int(rays)
+    assert fused.capture.form == "fused" and "bounce.1" in fused.capture.plan
+    # The fused graph's capture is the one more: the renderer's frames made none.
+    assert trace.COUNTS["captures"] == captures + 1 and r.last_capture is cap
