@@ -46,7 +46,7 @@ from cosig_tpu_torch.accel.clusters import CULL_BLOCK, GEOM_COMPS, MAX_SUPERBLOC
 from cosig_tpu_torch.kernels import build as kbuild
 from cosig_tpu_torch.models.soa import StaticConfig
 from cosig_tpu_torch.ops import camera, trace_wavefront
-from cosig_tpu_torch.ops.kernel_core import UNIFORMS_LEN
+from cosig_tpu_torch.ops.kernel_core import U_ROW_OFF, UNIFORMS_LEN
 from cosig_tpu_torch.utils import trace
 
 F32 = np.float32
@@ -178,6 +178,58 @@ class FrameBuffer:
         with torch.cuda.device(self.device):
             self.data.copy_(self._pinned[i], non_blocking=True)
             self._copied[i].record()
+
+    def band(self, row_offset: int) -> BandBuffer:
+        """A view of this frame for the band of rows at ``row_offset``."""
+        return BandBuffer(self, row_offset)
+
+
+# The row offset's bytes in a FRAME_DATA record.
+ROW_OFF_BYTES = FRAME_DATA.fields["u"][1] + 4 * U_ROW_OFF
+
+
+class BandBuffer:
+    """One band's view of a :class:`FrameBuffer`: the frame's uniforms
+    (``uniforms``, the row offset set to the band's), materials and
+    lights. On a CUDA device it has a :data:`FRAME_DATA` record of its own
+    (``data``), which :meth:`copy` fills on the current stream from the
+    frame's record and the band's row offset, both on the device: queued
+    after the frame's write and before the band's launches (a graph
+    captures the copy), it gives each band its rows with no further write
+    from the host."""
+
+    def __init__(self, buffer: FrameBuffer, row_offset: int):
+        self.buffer, self.row_offset, self.device = buffer, int(row_offset), buffer.device
+        self.data = self._offset = None
+        if buffer.data is not None:
+            self.data = torch.empty_like(buffer.data)
+            self._offset = torch.from_numpy(np.array([row_offset], F32).view(np.uint8)).to(
+                self.device)
+
+    @property
+    def uniforms(self):
+        if self.buffer.uniforms is None:
+            return None
+        u = self.buffer.uniforms.copy()
+        u[U_ROW_OFF] = F32(self.row_offset)
+        return u
+
+    @property
+    def mats(self):
+        return self.buffer.mats
+
+    @property
+    def lights(self):
+        return self.buffer.lights
+
+    def copy(self) -> None:
+        """Queue the frame's record, with the band's row offset, into
+        ``data`` (nothing on the CPU, where the plain versions read
+        ``uniforms``)."""
+        if self.data is not None:
+            with torch.cuda.device(self.device):
+                self.data.copy_(self.buffer.data)
+                self.data[ROW_OFF_BYTES:ROW_OFF_BYTES + 4].copy_(self._offset)
 
 
 def frame_buffer(device, uniforms: np.ndarray, mats: np.ndarray,

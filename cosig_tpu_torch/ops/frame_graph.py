@@ -13,7 +13,13 @@ set, ``StaticConfig``, band, row offset, primitive table) as a
 ``torch.cuda.CUDAGraph``, on a side stream after one eager warm-up frame
 there (``capture_begin``/``capture_end``: the ``torch.cuda.graph``
 context would also collect garbage and empty the allocator's cache at
-every capture):
+every capture). A whole wavefront frame of :data:`trace_wavefront.MAX_RAYS`
+camera rays or more is captured in the row bands of
+:func:`~cosig_tpu_torch.ops.trace_wavefront.band_plan`, one after another
+in the one graph (:func:`~cosig_tpu_torch.ops.trace_wavefront.banded_frame`):
+each band after the first reads a copy of the frame's data with its row
+offset, which the graph makes on the device, and reuses the memory of
+the band before it:
 
 * ``"wavefront"``: the primary kernel, then a compaction and a bounce per
   depth, then finalize (the list lengths stay on the device, so the
@@ -37,7 +43,8 @@ owns, so :meth:`FrameGraph.replay` writes that buffer on the current
 stream and replays: a new camera or new lights need no new capture. The
 graph's private memory pool holds what the frame allocates: the state
 [16, N] ([24, N] with fission), the lists and their lengths, the compaction's scratch, the
-image and the int64 ray count (``pool_bytes``).
+image and the int64 ray count (``pool_bytes``); a banded frame's state
+and lists are one band's.
 
 A replayed frame is the eager frame bit for bit: the same launches with
 the same arguments. A capture that the CUDA runtime refuses raises;
@@ -87,7 +94,10 @@ class FrameGraph:
     (its set-up steps' seconds, its ``form``, the plan of its kernels,
     ``pool_bytes``: the device memory the capture reserved for the graph's pool,
     ``launches``: what one replay adds to ``binding.LAUNCHES``, the kernels
-    the graph holds and ``graph`` 1); ``capture_s``, ``pool_bytes`` and
+    the graph holds and ``graph`` 1; ``bands``: the row bands, ``plan``
+    those of :func:`~cosig_tpu_torch.ops.trace_wavefront.band_plan` for a
+    whole wavefront frame, else the one band of ``rows`` at ``row_offset``);
+    ``capture_s``, ``pool_bytes`` and
     ``launches`` read it. The eager warm-up frame and the capture are the
     set-up spans ``cosig.setup.warmup`` and ``cosig.setup.capture``; a
     replay's steps are the frame spans ``cosig.frame.write``, ``.launch``
@@ -113,8 +123,12 @@ class FrameGraph:
         self.prims = prims  # the graph reads this table's memory
         self.fb = binding.FrameBuffer(dev, RING)
         self.forms = forms  # the graph reads these sets' memory
-        run = functools.partial(PATHS[path], cset, self.fb, cfg, self.band, self.row_offset,
-                                prims, n_sph, n_box, **forms)
+        self.plan = ((self.row_offset, self.band),)
+        if path == "wavefront" and rows is None and self.row_offset == 0:
+            self.plan = trace_wavefront.band_plan(cfg)
+        # The graph copies into and reads the band views' memory.
+        self.fbs = _buffers(self.fb, self.plan)
+        run = _runner(path, cset, self.fbs, cfg, self.plan, prims, n_sph, n_box, forms)
         with torch.cuda.device(dev):
             self.fb.write(uniforms, self.mats, lights)
             current = torch.cuda.current_stream(dev)
@@ -140,8 +154,10 @@ class FrameGraph:
                 pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             current.wait_stream(side)
         launches["graph"] = 1
+        per_row = cfg.width * max(1, cfg.aa_samples)
         self.capture = trace.captured(path, plan, pool_bytes, launches,
-                                      "fission" if forms.get("fission") else "fused")
+                                      "fission" if forms.get("fission") else "fused",
+                                      [(off, n, n * per_row) for off, n in self.plan])
         # The compactions' list lengths in the graph's pool, and the pinned
         # copy that a traced replay fills (None on paths with no compaction).
         self._lives = trace.live_tensor(plan.n_live)
@@ -204,6 +220,26 @@ class FrameGraph:
                 return img, int(total)
 
 
+def _buffers(fb, plan: tuple) -> list:
+    """The frame buffer of each band of ``plan``: ``fb`` for the first,
+    then a band view of it for each further band (made outside any
+    capture, and kept as long as a graph that reads them)."""
+    return [fb] + [fb.band(off) for off, _ in plan[1:]]
+
+
+def _runner(path: str, cset: ClusterSet, fbs: list, cfg: StaticConfig, plan: tuple, prims,
+            n_sph: int, n_box: int, forms: dict):
+    """``path``'s frame in the bands of ``plan`` with no host read, as a
+    function of no arguments -> (image, int64 rays); ``fbs``: the bands'
+    buffers (:func:`_buffers`)."""
+    if len(plan) == 1:
+        (off, rows), = plan
+        return functools.partial(PATHS[path], cset, fbs[0], cfg, rows, off, prims, n_sph, n_box,
+                                 **forms)
+    return functools.partial(trace_wavefront.banded_frame, cset, fbs, cfg, plan, prims, n_sph,
+                             n_box, **forms)
+
+
 def _forms(path: str, cset: ClusterSet, forms: dict) -> dict:
     """The keyword arguments of ``path``'s frame for the wavefront forms
     and the pair test's form ``forms``; raise where the path has none or
@@ -227,9 +263,10 @@ def render_chain(path: str, cset: ClusterSet, uniforms: np.ndarray, lights: np.n
                  cfg: StaticConfig, k: int, prims=None, prim_counts=(0, 0), **forms):
     """``k`` whole frames of ``path`` queued with no host read in between ->
     ``(last image [H, W, 3], total rays of the k frames as an int)``: on a
-    card one capture and k replays, on the CPU k plain frames. ``forms``:
-    the wavefront's ``cset_primary``, ``cset_shadow`` and ``fission``, and
-    ``mxu``."""
+    card one capture and k replays, on the CPU k plain frames, the
+    wavefront's in the bands of ``trace_wavefront.band_plan`` as on the
+    card. ``forms``: the wavefront's ``cset_primary``, ``cset_shadow`` and
+    ``fission``, and ``mxu``."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if cset.device.type == "cuda":
@@ -240,10 +277,12 @@ def render_chain(path: str, cset: ClusterSet, uniforms: np.ndarray, lights: np.n
         cset, uniforms, lights, 0, None, prims, prim_counts)
     with trace.span("cosig.frame.write"):
         fb = binding.frame_buffer(cset.device, uniforms, mats, lights)
+    plan = trace_wavefront.band_plan(cfg) if path == "wavefront" else ((0, cfg.height),)
+    run = _runner(path, cset, _buffers(fb, plan), cfg, plan, prims, n_sph, n_box, forms)
     total = 0
     with trace.span("cosig.frame.launch"):
         for _ in range(k):
-            img, rays = PATHS[path](cset, fb, cfg, cfg.height, 0, prims, n_sph, n_box, **forms)
+            img, rays = run()
             total = total + rays
     with trace.span("cosig.frame.wait"):
         return img, int(total)

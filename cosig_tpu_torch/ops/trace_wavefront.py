@@ -73,14 +73,39 @@ from cosig_tpu_torch.ops.intersect import _div
 F32 = np.float32
 
 
+# Camera rays a band holds fewer of: the ray ids ride a float32 state row.
+MAX_RAYS = 2 ** 24
+
+
 def num_rays(cfg: StaticConfig, band: int) -> int:
     """Rays in a band of ``band`` rows; ray ids must stay f32-exact."""
     n = band * cfg.width * max(1, cfg.aa_samples)
-    if n >= 2 ** 24:
+    if n >= MAX_RAYS:
         raise ValueError(
-            f"{n} rays exceed f32-exact ray ids; render in row bands (rows/row_offset)"
+            f"{n} rays exceed f32-exact ray ids; render in row bands (rows/row_offset, "
+            "or band_plan)"
         )
     return n
+
+
+def band_plan(cfg: StaticConfig) -> tuple:
+    """The row bands of a whole frame -> ((row_offset, rows), ...): the
+    fewest bands of ``sharding.wavefront_band`` rows (a multiple of the
+    primary block's rows) that each hold fewer than :data:`MAX_RAYS`
+    camera rays, the last cut at the image. A frame under the cap is one
+    band, ``((0, height),)``."""
+    from cosig_tpu_torch.parallel import sharding
+
+    per_row = cfg.width * max(1, cfg.aa_samples)
+    n = 1
+    while True:
+        band = sharding.wavefront_band(cfg, n)
+        if min(band, cfg.height) * per_row < MAX_RAYS:
+            return tuple((off, min(band, cfg.height - off))
+                         for off in sharding.band_offsets(cfg.height, band, n))
+        if band <= sharding.primary_block(max(1, cfg.aa_samples))[0]:
+            num_rays(cfg, band)  # one block of rows is past the cap: raise
+        n += 1
 
 
 def _seed_planes(rid: torch.Tensor, cfg: StaticConfig, row_offset: float):
@@ -304,13 +329,16 @@ def shade_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Ten
         st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box, mxu=mxu, **kw))
 
 
-def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: bool = False):
+def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: bool = False,
+             out: torch.Tensor | None = None):
     """AA mean and untile -> (image [band, W, 3], rays traced).
 
     The samples of a pixel are consecutive ids; they are summed in sample
     order and divided by aa. The ray count is summed in int64 (a float32
     sum drops integers above 2^24): an int, or with ``rays_on_device`` an
-    int64 tensor on the state's device, which the host does not wait for."""
+    int64 tensor on the state's device, which the host does not wait for.
+    ``out``: a contiguous f32 [band, W, 3] that the image is written into
+    (a band's rows of a larger image), else a new tensor."""
     aa = max(1, cfg.aa_samples)
     colors = state[9:12].reshape(3, band, cfg.width, aa)
     acc = colors[..., 0]
@@ -318,7 +346,8 @@ def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: 
         acc = acc + colors[..., k]
     if aa > 1:
         acc = _div(acc, float(aa))
-    img = acc.permute(1, 2, 0).contiguous()
+    img = acc.permute(1, 2, 0)
+    img = img.contiguous() if out is None else out.copy_(img)
     rays = state[ROW_COUNT].to(torch.int64).sum()
     return img, (rays if rays_on_device else int(rays))
 
@@ -344,7 +373,7 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
 
 def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tensor,
            n_sph: int, n_box: int, plain: bool = False, cset_primary=None, cset_shadow=None,
-           fission: bool = False, mxu: str = "off") -> torch.Tensor:
+           fission: bool = False, mxu: str = "off", lives=None) -> torch.Tensor:
     """The primary stage and the ``max_depth - 1`` bounce stages of the
     frame in ``fb`` (a written
     :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> the final
@@ -354,7 +383,9 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     forms of the module docstring; with ``fission`` a frame is primary
     trace, shade, then per depth compaction, trace and shade; ``mxu``: the
     pair test's form of every stage (the shade's shadow rays exact on a
-    separate shadow set). Nothing here
+    separate shadow set); ``lives``: the int32 [max_depth - 1] on the
+    device that the compactions write their list lengths into, else a new
+    one. Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -389,7 +420,8 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     if fission:
         kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu)
     # The list lengths side by side, so a traced frame reads them with one copy.
-    lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
+    if lives is None:
+        lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
     for depth in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state, lives[depth - 1:depth])
         if fission:
@@ -410,6 +442,37 @@ def one_frame(cset: ClusterSet, fb, cfg: StaticConfig, band: int, row_offset: in
     state = stages(cset, fb, cfg, band, prims, n_sph, n_box, plain, cset_primary, cset_shadow,
                    fission, mxu)
     return finalize(state, cfg, band, rays_on_device=True)
+
+
+def banded_frame(cset: ClusterSet, fbs: list, cfg: StaticConfig, plan: tuple,
+                 prims: torch.Tensor, n_sph: int, n_box: int, plain: bool = False,
+                 cset_primary=None, cset_shadow=None, fission: bool = False, mxu: str = "off"):
+    """A whole frame in the row bands of ``plan`` (:func:`band_plan`) ->
+    ``(img [H, W, 3], rays as an int64 tensor)`` on the cluster set's
+    device, with no host read: one band after another, each through
+    :func:`stages`, its state freed before the next band's is made, its
+    finalize writing its rows of the one image; the bands' ray counts are
+    summed on the device. ``fbs``: the frame's written
+    :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer` (row offset 0,
+    the first band's), then a :meth:`~cosig_tpu_torch.kernels.binding.FrameBuffer.band`
+    view of it for each further band, whose ``copy`` queues the frame's
+    data with the band's row offset before the band's kernels. The list
+    lengths of every band lie in one buffer, band after band. A frame in
+    one band is :func:`one_frame`, which writes no copy of its image."""
+    dev = cset.device
+    image = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32, device=dev)
+    depths = max(0, cfg.max_depth - 1)
+    lives = torch.empty(len(plan) * depths, dtype=torch.int32, device=dev)
+    total = None
+    for b, (fb, (off, rows)) in enumerate(zip(fbs, plan)):
+        if b:
+            fb.copy()
+        state = stages(cset, fb, cfg, rows, prims, n_sph, n_box, plain, cset_primary,
+                       cset_shadow, fission, mxu, lives[b * depths:(b + 1) * depths])
+        _, rays = finalize(state, cfg, rows, rays_on_device=True, out=image[off:off + rows])
+        total = rays if total is None else total + rays
+        del state  # the next band's state takes its memory
+    return image, total
 
 
 def trace_state(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,

@@ -27,8 +27,10 @@ which waits for that device's earlier work only.) Only rows inside the image cou
 rays, so a sharded frame counts the rays of the single frame; the JAX
 package's ``render_sharded_pallas`` also counts the megakernel's padding
 rows past the image. A band of the wavefront must hold fewer than 2^24
-rays (its ray ids ride a float32 row): when ``n`` is too small for that,
-the call raises before it queues any work.
+rays (``trace_wavefront.MAX_RAYS``: its ray ids ride a float32 row): when
+``n`` is too small for that, the call raises before it queues any work.
+The Renderer's frame on one device cuts itself into such bands with
+:func:`wavefront_band` (``trace_wavefront.band_plan``), inside one graph.
 
 The list of devices may repeat a device (``[cuda:0] * 4`` renders four
 bands on one card, one after another) and may hold ``cpu``, where the

@@ -39,7 +39,11 @@ the ``StaticConfig`` and the forms): a change of camera, lights,
 background or the other per-frame values replays it; a change of
 resolution, depth, AA, a toggle or the debug mode captures a new one,
 which replaces it; ``invalidate_cache`` frees it. Its private memory
-pool holds the frame's buffers. The oracle path runs eagerly.
+pool holds the frame's buffers. A wavefront frame of 2^24 camera rays or
+more (2048² at AA 4) renders in row bands
+(``trace_wavefront.band_plan``), one after another in the one graph, on
+the card and, through the same bands, on the CPU; each frame is still one
+replay and one read. The oracle path runs eagerly.
 ``Renderer.last_capture`` is the graph's capture record (set-up steps'
 seconds, the form and the plan of its kernels, pool bytes, launches).
 
@@ -264,8 +268,9 @@ class Renderer:
             # The geometry's own set-up, where an earlier capture built it.
             graph.capture.steps.setdefault("cosig.setup.geometry", self._geometry_s)
             self._graph = (key, scene, graph)
-            log.info("captured a %s %s frame graph: %.3f s, %d pool bytes", graph.capture.form,
-                     key[2], graph.capture.steps["cosig.setup.capture"], graph.capture.pool_bytes)
+            log.info("captured a %s %s frame graph in %d band(s): %.3f s, %d pool bytes",
+                     graph.capture.form, key[2], len(graph.capture.bands),
+                     graph.capture.steps["cosig.setup.capture"], graph.capture.pool_bytes)
         return self._graph[2]
 
     def _frames(self, scene: SceneData, settings: RenderSettings, k: int):

@@ -8,6 +8,10 @@ BASELINE.json "configs" (paraphrased):
 4. glass-sphere scene, refraction, depth 6, 1024x1024, 4x AA
 5. large mesh (10k+ tris) with acceleration, full reflect+refract, 2048x2048
 
+``large_mesh_aa4`` is config 5 at the upstream UI's AA 4 (its AA control
+cycles 1, 2, 4, 8): 2^24 camera rays, past one wavefront band. The JAX
+package has no such entry; the rest are its configs unchanged.
+
 These are built programmatically (not copied from the reference's scene
 assets) via the same SceneData model the parser produces, so every config
 exercises the full compilation pipeline.
@@ -206,10 +210,17 @@ def config5_large_mesh(resolution: int = 2048):
     return s, RenderSettings(max_depth=4)
 
 
+def config5_large_mesh_aa4():
+    """Config 5 at AA 4: 2048x2048 x 4 samples = 2^24 camera rays."""
+    s, settings = config5_large_mesh()
+    return s, settings.replace(aa_samples=4)
+
+
 CONFIGS = {
     "diffuse_sphere": config1_diffuse_sphere,
     "cosig_walls": config2_cosig_walls,
     "mirror_sphere": config3_mirror_sphere,
     "glass_sphere": config4_glass_sphere,
     "large_mesh": config5_large_mesh,
+    "large_mesh_aa4": config5_large_mesh_aa4,
 }

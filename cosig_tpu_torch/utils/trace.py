@@ -37,10 +37,15 @@ launches, recorded by the launch wrappers (:func:`plan_step`):
 ``primary``, then ``compact.1``, ``bounce.1``, ... (fused) or
 ``shade_all``, ``compact.1``, ``trace.1``, ``shade.1``, ... (fission),
 ``megakernel``, ``debug``. The k-th
-``cosig::`` kernel of a traced frame on the card is the plan's k-th.
-While on, each frame leaves a :class:`FrameRecord` (:func:`frames`) with
-its plan and ``live_rays``: the length of the list each compaction hands
-to depth d, read after the frame's wait.
+``cosig::`` kernel of a traced frame on the card is the plan's k-th. A
+frame in row bands (``trace_wavefront.band_plan``) repeats the labels
+band after band: each band starts at a ``primary``, its compactions
+hand their lists to depths 1, 2, ...; a capture's ``plan_bands`` gives
+the band of each label, its ``bands`` each band's (row offset, rows,
+camera rays). While on, each frame leaves a :class:`FrameRecord`
+(:func:`frames`) with its plan, ``live_rays`` (the length of the lists
+handed to depth d, summed over the bands) and ``band_live`` (by band and
+depth), read after the frame's wait.
 """
 
 from __future__ import annotations
@@ -100,8 +105,11 @@ class Capture:
     ``cosig.setup.*`` step run for it, and the geometry's of its scene),
     ``parents`` (the set-up span that enclosed a step, or None),
     ``pool_bytes``, ``launches`` (what one replay adds to
-    ``binding.LAUNCHES``) and ``form``: ``"fission"`` where the wavefront's
-    stages are split into trace and shade kernels, else ``"fused"``."""
+    ``binding.LAUNCHES``), ``form``: ``"fission"`` where the wavefront's
+    stages are split into trace and shade kernels, else ``"fused"``,
+    ``bands``: (row offset, rows, camera rays) of each row band the frame
+    renders, one entry for a frame in one band, and ``plan_bands``: the
+    band of each label of ``plan``."""
 
     index: int
     path: str
@@ -111,37 +119,48 @@ class Capture:
     pool_bytes: int = 0
     launches: dict = field(default_factory=dict)
     form: str = "fused"
+    bands: tuple = ()
+    plan_bands: tuple = ()
 
 
 @dataclass
 class FrameRecord:
     """One traced frame: its number (the ``cosig.frame`` range's argument),
     its ``plan``, the :class:`Capture` it replayed (None for an eager
-    frame) and ``live_rays`` {depth: listed rays}."""
+    frame), ``live_rays`` {depth: listed rays, summed over the bands} and
+    ``band_live`` {(band, depth): listed rays}."""
 
     frame: int
     plan: tuple = ()
     capture: Capture | None = None
     live_rays: dict = field(default_factory=dict)
+    band_live: dict = field(default_factory=dict)
 
 
 class _Plan:
-    """Labels of the kernels launched, in order, and each compaction's
-    list length (a tensor) by the depth it hands the list to: the k-th
+    """Labels of the kernels launched, in order, the band of each
+    (``plan_bands``: every primary stage after the first starts the next band)
+    and each compaction's list length (a tensor) by the depth it hands the
+    list to (``n_live``), and by its band (``live_bands``): the k-th
     compaction after a primary stage hands it to depth k."""
 
     def __init__(self):
-        self.labels, self.n_live = [], []
+        self.labels, self.plan_bands, self.n_live, self.live_bands = [], [], [], []
         self._compactions = 0
+        self._band = -1
 
     def step(self, stage: str, depth: int, n_live) -> None:
         if stage == "primary":
             self._compactions = 0
+            self._band += 1
+        band = max(self._band, 0)
         if stage == "compact":
             self._compactions += 1
             depth = self._compactions
             self.n_live.append((depth, n_live))
+            self.live_bands.append(band)
         self.labels.append(f"{stage}.{depth}" if depth else stage)
+        self.plan_bands.append(band)
 
 
 def plan_step(stage: str, depth: int = 0, n_live=None) -> None:
@@ -192,11 +211,25 @@ class _Frame:
         rec = self.record
         if rec.capture is None:
             rec.plan = tuple(self._plan.labels)
-            rec.live_rays = {d: int(n.reshape(-1)[0]) for d, n in self._plan.n_live}
+            _live_records(rec, zip(self._plan.live_bands, (d for d, _ in self._plan.n_live)),
+                          [int(n.reshape(-1)[0]) for _, n in self._plan.n_live])
         elif self._live is not None:
-            rec.live_rays = dict(enumerate(self._live.tolist(), 1))
+            cap = rec.capture
+            keys = [(b, int(label.rpartition(".")[2])) for label, b in
+                    zip(cap.plan, cap.plan_bands) if label.startswith("compact.")]
+            _live_records(rec, keys, self._live.tolist())
         _frames.append(rec)
         return False
+
+
+def _live_records(rec: FrameRecord, keys, counts: list) -> None:
+    """Fill ``rec``'s ``band_live`` from each compaction's (band, depth)
+    ``keys`` and list length ``counts``, and its ``live_rays`` with their
+    sums by depth."""
+    rec.band_live = dict(zip(keys, counts))
+    rec.live_rays = {}
+    for (_, depth), n in rec.band_live.items():
+        rec.live_rays[depth] = rec.live_rays.get(depth, 0) + n
 
 
 def frame():
@@ -237,13 +270,16 @@ def pending_setup() -> dict:
     return dict(_pending)
 
 
-def captured(path: str, plan: _Plan, pool_bytes: int, launches: dict, form: str) -> Capture:
+def captured(path: str, plan: _Plan, pool_bytes: int, launches: dict, form: str,
+             bands: tuple) -> Capture:
     """Count a capture and keep its record, which takes the set-up steps
-    run since the last one."""
+    run since the last one; ``bands``: (row offset, rows, camera rays) of
+    each band."""
     global _last_capture
     COUNTS["captures"] += 1
     _last_capture = Capture(COUNTS["captures"], path, tuple(plan.labels), dict(_pending),
-                            {k: _parents.get(k) for k in _pending}, pool_bytes, launches, form)
+                            {k: _parents.get(k) for k in _pending}, pool_bytes, launches, form,
+                            tuple(bands), tuple(plan.plan_bands))
     _pending.clear()
     return _last_capture
 
@@ -259,10 +295,11 @@ def frames() -> list:
 
 
 def live_tensor(n_live: list):
-    """A plan's list lengths as one int32 tensor [depths] where they are
-    consecutive elements of one buffer, as ``trace_wavefront.stages``
-    allocates them (a view, read with one copy), else None."""
-    if not n_live or [d for d, _ in n_live] != list(range(1, len(n_live) + 1)):
+    """A plan's list lengths as one int32 tensor [compactions] where they
+    are consecutive elements of one buffer, as ``trace_wavefront.stages``
+    and ``banded_frame`` allocate them (a view, read with one copy), else
+    None."""
+    if not n_live:
         return None
     first = n_live[0][1]
     if first.dtype != torch.int32 or any(

@@ -95,13 +95,27 @@ def test_jax_parsed_scene_renders_in_port(backend):
         np.testing.assert_array_equal(a, b)
 
 
+# The port's configurations that the JAX package lacks: name -> (the JAX
+# configuration it is built from, the settings it changes).
+PORT_ONLY = {"large_mesh_aa4": ("large_mesh", {"aa_samples": 4})}
+
+
 @pytest.mark.parametrize("name", sorted(jgen.CONFIGS))
 def test_generator_copy_matches_jax(name):
-    assert sorted(tgen.CONFIGS) == sorted(jgen.CONFIGS)
+    assert sorted(tgen.CONFIGS) == sorted([*jgen.CONFIGS, *PORT_ONLY])
     j_scene, j_settings = jgen.CONFIGS[name]()
     t_scene, t_settings = tgen.CONFIGS[name]()
     assert dataclasses.asdict(t_scene) == dataclasses.asdict(j_scene)
     assert dataclasses.asdict(t_settings) == dataclasses.asdict(j_settings)
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ONLY))
+def test_port_only_config_is_a_jax_config_with_other_settings(name):
+    base, changed = PORT_ONLY[name]
+    j_scene, j_settings = jgen.CONFIGS[base]()
+    t_scene, t_settings = tgen.CONFIGS[name]()
+    assert dataclasses.asdict(t_scene) == dataclasses.asdict(j_scene)
+    assert dataclasses.asdict(t_settings) == dataclasses.asdict(j_settings.replace(**changed))
 
 
 def test_render_settings_copy_matches_jax():

@@ -29,7 +29,7 @@ from cosig_tpu_torch.scene.tessellate import extract_triangles as textract
 from cosig_tpu_torch.utils import gif as tgif
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENES = [*TCONFIGS, "demo_cornell", "tiny"]
+SCENES = [*JCONFIGS, "demo_cornell", "tiny"]  # the port-only configs reuse their scenes
 BVH_FIELDS = ("node_min", "node_max", "left_or_first", "count", "order")
 
 

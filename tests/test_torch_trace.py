@@ -136,6 +136,61 @@ def test_live_tensor_reads_one_buffer():
     assert trace.live_tensor(apart) is None and trace.live_tensor([]) is None
 
 
+def test_banded_frame_records_live_rays_by_band_and_depth(monkeypatch):
+    """An eager traced frame in two bands (the cap set low): its plan
+    repeats the one-band plan, ``band_live`` keys each list by (band,
+    depth) and ``live_rays`` sums the bands by depth, the one-band
+    frame's live rays."""
+    r = cosig_tpu_torch.Renderer(device="cpu")
+    scene, st = _tiny(), _settings(resolution_override=(64, 64), aa_samples=4)
+    with profile(activities=[ProfilerActivity.CPU]):
+        r.render_to_device(scene, st)
+        one = trace.frames()[-1]
+        monkeypatch.setattr(ttw, "MAX_RAYS", 16384)
+        r.render_to_device(scene, st)
+        two = trace.frames()[-1]
+    assert one.band_live == {(0, d): n for d, n in one.live_rays.items()}
+    assert two.plan == FISSION_PLAN * 2
+    assert set(two.band_live) == {(b, d) for b in (0, 1) for d in (1, 2)}
+    assert two.live_rays == one.live_rays == {
+        d: two.band_live[0, d] + two.band_live[1, d] for d in (1, 2)}
+
+
+def test_capture_records_bands_and_a_replay_keys_live_rays_by_depth(monkeypatch):
+    """A capture record's ``bands`` and ``plan_bands``; a replayed frame
+    reads its list lengths (one buffer, band after band) into ``band_live``
+    by (band, depth) and ``live_rays`` by depth, summed over the bands,
+    not by their order in the buffer."""
+    monkeypatch.setattr(trace, "_pending", {})
+    monkeypatch.setattr(trace, "COUNTS", {"captures": 0})
+    monkeypatch.setattr(trace, "_last_capture", None)
+    monkeypatch.setattr(trace, "_frames", trace.collections.deque(maxlen=trace.FRAMES_KEPT))
+    monkeypatch.setattr(ttw, "MAX_RAYS", 16384)
+    scene, st = _tiny(), _settings(resolution_override=(64, 64), aa_samples=4)
+    cfg = tsoa.static_config(scene, st)
+    params = tsoa.frame_params(scene, st)
+    cset, prims, counts = cosig_tpu_torch.Renderer(device="cpu")._geometry_for(scene)
+    plan_bands = ttw.band_plan(cfg)
+    assert plan_bands == ((0, 32), (32, 32))
+    with trace.recording() as plan:
+        frame_graph.render_chain("wavefront", cset, tkc.build_uniforms(params),
+                                 tkc.build_lights(params, False), cfg, 1, prims, counts,
+                                 fission=True)
+    bands = [(off, n, n * 64 * 4) for off, n in plan_bands]
+    cap = trace.captured("wavefront", plan, 0, {"graph": 1}, "fission", bands)
+    assert cap.bands == ((0, 32, 8192), (32, 32, 8192))
+    assert cap.plan == FISSION_PLAN * 2 and cap.plan_bands == (0,) * 8 + (1,) * 8
+    lives = torch.tensor([50, 7, 40, 3], dtype=torch.int32)
+    assert trace.live_tensor([(d, lives[i:i + 1]) for i, d in enumerate((1, 2, 1, 2))]).tolist() \
+        == [50, 7, 40, 3]
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.frame() as fr:
+            fr.replayed(cap, lives)
+    rec = trace.frames()[-1]
+    assert rec.band_live == {(0, 1): 50, (0, 2): 7, (1, 1): 40, (1, 2): 3}
+    assert rec.live_rays == {1: 90, 2: 10}
+
+
 def test_setup_spans_time_their_step_and_its_parent(monkeypatch):
     monkeypatch.setattr(trace, "_pending", {})
     monkeypatch.setattr(trace, "_parents", {})
