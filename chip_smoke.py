@@ -879,7 +879,8 @@ def cuda_activity(fn, tries: int = 3, calls: dict | None = None) -> list:
 def work_bound(work: dict, nbytes: int) -> dict:
     """Bound of one kernel call from the plain traversal's counted work and
     the bytes it must move."""
-    flops = (FLOPS_PER_SLAB * work["slab_tests"] + FLOPS_PER_PAIR * work["pair_tests"]
+    flops = (FLOPS_PER_SLAB * (work["slab_tests"] + work["group_tests"])
+             + FLOPS_PER_PAIR * work["pair_tests"]
              + FLOPS_PER_PRIM * work["prim_tests"]
              + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
     op_ms = flops / PEAK_F32_OPS * 1e3
@@ -1041,12 +1042,15 @@ def model_walks(device) -> dict:
                 row["trace"] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
                                     pair_slots=w["pair_slots"],
                                     per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
-                                    compacted=w["pair_tests"] / max(1, w["pair_slots"]))
+                                    compacted=w["pair_tests"] / max(1, w["pair_slots"]),
+                                    box_tests=w["group_tests"] + w["slab_tests"])
                 log(f"  {name} trace {d} ({m} live rays) pair-loop efficiency: warps in list "
                     f"order {100 * row['trace']['per_warp']:.1f} %, compacted (the trace "
                     f"kernel's schedule) {100 * row['trace']['compacted']:.1f} % "
                     f"({w['pair_tests']} pair tests, {w['warp_slots']} warp slots, "
-                    f"{w['pair_slots']} compacted slots)")
+                    f"{w['pair_slots']} compacted slots); box tests a listed ray "
+                    f"{row['trace']['box_tests'] / max(1, m):.2f} ({w['group_tests']} group, "
+                    f"{w['slab_tests']} member; the flat cull {cset.num_clusters})")
                 # The shade's any hits on the same list, after that trace.
                 row["shade"] = shade_model(
                     f"{name} shade {d} ({m} live rays)",
@@ -1161,9 +1165,12 @@ def time_kernels(device) -> list:
             kw.bounce(st, idx, n_live, cset, fb, cfg, depth, *pk)
             return st
 
-        def run_p():
+        warps = tw.list_warps(idx, n_live, state.shape[1])
+
+        def run_p():  # in the kernel's warps, whose two-level cull WORK counts
             st = copies_p.pop()
-            tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk)
+            tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, depth, *pk,
+                                   warps=warps)
             return st
 
         log(f"bounce input ({tag}): {live} of {state.shape[1]} rays alive")
@@ -1244,7 +1251,10 @@ def time_kernels(device) -> list:
 
     rec = kernel_row("megakernel", glass,
                   lambda: km.megakernel(cset, fb, cfg, band, *pk),
-                  lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk),
+                  lambda: tm.megakernel_plain(cset, uni, mats, lights, cfg, band, *pk,
+                                              warps=kc.warp_of_rays(
+                                                  tm.tile_slots(cfg.width, cfg.height),
+                                                  cfg.width * cfg.height).to(device)),
                   lambda o: geom_bytes + 4 * o.numel())
     del rec["result"]
     megakernel = dict(rec, source="cosig_tpu_torch/csrc/megakernel.cu",
@@ -2523,7 +2533,8 @@ def graph_frames(device, card: str, full_size: bool = True) -> dict:
         to_host = [a for a in acts_g if "DtoH" in a[0]]
         # The ray count's read; under the profiler a replay also copies the
         # compactions' list lengths (FrameGraph.replay, lives_host).
-        check(len(to_host) <= 1 + (g.lives_host is not None), name, backend,
+        check(len(to_host) <= 1 + (g.lives_host is not None) + (g.tests_host is not None), name,
+              backend,
               "device-to-host copies in a graph frame", to_host)
         # The replay's copies of its outputs: the image's is the longest
         # device-to-device copy of the frame.
@@ -3036,9 +3047,11 @@ def form_kernel_times(device) -> list:
                 kw.bounce(st, idx, n_live, cset, fb, cfg, d, *pk, cset_shadow=sh)
                 return st
 
+            warps = tw.list_warps(idx, n_live, n_rays)  # the kernels' warps: WORK's two-level cull
+
             def bounce_sh_p(st):
                 tw.bounce_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
-                                       cset_shadow=sh)
+                                       cset_shadow=sh, warps=warps)
                 return st
 
             row("bounce_shadow", at, bounce_sh, [st16.clone() for _ in range(5)], bounce_sh_p,
@@ -3049,7 +3062,7 @@ def form_kernel_times(device) -> list:
                 return st
 
             def trace_p(st):
-                tw.trace_listed_stage(st, idx, n_live, cset, *pk)
+                tw.trace_listed_stage(st, idx, n_live, cset, *pk, warps=warps)
                 return st
 
             traced_st = row("trace", at, trace, [st24.clone() for _ in range(5)], trace_p,
@@ -3060,7 +3073,8 @@ def form_kernel_times(device) -> list:
                 return st
 
             def shade_p(st):
-                tw.shade_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk)
+                tw.shade_listed_stage(st, idx, n_live, cset, uni, mats, lights, cfg, d, *pk,
+                                      warps=warps)
                 return st
 
             row("shade", at, shade, [traced_st.clone() for _ in range(5)], shade_p,
@@ -3130,7 +3144,8 @@ def mx_bound(work: dict, nbytes: int) -> dict:
     from cosig_tpu_torch.ops.kernel_core import MX_PRODUCTS
 
     pairs = work["pair_tests"]
-    f32 = (FLOPS_PER_SLAB * work["slab_tests"] + MX_SEL_OPS_PER_PAIR * pairs
+    f32 = (FLOPS_PER_SLAB * (work["slab_tests"] + work["group_tests"])
+           + MX_SEL_OPS_PER_PAIR * pairs
            + FLOPS_PER_PRIM * work["prim_tests"]
            + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
     op_ms = (MX_PRODUCTS * pairs / PEAK_BF16_MACS + f32 / PEAK_F32_OPS) * 1e3

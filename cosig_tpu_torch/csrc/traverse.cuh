@@ -42,6 +42,10 @@
 // a hull of one ray. Each is exact: it passes every box that some ray of
 // the hull passes in box_pass, so the lists the walk builds, and every
 // result, stay those of the flat walk; only the slab tests it runs fall.
+// Incoherent rays also take a two-level cull (group_pass below): a warp
+// tests the union box of each CULL_GROUP consecutive clusters first and
+// runs the members' slab tests only where some lane enters it, exact by
+// the same rule.
 //
 // Bound: the pair tests per ray, about 55 fp32 operations each (see
 // traverse_tile.cuh for where their operands come from). Padding rows
@@ -203,6 +207,40 @@ __device__ __forceinline__ bool box_pass(const Box& b, const Ray& r, float& tn) 
   const float tf =
       slab_min(slab_min(slab_max(t0x, t1x), slab_max(t0y, t1y)), slab_max(t0z, t1z));
   return !(tn > tf) && !(tf < 0.0f);
+}
+
+// The axes on which a ray's slab test of a box inside a union box may turn
+// NaN while the union's does not: bits 0-2 an infinite 1/d on x, y, z (its
+// slab is 0 * inf = NaN on a face at the origin, which the union may hold
+// strictly inside), bit 3 a NaN or infinite direction component. 0 for
+// almost every ray; group_pass reads it.
+__device__ __forceinline__ unsigned odd_axes(const Ray& r) {
+  unsigned b = (isinf(r.idx) ? 1u : 0u) | (isinf(r.idy) ? 2u : 0u) | (isinf(r.idz) ? 4u : 0u);
+  if (!isfinite(r.dx) || !isfinite(r.dy) || !isfinite(r.dz)) b |= 8u;
+  return b;
+}
+
+// The group test of the two-level cull (traverse_tile.cuh): the slab test of
+// the union box u of consecutive cluster boxes (NaN-propagating minima and
+// maxima of theirs), false only when the ray passes box_pass on none of them
+// (with `clip`, the any hit's tn <= max_t on none). Per axis, with 1/d
+// finite, fl(fl(b - o) * (1/d)) is monotone in b, so a member's slab
+// interval lies inside the union's, its tn is no smaller and its tf no
+// larger; a NaN in a member's slab from a NaN or infinite bound or origin
+// puts one in the union's slab on that axis, which passes. What is left,
+// as in frustum_pass: an axis of `odd` with an infinite 1/d and the origin
+// within the union's range there (a member's face may lie at the origin),
+// and a NaN or infinite direction, pass. About 28 operations.
+__device__ __forceinline__ bool group_pass(const Box& u, const Ray& r, unsigned odd, bool clip,
+                                           float max_t) {
+  float tn;
+  bool pass = box_pass(u, r, tn);
+  if (clip) pass = pass && !(tn > max_t);
+  if (odd == 0u) return pass;
+  return pass || (odd & 8u) != 0u ||
+         ((odd & 1u) && !(r.ox > u.b3) && !(r.ox < u.b0)) ||
+         ((odd & 2u) && !(r.oy > u.b4) && !(r.oy < u.b1)) ||
+         ((odd & 4u) && !(r.oz > u.b5) && !(r.oz < u.b2));
 }
 
 // The hull of a packet's rays (kernel_core.py:455-474): per axis the

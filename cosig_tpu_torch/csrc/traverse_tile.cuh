@@ -28,7 +28,23 @@
 //     clusters, else once per pass of TILE_C. Each active ray runs
 //     box_pass on every cluster of the pass that step 0 lets through; a
 //     warp ballot stores which lanes enter it, one word per (cluster,
-//     warp). The any hit also applies the tn > max_t skip here.
+//     warp). The any hit also applies the tn > max_t skip here. Without
+//     the frustum cull (incoherent rays: the trace, the bounce, the shade
+//     on a list, the megakernel past depth 0) a pass of more than
+//     CULL_GROUP clusters is culled in two levels: a warp tests the union
+//     box of each group of CULL_GROUP consecutive clusters (traverse.cuh
+//     group_pass, a superset of box_pass on every member, NaN slabs
+//     included) and runs its members' slab tests only where some lane
+//     enters it, else stores 0 as their ballot words; most bounce rays
+//     leave the scene, and a ray that enters few clusters skips most
+//     groups. The ballots, the list and every result stay the flat cull's.
+//     The union boxes are built with the boxes where the kernel asks at
+//     init or the pass culls without the frustum (stage_boxes), else at
+//     the first two-level cull of the boxes staged (stage_groups), so the
+//     kernels that only run the frustum cull carry none of that code. The
+//     block counts the box tests its warps run without the frustum cull
+//     (group and cluster, per lane), which the trace kernel adds to a
+//     counter of its launch (add_box_tests).
 //  2. List. Warp 0 compacts the clusters that some lane enters into a list
 //     in ascending cluster order: the closest-hit fold does not need the
 //     order (the (t, gid) winner is order-free), but the any hit must stop
@@ -103,6 +119,8 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 static_assert(ROW_BYTES == GEOM_COMPS * 4, "a ring row is one geometry row");
 static_assert(sizeof(Hull) == HULL_BYTES, "walk_layout.h sizes the hull");
 static_assert(TRACE_SLOT == 32, "the compacted walk finds a slot's real rows with one ballot");
+static_assert(32 % CULL_GROUP == 0 && TILE_C % CULL_GROUP == 0,
+              "a group's boxes are consecutive lanes of one warp, and groups tile a pass");
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -186,21 +204,27 @@ struct BlockWalk {
   unsigned char* smem;  // dynamic shared memory, laid out by tile_layout(slot(), MX)
   unsigned seq;  // bulk copies issued so far; the same in every thread
   bool sb_open;  // some ray of the block enters the current superblock; the same in every thread
+  bool grouped;  // groups() holds the staged boxes' union boxes; the same in every thread
   bool mx_any;  // MX: the any hit takes the tensor-core form too (full mode); the same in every thread
   int rows;  // PC: a slot's rows (slot_rows of k), set before init
 
-  // Every thread of the block, once, before the first walk.
-  __device__ __forceinline__ void init(const Geometry& geo, unsigned char* base) {
+  // Every thread of the block, once, before the first walk. `groups` (a
+  // constant of the kernel): its walks cull without the frustum cull, so
+  // the union boxes of the two-level cull are built with the boxes.
+  __device__ __forceinline__ void init(const Geometry& geo, unsigned char* base,
+                                       bool groups = false) {
     g = geo;
     smem = base;
     seq = 0;
     sb_open = true;
+    grouped = false;
     mx_any = false;
     if (threadIdx.x == 0) {
       for (int s = 0; s < RING_STAGES; ++s) mbar_init(smem_u32(smem + lay().bars + 8 * s), 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      count()[3] = 0;  // the block's box tests
     }
-    if (g.n_clusters <= TILE_C) stage_boxes(0);
+    if (g.n_clusters <= TILE_C) stage_boxes(0, groups);
     __syncthreads();
   }
 
@@ -213,6 +237,21 @@ struct BlockWalk {
 
   __device__ __forceinline__ float4* boxes() const {
     return reinterpret_cast<float4*>(smem + lay().boxes);
+  }
+  __device__ __forceinline__ float4* groups() const {
+    return reinterpret_cast<float4*>(smem + lay().groups);
+  }
+  // Box i of a [i][8] array in shared memory (boxes() or groups()).
+  static __device__ __forceinline__ Box box_at(const float4* bx, int i) {
+    const float4 lo = bx[2 * i], hi = bx[2 * i + 1];
+    Box b;
+    b.b0 = lo.x;
+    b.b1 = lo.y;
+    b.b2 = lo.z;
+    b.b3 = hi.x;
+    b.b4 = hi.y;
+    b.b5 = hi.z;
+    return b;
   }
   __device__ __forceinline__ unsigned* ballots() const {
     return reinterpret_cast<unsigned*>(smem + lay().ballots);
@@ -309,15 +348,71 @@ struct BlockWalk {
     return count()[2] != 0;
   }
 
-  // Boxes c0 .. c0 + TILE_C - 1 of aabb [8, c_pad] into [c][8].
-  __device__ __forceinline__ void stage_boxes(int c0) {
+  // Boxes c0 .. c0 + TILE_C - 1 of aabb [8, c_pad] into [c][8]; with
+  // `groups`, the union boxes of the two-level cull too (union_group).
+  __device__ __forceinline__ void stage_boxes(int c0, bool groups) {
     const int n = min(TILE_C, g.n_clusters - c0);
     float4* bx = boxes();
-    for (int c = threadIdx.x; c < n; c += TILE_THREADS) {
-      const Box b = box_ldg(g, c0 + c);
-      bx[2 * c] = make_float4(b.b0, b.b1, b.b2, 0.0f);
-      bx[2 * c + 1] = make_float4(b.b3, b.b4, b.b5, 0.0f);
+    if (!groups) {
+      for (int c = threadIdx.x; c < n; c += TILE_THREADS) {
+        const Box b = box_ldg(g, c0 + c);
+        bx[2 * c] = make_float4(b.b0, b.b1, b.b2, 0.0f);
+        bx[2 * c + 1] = make_float4(b.b3, b.b4, b.b5, 0.0f);
+      }
+    } else {
+      for (int base = 0; base < n; base += TILE_THREADS) {  // the same trips in every thread
+        const int c = base + threadIdx.x;
+        Box b = no_box();
+        if (c < n) {
+          b = box_ldg(g, c0 + c);
+          bx[2 * c] = make_float4(b.b0, b.b1, b.b2, 0.0f);
+          bx[2 * c + 1] = make_float4(b.b3, b.b4, b.b5, 0.0f);
+        }
+        union_group(b, c, n);
+      }
     }
+    grouped = groups;
+  }
+
+  // Every thread, at a two-level cull of n staged boxes whose union boxes
+  // were not built with them (a walk whose kernel did not ask at init, or a
+  // shadow walk after its handoff): build them from the staged boxes.
+  __device__ __forceinline__ void stage_groups(int n) {
+    for (int base = 0; base < n; base += TILE_THREADS) {  // the same trips in every thread
+      const int c = base + threadIdx.x;
+      union_group(c < n ? box_at(boxes(), c) : no_box(), c, n);
+    }
+    __syncthreads();
+    grouped = true;
+  }
+
+  // The lanes of a warp holding boxes c (of n; no_box() past them): the
+  // union box of each group of CULL_GROUP of them (the last one short) into
+  // groups() [c / CULL_GROUP][8], NaN-propagating minima and maxima over the
+  // group's consecutive lanes by shuffles, so the padding columns past
+  // n_clusters are left out.
+  __device__ __forceinline__ void union_group(const Box& b, int c, int n) {
+    float v[6] = {b.b0, b.b1, b.b2, b.b3, b.b4, b.b5};
+#pragma unroll
+    for (int off = 1; off < CULL_GROUP; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const float w = __shfl_xor_sync(FULL_MASK, v[i], off);
+        v[i] = i < 3 ? slab_min(v[i], w) : slab_max(v[i], w);
+      }
+    }
+    if (c < n && c % CULL_GROUP == 0) {
+      groups()[2 * (c / CULL_GROUP)] = make_float4(v[0], v[1], v[2], 0.0f);
+      groups()[2 * (c / CULL_GROUP) + 1] = make_float4(v[3], v[4], v[5], 0.0f);
+    }
+  }
+
+  // The box no ray enters and every union leaves out: +inf minima, -inf maxima.
+  static __device__ __forceinline__ Box no_box() {
+    Box b;
+    b.b0 = b.b1 = b.b2 = INFINITY;
+    b.b3 = b.b4 = b.b5 = -INFINITY;
+    return b;
   }
 
   // Thread 0: copy piece p of cluster c's rows into the slot of copy q.
@@ -366,7 +461,7 @@ struct BlockWalk {
     if (SB && !sb_open) return -1;
     if (g.n_clusters > TILE_C) {
       __syncthreads();  // the previous pass has read its boxes
-      stage_boxes(c0);
+      stage_boxes(c0, !frustum);
       __syncthreads();
     }
     if (!frustum) return n;
@@ -378,17 +473,7 @@ struct BlockWalk {
     for (int q = 0; q < TILE_C / TILE_THREADS; ++q) {
       const int c = q * TILE_THREADS + threadIdx.x;
       bool f = false;
-      if (c < n) {
-        const float4 lo = bx[2 * c], hi = bx[2 * c + 1];
-        Box b;
-        b.b0 = lo.x;
-        b.b1 = lo.y;
-        b.b2 = lo.z;
-        b.b3 = hi.x;
-        b.b4 = hi.y;
-        b.b5 = hi.z;
-        f = frustum_pass(h, b);
-      }
+      if (c < n) f = frustum_pass(h, box_at(bx, c));
       const unsigned w = __ballot_sync(FULL_MASK, f);
       if (lane() == 0) pre[c >> 5] = w;
     }
@@ -408,33 +493,60 @@ struct BlockWalk {
     return count()[1];
   }
 
+  // Step 1 on box c of the pass: the slab test of every lane's ray, the
+  // warp's ballot of the lanes with `enter` set that pass it stored.
+  template <bool ANY>
+  __device__ __forceinline__ void slab_ballot(const Ray& r, bool enter, float max_t, int c) {
+    float tn;
+    bool pass = box_pass(box_at(boxes(), c), r, tn);
+    if (ANY) pass = pass && !(tn > max_t);
+    const unsigned w = __ballot_sync(FULL_MASK, enter && pass);
+    if (lane() == 0) ballots()[c * TILE_WARPS + warp()] = w;
+  }
+
   // Steps 0 to 2 on clusters c0 .. c0 + n - 1 of the rays with `enter`
-  // set -> the list length (the same in every thread).
+  // set -> the list length (the same in every thread). Without the frustum
+  // cull (incoherent rays) a pass of more than CULL_GROUP clusters is culled
+  // in two levels: a warp tests the union box of each group first
+  // (group_pass, exact) and runs the members' slab tests only where some
+  // lane enters it, else stores 0 as their ballots. Without the frustum cull
+  // each warp also adds the box tests it runs (group and cluster), once per
+  // lane with `enter` set, to the block's count (count()[3], add_box_tests).
   template <bool ANY>
   __device__ __forceinline__ int cull(const Ray& r, bool enter, float max_t, bool frustum,
                                       int c0, int n) {
     const int m0 = prefilter(r, enter, max_t, frustum, c0, n);
     if (m0 < 0) return 0;
-    const float4* bx = boxes();
     const int* cand = reinterpret_cast<const int*>(smem + lay().cand);
+    const bool two_level = !frustum && m0 > CULL_GROUP;
+    if (two_level && !grouped) stage_groups(m0);
     // 1. The per-ray slab test of each candidate.
     unsigned* bal = ballots();
     if (__any_sync(FULL_MASK, enter)) {
-      for (int j = 0; j < m0; ++j) {
-        const int c = frustum ? cand[j] : j;
-        const float4 lo = bx[2 * c], hi = bx[2 * c + 1];
-        Box b;
-        b.b0 = lo.x;
-        b.b1 = lo.y;
-        b.b2 = lo.z;
-        b.b3 = hi.x;
-        b.b4 = hi.y;
-        b.b5 = hi.z;
-        float tn;
-        bool pass = box_pass(b, r, tn);
-        if (ANY) pass = pass && !(tn > max_t);
-        const unsigned w = __ballot_sync(FULL_MASK, enter && pass);
-        if (lane() == 0) bal[c * TILE_WARPS + warp()] = w;
+      if (frustum) {
+        for (int j = 0; j < m0; ++j) slab_ballot<ANY>(r, enter, max_t, cand[j]);
+      } else {
+        int tests = m0;
+        if (two_level) {
+          const unsigned odd = odd_axes(r);
+          tests = 0;
+          for (int c = 0; c < m0; c += CULL_GROUP) {
+            const int end = min(c + CULL_GROUP, m0);
+            const bool in =
+                enter && group_pass(box_at(groups(), c / CULL_GROUP), r, odd, ANY, max_t);
+            ++tests;
+            if (__any_sync(FULL_MASK, in)) {
+              tests += end - c;
+              for (int j = c; j < end; ++j) slab_ballot<ANY>(r, enter, max_t, j);
+            } else if (c + lane() < end) {
+              bal[(c + lane()) * TILE_WARPS + warp()] = 0u;
+            }
+          }
+        } else {
+          for (int j = 0; j < m0; ++j) slab_ballot<ANY>(r, enter, max_t, j);
+        }
+        const int lanes = __popc(__ballot_sync(FULL_MASK, enter));
+        if (lane() == 0) atomicAdd(count() + 3, tests * lanes);
       }
     } else {
       for (int j = lane(); j < m0; j += 32) bal[(frustum ? cand[j] : j) * TILE_WARPS + warp()] = 0u;
@@ -461,6 +573,12 @@ struct BlockWalk {
     }
     __syncthreads();
     return count()[0];
+  }
+
+  // Thread 0: add the block's box tests since init (count()[3]) to *out,
+  // after a walk: every cull's count lands before its step-1 barrier.
+  __device__ __forceinline__ void add_box_tests(unsigned long long* out) const {
+    if (threadIdx.x == 0) atomicAdd(out, (unsigned long long)count()[3]);
   }
 
   // Closest hit of every thread's ray; inactive threads get a miss.

@@ -29,6 +29,7 @@ namespace cosig {
 constexpr int TILE_THREADS = 128;
 constexpr int TILE_WARPS = TILE_THREADS / 32;
 constexpr int TILE_C = 256;      // clusters culled and listed per pass
+constexpr int CULL_GROUP = 8;    // consecutive clusters under one union box (the two-level cull)
 constexpr int RING_STAGES = 3;   // slots in flight
 constexpr int ROW_BYTES = 36 * 4;  // a geometry row: 144 = 9 sixteen-byte words
 constexpr int HULL_SLOTS = 16;   // a warp's partial hull: 13 floats and the flag bits
@@ -61,22 +62,26 @@ MX_HD constexpr int walk_rows(int k) { return slot_rows(k, SLOT_MAX); }
 MX_HD constexpr int shadow_rows(int k, int sh_k) { return slot_rows(sh_k, walk_rows(k)); }
 
 // Dynamic shared memory of a walk whose slots hold `rows` rows: the ring,
-// the boxes [TILE_C][8], the ballots [TILE_C][TILE_WARPS], the list, the
+// the boxes [TILE_C][8], the union boxes of their groups of CULL_GROUP
+// [TILE_C / CULL_GROUP][8], the ballots [TILE_C][TILE_WARPS], the list, the
 // frustum candidates (the clusters of a pass the block's hull passes, in
 // order) and their flag words, the warps' partial hulls
-// [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers and the two
-// list lengths, and with `mx` the two B tiles of the tensor-core pair test
+// [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers, the two
+// list lengths, the hull's flag and the block's box-test count, and with
+// `mx` the two B tiles of the tensor-core pair test
 // (mx_layout.h, MX_B_BYTES each, at a multiple of MX_B_ALIGN), with
 // `pairs` the compacted walk's region. Every offset is a multiple of 16.
 struct TileLayout {
-  unsigned ring, boxes, ballots, list, cand, pre, partial, hull, bars, count, mxb, pairs, total;
+  unsigned ring, boxes, groups, ballots, list, cand, pre, partial, hull, bars, count, mxb, pairs,
+      total;
 };
 
 MX_HD inline TileLayout tile_layout(int rows, bool mx = false, bool pairs = false) {
   TileLayout l;
   l.ring = 0;
   l.boxes = (unsigned)(RING_STAGES * rows * ROW_BYTES);
-  l.ballots = l.boxes + TILE_C * 32;
+  l.groups = l.boxes + TILE_C * 32;
+  l.ballots = l.groups + TILE_C / CULL_GROUP * 32;
   l.list = l.ballots + TILE_C * TILE_WARPS * 4;
   l.cand = l.list + TILE_C * 4;
   l.pre = l.cand + TILE_C * 4;

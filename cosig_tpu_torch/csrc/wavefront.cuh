@@ -306,7 +306,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
   BlockWalk<SB, MX, PC> walk;
   walk.rows = walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
-            tile_smem);
+            tile_smem, true);
   if constexpr (MX && !SH) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   const int n = f.n_rays;
@@ -337,6 +337,8 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
 // slots (for k > SLOT_MAX). Exact: the compacted walk
 // (traverse_tile.cuh closest_pairs) in slots of TRACE_SLOT rows, at every k
 // (PC unused), held to TRACE_MIN_BLOCKS blocks a multiprocessor.
+// box_tests (or NULL): the launch's counter of the box tests its walks run
+// (group and cluster, per listed ray), one add a block.
 template <bool SB, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS)
     trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
@@ -344,14 +346,14 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
                  int n_clusters, int k, int c_pad,
                  const float* __restrict__ prims, int n_sph, int n_box,
                  const int* __restrict__ idx, const int* __restrict__ n_live,
-                 float* __restrict__ state) {
+                 float* __restrict__ state, unsigned long long* __restrict__ box_tests) {
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
   extern __shared__ __align__(128) unsigned char tile_smem[];
   BlockWalk<SB, MX, MX ? PC : true> walk;
   walk.rows = MX ? walk_rows(k) : slot_rows(k, TRACE_SLOT);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
-            tile_smem);
+            tile_smem, true);
 
   const int n = f.n_rays;
   const int j = blockIdx.x * THREADS + threadIdx.x;
@@ -377,6 +379,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
     st.count = st.count + (st.alive ? 1.0f : 0.0f);
     h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive, false);
   }
+  if (box_tests != nullptr) walk.add_box_tests(box_tests);
   if (!listed) return;
   state[ROW_COUNT * (size_t)n + i] = st.count;
   store_rec(state, n, i, h);
@@ -421,7 +424,7 @@ __global__ void __launch_bounds__(THREADS,
   BlockWalk<SB, MX, PAIRS || PC> walk;
   walk.rows = PAIRS ? slot_rows(k, TRACE_SLOT) : walk_rows(k);
   walk.init(make_geometry(geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph, n_box),
-            tile_smem);
+            tile_smem, LISTED);
   if constexpr (MX) walk.mx_any = (f.flags & F_MX_SHADOW) != 0;
 
   RayState st = load(state, n, i, listed);

@@ -277,7 +277,7 @@ def _load() -> ctypes.CDLL:
     ]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     shadow = [ptr, ptr, i32, i32, i32]  # the shadow set's geom, aabb, n_clusters, k, c_pad
-    for name, extra in (
+    for name, extra, *tail in (
         ("cosig_primary_launch", []),  # state, stream
         ("cosig_bounce_launch", [ptr, ptr]),  # idx, n_live, state, stream
         ("cosig_primary_mx_launch", []),  # state, stream
@@ -285,17 +285,17 @@ def _load() -> ctypes.CDLL:
         ("cosig_megakernel_mx_launch", [i32]),  # max_depth, out, stream
         ("cosig_primary_form_launch", [i32] + shadow),  # fission, shadow set, state, stream
         ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
-        ("cosig_trace_launch", [ptr, ptr]),  # idx, n_live, state, stream
+        ("cosig_trace_launch", [ptr, ptr], [ptr]),  # idx, n_live, state, box_tests, stream
         ("cosig_shade_launch", [ptr, ptr]),  # idx or NULL, n_live or NULL, state, stream
         ("cosig_primary_form_mx_launch", [i32] + shadow),  # as their exact builds'
         ("cosig_bounce_shadow_mx_launch", shadow + [ptr, ptr]),
-        ("cosig_trace_mx_launch", [ptr, ptr]),
+        ("cosig_trace_mx_launch", [ptr, ptr], [ptr]),
         ("cosig_shade_mx_launch", [ptr, ptr]),
         ("cosig_megakernel_launch", [i32]),  # max_depth, out, stream
         ("cosig_debug_launch", [i32]),  # mode, out, stream
     ):
         fn = getattr(lib, name)
-        fn.argtypes = common + extra + [ptr, ptr]
+        fn.argtypes = common + extra + [ptr] + (tail[0] if tail else []) + [ptr]
         fn.restype = i32
     # state, n, blocks, range, counts, scratch ints, idx, n_live, stream
     lib.cosig_compact_launch.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, ptr, ptr]
@@ -386,7 +386,8 @@ def shadow_args(cset_shadow) -> tuple:
 
 
 def _arg(x):
-    """A launcher argument: a tensor as its device pointer, an int as is."""
+    """A launcher argument: a tensor as its device pointer, an int as is
+    (None: a NULL pointer)."""
     return ctypes.c_void_p(x.data_ptr()) if isinstance(x, torch.Tensor) else x
 
 
@@ -402,13 +403,14 @@ def _call(name: str, dev: torch.device, *args) -> None:
 
 
 def launch(name: str, frame: Frame, cset: ClusterSet, prims: torch.Tensor, n_sph: int,
-           n_box: int, out: torch.Tensor, *extra) -> None:
+           n_box: int, out: torch.Tensor, *extra, tail: tuple = ()) -> None:
     """Launch ``name`` on the current stream of ``out``'s device; raise if
     the launch is refused. ``extra``: the launcher's arguments between the
-    primitive counts and ``out`` (ints, or tensors passed as pointers)."""
+    primitive counts and ``out``, ``tail`` those after it (ints, or tensors
+    passed as pointers)."""
     _call(name, out.device, ctypes.byref(frame), cset.geom, cset.aabb_t, cset.sb_aabb_t,
           cset.num_clusters, cset.k, int(cset.aabb_t.shape[1]), prims, n_sph, n_box,
-          *extra, out)
+          *extra, out, *tail)
 
 
 def check_buffer(buffer: FrameBuffer, dev: torch.device) -> None:

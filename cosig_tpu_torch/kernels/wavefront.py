@@ -176,23 +176,32 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
 
 def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
-          n_sph: int, n_box: int, mxu: str = "off") -> None:
+          n_sph: int, n_box: int, mxu: str = "off", box_tests=None) -> None:
     """The trace half of the bounce stage at ``depth`` on the listed rays
     ``idx[:n_live]`` of a 24-row ``state``, in place: each listed ray's
     count, and its hit record in rows 15-19; ``mxu``: the closest hit's
-    form (the tensor-core build in both modes)."""
+    form (the tensor-core build in both modes). ``box_tests``: a contiguous
+    int64 [1] on the device that the launch adds its walk's box tests to
+    (group and cluster, per listed ray), or None; the plain version on the
+    CPU counts them only while tracing is on."""
     dev = state.device
     trace_wavefront.check_mxu(mxu)
-    tracing.plan_step("trace", depth)
+    if box_tests is not None and (box_tests.device != dev or box_tests.dtype != torch.int64
+                                  or not box_tests.is_contiguous()
+                                  or tuple(box_tests.shape) != (1,)):
+        raise ValueError(f"box_tests must be contiguous int64 [1] on {dev}, got "
+                         f"{box_tests.dtype} {tuple(box_tests.shape)} on {box_tests.device}")
+    tracing.plan_step("trace", depth, box_tests=box_tests)
     if dev.type == "cpu":
         trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box,
-                                           mxu=mxu)
+                                           mxu=mxu,
+                                           box_tests=box_tests if tracing.on() else None)
         return
     frame = _check_stage("trace", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
                          n_box, (FISSION_ROWS,))
     mx = "_mx" if kernel_core.mxu_mode(cset, mxu) != "off" else ""
     binding.launch(f"cosig_trace{mx}_launch", frame, cset, prims, n_sph, n_box, state, idx,
-                   n_live)
+                   n_live, tail=(box_tests,))
     binding.LAUNCHES["trace" + mx] += 1
 
 

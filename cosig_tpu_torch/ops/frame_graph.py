@@ -43,8 +43,8 @@ owns, so :meth:`FrameGraph.replay` writes that buffer on the current
 stream and replays: a new camera or new lights need no new capture. The
 graph's private memory pool holds what the frame allocates: the state
 [16, N] ([24, N] with fission), the lists and their lengths, the compaction's scratch, the
-image and the int64 ray count (``pool_bytes``); a banded frame's state
-and lists are one band's.
+traces' box test counters (zeroed by one fill a frame), the image and the int64 ray count
+(``pool_bytes``); a banded frame's state and lists are one band's.
 
 A replayed frame is the eager frame bit for bit: the same launches with
 the same arguments. A capture that the CUDA runtime refuses raises;
@@ -158,11 +158,15 @@ class FrameGraph:
         self.capture = trace.captured(path, plan, pool_bytes, launches,
                                       "fission" if forms.get("fission") else "fused",
                                       [(off, n, n * per_row) for off, n in self.plan])
-        # The compactions' list lengths in the graph's pool, and the pinned
-        # copy that a traced replay fills (None on paths with no compaction).
+        # The compactions' list lengths and the traces' box tests in the
+        # graph's pool, and the pinned copies that a traced replay fills
+        # (None on paths with no compaction, or no trace).
         self._lives = trace.live_tensor(plan.n_live)
         self.lives_host = (None if self._lives is None else
                            torch.empty(self._lives.shape, dtype=torch.int32, pin_memory=True))
+        self._tests = trace.live_tensor(plan.box_tests)
+        self.tests_host = (None if self._tests is None else
+                           torch.empty(self._tests.shape, dtype=torch.int64, pin_memory=True))
 
     @property
     def capture_s(self) -> float:
@@ -197,11 +201,14 @@ class FrameGraph:
         of the graph's outputs (one device copy of the image), so a caller
         may keep them across later replays, as a JAX array is kept. While
         tracing is on, the compactions' list lengths (depth 1 up) are copied
-        to ``lives_host`` too, to be read once the frame is done."""
+        to ``lives_host`` too, and the traces' box tests to ``tests_host``,
+        to be read once the frame is done."""
         self.launch(uniforms, lights)
         with torch.cuda.device(self.device), trace.span("cosig.frame.copy_out"):
             if self._lives is not None and trace.on():
                 self.lives_host.copy_(self._lives, non_blocking=True)
+            if self._tests is not None and trace.on():
+                self.tests_host.copy_(self._tests, non_blocking=True)
             return self.image.clone(), self.rays.clone()
 
     def chain(self, uniforms: np.ndarray, lights: np.ndarray, k: int):

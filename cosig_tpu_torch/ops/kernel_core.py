@@ -139,10 +139,13 @@ _PAIR_CHUNK = 1 << 20
 # walk that leaves a cluster once none of its lanes still walks
 # (``any_warp_slots``: per (warp, cluster) 32 x the most rows a lane tests,
 # up to its first occluder) and of the compacted any hit (the exact
-# shade's: ``any_pair_slots``, :func:`any_compact_slots`).
+# shade's: ``any_pair_slots``, :func:`any_compact_slots`). With ``warps`` and
+# no frustum cull, the kernels' two-level cull (:func:`group_flags`): per ray
+# a test of each group's union box (``group_tests``), and ``slab_tests``
+# only for the groups that some ray of its warp enters.
 WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
         "pair_slots": 0, "any_warp_slots": 0, "any_pair_slots": 0, "frustum_tests": 0,
-        "superblock_tests": 0}
+        "superblock_tests": 0, "group_tests": 0}
 
 # The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
 # block walk together, and its cull takes TILE_C clusters a pass; the
@@ -151,6 +154,7 @@ WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
 BLOCK_RAYS = 128
 TILE_C = 256
 TRACE_SLOT = 32
+CULL_GROUP = 8  # consecutive clusters under one union box (the two-level cull)
 
 
 def compact_slots(n_in: torch.Tensor, rows: int) -> int:
@@ -397,6 +401,53 @@ def superblock_flags(packets, n_packets, active, ox, oy, oz, dx, dy, dz, sb_boxe
     return _pack_any(packets, n_packets, flags & active[:, None])
 
 
+def slab(box, ox, oy, oz, idx, idy, idz) -> tuple:
+    """The per-ray slab test's entry and exit distances (tn, tf) [N] against
+    ``box`` (rows min xyz, max xyz), NaN-conservative
+    (cosig_tpu/ops/kernel_core.py:430-449): torch.minimum/maximum propagate
+    NaN, and the callers' tests are inverted, so a NaN slab passes."""
+    t0x = (box[0] - ox) * idx
+    t1x = (box[3] - ox) * idx
+    t0y = (box[1] - oy) * idy
+    t1y = (box[4] - oy) * idy
+    t0z = (box[2] - oz) * idz
+    t1z = (box[5] - oz) * idz
+    tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+                       torch.minimum(t0z, t1z))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+                       torch.maximum(t0z, t1z))
+    return tn, tf
+
+
+def union_box(boxes: torch.Tensor) -> torch.Tensor:
+    """The union box [6] of boxes [>= 6, W] (rows min xyz, max xyz): NaN
+    where some box's bound is NaN, as the kernels' shuffles of slab_min and
+    slab_max build it (csrc/traverse_tile.cuh stage_boxes)."""
+    return torch.cat([boxes[:3].amin(dim=1), boxes[3:6].amax(dim=1)])
+
+
+def group_flags(u: torch.Tensor, ox, oy, oz, dx, dy, dz, idx, idy, idz,
+                max_t=None) -> torch.Tensor:
+    """The group test of the kernels' two-level cull (csrc/traverse.cuh
+    group_pass) of rays [N] against a union box ``u`` [6] -> bool [N]: the
+    slab test of the union (and with ``max_t`` the any hit's tn <= max_t),
+    False only where the ray passes the slab test on no box inside it. Per
+    axis a member's slab interval lies inside the union's (rounding is
+    monotone) and a NaN bound or origin puts a NaN, which passes, into the
+    union's slab too; two rules keep the rest a superset: an axis with an
+    infinite 1/d and the origin within the union's range there passes (a
+    member's face may lie at the origin, where its slab is 0 * inf = NaN),
+    and so does a ray with a NaN or infinite direction component."""
+    tn, tf = slab(u, ox, oy, oz, idx, idy, idz)
+    passed = ~(tn > tf) & ~(tf < 0.0)
+    if max_t is not None:
+        passed = passed & ~(tn > max_t)
+    over = ~torch.isfinite(dx) | ~torch.isfinite(dy) | ~torch.isfinite(dz)
+    for a, (o, i) in enumerate(((ox, idx), (oy, idy), (oz, idz))):
+        over = over | (torch.isinf(i) & ~(o > u[a + 3]) & ~(o < u[a]))
+    return passed | over
+
+
 def build_uniforms(params: FrameParams, row_offset: float = 0.0) -> np.ndarray:
     """Pack the frame's dynamic floats into the uniforms vector (f32 [25]).
 
@@ -482,7 +533,12 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     compacted walk's (blocks of four warps) to ``WORK["pair_slots"]``; for
     an any hit, the slots of a per-warp walk that stops at its lanes' first
     occluders to ``WORK["any_warp_slots"]`` and the compacted any hit's to
-    ``WORK["any_pair_slots"]``.
+    ``WORK["any_pair_slots"]``; and, where ``frustum`` is off, it runs the
+    kernels' two-level cull in those warps: at each group of CULL_GROUP
+    clusters of a pass of more than CULL_GROUP, every ray tests the group's
+    union box (:func:`group_flags`, ``WORK["group_tests"]``), and the
+    members' slab tests run only for the rays of a warp in which some ray
+    enters it (``WORK["slab_tests"]``).
 
     ``packets`` ([N] thread block of each ray on the rays' device, or None)
     runs the kernels' pre-filters before the per-ray slab test, as their
@@ -494,8 +550,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     when no ray enters it; with ``frustum``, at each pass of TILE_C
     clusters the block's hull of the rays still walking is tested against
     every box of the pass, and only the boxes it passes get the per-ray
-    test. Both are exact, so the outputs do not depend on ``packets`` or
-    ``frustum``; only the counted slab tests fall."""
+    test. All three culls are exact, so the outputs do not depend on
+    ``warps``, ``packets`` or ``frustum``; only the counted slab tests fall."""
     n = ox.shape[0]
     dev = ox.device
     geom = cset.geom
@@ -531,6 +587,7 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         best_v = torch.zeros(n, dtype=torch.float32, device=dev)
 
     sb_open = None  # [n_packets] blocks that enter the current superblock
+    n_warps = int(warps.max()) + 1 if warps is not None and n > 0 else 0
     for c in range(C):
         if any_hit:
             # An occluded ray's walk has stopped: it tests no more clusters.
@@ -557,23 +614,17 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                     pass_fl = frustum_flags(hull, aabb[:6, c:c + width]) & entered[:, None]
                     WORK["frustum_tests"] += int(entered.sum()) * width
             tested = active & (pass_fl[:, c % TILE_C] if frustum else entered)[packets]
+        pass_end = min(C, c - c % TILE_C + TILE_C)
+        if n_warps and not frustum and pass_end - (c - c % TILE_C) > CULL_GROUP:
+            if c % CULL_GROUP == 0:  # the group's union box, then its warps
+                u = union_box(aabb[:6, c:min(c + CULL_GROUP, pass_end)])
+                g_in = tested & group_flags(u, *rays6, idx, idy, idz, max_t)
+                WORK["group_tests"] += int(tested.sum())
+                in_group = _pack_any(warps[g_in], n_warps, g_in[g_in])[warps]
+            tested = tested & in_group
         WORK["slab_tests"] += int(tested.sum())
-        b = aabb[:6, c]
         # Per-ray slab cull, NaN-conservative (cosig_tpu/ops/kernel_core.py:430-449).
-        t0x = (b[0] - ox) * idx
-        t1x = (b[3] - ox) * idx
-        t0y = (b[1] - oy) * idy
-        t1y = (b[4] - oy) * idy
-        t0z = (b[2] - oz) * idz
-        t1z = (b[5] - oz) * idz
-        tn = torch.maximum(
-            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-            torch.minimum(t0z, t1z),
-        )
-        tf = torch.minimum(
-            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-            torch.maximum(t0z, t1z),
-        )
+        tn, tf = slab(aabb[:6, c], ox, oy, oz, idx, idy, idz)
         boxhit = ~(tn > tf) & ~(tf < 0.0) & tested
         if max_t is not None:
             boxhit = boxhit & ~(tn > max_t)

@@ -273,6 +273,16 @@ def compact_plain(state: torch.Tensor):
     return idx, alive.sum().to(torch.int32).reshape(1)
 
 
+def list_warps(idx: torch.Tensor, n_live: torch.Tensor, n: int) -> torch.Tensor:
+    """The warps of a kernel on the list ``idx[:n_live]`` (thread j of its
+    grid takes entry j) as a ray id -> warp map int64 [n]: entry j's ray in
+    warp j // 32, -1 for the rays not listed."""
+    live = int(n_live.reshape(-1)[0])
+    warps = torch.full((n,), -1, dtype=torch.int64, device=idx.device)
+    warps[idx[:live].to(torch.int64)] = torch.arange(live, device=idx.device) // 32
+    return warps
+
+
 def _on_list(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, warps, run) -> None:
     """Gather the listed rays ``idx[:n_live]`` of ``state``, run ``run(listed,
     warps=, packets=)`` on them in place and write them back: the kernels'
@@ -305,16 +315,25 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
 
 def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, prims: torch.Tensor, n_sph: int, n_box: int,
-                       warps=None, mxu: str = "off") -> None:
+                       warps=None, mxu: str = "off", box_tests=None) -> None:
     """Plain version of the trace kernel (``_make_bounce_kernel(mode="trace")``,
     trace_wavefront.py:439-499) on the listed rays of a 24-row ``state``,
     in place: count and trace them, store the hit record in rows 15-19;
-    ``mxu``: the closest hit takes the tensor-core form in either mode."""
+    ``mxu``: the closest hit takes the tensor-core form in either mode.
+    ``box_tests`` (an int64 [1], or None): add the box tests the kernel's
+    walk runs (group and cluster, per listed ray; kernel_core.WORK's
+    ``group_tests`` and ``slab_tests``) to it, counted in the kernel's warps
+    (:func:`list_warps`) unless ``warps`` gives others."""
     check_mxu(mxu)
     mx = kernel_core.mxu_mode(cset, mxu) != "off"
+    if box_tests is not None and warps is None:
+        warps = list_warps(idx, n_live, state.shape[1])
+    before = kernel_core.WORK["group_tests"] + kernel_core.WORK["slab_tests"]
     _on_list(state, idx, n_live, warps, lambda st, **kw: kernel_core.rec_store(
         st, kernel_core.bounce_trace(cset, st, prims=prims, n_sph=n_sph, n_box=n_box, mx=mx,
                                      **kw)))
+    if box_tests is not None:
+        box_tests += kernel_core.WORK["group_tests"] + kernel_core.WORK["slab_tests"] - before
 
 
 def shade_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
@@ -373,7 +392,7 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
 
 def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tensor,
            n_sph: int, n_box: int, plain: bool = False, cset_primary=None, cset_shadow=None,
-           fission: bool = False, mxu: str = "off", lives=None) -> torch.Tensor:
+           fission: bool = False, mxu: str = "off", lives=None, box_tests=None) -> torch.Tensor:
     """The primary stage and the ``max_depth - 1`` bounce stages of the
     frame in ``fb`` (a written
     :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> the final
@@ -385,7 +404,9 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     pair test's form of every stage (the shade's shadow rays exact on a
     separate shadow set); ``lives``: the int32 [max_depth - 1] on the
     device that the compactions write their list lengths into, else a new
-    one. Nothing here
+    one; ``box_tests``: the int64 [max_depth - 1] that the fission traces
+    add their box tests to (the kernels' counter, zero before the frame),
+    else a new one. Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -422,10 +443,13 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     # The list lengths side by side, so a traced frame reads them with one copy.
     if lives is None:
         lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
+    if fission and box_tests is None:
+        box_tests = torch.zeros(max(0, cfg.max_depth - 1), dtype=torch.int64, device=state.device)
     for depth in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state, lives[depth - 1:depth])
         if fission:
-            kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu)
+            kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu,
+                     box_tests=box_tests[depth - 1:depth])
             kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu)
         else:
             kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow,
@@ -457,18 +481,21 @@ def banded_frame(cset: ClusterSet, fbs: list, cfg: StaticConfig, plan: tuple,
     the first band's), then a :meth:`~cosig_tpu_torch.kernels.binding.FrameBuffer.band`
     view of it for each further band, whose ``copy`` queues the frame's
     data with the band's row offset before the band's kernels. The list
-    lengths of every band lie in one buffer, band after band. A frame in
-    one band is :func:`one_frame`, which writes no copy of its image."""
+    lengths of every band lie in one buffer, band after band, and so do
+    the traces' box tests. A frame in one band is :func:`one_frame`, which
+    writes no copy of its image."""
     dev = cset.device
     image = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32, device=dev)
     depths = max(0, cfg.max_depth - 1)
     lives = torch.empty(len(plan) * depths, dtype=torch.int32, device=dev)
+    tests = torch.zeros(len(plan) * depths, dtype=torch.int64, device=dev)
     total = None
     for b, (fb, (off, rows)) in enumerate(zip(fbs, plan)):
         if b:
             fb.copy()
         state = stages(cset, fb, cfg, rows, prims, n_sph, n_box, plain, cset_primary,
-                       cset_shadow, fission, mxu, lives[b * depths:(b + 1) * depths])
+                       cset_shadow, fission, mxu, lives[b * depths:(b + 1) * depths],
+                       tests[b * depths:(b + 1) * depths])
         _, rays = finalize(state, cfg, rows, rays_on_device=True, out=image[off:off + rows])
         total = rays if total is None else total + rays
         del state  # the next band's state takes its memory

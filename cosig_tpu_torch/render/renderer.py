@@ -317,7 +317,8 @@ class Renderer:
                 else:
                     img, rays = graph.chain(uniforms, lights, k)
                 if on_card and fr is not None:  # a chain copies out no list lengths
-                    fr.replayed(graph.capture, graph.lives_host if k == 1 else None)
+                    fr.replayed(graph.capture, graph.lives_host if k == 1 else None,
+                                graph.tests_host if k == 1 else None)
             dt = (time.perf_counter() - t0) * 1e3
         self.last_stats = RenderStats(
             width=cfg.width,

@@ -44,8 +44,10 @@ hand their lists to depths 1, 2, ...; a capture's ``plan_bands`` gives
 the band of each label, its ``bands`` each band's (row offset, rows,
 camera rays). While on, each frame leaves a :class:`FrameRecord`
 (:func:`frames`) with its plan, ``live_rays`` (the length of the lists
-handed to depth d, summed over the bands) and ``band_live`` (by band and
-depth), read after the frame's wait.
+handed to depth d, summed over the bands), ``band_live`` (by band and
+depth) and ``box_tests`` (the box tests of the traces at depth d, group
+and cluster, per listed ray, summed over the bands: the trace kernels'
+counter), read after the frame's wait.
 """
 
 from __future__ import annotations
@@ -127,29 +129,33 @@ class Capture:
 class FrameRecord:
     """One traced frame: its number (the ``cosig.frame`` range's argument),
     its ``plan``, the :class:`Capture` it replayed (None for an eager
-    frame), ``live_rays`` {depth: listed rays, summed over the bands} and
-    ``band_live`` {(band, depth): listed rays}."""
+    frame), ``live_rays`` {depth: listed rays, summed over the bands},
+    ``band_live`` {(band, depth): listed rays} and ``box_tests`` {depth: the
+    box tests of the depth's traces, summed over the bands}."""
 
     frame: int
     plan: tuple = ()
     capture: Capture | None = None
     live_rays: dict = field(default_factory=dict)
     band_live: dict = field(default_factory=dict)
+    box_tests: dict = field(default_factory=dict)
 
 
 class _Plan:
     """Labels of the kernels launched, in order, the band of each
-    (``plan_bands``: every primary stage after the first starts the next band)
-    and each compaction's list length (a tensor) by the depth it hands the
+    (``plan_bands``: every primary stage after the first starts the next band),
+    each compaction's list length (a tensor) by the depth it hands the
     list to (``n_live``), and by its band (``live_bands``): the k-th
-    compaction after a primary stage hands it to depth k."""
+    compaction after a primary stage hands it to depth k; each trace's box
+    test counter (a tensor) by its depth (``box_tests``)."""
 
     def __init__(self):
         self.labels, self.plan_bands, self.n_live, self.live_bands = [], [], [], []
+        self.box_tests = []
         self._compactions = 0
         self._band = -1
 
-    def step(self, stage: str, depth: int, n_live) -> None:
+    def step(self, stage: str, depth: int, n_live, box_tests=None) -> None:
         if stage == "primary":
             self._compactions = 0
             self._band += 1
@@ -159,15 +165,18 @@ class _Plan:
             depth = self._compactions
             self.n_live.append((depth, n_live))
             self.live_bands.append(band)
+        if box_tests is not None:
+            self.box_tests.append((depth, box_tests))
         self.labels.append(f"{stage}.{depth}" if depth else stage)
         self.plan_bands.append(band)
 
 
-def plan_step(stage: str, depth: int = 0, n_live=None) -> None:
+def plan_step(stage: str, depth: int = 0, n_live=None, box_tests=None) -> None:
     """A launch wrapper's kernel, for the plan recorded now (a capture's, or
-    an eager traced frame's); ``n_live``: a compaction's list length."""
+    an eager traced frame's); ``n_live``: a compaction's list length;
+    ``box_tests``: a trace's box test counter."""
     if _recorder is not None:
-        _recorder.step(stage, depth, n_live)
+        _recorder.step(stage, depth, n_live, box_tests)
 
 
 class recording:
@@ -192,17 +201,19 @@ class _Frame:
         global _frame_no, _recorder
         _frame_no += 1
         self.record = FrameRecord(_frame_no)
-        self._plan, self._live = _Plan(), None
+        self._plan, self._live, self._tests = _Plan(), None, None
         self._outer, _recorder = _recorder, self._plan
         self._range = _RecordFunctionFast("cosig.frame", [_frame_no])
         self._range.__enter__()
         return self
 
-    def replayed(self, capture: Capture, live) -> None:
+    def replayed(self, capture: Capture, live, tests=None) -> None:
         """The frame replayed the graph of ``capture``; ``live``: a host
-        tensor of its list lengths from depth 1, filled before the wait
-        (or None)."""
-        self.record.plan, self.record.capture, self._live = capture.plan, capture, live
+        tensor of its list lengths from depth 1, ``tests``: one of its
+        traces' box tests in launch order, each filled before the wait (or
+        None)."""
+        self.record.plan, self.record.capture = capture.plan, capture
+        self._live, self._tests = live, tests
 
     def __exit__(self, *exc):
         global _recorder
@@ -213,11 +224,17 @@ class _Frame:
             rec.plan = tuple(self._plan.labels)
             _live_records(rec, zip(self._plan.live_bands, (d for d, _ in self._plan.n_live)),
                           [int(n.reshape(-1)[0]) for _, n in self._plan.n_live])
-        elif self._live is not None:
+            _tests_record(rec, [d for d, _ in self._plan.box_tests],
+                          [int(t.reshape(-1)[0]) for _, t in self._plan.box_tests])
+        else:
             cap = rec.capture
-            keys = [(b, int(label.rpartition(".")[2])) for label, b in
-                    zip(cap.plan, cap.plan_bands) if label.startswith("compact.")]
-            _live_records(rec, keys, self._live.tolist())
+            if self._live is not None:
+                keys = [(b, int(label.rpartition(".")[2])) for label, b in
+                        zip(cap.plan, cap.plan_bands) if label.startswith("compact.")]
+                _live_records(rec, keys, self._live.tolist())
+            if self._tests is not None:
+                _tests_record(rec, [int(label.rpartition(".")[2]) for label in cap.plan
+                                    if label.startswith("trace.")], self._tests.tolist())
         _frames.append(rec)
         return False
 
@@ -230,6 +247,14 @@ def _live_records(rec: FrameRecord, keys, counts: list) -> None:
     rec.live_rays = {}
     for (_, depth), n in rec.band_live.items():
         rec.live_rays[depth] = rec.live_rays.get(depth, 0) + n
+
+
+def _tests_record(rec: FrameRecord, depths: list, counts: list) -> None:
+    """Fill ``rec``'s ``box_tests`` from each trace's depth and count,
+    summed by depth."""
+    rec.box_tests = {}
+    for depth, n in zip(depths, counts):
+        rec.box_tests[depth] = rec.box_tests.get(depth, 0) + n
 
 
 def frame():
@@ -295,15 +320,18 @@ def frames() -> list:
 
 
 def live_tensor(n_live: list):
-    """A plan's list lengths as one int32 tensor [compactions] where they
-    are consecutive elements of one buffer, as ``trace_wavefront.stages``
-    and ``banded_frame`` allocate them (a view, read with one copy), else
-    None."""
+    """A plan's counters, its compactions' list lengths (``n_live``) or its
+    traces' box tests (``box_tests``), as one tensor [launches] where they
+    are consecutive elements of one int32 or int64 buffer, as
+    ``trace_wavefront.stages`` and ``banded_frame`` allocate them (a view,
+    read with one copy), else None."""
     if not n_live:
         return None
     first = n_live[0][1]
-    if first.dtype != torch.int32 or any(
-            t.untyped_storage().data_ptr() != first.untyped_storage().data_ptr()
-            or t.data_ptr() != first.data_ptr() + 4 * i for i, (_, t) in enumerate(n_live)):
+    step = first.element_size()
+    if first.dtype not in (torch.int32, torch.int64) or any(
+            t.dtype != first.dtype
+            or t.untyped_storage().data_ptr() != first.untyped_storage().data_ptr()
+            or t.data_ptr() != first.data_ptr() + step * i for i, (_, t) in enumerate(n_live)):
         return None
     return first.as_strided((len(n_live),), (1,))

@@ -37,10 +37,10 @@ _SRC = r"""
 extern "C" {
 int layout(int rows, int mx, int pairs, unsigned* out) {
   const cosig::TileLayout l = cosig::tile_layout(rows, mx != 0, pairs != 0);
-  const unsigned v[] = {l.ring, l.boxes, l.ballots, l.list, l.cand, l.pre, l.partial,
-                        l.hull, l.bars, l.count, l.mxb, l.pairs, l.total};
-  for (int i = 0; i < 13; ++i) out[i] = v[i];
-  return 13;
+  const unsigned v[] = {l.ring, l.boxes, l.groups, l.ballots, l.list, l.cand, l.pre,
+                        l.partial, l.hull, l.bars, l.count, l.mxb, l.pairs, l.total};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
+  return 14;
 }
 int walk_smem(int k, int mx) { return cosig::walk_smem(k, mx != 0); }
 int both_smem(int k, int sh_k, int mx) { return cosig::both_smem(k, sh_k, mx != 0); }
@@ -75,8 +75,8 @@ int constant(int i) {
 """
 _NAMES = ("TILE_THREADS", "RING_STAGES", "ROW_BYTES", "SLOT_MAX", "TRACE_SLOT", "PAIR_BYTES",
           "PAIR_KEYS", "PAIR_FLAGS", "PAIR_MAX_T", "PAIR_OPS", "PAIR_LIST", "PAIR_OPERANDS")
-_FIELDS = ("ring", "boxes", "ballots", "list", "cand", "pre", "partial", "hull", "bars",
-           "count", "mxb", "pairs", "total")
+_FIELDS = ("ring", "boxes", "groups", "ballots", "list", "cand", "pre", "partial", "hull",
+           "bars", "count", "mxb", "pairs", "total")
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,7 @@ def walk(tmp_path_factory):
 
 
 def _layout(lib, rows, mx=False, pairs=False) -> dict:
-    out = (ctypes.c_uint * 13)()
+    out = (ctypes.c_uint * 14)()
     lib.layout(rows, int(mx), int(pairs), out)
     return dict(zip(_FIELDS, out))
 
@@ -124,23 +124,25 @@ def test_offsets_are_16_byte_words_and_every_k_fits(walk, mx):
 
 def test_layouts_up_to_k128_are_unchanged(walk):
     """Up to k = 128 a slot is one whole cluster and the layout is the one
-    every build had before slots: 28,592 B at k = 32, 70,064 B at k = 128
+    every build had before slots, with the two-level cull's union boxes
+    (1,024 B) beside the boxes: 29,616 B at k = 32, 71,088 B at k = 128
     (PERF.md), the tensor-core layout 5,200 B more; past 128 it stays at
     k = 128's."""
     lib, c = walk
     assert (c["RING_STAGES"], c["ROW_BYTES"], c["SLOT_MAX"]) == (3, 144, 128)
-    assert lib.walk_smem(32, 0) == 28_592 and lib.walk_smem(128, 0) == 70_064
+    assert lib.walk_smem(32, 0) == 29_616 and lib.walk_smem(128, 0) == 71_088
     for k in (32, 64, 128):
         assert lib.walk_smem(k, 1) == lib.walk_smem(k, 0) + MX_EXTRA
     for k in (1, 8, 16, 32, 64, 100, 128):
         assert lib.walk_rows(k) == k
-        assert lib.walk_smem(k, 0) == 28_592 + 3 * 144 * (k - 32)
+        assert lib.walk_smem(k, 0) == 29_616 + 3 * 144 * (k - 32)
         # The two B tiles (2 x 2,560 B) at the next multiple of 128 B.
         assert lib.walk_smem(k, 1) == -(-lib.walk_smem(k, 0) // 128) * 128 + 5_120
         assert _layout(lib, k)["pairs"] == _layout(lib, k)["total"]  # no pair region
+        assert _layout(lib, k)["ballots"] - _layout(lib, k)["groups"] == 256 // 8 * 32
     for k in (129, 512, 1024, 2048):
         assert lib.walk_rows(k) == 128
-        assert lib.walk_smem(k, 0) == 70_064 and lib.walk_smem(k, 1) == 70_064 + MX_EXTRA
+        assert lib.walk_smem(k, 0) == 71_088 and lib.walk_smem(k, 1) == 71_088 + MX_EXTRA
 
 
 @pytest.mark.parametrize("rows", [1, 7, 32, 64, 128])
@@ -163,7 +165,7 @@ def test_shadow_builds_hold_the_main_walks_memory(walk):
     """A shadow walk's slots hold no more rows than its main walk's, so the
     shadow-set builds' shared memory is the main walk's, exact and
     tensor-core, for the (k, shadow k) pairs of phase 10 (FORM_KS,
-    SLOT_KS) and more: at large_mesh 42,416 B, not the 70,064 B of its
+    SLOT_KS) and more: at large_mesh 43,440 B, not the 71,088 B of its
     k = 128 shadow set's whole-cluster ring."""
     lib, _ = walk
     pairs = [(32, 64), (64, 128), (128, 1024), (512, 1024), (64, 1024), (8, 2048), (200, 300)]
@@ -174,7 +176,7 @@ def test_shadow_builds_hold_the_main_walks_memory(walk):
         assert lib.shadow_rows(k, sh_k) == min(sh_k, k, 128)
         for mx in (0, 1):
             assert lib.both_smem(k, sh_k, mx) == lib.walk_smem(k, mx), (k, sh_k, mx)
-    assert lib.both_smem(64, 128, 0) == 42_416
+    assert lib.both_smem(64, 128, 0) == 43_440
 
 
 def test_trace_layout(walk):
