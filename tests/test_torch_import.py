@@ -146,3 +146,12 @@ def test_renderer_rejects_other_devices(device):
 
     with pytest.raises(ValueError, match="unsupported device"):
         cosig_tpu_torch.Renderer(device=device)
+
+
+def test_xdist_workers_do_not_oversubscribe_the_cpus():
+    """Under pytest-xdist the workers' torch pools together fit the CPUs (the root
+    conftest.py gives each worker its share); run alone, torch keeps its default pool."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    cpus = len(os.sched_getaffinity(0))
+    assert torch.get_num_threads() * workers <= max(cpus, workers), (
+        torch.get_num_threads(), workers, cpus)
