@@ -876,11 +876,16 @@ def cuda_activity(fn, tries: int = 3, calls: dict | None = None) -> list:
     return sorted(acts, key=lambda a: a[1])
 
 
-def work_bound(work: dict, nbytes: int) -> dict:
+def work_bound(work: dict, nbytes: int, pruned: bool = False) -> dict:
     """Bound of one kernel call from the plain traversal's counted work and
-    the bytes it must move."""
+    the bytes it must move. ``pruned``: the kernel's closest hit is the
+    compacted, distance-pruned walk (the trace; the fission primary past
+    32 rows), which runs ``pair_tests``; any other walk also runs
+    the pairs that walk prunes (``pairs_pruned``), which the plain
+    traversal counts apart wherever it is given the kernel's warps."""
+    pairs = work["pair_tests"] + (0 if pruned else work["pairs_pruned"])
     flops = (FLOPS_PER_SLAB * (work["slab_tests"] + work["group_tests"])
-             + FLOPS_PER_PAIR * work["pair_tests"]
+             + FLOPS_PER_PAIR * pairs
              + FLOPS_PER_PRIM * work["prim_tests"]
              + FLOPS_PER_FRUSTUM * (work["frustum_tests"] + work["superblock_tests"]))
     op_ms = flops / PEAK_F32_OPS * 1e3
@@ -983,6 +988,7 @@ def model_walks(device) -> dict:
                 warps=kc.warp_of_rays(slots, count).to(device))
             torch.cuda.synchronize()
             w = dict(kc.WORK)
+            w["pair_tests"] += w["pairs_pruned"]  # a per-warp walk prunes none
             eff[label] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
                               efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
             log(f"  {name} pair-loop efficiency, {label} warps: {w['pair_tests']} pair tests / "
@@ -995,14 +1001,17 @@ def model_walks(device) -> dict:
                                 fission=True)
         torch.cuda.synchronize()
         w = dict(kc.WORK)
+        every = w["pair_tests"] + w["pairs_pruned"]  # the per-warp walk's
         eff["primary_fission"] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
-                                      pair_slots=w["pair_slots"],
-                                      per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
+                                      pair_slots=w["pair_slots"], pairs_pruned=w["pairs_pruned"],
+                                      per_warp=every / max(1, w["warp_slots"]),
                                       compacted=w["pair_tests"] / max(1, w["pair_slots"]))
         log(f"  {name} fission primary pair-loop efficiency: warps of 32 rays "
-            f"{100 * eff['primary_fission']['per_warp']:.1f} %, compacted (the kernel's "
-            f"schedule) {100 * eff['primary_fission']['compacted']:.1f} % ({w['pair_tests']} "
-            f"pair tests, {w['warp_slots']} warp slots, {w['pair_slots']} compacted slots)")
+            f"{100 * eff['primary_fission']['per_warp']:.1f} % ({every} pair tests), compacted "
+            f"(the kernel's schedule, near-first and distance-pruned) "
+            f"{100 * eff['primary_fission']['compacted']:.1f} % ({w['pair_tests']} pair tests, "
+            f"{w['pairs_pruned']} pruned, {w['warp_slots']} warp slots, {w['pair_slots']} "
+            f"compacted slots)")
         eff["shade_all"] = shade_model(
             f"{name} shade of the primary stage (all rays)",
             lambda: tw.primary_shade(st24, cset, uni, mats, lights, cfg, *pk, warps=lin))
@@ -1028,8 +1037,9 @@ def model_walks(device) -> dict:
                                        d, *pk, warps=warps)
                 torch.cuda.synchronize()
                 w = dict(kc.WORK)
-                row[order] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
-                                  efficiency=w["pair_tests"] / max(1, w["warp_slots"]))
+                every = w["pair_tests"] + w["pairs_pruned"]  # the fused bounce prunes none
+                row[order] = dict(pair_tests=every, warp_slots=w["warp_slots"],
+                                  efficiency=every / max(1, w["warp_slots"]))
             if name == "large_mesh" or d == 1:
                 # The trace kernel's closest hit alone, on the same list: its
                 # warps in list order against its compacted schedule.
@@ -1039,15 +1049,18 @@ def model_walks(device) -> dict:
                 tw.trace_listed_stage(st24, idx, n_live, cset, *pk, warps=list_warps)
                 torch.cuda.synchronize()
                 w = dict(kc.WORK)
+                every = w["pair_tests"] + w["pairs_pruned"]  # the per-warp walk's
                 row["trace"] = dict(pair_tests=w["pair_tests"], warp_slots=w["warp_slots"],
-                                    pair_slots=w["pair_slots"],
-                                    per_warp=w["pair_tests"] / max(1, w["warp_slots"]),
+                                    pair_slots=w["pair_slots"], pairs_pruned=w["pairs_pruned"],
+                                    per_warp=every / max(1, w["warp_slots"]),
                                     compacted=w["pair_tests"] / max(1, w["pair_slots"]),
                                     box_tests=w["group_tests"] + w["slab_tests"])
                 log(f"  {name} trace {d} ({m} live rays) pair-loop efficiency: warps in list "
                     f"order {100 * row['trace']['per_warp']:.1f} %, compacted (the trace "
-                    f"kernel's schedule) {100 * row['trace']['compacted']:.1f} % "
-                    f"({w['pair_tests']} pair tests, {w['warp_slots']} warp slots, "
+                    f"kernel's schedule, near-first and distance-pruned) "
+                    f"{100 * row['trace']['compacted']:.1f} % "
+                    f"({w['pair_tests']} pair tests, {w['pairs_pruned']} pruned, "
+                    f"{w['warp_slots']} warp slots, "
                     f"{w['pair_slots']} compacted slots); box tests a listed ray "
                     f"{row['trace']['box_tests'] / max(1, m):.2f} ({w['group_tests']} group, "
                     f"{w['slab_tests']} member; the flat cull {cset.num_clusters})")
@@ -2958,14 +2971,16 @@ def form_kernel_times(device) -> list:
                 "+ csrc/walk_layout.h")
     rows = {}
 
-    def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None, build=None):
+    def row(name, tag, run_k, copies_k, run_p, nbytes, fused_ms=None, build=None,
+            pruned=False):
         """Time ``run_k(state)`` on fresh copies; hold it to ``run_p(state)``
-        once; the bound from the plain run's WORK; ``build``: the build's
-        name for its blocks per multiprocessor, if not ``name``."""
+        once; the bound from the plain run's WORK (``pruned``: the kernel's
+        closest hit is the distance-pruned walk, work_bound); ``build``: the
+        build's name for its blocks per multiprocessor, if not ``name``."""
         st_k = run_k(copies_k.pop())
         kc.reset_work()
         st_p, plain_ms = timed(lambda: run_p(copies_k.pop()))
-        bound = work_bound(dict(kc.WORK), nbytes)
+        bound = work_bound(dict(kc.WORK), nbytes, pruned)
         same, mx, _ = diff(st_k, st_p)
         check(same, name, tag, "kernel not bit-equal to its plain version", mx)
         del st_p
@@ -3007,10 +3022,15 @@ def form_kernel_times(device) -> list:
         st16 = kw.primary(cset, fb, cfg, band, *pk)
         n_rays = st16.shape[1]
         fused_ms = device_ms(lambda: kw.primary(cset, fb, cfg, band, *pk), 3)
+        # Past PER_WARP_ROWS (TRACE_SLOT) rows the fission primary walks
+        # compacted and pruned: its plain run in the kernel's warps counts
+        # what it runs.
+        compacted = k > kc.TRACE_SLOT
+        lin = kc.warp_of_rays(kc.linear_slots(n_rays), n_rays).to(device) if compacted else None
         row("primary_fission", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk, fission=True),
             [None] * 6, lambda _: tw.primary_stage(cset, uni, mats, lights, cfg, band, *pk,
-                                                  fission=True),
-            geom + 4 * n_rays * (6 + 14), fused_ms=fused_ms)
+                                                  fission=True, warps=lin),
+            geom + 4 * n_rays * (6 + 14), fused_ms=fused_ms, pruned=compacted)
         if glass:
             row("primary_shadow", tag, lambda _: kw.primary(cset, fb, cfg, band, *pk,
                                                            cset_shadow=sh),
@@ -3066,7 +3086,7 @@ def form_kernel_times(device) -> list:
                 return st
 
             traced_st = row("trace", at, trace, [st24.clone() for _ in range(5)], trace_p,
-                            geom + 4 * live * (7 + 6 + 1) + 4, fused_ms=fused_ms)
+                            geom + 4 * live * (7 + 6 + 1) + 4, fused_ms=fused_ms, pruned=True)
 
             def shade(st):
                 kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk)

@@ -45,9 +45,9 @@ int cosig_trace_launch(const cosig::Frame* frame, const float* geom, const float
                        const float* sb_aabb, int n_clusters, int k, int c_pad,
                        const float* prims, int n_sph, int n_box, const int* idx,
                        const int* n_live, float* state,
-                       unsigned long long* box_tests, void* stream) {
+                       unsigned long long* counts, void* stream) {
   return cosig::trace_launch<false>(frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims,
-                                    n_sph, n_box, idx, n_live, state, box_tests, stream);
+                                    n_sph, n_box, idx, n_live, state, counts, stream);
 }
 
 // The shade half on a list, or on every ray with idx and n_live NULL.

@@ -164,19 +164,20 @@ int bounce_shadow_launch(const Frame* frame, const float* geom, const float* aab
 }
 
 // The trace half of a bounce on the listed rays of state f32 [24, n_rays];
-// box_tests (or NULL): a u64 counter the launch adds its box tests to.
+// counts (or NULL): three u64 counters the launch adds its box tests, pairs
+// run and pairs pruned to.
 template <bool MX>
 int trace_launch(const Frame* frame, const float* geom, const float* aabb, const float* sb_aabb,
                  int n_clusters, int k, int c_pad, const float* prims, int n_sph, int n_box,
                  const int* idx, const int* n_live, float* state,
-                 unsigned long long* box_tests, void* stream) {
+                 unsigned long long* counts, void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
   if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS;
   return (int)launch_walk(trace_build<MX>(n_clusters, k), blocks, pairs_smem<MX>(k, true),
                           (cudaStream_t)stream, *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad,
-                          prims, n_sph, n_box, idx, n_live, state, box_tests);
+                          prims, n_sph, n_box, idx, n_live, state, counts);
 }
 
 // The shade half on state f32 [24, n_rays], its shadow rays through the

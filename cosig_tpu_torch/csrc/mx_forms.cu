@@ -57,9 +57,9 @@ int cosig_trace_mx_launch(const cosig::Frame* frame, const float* geom, const fl
                           const float* sb_aabb, int n_clusters, int k, int c_pad,
                           const float* prims, int n_sph, int n_box, const int* idx,
                           const int* n_live, float* state,
-                          unsigned long long* box_tests, void* stream) {
+                          unsigned long long* counts, void* stream) {
   return cosig::trace_launch<true>(frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims,
-                                   n_sph, n_box, idx, n_live, state, box_tests, stream);
+                                   n_sph, n_box, idx, n_live, state, counts, stream);
 }
 
 // The shade half with tensor-core any hits (frame->flags has F_MX_SHADOW),

@@ -344,6 +344,60 @@ __device__ __forceinline__ bool pair_test(const PairRow& q, const Ray& r, float&
          (vc * s >= 0.0f) && (t > EPSILON);
 }
 
+// The distance pruning of the compacted closest hit (traverse_tile.cuh
+// closest_pairs): whether a ray whose key is at t_key may skip a piece of
+// rows of a cluster whose box b it enters at tn (box_pass), n1 the largest
+// |n|_1 = |gx| + |gy| + |gz| of the piece's rows (the unnormalised plane
+// normal n = (B - A) x (C - A) of accel/clusters.py). It skips them only
+// where no pair of them can reach a key at or below t_key, a gid tie
+// included: where every valid pair has t > t_key. The argument, with u =
+// 2^-24 and the slab test, the pair test and the key all in float32:
+//  * the box is the rows' vertex box grown by pad >= 1e-4 on every side
+//    (clusters.py), so where the ray's line crosses a triangle exactly, at
+//    t*, it entered the box at least pad / max|d_a| >= pad (|d| = 1) before:
+//    exact tn <= t* - pad;
+//  * box_pass's tn = fl(fl(b - o) * fl(1/d)) on the entering axis, within
+//    3u |tn| of the exact entry (max and min are exact);
+//  * pair_test's t = fl(fl(nda - fl(n.o)) * fl(1/fl(n.d))) (three-term
+//    sums, nda = fl(n.A) stored) is within about 3u |n|_1 (|o|_inf +
+//    |A|_inf + t |d|_inf) / |s| + 3u t of the crossing of the ray and the
+//    triangle's plane; the pair test is valid only for |s| >= EPSILON, A lies
+//    in the box (|A|_inf <= rb, the box's largest |bound|) and t <= t_key
+//    for a pair that would beat the key, so that is at most
+//    3u n1 (|o|_inf + rb + t_key) / EPSILON + 3u t_key;
+//  * so a valid pair whose crossing lies in its triangle has t > tn - pad +
+//    those errors, and t > t_key wherever tn > t_key + margin, with margin
+//    = (|o|_inf + rb + t_key) n1 PRUNE_GRAZE + t_key PRUNE_REL: PRUNE_GRAZE
+//    is 2.8x the rounding term's 3u / EPSILON, PRUNE_REL 5x the 3u |tn| and
+//    3u t terms, and the pad is left as slack. No tighter bound holds for
+//    grazing pairs (small |s|, where t moves by |n| / |s| times its
+//    rounding), so the margin takes the worst |s| the pair test lets pass
+//    and the piece's largest normal: large for large triangles (a ground
+//    quad's pieces are never pruned), small for a mesh's. Not covered by
+//    the bound: a grazing pair whose float edge tests pass where the exact
+//    ones fail, crossing its plane outside the triangle by more than the
+//    pad (the unpruned walk's own hit is then a rounding artefact).
+// A ray with no key (t_key = INF), a NaN tn or margin, and an origin
+// inside the box (tn <= 0 < t_key) never prune. About 20 operations; the
+// plain version is cosig_tpu_torch/ops/kernel_core.py prune_flags.
+constexpr float PRUNE_GRAZE = 5e-3f;               // 8.4u / EPSILON
+constexpr float PRUNE_REL = 9.5367431640625e-07f;  // 2^-20 = 16u
+
+__device__ __forceinline__ bool prunes(float tn, float t_key, const Ray& r, const Box& b,
+                                       float n1) {
+  if (!(t_key < INF)) return false;
+  const float o = fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
+  const float rb = fmaxf(fmaxf(fmaxf(fabsf(b.b0), fabsf(b.b1)), fmaxf(fabsf(b.b2), fabsf(b.b3))),
+                         fmaxf(fabsf(b.b4), fabsf(b.b5)));
+  const float margin = ((o + rb) + t_key) * n1 * PRUNE_GRAZE + t_key * PRUNE_REL;
+  return tn > t_key + margin;
+}
+
+// A geometry row's |n|_1 (columns 3-5), the piece maximum prunes() takes.
+__device__ __forceinline__ float normal_l1(float gx, float gy, float gz) {
+  return (fabsf(gx) + fabsf(gy)) + fabsf(gz);
+}
+
 // The closest-hit fold's running winner: lexicographic (t, gid) minimum,
 // the winning row (c * K + k) and its barycentrics.
 struct Best {

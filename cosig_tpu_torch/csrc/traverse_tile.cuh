@@ -44,14 +44,15 @@
 //     kernels that only run the frustum cull carry none of that code. The
 //     block counts the box tests its warps run without the frustum cull
 //     (group and cluster, per lane), which the trace kernel adds to a
-//     counter of its launch (add_box_tests).
+//     counter of its launch (add_counts).
 //  2. List. Warp 0 compacts the clusters that some lane enters into a list
 //     in ascending cluster order: the closest-hit fold does not need the
 //     order (the (t, gid) winner is order-free), but the any hit must stop
 //     at the occluder a walk in cluster order stops at (the plain
 //     kernel_core.traverse, whose WORK counts its pair tests so). Step 0
 //     passes a superset of the boxes some lane enters, so the list is the
-//     flat walk's, cluster for cluster.
+//     flat walk's, cluster for cluster. The compacted closest hit then walks
+//     it near-first (closest_pairs, below).
 //  3. Walk. Thread 0 keeps the next RING_STAGES listed clusters' rows in
 //     flight, K x 144 contiguous bytes each, one mbarrier per ring slot.
 //     A warp whose ballot word is 0 skips the cluster; otherwise its lanes
@@ -116,6 +117,7 @@
 namespace cosig {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr unsigned NO_ENTRY = 0xffffffffu;  // a box no ray of the block entered (entry_key)
 static_assert(ROW_BYTES == GEOM_COMPS * 4, "a ring row is one geometry row");
 static_assert(sizeof(Hull) == HULL_BYTES, "walk_layout.h sizes the hull");
 static_assert(TRACE_SLOT == 32, "the compacted walk finds a slot's real rows with one ballot");
@@ -349,14 +351,16 @@ struct BlockWalk {
   }
 
   // Boxes c0 .. c0 + TILE_C - 1 of aabb [8, c_pad] into [c][8]; with
-  // `groups`, the union boxes of the two-level cull too (union_group).
+  // `groups`, the union boxes of the two-level cull too (union_group). A
+  // box's first spare word holds its entry key (entry_key), NO_ENTRY here.
   __device__ __forceinline__ void stage_boxes(int c0, bool groups) {
     const int n = min(TILE_C, g.n_clusters - c0);
     float4* bx = boxes();
+    const float none = __uint_as_float(NO_ENTRY);
     if (!groups) {
       for (int c = threadIdx.x; c < n; c += TILE_THREADS) {
         const Box b = box_ldg(g, c0 + c);
-        bx[2 * c] = make_float4(b.b0, b.b1, b.b2, 0.0f);
+        bx[2 * c] = make_float4(b.b0, b.b1, b.b2, none);
         bx[2 * c + 1] = make_float4(b.b3, b.b4, b.b5, 0.0f);
       }
     } else {
@@ -365,7 +369,7 @@ struct BlockWalk {
         Box b = no_box();
         if (c < n) {
           b = box_ldg(g, c0 + c);
-          bx[2 * c] = make_float4(b.b0, b.b1, b.b2, 0.0f);
+          bx[2 * c] = make_float4(b.b0, b.b1, b.b2, none);
           bx[2 * c + 1] = make_float4(b.b3, b.b4, b.b5, 0.0f);
         }
         union_group(b, c, n);
@@ -494,14 +498,32 @@ struct BlockWalk {
   }
 
   // Step 1 on box c of the pass: the slab test of every lane's ray, the
-  // warp's ballot of the lanes with `enter` set that pass it stored.
-  template <bool ANY>
+  // warp's ballot of the lanes with `enter` set that pass it stored. KEYS
+  // (the compacted closest hit): also the warp's least entry distance
+  // max(tn, 0) of those lanes (a NaN tn as 0) into the box's entry key, a
+  // shared-memory minimum over the warps.
+  template <bool ANY, bool KEYS = false>
   __device__ __forceinline__ void slab_ballot(const Ray& r, bool enter, float max_t, int c) {
     float tn;
     bool pass = box_pass(box_at(boxes(), c), r, tn);
     if (ANY) pass = pass && !(tn > max_t);
     const unsigned w = __ballot_sync(FULL_MASK, enter && pass);
     if (lane() == 0) ballots()[c * TILE_WARPS + warp()] = w;
+    if constexpr (KEYS) {
+      if (w != 0u) {  // the same in every lane
+        const unsigned near = __reduce_min_sync(
+            FULL_MASK, enter && pass ? __float_as_uint(tn > 0.0f ? tn : 0.0f) : NO_ENTRY);
+        if (lane() == 0) atomicMin(entry_key(c), near);
+      }
+    }
+  }
+
+  // Cluster c's entry key in the pass: the bits of the least max(tn, 0)
+  // over the block's rays that enter its box (non-negative floats order as
+  // their bits), NO_ENTRY where none has; the first spare word of its
+  // staged box.
+  __device__ __forceinline__ unsigned* entry_key(int c) const {
+    return reinterpret_cast<unsigned*>(&boxes()[2 * c].w);
   }
 
   // Steps 0 to 2 on clusters c0 .. c0 + n - 1 of the rays with `enter`
@@ -511,8 +533,9 @@ struct BlockWalk {
   // (group_pass, exact) and runs the members' slab tests only where some
   // lane enters it, else stores 0 as their ballots. Without the frustum cull
   // each warp also adds the box tests it runs (group and cluster), once per
-  // lane with `enter` set, to the block's count (count()[3], add_box_tests).
-  template <bool ANY>
+  // lane with `enter` set, to the block's count (count()[3], add_counts).
+  // KEYS: gather the listed clusters' entry keys too (slab_ballot).
+  template <bool ANY, bool KEYS = false>
   __device__ __forceinline__ int cull(const Ray& r, bool enter, float max_t, bool frustum,
                                       int c0, int n) {
     const int m0 = prefilter(r, enter, max_t, frustum, c0, n);
@@ -524,7 +547,7 @@ struct BlockWalk {
     unsigned* bal = ballots();
     if (__any_sync(FULL_MASK, enter)) {
       if (frustum) {
-        for (int j = 0; j < m0; ++j) slab_ballot<ANY>(r, enter, max_t, cand[j]);
+        for (int j = 0; j < m0; ++j) slab_ballot<ANY, KEYS>(r, enter, max_t, cand[j]);
       } else {
         int tests = m0;
         if (two_level) {
@@ -537,13 +560,13 @@ struct BlockWalk {
             ++tests;
             if (__any_sync(FULL_MASK, in)) {
               tests += end - c;
-              for (int j = c; j < end; ++j) slab_ballot<ANY>(r, enter, max_t, j);
+              for (int j = c; j < end; ++j) slab_ballot<ANY, KEYS>(r, enter, max_t, j);
             } else if (c + lane() < end) {
               bal[(c + lane()) * TILE_WARPS + warp()] = 0u;
             }
           }
         } else {
-          for (int j = 0; j < m0; ++j) slab_ballot<ANY>(r, enter, max_t, j);
+          for (int j = 0; j < m0; ++j) slab_ballot<ANY, KEYS>(r, enter, max_t, j);
         }
         const int lanes = __popc(__ballot_sync(FULL_MASK, enter));
         if (lane() == 0) atomicAdd(count() + 3, tests * lanes);
@@ -575,10 +598,25 @@ struct BlockWalk {
     return count()[0];
   }
 
-  // Thread 0: add the block's box tests since init (count()[3]) to *out,
-  // after a walk: every cull's count lands before its step-1 barrier.
-  __device__ __forceinline__ void add_box_tests(unsigned long long* out) const {
-    if (threadIdx.x == 0) atomicAdd(out, (unsigned long long)count()[3]);
+  // Thread 0, after a walk: add the block's counts since init to out[0 ..
+  // 2]: its box tests (count()[3]: every cull's count lands before its
+  // step-1 barrier), and the compacted closest hit's pairs run and pairs
+  // pruned (its region's count words, thread 0's own adds; 0 for the other
+  // walks, which have no such region).
+  __device__ __forceinline__ void add_counts(unsigned long long* out) const {
+    if (threadIdx.x == 0) {
+      atomicAdd(out, (unsigned long long)count()[3]);
+      if constexpr (PC && !MX) {
+        const int* pc = pair_counts();
+        atomicAdd(out + 1, (unsigned long long)pc[PAIRS_RUN]);
+        atomicAdd(out + 2, (unsigned long long)pc[PAIRS_PRUNED]);
+      }
+    }
+  }
+
+  // The compacted closest hit's count words (PAIR_COUNTS of its region).
+  __device__ __forceinline__ int* pair_counts() const {
+    return reinterpret_cast<int*>(smem + tile_layout(rows, false, true).pairs + PAIR_COUNTS);
   }
 
   // Closest hit of every thread's ray; inactive threads get a miss.
@@ -744,21 +782,33 @@ struct BlockWalk {
 
   // The closest hit of a compacted walk (exact, PC, slots of TRACE_SLOT
   // rows): the trace's, and the fission primary's with `frustum` (the
-  // frustum pre-cull, as closest()). The pair loop is compacted: for each
-  // listed piece, the rays that entered the cluster's box are listed (a
-  // prefix over the 4 warp ballots) and the n x rows (ray, row) pairs
-  // spread over the block's threads (walk_layout.h pair_first / pair_next:
-  // a warp reads one row as a broadcast, its lanes' rays' operands from
-  // `pairs` [PAIR_OPERANDS][128], staged once per walk). A pair that beats the key its thread reads
-  // (stale or not: it only lets more through) folds hit_key(t, gid) into
-  // its ray's key with a 64-bit atomicMin; the key's minimum is the (t,
-  // gid) winner of the per-ray fold, which does not depend on the order.
-  // Then each ray whose key fell in this piece finds the winning row by its
-  // gid among the slot's rows and runs pair_test on it again, for the row
-  // and the barycentrics (the same operands, so the same bits). The
-  // region: PAIR_BYTES of shared memory past the walk's layout
+  // frustum pre-cull, as closest()). Near-first: each pass's list is walked
+  // in the order of its clusters' entry keys (the least max(tn, 0) over the
+  // block's rays that enter the box, gathered by the cull; ties by cluster
+  // index), ranked in shared memory (near_first). Distance-pruned: at each
+  // piece, a ray that entered the box runs box_pass on it again and skips
+  // the piece where its entry lies past its key's t by more than prunes()'s
+  // margin, which no pair of the piece can beat; the key is the ray's after
+  // every earlier piece, whose pairs are all folded by the barrier before,
+  // so the order of the list decides only how much is pruned. The pair loop
+  // is compacted: the rays of the piece that are not pruned are listed
+  // (each warp adds its count to the piece's counter, which the first
+  // barrier publishes) and the n x rows (ray, row) pairs spread over the
+  // block's threads (walk_layout.h pair_first / pair_next: a warp reads one
+  // row as a broadcast, its lanes' rays' operands from `pairs`
+  // [PAIR_OPERANDS][128], staged once per walk). A pair that beats the key
+  // its thread reads (stale or not: it only lets more through) folds
+  // hit_key(t, gid) into its ray's key with a 64-bit atomicMin; the key's
+  // minimum is the (t, gid) winner of the per-ray fold, which depends on
+  // neither the order of the clusters nor that of the list. Then each ray
+  // whose key fell in this piece finds the winning row by its gid among the
+  // slot's rows and runs pair_test on it again, for the row and the
+  // barycentrics (the same operands, so the same bits). Thread 0 counts the
+  // pairs run and pruned (pair_counts(), for add_counts).
+  // The region: PAIR_BYTES of shared memory past the walk's layout
   // (trace_smem). Two block barriers a piece: after the list (and the
-  // previous piece's owners), after the pairs.
+  // previous piece's owners), after the pairs; one more a pass to rank a
+  // list of two clusters or more.
   __device__ __forceinline__ Hit closest_pairs(float ox, float oy, float oz, float dx, float dy,
                                                float dz, bool active, bool frustum) {
     static_assert(PC && !MX, "the compacted walk is exact, in slots");
@@ -767,25 +817,27 @@ struct BlockWalk {
     unsigned long long* keys = reinterpret_cast<unsigned long long*>(pairs + PAIR_KEYS);
     float* ops = reinterpret_cast<float*>(pairs + PAIR_OPS);
     int* in_box = reinterpret_cast<int*>(pairs + PAIR_LIST);
+    int* pc = pair_counts();
     const int tid = threadIdx.x;
     const unsigned long long no_key = hit_key(__float_as_uint(INF), (unsigned)GID_PAD);
     keys[tid] = no_key;
+    if (tid < PAIR_COUNT_WORDS) pc[tid] = 0;
     stage_ops(ops, r);
     // cull() holds block barriers before any thread reads these.
     Best b = no_hit();
-    unsigned long long own = no_key;  // the ray's key after the last piece it entered
+    unsigned long long own = no_key;  // the ray's key after the last piece it ran
     const int np = pieces();
     sb_open = true;
     for (int c0 = 0; c0 < g.n_clusters; c0 += TILE_C) {
       const int n = min(TILE_C, g.n_clusters - c0);
-      const int m = cull<false>(r, active, INFINITY, frustum, c0, n) * np;  // units
-      const int* lst = list();
+      const int m = near_first(cull<false, true>(r, active, INFINITY, frustum, c0, n)) * np;
+      const int* lst = m > np ? reinterpret_cast<const int*>(smem + lay().cand) : list();
       const unsigned* bal = ballots();
       const unsigned base = seq;
       if (tid == 0) {
         for (int j = 0; j < min(RING_STAGES, m); ++j) issue_unit(base + j, c0, lst, j);
       }
-      bool entered = false;  // the ray entered the previous unit's box
+      bool entered = false;  // the ray ran the previous unit's pairs
       int kr_prev = 0, row0_prev = 0;  // the previous unit's rows and first row
       for (int j = 0; j < m; ++j) {
         const unsigned q = base + j;
@@ -795,29 +847,46 @@ struct BlockWalk {
         const int kr = piece_rows(g.k, rows, p);
         const int row0 = (c0 + c) * g.k + piece_first(p, rows);
         const uint4 w4 = *reinterpret_cast<const uint4*>(bal + c * TILE_WARPS);
-        const unsigned wv[TILE_WARPS] = {w4.x, w4.y, w4.z, w4.w};
+        const unsigned wv = warp() == 0 ? w4.x : warp() == 1 ? w4.y : warp() == 2 ? w4.z : w4.w;
+        const int n_box = __popc(w4.x) + __popc(w4.y) + __popc(w4.z) + __popc(w4.w);
         wait_copy(q);
         const float4* rows_q = ring_rows(q);
-        // The list of this piece's rays, and the previous piece's owners.
-        if (entered) {
-          own = resolve(keys[tid], own, r, b, ring_rows(q - 1), kr_prev, row0_prev);
+        // The previous piece's owners; the key after every earlier piece.
+        const unsigned long long key = keys[tid];
+        if (entered) own = resolve(key, own, r, b, ring_rows(q - 1), kr_prev, row0_prev);
+        // This piece's rays: those in the box that it does not prune.
+        bool in = (wv >> lane()) & 1u;
+        if (wv != 0u) {
+          const float4* pr = rows_q + 9 * lane();
+          const float l1 = lane() < kr ? normal_l1(pr[0].w, pr[1].x, pr[1].y) : 0.0f;
+          const float n1 = __uint_as_float(__reduce_max_sync(FULL_MASK, __float_as_uint(l1)));
+          if (in) {
+            const Box bx = box_at(boxes(), c);
+            float tn;
+            box_pass(bx, r, tn);
+            in = !prunes(tn, __uint_as_float((unsigned)(key >> 32)), r, bx, n1);
+          }
         }
-        int n_in = 0, at = 0;
-#pragma unroll
-        for (int w = 0; w < TILE_WARPS; ++w) {
-          if (w == warp()) at = n_in;
-          n_in += __popc(wv[w]);
-        }
-        entered = (wv[warp()] >> lane()) & 1u;
-        if (entered) in_box[at + __popc(wv[warp()] & ((1u << lane()) - 1u))] = tid;
+        entered = in;
+        const unsigned mine = __ballot_sync(FULL_MASK, in);
+        int at = 0;
+        if (lane() == 0 && mine != 0u) at = atomicAdd(pc + PAIRS_IN_BOX + (q & 1u), __popc(mine));
+        at = __shfl_sync(FULL_MASK, at, 0);
+        if (in) in_box[at + __popc(mine & ((1u << lane()) - 1u))] = tid;
         // Real rows of the piece: before its first padding row.
         const unsigned pad =
             __ballot_sync(FULL_MASK, lane() < kr && rows_q[9 * lane() + 8].w >= GID_PAD);
         const int real = pad ? __ffs(pad) - 1 : kr;
         __syncthreads();  // the list is written; the previous piece's owners are done
-        if (tid == 0 && j >= 1 && j - 1 + RING_STAGES < m) {
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          issue_unit(q - 1 + RING_STAGES, c0, lst, j - 1 + RING_STAGES);
+        const int n_in = pc[PAIRS_IN_BOX + (q & 1u)];
+        if (tid == 0) {
+          pc[PAIRS_IN_BOX + ((q + 1u) & 1u)] = 0;  // the next piece's, read before the last barrier
+          pc[PAIRS_RUN] += n_in * real;
+          pc[PAIRS_PRUNED] += (n_box - n_in) * real;
+          if (j >= 1 && j - 1 + RING_STAGES < m) {
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            issue_unit(q - 1 + RING_STAGES, c0, lst, j - 1 + RING_STAGES);
+          }
         }
         const int total = n_in * real;
         if (tid < total) {
@@ -844,6 +913,31 @@ struct BlockWalk {
       seq = base + m;
     }
     return finish_closest(g, r, b);
+  }
+
+  // Every thread, after a cull<false, true> that listed ml clusters -> ml:
+  // with two or more, rank them near-first (by entry key, then by list
+  // position, which is cluster order) into the frustum candidates' array,
+  // dead after the list is built (the walk then reads it there), then a
+  // block barrier. Any order of the list gives the same hits (the pruning
+  // is exact); this one makes the pruning engage most.
+  __device__ __forceinline__ int near_first(int ml) {
+    if (ml > 1) {
+      const int* lst = list();
+      int* ranked = reinterpret_cast<int*>(smem + lay().cand);
+      for (int i = threadIdx.x; i < ml; i += TILE_THREADS) {
+        const int ci = lst[i];
+        const unsigned ki = *entry_key(ci);
+        int rank = 0;
+        for (int jj = 0; jj < ml; ++jj) {
+          const unsigned kj = *entry_key(lst[jj]);
+          rank += (kj < ki || (kj == ki && jj < i)) ? 1 : 0;
+        }
+        ranked[rank] = ci;
+      }
+      __syncthreads();  // ranked
+    }
+    return ml;
   }
 
   // A ray's owner after a piece it entered (its slot rows_q: kr rows from

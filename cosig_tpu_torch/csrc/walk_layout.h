@@ -46,7 +46,13 @@ constexpr int PAIR_FLAGS = 0;
 constexpr int PAIR_MAX_T = TILE_THREADS * 4;
 constexpr int PAIR_OPS = TILE_THREADS * 8;
 constexpr int PAIR_LIST = PAIR_OPS + TILE_THREADS * 4 * PAIR_OPERANDS;
-constexpr int PAIR_BYTES = PAIR_LIST + TILE_THREADS * 4;  // 6,144
+// Last, the closest hit's four count words (PAIR_COUNT_WORDS): the pairs
+// run and the pairs pruned by the block, then the two counters of its
+// pieces' ray lists, used in turn piece by piece.
+constexpr int PAIR_COUNTS = PAIR_LIST + TILE_THREADS * 4;
+constexpr int PAIR_COUNT_WORDS = 4;
+constexpr int PAIRS_RUN = 0, PAIRS_PRUNED = 1, PAIRS_IN_BOX = 2;
+constexpr int PAIR_BYTES = PAIR_COUNTS + 4 * PAIR_COUNT_WORDS;  // 6,160
 
 // Rows of a slot of at most `cap` rows over clusters of k rows.
 MX_HD constexpr int slot_rows(int k, int cap) { return k < cap ? k : cap; }

@@ -337,8 +337,9 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : 0)
 // slots (for k > SLOT_MAX). Exact: the compacted walk
 // (traverse_tile.cuh closest_pairs) in slots of TRACE_SLOT rows, at every k
 // (PC unused), held to TRACE_MIN_BLOCKS blocks a multiprocessor.
-// box_tests (or NULL): the launch's counter of the box tests its walks run
-// (group and cluster, per listed ray), one add a block.
+// counts (or NULL): the launch's three counters, one add each a block: the
+// box tests its walks run (group and cluster, per listed ray), and the
+// pairs the compacted walk runs and prunes.
 template <bool SB, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS)
     trace_kernel(const __grid_constant__ Frame f, const float* __restrict__ geom,
@@ -346,7 +347,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
                  int n_clusters, int k, int c_pad,
                  const float* __restrict__ prims, int n_sph, int n_box,
                  const int* __restrict__ idx, const int* __restrict__ n_live,
-                 float* __restrict__ state, unsigned long long* __restrict__ box_tests) {
+                 float* __restrict__ state, unsigned long long* __restrict__ counts) {
   const int live = *n_live;
   if ((int)blockIdx.x * THREADS >= live) return;  // the same in every thread
   extern __shared__ __align__(128) unsigned char tile_smem[];
@@ -379,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
     st.count = st.count + (st.alive ? 1.0f : 0.0f);
     h = walk.closest_pairs(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, st.alive, false);
   }
-  if (box_tests != nullptr) walk.add_box_tests(box_tests);
+  if (counts != nullptr) walk.add_counts(counts);
   if (!listed) return;
   state[ROW_COUNT * (size_t)n + i] = st.count;
   store_rec(state, n, i, h);

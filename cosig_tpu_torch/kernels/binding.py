@@ -285,7 +285,7 @@ def _load() -> ctypes.CDLL:
         ("cosig_megakernel_mx_launch", [i32]),  # max_depth, out, stream
         ("cosig_primary_form_launch", [i32] + shadow),  # fission, shadow set, state, stream
         ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
-        ("cosig_trace_launch", [ptr, ptr], [ptr]),  # idx, n_live, state, box_tests, stream
+        ("cosig_trace_launch", [ptr, ptr], [ptr]),  # idx, n_live, state, counts, stream
         ("cosig_shade_launch", [ptr, ptr]),  # idx or NULL, n_live or NULL, state, stream
         ("cosig_primary_form_mx_launch", [i32] + shadow),  # as their exact builds'
         ("cosig_bounce_shadow_mx_launch", shadow + [ptr, ptr]),

@@ -176,32 +176,33 @@ def bounce(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: C
 
 def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: ClusterSet,
           fb: binding.FrameBuffer, cfg: StaticConfig, depth: int, prims: torch.Tensor,
-          n_sph: int, n_box: int, mxu: str = "off", box_tests=None) -> None:
+          n_sph: int, n_box: int, mxu: str = "off", counts=None) -> None:
     """The trace half of the bounce stage at ``depth`` on the listed rays
     ``idx[:n_live]`` of a 24-row ``state``, in place: each listed ray's
     count, and its hit record in rows 15-19; ``mxu``: the closest hit's
-    form (the tensor-core build in both modes). ``box_tests``: a contiguous
-    int64 [1] on the device that the launch adds its walk's box tests to
-    (group and cluster, per listed ray), or None; the plain version on the
+    form (the tensor-core build in both modes). ``counts``: a contiguous
+    int64 [3] on the device that the launch adds its walk's box tests
+    (group and cluster, per listed ray), pairs run and pairs pruned to
+    (``trace_wavefront.TRACE_COUNTS``), or None; the plain version on the
     CPU counts them only while tracing is on."""
     dev = state.device
     trace_wavefront.check_mxu(mxu)
-    if box_tests is not None and (box_tests.device != dev or box_tests.dtype != torch.int64
-                                  or not box_tests.is_contiguous()
-                                  or tuple(box_tests.shape) != (1,)):
-        raise ValueError(f"box_tests must be contiguous int64 [1] on {dev}, got "
-                         f"{box_tests.dtype} {tuple(box_tests.shape)} on {box_tests.device}")
-    tracing.plan_step("trace", depth, box_tests=box_tests)
+    n_counts = len(trace_wavefront.TRACE_COUNTS)
+    if counts is not None and (counts.device != dev or counts.dtype != torch.int64
+                               or not counts.is_contiguous()
+                               or tuple(counts.shape) != (n_counts,)):
+        raise ValueError(f"counts must be contiguous int64 [{n_counts}] on {dev}, got "
+                         f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
+    tracing.plan_step("trace", depth, counts=counts)
     if dev.type == "cpu":
         trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box,
-                                           mxu=mxu,
-                                           box_tests=box_tests if tracing.on() else None)
+                                           mxu=mxu, counts=counts if tracing.on() else None)
         return
     frame = _check_stage("trace", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
                          n_box, (FISSION_ROWS,))
     mx = "_mx" if kernel_core.mxu_mode(cset, mxu) != "off" else ""
     binding.launch(f"cosig_trace{mx}_launch", frame, cset, prims, n_sph, n_box, state, idx,
-                   n_live, tail=(box_tests,))
+                   n_live, tail=(counts,))
     binding.LAUNCHES["trace" + mx] += 1
 
 

@@ -133,19 +133,26 @@ _PAIR_CHUNK = 1 << 20
 # the pair-loop slots the warps spend: a warp in which some ray (still
 # walking, for an any hit) enters a cluster runs its real rows on all 32
 # lanes, so each such (warp, cluster) counts 32 x the cluster's real rows.
-# For a closest hit also the slots of the compacted walk (the trace's and
-# the fission primary's: ``pair_slots``, :func:`compact_slots`), its blocks
-# the warps' groups of four. For an any hit also the slots of a per-warp
+# For an exact closest hit also the slots of the compacted walk (the
+# trace's and the fission primary's: ``pair_slots``, per block of four
+# warps and piece of TRACE_SLOT rows BLOCK_RAYS x ceil(n x rows /
+# BLOCK_RAYS), n the block's rays that run the piece; :func:`_walk_pruned`).
+# For an any hit also the slots of a per-warp
 # walk that leaves a cluster once none of its lanes still walks
 # (``any_warp_slots``: per (warp, cluster) 32 x the most rows a lane tests,
 # up to its first occluder) and of the compacted any hit (the exact
 # shade's: ``any_pair_slots``, :func:`any_compact_slots`). With ``warps`` and
 # no frustum cull, the kernels' two-level cull (:func:`group_flags`): per ray
 # a test of each group's union box (``group_tests``), and ``slab_tests``
-# only for the groups that some ray of its warp enters.
+# only for the groups that some ray of its warp enters. A closest hit
+# (exact) with ``warps`` walks as the compacted one does, near-first and
+# distance-pruned (:func:`prune_flags`): its ``pair_tests`` and
+# ``pair_slots`` are the pairs that walk runs, ``pairs_pruned`` those it
+# skips (a walk without pruning, such as the kernels' per-warp walks, runs
+# their sum).
 WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
         "pair_slots": 0, "any_warp_slots": 0, "any_pair_slots": 0, "frustum_tests": 0,
-        "superblock_tests": 0, "group_tests": 0}
+        "superblock_tests": 0, "group_tests": 0, "pairs_pruned": 0}
 
 # The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
 # block walk together, and its cull takes TILE_C clusters a pass; the
@@ -157,15 +164,53 @@ TRACE_SLOT = 32
 CULL_GROUP = 8  # consecutive clusters under one union box (the two-level cull)
 
 
-def compact_slots(n_in: torch.Tensor, rows: int) -> int:
-    """Pair-loop slots of the trace's compacted walk on one cluster of
-    ``rows`` real rows, ``n_in`` [B] the rays of each block in its box: per
-    block and slot piece of r real rows, the n x r pairs spread over the
-    block's threads take BLOCK_RAYS x ceil(n r / BLOCK_RAYS) slots."""
-    full, rest = divmod(rows, TRACE_SLOT)
-    pieces = [TRACE_SLOT] * full + ([rest] if rest else [])
-    return sum(BLOCK_RAYS * int(((n_in * r + BLOCK_RAYS - 1) // BLOCK_RAYS).sum())
-               for r in pieces)
+# The distance pruning's margin (csrc/traverse.cuh prunes, which gives the
+# argument): its grazing factor (8.4 u / EPSILON) and relative slack (2^-20).
+PRUNE_GRAZE = 5e-3
+PRUNE_REL = 2.0 ** -20
+
+
+def prune_flags(tn, t_key, ox, oy, oz, box, n1) -> torch.Tensor:
+    """Which rays [M] the compacted closest hit lets skip a piece of rows
+    (csrc/traverse.cuh prunes, operation for operation): ``tn`` the ray's
+    entry distance into the cluster's box (:func:`slab`), ``t_key`` its key's
+    t after the earlier pieces (INF: none), ``box`` [6, M] the box, ``n1`` [M]
+    the piece's largest |gx| + |gy| + |gz| (:func:`piece_normals`) -> bool
+    [M]: tn lies past t_key by more than the margin, so no pair of the piece
+    can reach t_key. NaN never prunes (fmax drops a NaN operand as fmaxf
+    does; a NaN margin or tn compares false)."""
+    fmax = torch.fmax
+    o = fmax(fmax(ox.abs(), oy.abs()), oz.abs())
+    b = box.abs()
+    rb = fmax(fmax(fmax(b[0], b[1]), fmax(b[2], b[3])), fmax(b[4], b[5]))
+    margin = ((o + rb) + t_key) * n1 * PRUNE_GRAZE + t_key * PRUNE_REL
+    return (t_key < INF) & (tn > t_key + margin)
+
+
+def piece_normals(geom: torch.Tensor) -> torch.Tensor:
+    """Per cluster and piece of TRACE_SLOT rows, the largest |n|_1 =
+    (|gx| + |gy|) + |gz| of its rows (padding rows are 0), as a warp of the
+    compacted walk reduces it (csrc/traverse.cuh normal_l1) -> [C, pieces]."""
+    C, K = int(geom.shape[0]), int(geom.shape[1])
+    l1 = (geom[:, :, _GN].abs() + geom[:, :, _GN + 1].abs()) + geom[:, :, _GN + 2].abs()
+    return torch.stack([l1[:, p:p + TRACE_SLOT].amax(dim=1) for p in range(0, K, TRACE_SLOT)],
+                       dim=1)
+
+
+def near_first(e_block, e_cluster, e_tn, n_blocks: int, n_clusters: int) -> torch.Tensor:
+    """The compacted closest hit's order of each block's list (csrc/
+    traverse_tile.cuh near_first): box entries (block, cluster, tn) [E] ->
+    each entry's position in its block's list, the clusters ranked by their
+    entry key, the least max(tn, 0) over the block's entries (a NaN tn as
+    0), ties by cluster index."""
+    key = torch.where(e_tn > 0.0, e_tn, 0.0)
+    keys = torch.full((n_blocks * n_clusters,), float("nan"), dtype=e_tn.dtype,
+                      device=e_tn.device)
+    keys.scatter_reduce_(0, e_block * n_clusters + e_cluster, key, "amin", include_self=False)
+    order = torch.sort(keys.view(n_blocks, n_clusters), dim=1, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(n_clusters, device=order.device).expand(n_blocks, -1))
+    return rank[e_block, e_cluster]
 
 
 def any_compact_slots(blocks: torch.Tensor, stop: torch.Tensor, rows: int) -> int:
@@ -538,7 +583,14 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     clusters of a pass of more than CULL_GROUP, every ray tests the group's
     union box (:func:`group_flags`, ``WORK["group_tests"]``), and the
     members' slab tests run only for the rays of a warp in which some ray
-    enters it (``WORK["slab_tests"]``).
+    enters it (``WORK["slab_tests"]``). An exact closest hit with ``warps``
+    walks as the kernels' compacted one (csrc/traverse_tile.cuh
+    closest_pairs): each block of four warps walks its list of entered
+    clusters near-first (:func:`near_first`), in pieces of TRACE_SLOT rows,
+    and a ray skips a piece that :func:`prune_flags` prunes from its key after
+    the earlier pieces; ``pair_tests`` and ``pair_slots`` count what that walk
+    runs and ``WORK["pairs_pruned"]`` what it skips. Pruning is exact, so the
+    outputs are the unpruned walk's bit for bit.
 
     ``packets`` ([N] thread block of each ray on the rays' device, or None)
     runs the kernels' pre-filters before the per-ray slab test, as their
@@ -577,17 +629,23 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         rl = ray_limbs(ox, oy, oz, dx, dy, dz, wx, wy, wz)
     chunk = max(1, (1 << 22) // K) if mx else _PAIR_CHUNK
 
+    rays9 = (ox, oy, oz, dx, dy, dz, wx, wy, wz)
+    rows_k = torch.arange(K, device=dev)[None]  # [1, K]
     if any_hit:
         occ = torch.zeros(n, dtype=torch.bool, device=dev)
     else:
-        best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
-        best_gid = torch.full((n,), float(GID_PAD), dtype=torch.float32, device=dev)
-        best_row = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        best_u = torch.zeros(n, dtype=torch.float32, device=dev)
-        best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+        best = dict(t=torch.full((n,), INF, dtype=torch.float32, device=dev),
+                    gid=torch.full((n,), float(GID_PAD), dtype=torch.float32, device=dev),
+                    row=torch.full((n,), -1, dtype=torch.int64, device=dev),
+                    u=torch.zeros(n, dtype=torch.float32, device=dev),
+                    v=torch.zeros(n, dtype=torch.float32, device=dev))
 
     sb_open = None  # [n_packets] blocks that enter the current superblock
     n_warps = int(warps.max()) + 1 if warps is not None and n > 0 else 0
+    # The compacted closest hit's walk: the box entries (cluster, rays, tn)
+    # first, then their pairs near-first and distance-pruned.
+    pruned = warps is not None and not any_hit and not mx
+    entries = []
     for c in range(C):
         if any_hit:
             # An occluded ray's walk has stopped: it tests no more clusters.
@@ -631,19 +689,15 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         rays = torch.nonzero(boxhit).squeeze(1)
         if rays.numel() == 0:
             continue
-        if not any_hit:
-            WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
         if warps is not None:
             WORK["warp_slots"] += 32 * rows_real[c] * int(torch.unique(warps[rays]).numel())
-            if not any_hit:
-                n_in = torch.unique(warps[rays] // (BLOCK_RAYS // 32), return_counts=True)[1]
-                WORK["pair_slots"] += compact_slots(n_in, rows_real[c])
+        if pruned:
+            entries.append((c, rays, tn[rays]))
+            continue
+        if not any_hit:
+            WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
         g = geom[c]  # [K, 36]
-
-        def col(j):
-            return g[:, j].unsqueeze(0)  # [1, K]
-
-        gid = col(_GID)
+        gid = g[:, _GID].unsqueeze(0)  # [1, K]
         if any_hit and warps is not None:
             # Each ray's first occluding row in the cluster (rows_real: none).
             first_occ = torch.full((rays.numel(),), rows_real[c], dtype=torch.int64, device=dev)
@@ -654,27 +708,9 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                 va, vb, vc, s, num = mx_planes(cset.geom_mx[c], rl[:, :, r])
                 inv_s = torch.reciprocal(s)
                 t = num * inv_s
+                valid = _pair_valid(va, vb, vc, s, t)
             else:
-                oxs, oys, ozs = ox[r, None], oy[r, None], oz[r, None]
-                dxs, dys, dzs = dx[r, None], dy[r, None], dz[r, None]
-                wxs, wys, wzs = wx[r, None], wy[r, None], wz[r, None]
-                va = (dxs * col(_VA) + dys * col(_VA + 1) + dzs * col(_VA + 2)
-                      + wxs * col(_VA + 3) + wys * col(_VA + 4) + wzs * col(_VA + 5))
-                vb = (dxs * col(_VB) + dys * col(_VB + 1) + dzs * col(_VB + 2)
-                      + wxs * col(_VB + 3) + wys * col(_VB + 4) + wzs * col(_VB + 5))
-                vc = (dxs * col(_VC) + dys * col(_VC + 1) + dzs * col(_VC + 2)
-                      + wxs * col(_VC + 3) + wys * col(_VC + 4) + wzs * col(_VC + 5))
-                s = dxs * col(_GN) + dys * col(_GN + 1) + dzs * col(_GN + 2)
-                ndo = oxs * col(_GN) + oys * col(_GN + 1) + ozs * col(_GN + 2)
-                inv_s = torch.reciprocal(s)
-                t = (col(_NDA) - ndo) * inv_s
-            valid = (
-                (torch.abs(s) >= EPSILON)
-                & (va * s >= 0.0)
-                & (vb * s >= 0.0)
-                & (vc * s >= 0.0)
-                & (t > EPSILON)
-            )
+                valid, t, vb, vc, inv_s = _pair_planes(g[None], r, rays9)
             if any_hit:
                 # The walk stops at the first occluding row of the cluster.
                 occludes = valid & (t <= max_t[r, None])
@@ -688,22 +724,7 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                 if warps is not None:
                     first_occ[lo:lo + chunk] = torch.where(hit_here, first, rows_real[c])
                 continue
-            tm = torch.where(valid, t, INF)
-            tmin = tm.min(dim=1).values
-            is_t = tm == tmin[:, None]
-            gmin = torch.where(is_t, gid, float(GID_PAD)).min(dim=1).values
-            j = (is_t & (gid == gmin[:, None])).to(torch.uint8).argmax(dim=1)
-            ar = torch.arange(r.numel(), device=dev)
-            u = vb[ar, j] * inv_s[ar, j]
-            v = vc[ar, j] * inv_s[ar, j]
-            bt = best_t[r]
-            better = ((tmin < bt) | ((tmin == bt) & (gmin < best_gid[r]))) & (tmin < INF)
-            rb = r[better]
-            best_t[rb] = tmin[better]
-            best_gid[rb] = gmin[better]
-            best_row[rb] = c * K + j[better]
-            best_u[rb] = u[better]
-            best_v[rb] = v[better]
+            _fold_closest(best, r, valid, t, vb, vc, inv_s, gid, c * K + rows_k)
         if any_hit and warps is not None:
             wr = warps[rays]
             tested = torch.clamp(first_occ + 1, max=rows_real[c])
@@ -714,7 +735,11 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             WORK["any_pair_slots"] += any_compact_slots(wr // (BLOCK_RAYS // 32), stop,
                                                         rows_real[c])
 
+    if pruned and entries:
+        _walk_pruned(cset, entries, warps // (BLOCK_RAYS // 32), rows_real, rays9, best)
     if not any_hit:
+        best_t, best_gid, best_row = best["t"], best["gid"], best["row"]
+        best_u, best_v = best["u"], best["v"]
         # Winner attributes: columns n0 | n1 | n2 | material of the winning
         # row; the normal stays unnormalized until after the primitive fold.
         g = geom.reshape(C * K, -1)[:, _N0:_MAT + 1].index_select(0, best_row.clamp_min(0))
@@ -808,6 +833,108 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     nz = torch.where(hit, nz, 0.0)
     mat = torch.where(hit, mat, -1.0)
     return hit, best_t, nx, ny, nz, mat
+
+
+def _pair_valid(va, vb, vc, s, t) -> torch.Tensor:
+    """The pair test's validity from its planes (kernel_core.py:838-842)."""
+    return ((torch.abs(s) >= EPSILON) & (va * s >= 0.0) & (vb * s >= 0.0) & (vc * s >= 0.0)
+            & (t > EPSILON))
+
+
+def _pair_planes(g: torch.Tensor, r: torch.Tensor, rays9: tuple) -> tuple:
+    """The exact pair test (kernel_core.py:818-842) of rays ``r`` [M] (ids
+    into ``rays9``: o, d and the moment w, each [N]) against geometry rows
+    ``g`` [1 or M, R, 36] -> (valid, t, vb, vc, 1/s), each [M, R]."""
+    oxs, oys, ozs, dxs, dys, dzs, wxs, wys, wzs = (x[r, None] for x in rays9)
+
+    def col(j):
+        return g[:, :, j]
+
+    va = (dxs * col(_VA) + dys * col(_VA + 1) + dzs * col(_VA + 2)
+          + wxs * col(_VA + 3) + wys * col(_VA + 4) + wzs * col(_VA + 5))
+    vb = (dxs * col(_VB) + dys * col(_VB + 1) + dzs * col(_VB + 2)
+          + wxs * col(_VB + 3) + wys * col(_VB + 4) + wzs * col(_VB + 5))
+    vc = (dxs * col(_VC) + dys * col(_VC + 1) + dzs * col(_VC + 2)
+          + wxs * col(_VC + 3) + wys * col(_VC + 4) + wzs * col(_VC + 5))
+    s = dxs * col(_GN) + dys * col(_GN + 1) + dzs * col(_GN + 2)
+    ndo = oxs * col(_GN) + oys * col(_GN + 1) + ozs * col(_GN + 2)
+    inv_s = torch.reciprocal(s)
+    t = (col(_NDA) - ndo) * inv_s
+    return _pair_valid(va, vb, vc, s, t), t, vb, vc, inv_s
+
+
+def _fold_closest(best: dict, r, valid, t, vb, vc, inv_s, gid, row_ids) -> None:
+    """Fold the pairs of rays ``r`` [M] with rows [M, R] (``gid`` and the flat
+    ``row_ids`` [1 or M, R]) into the running winners ``best`` (t, gid, row,
+    u, v; each [N]): the lexicographic (t, gid) minimum (kernel_core.py:861-902)."""
+    tm = torch.where(valid, t, INF)
+    tmin = tm.min(dim=1).values
+    is_t = tm == tmin[:, None]
+    gmin = torch.where(is_t, gid, float(GID_PAD)).min(dim=1).values
+    j = (is_t & (gid == gmin[:, None])).to(torch.uint8).argmax(dim=1)
+    ar = torch.arange(r.numel(), device=r.device)
+    u = vb[ar, j] * inv_s[ar, j]
+    v = vc[ar, j] * inv_s[ar, j]
+    bt = best["t"][r]
+    better = ((tmin < bt) | ((tmin == bt) & (gmin < best["gid"][r]))) & (tmin < INF)
+    rb = r[better]
+    best["t"][rb] = tmin[better]
+    best["gid"][rb] = gmin[better]
+    best["row"][rb] = row_ids.expand(r.numel(), -1)[ar, j][better]
+    best["u"][rb] = u[better]
+    best["v"][rb] = v[better]
+
+
+def _walk_pruned(cset: ClusterSet, entries: list, blocks: torch.Tensor, rows_real: list,
+                 rays9: tuple, best: dict) -> None:
+    """The pair loop of the kernels' compacted closest hit (csrc/
+    traverse_tile.cuh closest_pairs) on the box entries of a cull,
+    ``entries`` [(cluster, rays [M], their tn [M])], ``blocks`` [N] each
+    ray's block: each block walks its clusters near-first
+    (:func:`near_first`), a cluster in pieces of TRACE_SLOT rows; at each
+    piece a ray that entered the box runs its pairs unless
+    :func:`prune_flags` prunes the piece from its key after the earlier
+    pieces (``best``, folded in place). Adds the pairs run to
+    ``WORK["pair_tests"]``, their compacted schedule to ``pair_slots`` and
+    the pairs pruned to ``pairs_pruned``."""
+    geom, aabb = cset.geom, cset.aabb_t
+    C, K = int(geom.shape[0]), int(geom.shape[1])
+    dev = geom.device
+    e_c = torch.cat([torch.full_like(r, c) for c, r, _ in entries])
+    e_r = torch.cat([r for _, r, _ in entries])
+    e_tn = torch.cat([tn for _, _, tn in entries])
+    e_b = blocks[e_r]
+    n_blocks = int(blocks.max()) + 1
+    pos = near_first(e_b, e_c, e_tn, n_blocks, C)
+    by_pos = torch.argsort(pos, stable=True)
+    starts = torch.searchsorted(pos[by_pos], torch.arange(int(pos.max()) + 2, device=dev))
+    pieces = -(-K // TRACE_SLOT)
+    n1 = piece_normals(geom)  # [C, pieces]
+    real_rows = torch.tensor(rows_real, device=dev)
+    ox, oy, oz = rays9[:3]
+    for i in range(starts.numel() - 1):
+        sel = by_pos[int(starts[i]):int(starts[i + 1])]  # each block's i-th cluster
+        c, r, tn, b = e_c[sel], e_r[sel], e_tn[sel], e_b[sel]
+        for p in range(pieces):
+            first = p * TRACE_SLOT
+            real = torch.clamp(real_rows[c] - first, 0, TRACE_SLOT)
+            keep = ~prune_flags(tn, best["t"][r], ox[r], oy[r], oz[r], aabb[:6, c], n1[c, p])
+            WORK["pair_tests"] += int((real * keep).sum())
+            WORK["pairs_pruned"] += int((real * ~keep).sum())
+            n_in = torch.zeros(n_blocks, dtype=torch.int64, device=dev).index_add_(
+                0, b, keep.to(torch.int64))
+            real_b = torch.zeros(n_blocks, dtype=torch.int64, device=dev).scatter_(0, b, real)
+            WORK["pair_slots"] += BLOCK_RAYS * int(
+                ((n_in * real_b + BLOCK_RAYS - 1) // BLOCK_RAYS).sum())
+            run = torch.nonzero(keep & (real > 0)).squeeze(1)
+            rows = min(TRACE_SLOT, K - first)
+            chunk = max(1, (1 << 18) // rows)
+            for lo in range(0, int(run.numel()), chunk):
+                k = run[lo:lo + chunk]
+                g = geom[c[k], first:first + rows]  # [M, rows, 36]
+                valid, t, vb, vc, inv_s = _pair_planes(g, r[k], rays9)
+                _fold_closest(best, r[k], valid, t, vb, vc, inv_s, g[:, :, _GID],
+                              c[k, None] * K + first + torch.arange(rows, device=dev)[None])
 
 
 # ---------------------------------------------------------------------------

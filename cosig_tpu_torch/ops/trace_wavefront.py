@@ -75,6 +75,9 @@ F32 = np.float32
 
 # Camera rays a band holds fewer of: the ray ids ride a float32 state row.
 MAX_RAYS = 2 ** 24
+# The trace kernel's counters, in the order of its int64 [3] (kw.trace's
+# ``counts``): box tests, pairs its closest hit runs, pairs it prunes.
+TRACE_COUNTS = ("box_tests", "pairs_run", "pairs_pruned")
 
 
 def num_rays(cfg: StaticConfig, band: int) -> int:
@@ -313,27 +316,37 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
         cset_shadow=cset_shadow, mxu=mxu, **kw))
 
 
+def _trace_counts() -> list:
+    """The trace kernel's counters (:data:`TRACE_COUNTS`) in
+    kernel_core.WORK's terms: the group and member box tests, the pairs
+    the pruned closest hit runs and those it prunes."""
+    w = kernel_core.WORK
+    return [w["group_tests"] + w["slab_tests"], w["pair_tests"], w["pairs_pruned"]]
+
+
 def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, prims: torch.Tensor, n_sph: int, n_box: int,
-                       warps=None, mxu: str = "off", box_tests=None) -> None:
+                       warps=None, mxu: str = "off", counts=None) -> None:
     """Plain version of the trace kernel (``_make_bounce_kernel(mode="trace")``,
     trace_wavefront.py:439-499) on the listed rays of a 24-row ``state``,
     in place: count and trace them, store the hit record in rows 15-19;
     ``mxu``: the closest hit takes the tensor-core form in either mode.
-    ``box_tests`` (an int64 [1], or None): add the box tests the kernel's
-    walk runs (group and cluster, per listed ray; kernel_core.WORK's
-    ``group_tests`` and ``slab_tests``) to it, counted in the kernel's warps
-    (:func:`list_warps`) unless ``warps`` gives others."""
+    ``counts`` (an int64 [3], or None): add the kernel's counters to it
+    (:data:`TRACE_COUNTS`: the box tests its walk runs, group and cluster,
+    per listed ray; the pairs its near-first, distance-pruned closest hit
+    runs and prunes), counted in the kernel's warps (:func:`list_warps`)
+    unless ``warps`` gives others."""
     check_mxu(mxu)
     mx = kernel_core.mxu_mode(cset, mxu) != "off"
-    if box_tests is not None and warps is None:
+    if counts is not None and warps is None:
         warps = list_warps(idx, n_live, state.shape[1])
-    before = kernel_core.WORK["group_tests"] + kernel_core.WORK["slab_tests"]
+    before = _trace_counts()
     _on_list(state, idx, n_live, warps, lambda st, **kw: kernel_core.rec_store(
         st, kernel_core.bounce_trace(cset, st, prims=prims, n_sph=n_sph, n_box=n_box, mx=mx,
                                      **kw)))
-    if box_tests is not None:
-        box_tests += kernel_core.WORK["group_tests"] + kernel_core.WORK["slab_tests"] - before
+    if counts is not None:
+        counts += torch.tensor([a - b for a, b in zip(_trace_counts(), before)],
+                               dtype=torch.int64, device=counts.device)
 
 
 def shade_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
@@ -392,7 +405,7 @@ def frame_inputs(cset: ClusterSet, uniforms: np.ndarray, lights: np.ndarray,
 
 def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tensor,
            n_sph: int, n_box: int, plain: bool = False, cset_primary=None, cset_shadow=None,
-           fission: bool = False, mxu: str = "off", lives=None, box_tests=None) -> torch.Tensor:
+           fission: bool = False, mxu: str = "off", lives=None, counts=None) -> torch.Tensor:
     """The primary stage and the ``max_depth - 1`` bounce stages of the
     frame in ``fb`` (a written
     :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer`) -> the final
@@ -404,8 +417,8 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     pair test's form of every stage (the shade's shadow rays exact on a
     separate shadow set); ``lives``: the int32 [max_depth - 1] on the
     device that the compactions write their list lengths into, else a new
-    one; ``box_tests``: the int64 [max_depth - 1] that the fission traces
-    add their box tests to (the kernels' counter, zero before the frame),
+    one; ``counts``: the int64 [max_depth - 1, 3] that the fission traces
+    add their counters to (:data:`TRACE_COUNTS`, zero before the frame),
     else a new one. Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
@@ -443,13 +456,14 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     # The list lengths side by side, so a traced frame reads them with one copy.
     if lives is None:
         lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
-    if fission and box_tests is None:
-        box_tests = torch.zeros(max(0, cfg.max_depth - 1), dtype=torch.int64, device=state.device)
+    if fission and counts is None:
+        counts = torch.zeros((max(0, cfg.max_depth - 1), len(TRACE_COUNTS)), dtype=torch.int64,
+                             device=state.device)
     for depth in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state, lives[depth - 1:depth])
         if fission:
             kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu,
-                     box_tests=box_tests[depth - 1:depth])
+                     counts=counts[depth - 1])
             kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu)
         else:
             kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow,
@@ -482,20 +496,20 @@ def banded_frame(cset: ClusterSet, fbs: list, cfg: StaticConfig, plan: tuple,
     view of it for each further band, whose ``copy`` queues the frame's
     data with the band's row offset before the band's kernels. The list
     lengths of every band lie in one buffer, band after band, and so do
-    the traces' box tests. A frame in one band is :func:`one_frame`, which
+    the traces' counters. A frame in one band is :func:`one_frame`, which
     writes no copy of its image."""
     dev = cset.device
     image = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32, device=dev)
     depths = max(0, cfg.max_depth - 1)
     lives = torch.empty(len(plan) * depths, dtype=torch.int32, device=dev)
-    tests = torch.zeros(len(plan) * depths, dtype=torch.int64, device=dev)
+    counts = torch.zeros((len(plan) * depths, len(TRACE_COUNTS)), dtype=torch.int64, device=dev)
     total = None
     for b, (fb, (off, rows)) in enumerate(zip(fbs, plan)):
         if b:
             fb.copy()
         state = stages(cset, fb, cfg, rows, prims, n_sph, n_box, plain, cset_primary,
                        cset_shadow, fission, mxu, lives[b * depths:(b + 1) * depths],
-                       tests[b * depths:(b + 1) * depths])
+                       counts[b * depths:(b + 1) * depths])
         _, rays = finalize(state, cfg, rows, rays_on_device=True, out=image[off:off + rows])
         total = rays if total is None else total + rays
         del state  # the next band's state takes its memory

@@ -45,9 +45,10 @@ the band of each label, its ``bands`` each band's (row offset, rows,
 camera rays). While on, each frame leaves a :class:`FrameRecord`
 (:func:`frames`) with its plan, ``live_rays`` (the length of the lists
 handed to depth d, summed over the bands), ``band_live`` (by band and
-depth) and ``box_tests`` (the box tests of the traces at depth d, group
+depth), ``box_tests`` (the box tests of the traces at depth d, group
 and cluster, per listed ray, summed over the bands: the trace kernels'
-counter), read after the frame's wait.
+counter) and ``pair_tests`` (the pairs those traces' closest hits ran and
+pruned), read after the frame's wait.
 """
 
 from __future__ import annotations
@@ -130,8 +131,10 @@ class FrameRecord:
     """One traced frame: its number (the ``cosig.frame`` range's argument),
     its ``plan``, the :class:`Capture` it replayed (None for an eager
     frame), ``live_rays`` {depth: listed rays, summed over the bands},
-    ``band_live`` {(band, depth): listed rays} and ``box_tests`` {depth: the
-    box tests of the depth's traces, summed over the bands}."""
+    ``band_live`` {(band, depth): listed rays}, ``box_tests`` {depth: the
+    box tests of the depth's traces, summed over the bands} and
+    ``pair_tests`` {depth: (pairs run, pairs pruned) by those traces'
+    closest hits, summed over the bands}."""
 
     frame: int
     plan: tuple = ()
@@ -139,6 +142,7 @@ class FrameRecord:
     live_rays: dict = field(default_factory=dict)
     band_live: dict = field(default_factory=dict)
     box_tests: dict = field(default_factory=dict)
+    pair_tests: dict = field(default_factory=dict)
 
 
 class _Plan:
@@ -146,16 +150,17 @@ class _Plan:
     (``plan_bands``: every primary stage after the first starts the next band),
     each compaction's list length (a tensor) by the depth it hands the
     list to (``n_live``), and by its band (``live_bands``): the k-th
-    compaction after a primary stage hands it to depth k; each trace's box
-    test counter (a tensor) by its depth (``box_tests``)."""
+    compaction after a primary stage hands it to depth k; each trace's
+    counters (an int64 [3] tensor, ``trace_wavefront.TRACE_COUNTS``) by its
+    depth (``counts``)."""
 
     def __init__(self):
         self.labels, self.plan_bands, self.n_live, self.live_bands = [], [], [], []
-        self.box_tests = []
+        self.counts = []
         self._compactions = 0
         self._band = -1
 
-    def step(self, stage: str, depth: int, n_live, box_tests=None) -> None:
+    def step(self, stage: str, depth: int, n_live, counts=None) -> None:
         if stage == "primary":
             self._compactions = 0
             self._band += 1
@@ -165,18 +170,18 @@ class _Plan:
             depth = self._compactions
             self.n_live.append((depth, n_live))
             self.live_bands.append(band)
-        if box_tests is not None:
-            self.box_tests.append((depth, box_tests))
+        if counts is not None:
+            self.counts.append((depth, counts))
         self.labels.append(f"{stage}.{depth}" if depth else stage)
         self.plan_bands.append(band)
 
 
-def plan_step(stage: str, depth: int = 0, n_live=None, box_tests=None) -> None:
+def plan_step(stage: str, depth: int = 0, n_live=None, counts=None) -> None:
     """A launch wrapper's kernel, for the plan recorded now (a capture's, or
     an eager traced frame's); ``n_live``: a compaction's list length;
-    ``box_tests``: a trace's box test counter."""
+    ``counts``: a trace's counters."""
     if _recorder is not None:
-        _recorder.step(stage, depth, n_live, box_tests)
+        _recorder.step(stage, depth, n_live, counts)
 
 
 class recording:
@@ -210,8 +215,8 @@ class _Frame:
     def replayed(self, capture: Capture, live, tests=None) -> None:
         """The frame replayed the graph of ``capture``; ``live``: a host
         tensor of its list lengths from depth 1, ``tests``: one of its
-        traces' box tests in launch order, each filled before the wait (or
-        None)."""
+        traces' counters in launch order ([traces, 3]), each filled before
+        the wait (or None)."""
         self.record.plan, self.record.capture = capture.plan, capture
         self._live, self._tests = live, tests
 
@@ -224,8 +229,8 @@ class _Frame:
             rec.plan = tuple(self._plan.labels)
             _live_records(rec, zip(self._plan.live_bands, (d for d, _ in self._plan.n_live)),
                           [int(n.reshape(-1)[0]) for _, n in self._plan.n_live])
-            _tests_record(rec, [d for d, _ in self._plan.box_tests],
-                          [int(t.reshape(-1)[0]) for _, t in self._plan.box_tests])
+            _counts_record(rec, [d for d, _ in self._plan.counts],
+                           [t.tolist() for _, t in self._plan.counts])
         else:
             cap = rec.capture
             if self._live is not None:
@@ -233,8 +238,8 @@ class _Frame:
                         zip(cap.plan, cap.plan_bands) if label.startswith("compact.")]
                 _live_records(rec, keys, self._live.tolist())
             if self._tests is not None:
-                _tests_record(rec, [int(label.rpartition(".")[2]) for label in cap.plan
-                                    if label.startswith("trace.")], self._tests.tolist())
+                _counts_record(rec, [int(label.rpartition(".")[2]) for label in cap.plan
+                                     if label.startswith("trace.")], self._tests.tolist())
         _frames.append(rec)
         return False
 
@@ -249,12 +254,15 @@ def _live_records(rec: FrameRecord, keys, counts: list) -> None:
         rec.live_rays[depth] = rec.live_rays.get(depth, 0) + n
 
 
-def _tests_record(rec: FrameRecord, depths: list, counts: list) -> None:
-    """Fill ``rec``'s ``box_tests`` from each trace's depth and count,
-    summed by depth."""
-    rec.box_tests = {}
-    for depth, n in zip(depths, counts):
-        rec.box_tests[depth] = rec.box_tests.get(depth, 0) + n
+def _counts_record(rec: FrameRecord, depths: list, counts: list) -> None:
+    """Fill ``rec``'s ``box_tests`` and ``pair_tests`` from each trace's
+    depth and counters (box tests, pairs run, pairs pruned), summed by
+    depth."""
+    rec.box_tests, rec.pair_tests = {}, {}
+    for depth, (tests, run, pruned) in zip(depths, counts):
+        rec.box_tests[depth] = rec.box_tests.get(depth, 0) + tests
+        old = rec.pair_tests.get(depth, (0, 0))
+        rec.pair_tests[depth] = (old[0] + run, old[1] + pruned)
 
 
 def frame():
@@ -320,18 +328,22 @@ def frames() -> list:
 
 
 def live_tensor(n_live: list):
-    """A plan's counters, its compactions' list lengths (``n_live``) or its
-    traces' box tests (``box_tests``), as one tensor [launches] where they
-    are consecutive elements of one int32 or int64 buffer, as
-    ``trace_wavefront.stages`` and ``banded_frame`` allocate them (a view,
-    read with one copy), else None."""
+    """A plan's counters, its compactions' list lengths (``n_live``, one
+    element each) or its traces' counters (``counts``, three each), as one
+    tensor [launches] or [launches, 3] where they are consecutive runs of
+    one int32 or int64 buffer, as ``trace_wavefront.stages`` and
+    ``banded_frame`` allocate them (a view, read with one copy), else
+    None."""
     if not n_live:
         return None
     first = n_live[0][1]
-    step = first.element_size()
+    width = first.numel()
+    step = first.element_size() * width
     if first.dtype not in (torch.int32, torch.int64) or any(
-            t.dtype != first.dtype
+            t.dtype != first.dtype or t.numel() != width or not t.is_contiguous()
             or t.untyped_storage().data_ptr() != first.untyped_storage().data_ptr()
             or t.data_ptr() != first.data_ptr() + step * i for i, (_, t) in enumerate(n_live)):
         return None
-    return first.as_strided((len(n_live),), (1,))
+    if width == 1:
+        return first.as_strided((len(n_live),), (1,))
+    return first.as_strided((len(n_live), width), (width, 1))

@@ -182,8 +182,8 @@ def test_plain_trace_in_warps_keeps_its_bits_and_runs_fewer_box_tests(scenes, na
     flat walk's state bit for bit at every depth, and counts the box tests
     the kernels run: at depth 1 (most rays leave the scene) well under the
     flat cull's cluster count a listed ray (under 100 of large_mesh's 221,
-    60 of glass's 82);
-    ``box_tests`` is the WORK count's group plus member tests."""
+    60 of glass's 82); the counters' box tests are the WORK count's group
+    plus member tests."""
     most, clusters = SCENES[name]
     s = scenes[name]
     states = _fission_depth_states(s)
@@ -196,15 +196,15 @@ def test_plain_trace_in_warps_keeps_its_bits_and_runs_fewer_box_tests(scenes, na
         assert tkc.WORK["slab_tests"] == int(n_live) * clusters
         assert tkc.WORK["group_tests"] == 0
         tkc.reset_work()
-        tests = torch.zeros(1, dtype=torch.int64)
-        ttw.trace_listed_stage(grouped, idx, n_live, cset, *pk, box_tests=tests)
+        tests = torch.zeros(3, dtype=torch.int64)
+        ttw.trace_listed_stage(grouped, idx, n_live, cset, *pk, counts=tests)
         assert torch.equal(flat, grouped), depth
         work = dict(tkc.WORK)
         groups = -(-clusters // tkc.CULL_GROUP)
         assert work["group_tests"] == int(n_live) * groups
-        assert int(tests) == work["group_tests"] + work["slab_tests"]
+        assert int(tests[0]) == work["group_tests"] + work["slab_tests"]
         if depth == 1:
-            assert int(tests) < most * int(n_live), (int(tests), int(n_live))
+            assert int(tests[0]) < most * int(n_live), (int(tests[0]), int(n_live))
 
 
 def test_list_warps_follow_the_list():
@@ -234,20 +234,25 @@ def test_traced_frame_records_the_traces_box_tests(scenes):
 
 def test_replay_keys_box_tests_by_the_traces_depths(monkeypatch):
     """A replayed frame reads its traces' counters (one buffer, band after
-    band) by the depths of the plan's trace labels, summed over bands."""
+    band: box tests, pairs run, pairs pruned each) by the depths of the
+    plan's trace labels, summed over bands."""
     monkeypatch.setattr(trace, "_frames", trace.collections.deque(maxlen=trace.FRAMES_KEPT))
     cap = trace.Capture(1, "wavefront", ("primary", "shade_all", "compact.1", "trace.1",
                                          "shade.1", "compact.2", "trace.2", "shade.2") * 2,
                         {}, {}, plan_bands=(0,) * 8 + (1,) * 8)
     lives = torch.tensor([50, 7, 40, 3], dtype=torch.int32)
-    tests = torch.tensor([500, 90, 400, 30], dtype=torch.int64)
-    assert trace.live_tensor([(d, tests[i:i + 1]) for i, d in enumerate((1, 2, 1, 2))]).tolist() \
-        == [500, 90, 400, 30]
+    tests = torch.tensor([[500, 60, 20], [90, 30, 0], [400, 50, 10], [30, 9, 1]],
+                         dtype=torch.int64)
+    assert trace.live_tensor([(d, tests[i]) for i, d in enumerate((1, 2, 1, 2))]).tolist() \
+        == tests.tolist()
+    assert trace.live_tensor([(d, lives[i:i + 1]) for i, d in enumerate((1, 2, 1, 2))]).tolist() \
+        == [50, 7, 40, 3]
     with profile(activities=[ProfilerActivity.CPU]):
         with trace.frame() as fr:
             fr.replayed(cap, lives, tests)
     rec = trace.frames()[-1]
     assert rec.box_tests == {1: 900, 2: 120} and rec.live_rays == {1: 90, 2: 10}
+    assert rec.pair_tests == {1: (110, 30), 2: (39, 1)}
 
 
 # ---- on the card ----
@@ -263,8 +268,9 @@ def card():
 @pytest.mark.gpu
 def test_kernel_box_tests_equal_the_plain_count_on_card(card):
     """large_mesh at 256², depth 4 on the card: each depth's trace kernel
-    adds to its counter the group and member tests that the plain trace
-    counts in the kernel's warps, and gives the plain trace's state."""
+    adds to its counters the group and member tests (and the pairs run and
+    pruned) that the plain trace counts in the kernel's warps, and gives
+    the plain trace's state."""
     from cosig_tpu_torch.kernels import binding
     from cosig_tpu_torch.kernels import wavefront as kw
 
@@ -276,13 +282,13 @@ def test_kernel_box_tests_equal_the_plain_count_on_card(card):
     kw.shade(st, None, None, cset, fb, cfg, 0, *pk)
     for d in range(1, cfg.max_depth):
         idx, n_live = kw.compact(st)
-        got = torch.zeros(1, dtype=torch.int64, device=card)
-        want = torch.zeros(1, dtype=torch.int64, device=card)
+        got = torch.zeros(3, dtype=torch.int64, device=card)
+        want = torch.zeros(3, dtype=torch.int64, device=card)
         plain = st.clone()
-        kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk, box_tests=got)
-        ttw.trace_listed_stage(plain, idx, n_live, cset, *pk, box_tests=want)
+        kw.trace(st, idx, n_live, cset, fb, cfg, d, *pk, counts=got)
+        ttw.trace_listed_stage(plain, idx, n_live, cset, *pk, counts=want)
         assert torch.equal(st, plain), d
-        assert int(got) == int(want) > 0, (d, int(got), int(want))
+        assert got.tolist() == want.tolist() and int(got[0]) > 0, (d, got.tolist(), want.tolist())
         kw.shade(st, idx, n_live, cset, fb, cfg, d, *pk)
 
 

@@ -68,13 +68,15 @@ unsigned long long hit_key(unsigned t_bits, unsigned gid) { return cosig::hit_ke
 int constant(int i) {
   const int v[] = {cosig::TILE_THREADS, cosig::RING_STAGES, cosig::ROW_BYTES, cosig::SLOT_MAX,
                    cosig::TRACE_SLOT, cosig::PAIR_BYTES, cosig::PAIR_KEYS, cosig::PAIR_FLAGS,
-                   cosig::PAIR_MAX_T, cosig::PAIR_OPS, cosig::PAIR_LIST, cosig::PAIR_OPERANDS};
+                   cosig::PAIR_MAX_T, cosig::PAIR_OPS, cosig::PAIR_LIST, cosig::PAIR_OPERANDS,
+                   cosig::PAIR_COUNTS, cosig::PAIR_COUNT_WORDS};
   return v[i];
 }
 }
 """
 _NAMES = ("TILE_THREADS", "RING_STAGES", "ROW_BYTES", "SLOT_MAX", "TRACE_SLOT", "PAIR_BYTES",
-          "PAIR_KEYS", "PAIR_FLAGS", "PAIR_MAX_T", "PAIR_OPS", "PAIR_LIST", "PAIR_OPERANDS")
+          "PAIR_KEYS", "PAIR_FLAGS", "PAIR_MAX_T", "PAIR_OPS", "PAIR_LIST", "PAIR_OPERANDS",
+          "PAIR_COUNTS", "PAIR_COUNT_WORDS")
 _FIELDS = ("ring", "boxes", "groups", "ballots", "list", "cand", "pre", "partial", "hull",
            "bars", "count", "mxb", "pairs", "total")
 
@@ -181,26 +183,28 @@ def test_shadow_builds_hold_the_main_walks_memory(walk):
 
 def test_trace_layout(walk):
     """The trace's compacted walk: slots of TRACE_SLOT (32) rows, a ring of
-    13,824 B, and PAIR_BYTES (a key, 9 operands and a list entry per ray)
-    past the layout."""
+    13,824 B, and PAIR_BYTES (a key, 9 operands and a list entry per ray,
+    then the closest hit's four count words) past the layout."""
     lib, c = walk
-    assert c["TRACE_SLOT"] == 32 and c["PAIR_BYTES"] == 128 * (8 + 36 + 4) == 6_144
+    assert c["PAIR_COUNT_WORDS"] == 4
+    assert c["TRACE_SLOT"] == 32 and c["PAIR_BYTES"] == 128 * (8 + 36 + 4) + 16 == 6_160
     lay = _layout(lib, 32, pairs=True)
-    assert lay["boxes"] == 13_824 and lay["total"] == lay["pairs"] + 6_144
+    assert lay["boxes"] == 13_824 and lay["total"] == lay["pairs"] + 6_160
     for k in (8, 32, 64, 128, 1024):
         assert lib.trace_smem(k) == _layout(lib, min(k, 32), pairs=True)["total"]
 
 
 def test_any_hit_region_lies_inside_the_compacted_layout(walk):
     """The compacted any hit's per-ray flag and max_t (4 bytes each) take
-    the bytes of the closest hit's 8-byte key, before the operands and the
-    list, so the region stays PAIR_BYTES and the walk trace_smem(k) at every
-    k of 1-2048: each array of 128 words lies inside [pairs, total) and
-    none overlaps another."""
+    the bytes of the closest hit's 8-byte key, before the operands, the
+    list and the closest hit's count words, so the region stays PAIR_BYTES
+    and the walk trace_smem(k) at every k of 1-2048: each array lies inside
+    [pairs, total) and none overlaps another."""
     lib, c = walk
     t = c["TILE_THREADS"]
     spans = {"flags": (c["PAIR_FLAGS"], 4 * t), "max_t": (c["PAIR_MAX_T"], 4 * t),
-             "ops": (c["PAIR_OPS"], 4 * t * c["PAIR_OPERANDS"]), "list": (c["PAIR_LIST"], 4 * t)}
+             "ops": (c["PAIR_OPS"], 4 * t * c["PAIR_OPERANDS"]), "list": (c["PAIR_LIST"], 4 * t),
+             "counts": (c["PAIR_COUNTS"], 4 * c["PAIR_COUNT_WORDS"])}
     assert (c["PAIR_KEYS"], c["PAIR_OPS"]) == (0, 8 * t)  # the closest hit's key: 8 bytes a ray
     ends = sorted((lo, lo + n) for lo, n in spans.values())
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))  # disjoint
@@ -319,11 +323,82 @@ def _compact_slots_model(n_in: np.ndarray, rows: int, slot: int = 32, block: int
     return total
 
 
+def _pruned_walk_model(cset, o, d, active, block: int = 128, slot: int = 32) -> tuple:
+    """The compacted closest hit in numpy float32 (the plain cull's and pair
+    test's operations): per block of ``block`` consecutive rays, its entered
+    clusters near-first (the least max(tn, 0) over its rays in the box, NaN
+    as 0, ties by cluster), each in pieces of ``slot`` rows; a ray in the
+    box runs a piece unless its entry tn lies past its key's t by more than
+    the margin of csrc/traverse.cuh prunes -> (pairs run, pairs pruned,
+    slots of the pieces' n x rows pairs, the unpruned walk's slots)."""
+    f = np.float32
+    geom, box = cset.geom.numpy(), cset.aabb_t[:6].numpy()
+    n_c, k = geom.shape[:2]
+    inv = (f(1.0) / d).astype(f)
+    w = np.stack([o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                  o[0] * d[1] - o[1] * d[0]])
+    real = (geom[:, :, 35] != 2.0**24).sum(axis=1)
+    l1 = (np.abs(geom[:, :, 3]) + np.abs(geom[:, :, 4])) + np.abs(geom[:, :, 5])
+    o_inf = np.fmax(np.fmax(np.abs(o[0]), np.abs(o[1])), np.abs(o[2]))
+    inf = f(np.finfo(f).max)
+    tn_all = np.empty((n_c, o.shape[1]), f)
+    enter = np.zeros((n_c, o.shape[1]), bool)
+    t_rows = np.full((n_c, o.shape[1], k), np.inf, f)  # valid pairs' t, else inf
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for c in range(n_c):
+            t0 = (box[:3, c, None] - o) * inv
+            t1 = (box[3:, c, None] - o) * inv
+            tn_all[c] = np.maximum.reduce(np.minimum(t0, t1))
+            tf = np.minimum.reduce(np.maximum(t0, t1))
+            enter[c] = ~(tn_all[c] > tf) & ~(tf < 0) & active
+            g = geom[c]
+
+            def vol(b):
+                return (d[0, :, None] * g[:, b] + d[1, :, None] * g[:, b + 1]
+                        + d[2, :, None] * g[:, b + 2] + w[0, :, None] * g[:, b + 3]
+                        + w[1, :, None] * g[:, b + 4] + w[2, :, None] * g[:, b + 5])
+
+            va, vb, vc = vol(7), vol(13), vol(19)
+            sv = d[0, :, None] * g[:, 3] + d[1, :, None] * g[:, 4] + d[2, :, None] * g[:, 5]
+            ndo = o[0, :, None] * g[:, 3] + o[1, :, None] * g[:, 4] + o[2, :, None] * g[:, 5]
+            t = (g[:, 6] - ndo) * (f(1.0) / sv)
+            ok = ((np.abs(sv) >= f(1e-4)) & (va * sv >= 0) & (vb * sv >= 0) & (vc * sv >= 0)
+                  & (t > f(1e-4)))
+            t_rows[c] = np.where(ok, t, np.inf)
+        run = pruned = slots = unpruned = 0
+        for b0 in range(0, o.shape[1], block):
+            rays = np.arange(b0, min(b0 + block, o.shape[1]))
+            ent = enter[:, rays]
+            listed = np.flatnonzero(ent.any(axis=1))
+            near = np.where(tn_all[:, rays] > 0, tn_all[:, rays], f(0.0))
+            near = np.where(ent, np.where(np.isnan(near), f(0.0), near), np.inf)
+            order = listed[np.lexsort((listed, near[listed].min(axis=1)))]
+            key = np.full(rays.size, inf, f)
+            for c in order:
+                bmax = np.abs(box[:, c]).max()
+                for first in range(0, int(real[c]), slot):
+                    r = min(slot, int(real[c]) - first)
+                    n1 = l1[c, first:first + slot].max()
+                    margin = ((o_inf[rays] + bmax) + key) * n1 * f(5e-3) + key * f(2.0**-20)
+                    cut = (key < inf) & (tn_all[c, rays] > key + margin)
+                    keep = ent[c] & ~cut
+                    run += int(keep.sum()) * r
+                    pruned += int((ent[c] & cut).sum()) * r
+                    slots += block * -(-int(keep.sum()) * r // block)
+                    unpruned += block * -(-int(ent[c].sum()) * r // block)
+                    piece = t_rows[c][rays, first:first + r].min(axis=1)
+                    key = np.where(keep, np.minimum(key, piece), key)
+    return run, pruned, slots, unpruned
+
+
 def test_pair_slots_follow_the_compacted_schedule():
     """kernel_core.WORK["pair_slots"] (phase 3's compacted model, counted by
     the plain traversal with a ray -> warp map) equals the numpy model of
-    the schedule on the same box entries: large_mesh's clusters at k = 64,
-    rays from random origins, blocks of 128 consecutive rays."""
+    the schedule on the same box entries, the walk near-first and
+    distance-pruned (_pruned_walk_model), and so do the pairs it runs and
+    prunes: large_mesh's clusters at k = 64, rays from random origins,
+    blocks of 128 consecutive rays; the unpruned schedule
+    (_compact_slots_model) takes more slots."""
     s = chip_smoke.scene_setup("large_mesh", dict(resolution_override=(8, 8)), "cpu")
     cset = s["cset"]
     rng = np.random.default_rng(1)
@@ -338,11 +413,15 @@ def test_pair_slots_follow_the_compacted_schedule():
     tkc.traverse(cset, *(torch.from_numpy(x) for x in (*o, *d)), torch.from_numpy(active),
                  warps=warps)
     got = tkc.WORK["pair_slots"]
-    # The model: the slab test in numpy float32 (the plain cull's operations).
+    run, pruned, want, unpruned = _pruned_walk_model(cset, o, d, active)
+    assert got == want > 0
+    assert (tkc.WORK["pair_tests"], tkc.WORK["pairs_pruned"]) == (run, pruned)
+    assert pruned > 0 and tkc.WORK["pair_tests"] <= got < unpruned
+    # The unpruned schedule on the same entries, cluster by cluster.
     box = cset.aabb_t[:6].numpy()
     inv = (np.float32(1.0) / d).astype(np.float32)
     real = (cset.geom[:, :, 35] != 2.0**24).sum(dim=1).numpy()
-    want = 0
+    flat = 0
     with np.errstate(invalid="ignore", divide="ignore"):
         for c in range(cset.num_clusters):
             t0 = (box[:3, c, None] - o) * inv
@@ -353,9 +432,8 @@ def test_pair_slots_follow_the_compacted_schedule():
             if not enter.any():
                 continue
             blocks = np.arange(n)[enter] // 128
-            want += _compact_slots_model(np.bincount(blocks)[np.unique(blocks)], int(real[c]))
-    assert got == want > 0
-    assert tkc.WORK["pair_tests"] <= got
+            flat += _compact_slots_model(np.bincount(blocks)[np.unique(blocks)], int(real[c]))
+    assert flat == unpruned
 
 
 @pytest.mark.parametrize("sb", [0, 1])
