@@ -1,0 +1,28 @@
+"""``shadow_pair_tests_per_ray``: the (ray, triangle) pairs that the port's
+shade kernels run for their shadow rays in a traced frame
+(``FrameRecord.shadow_tests``: by depth, 0 the shade over every ray, the box
+tests of the any hits' culls, the pairs they run (the per-warp walk's
+tests up to each ray's first occluder, or the compacted walk's listed
+pairs) and the shadow rays cast, summed over the bands) over the shadow
+rays cast, summed over the depths, mean over the traced frames. Layer:
+kernels. Moves ``frame_ms``. Nothing where the program keeps no such
+counter: frame records without ``shadow_tests``, or with none filled."""
+
+from benchmark import program
+
+
+def read(records):
+    trace = records["trace"]
+    if trace is None:
+        return None
+    per_ray = []
+    for _, rec in program.frames(trace):
+        tests = getattr(rec, "shadow_tests", None)
+        if not tests:
+            continue
+        rays = sum(t[2] for t in tests.values())
+        if rays > 0:
+            per_ray.append(sum(t[1] for t in tests.values()) / rays)
+    if not per_ray:
+        return None
+    return sum(per_ray) / len(per_ray)

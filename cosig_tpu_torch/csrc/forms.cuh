@@ -115,17 +115,21 @@ int form_occupancy(int which, int n_clusters, int k, int sh_k) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). The
 // fission primary (fission != 0, sh_geom NULL) into state f32 [24, n_rays],
-// or the primary whose shadow rays walk the set sh_* (fission 0) into
-// state f32 [16, n_rays].
+// counts (or NULL) three u64 counters it adds its box tests, pairs run and
+// pairs pruned to; or the primary whose shadow rays walk the set sh_*
+// (fission 0, counts NULL) into state f32 [16, n_rays].
 template <bool MX>
 int primary_form_launch(const Frame* frame, const float* geom, const float* aabb,
                         const float* sb_aabb, int n_clusters, int k, int c_pad,
                         const float* prims, int n_sph, int n_box, int fission,
                         const float* sh_geom, const float* sh_aabb, int sh_clusters, int sh_k,
-                        int sh_c_pad, float* state, void* stream) {
+                        int sh_c_pad, float* state, unsigned long long* counts,
+                        void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
-  if (!superblocks_ok(n_clusters, sb_aabb)) return (int)cudaErrorInvalidValue;
+  if (!superblocks_ok(n_clusters, sb_aabb) || (!fission && counts != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Geometry sh{};
   if (fission ? sh_geom != nullptr
               : !shadow_geometry(sh_geom, sh_aabb, sh_clusters, sh_k, sh_c_pad, prims, n_sph,
@@ -138,7 +142,7 @@ int primary_form_launch(const Frame* frame, const float* geom, const float* aabb
               : pick_build(n_clusters, k, COSIG_BUILDS(primary_kernel, true, false, MX));
   const int smem = fission ? pairs_smem<MX>(k, false) : both_smem(k, sh_k, MX);
   return (int)launch_walk(kernel, blocks, smem, (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
-                          n_clusters, k, c_pad, prims, n_sph, n_box, sh, state);
+                          n_clusters, k, c_pad, prims, n_sph, n_box, sh, state, counts);
 }
 
 // One bounce on the listed rays idx[0 .. *n_live) of state f32 [16, n_rays],
@@ -182,11 +186,14 @@ int trace_launch(const Frame* frame, const float* geom, const float* aabb, const
 
 // The shade half on state f32 [24, n_rays], its shadow rays through the
 // cluster set given: on the listed rays idx[0 .. *n_live), or with idx
-// and n_live NULL on every ray (the primary stage's, frame depth 0).
+// and n_live NULL on every ray (the primary stage's, frame depth 0);
+// counts (or NULL): three u64 counters the launch adds its shadow rays'
+// box tests, pairs run and rays cast to.
 template <bool MX>
 int shade_launch(const Frame* frame, const float* geom, const float* aabb, const float* sb_aabb,
                  int n_clusters, int k, int c_pad, const float* prims, int n_sph, int n_box,
-                 const int* idx, const int* n_live, float* state, void* stream) {
+                 const int* idx, const int* n_live, float* state, unsigned long long* counts,
+                 void* stream) {
   const int n = frame->n_rays;
   if (n <= 0) return 0;
   if (!superblocks_ok(n_clusters, sb_aabb) || (idx == nullptr) != (n_live == nullptr)) {
@@ -195,7 +202,7 @@ int shade_launch(const Frame* frame, const float* geom, const float* aabb, const
   const int blocks = (n + THREADS - 1) / THREADS;
   return (int)launch_walk(shade_build<MX>(n_clusters, k, idx != nullptr), blocks,
                           pairs_smem<MX>(k, idx != nullptr), (cudaStream_t)stream, *frame, geom, aabb, sb_aabb,
-                          n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live, state);
+                          n_clusters, k, c_pad, prims, n_sph, n_box, idx, n_live, state, counts);
 }
 
 }  // namespace cosig

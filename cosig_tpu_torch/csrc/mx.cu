@@ -123,7 +123,8 @@ int cosig_primary_mx_launch(const cosig::Frame* frame, const float* geom, const 
       cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, true));
   return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k, true), (cudaStream_t)stream,
                                  *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
-                                 n_box, cosig::Geometry{}, state);
+                                 n_box, cosig::Geometry{}, state,
+                                 static_cast<unsigned long long*>(nullptr));
 }
 
 // One bounce with the tensor-core pair test on the listed rays idx[0 ..

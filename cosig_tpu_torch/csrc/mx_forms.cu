@@ -33,10 +33,11 @@ int cosig_primary_form_mx_launch(const cosig::Frame* frame, const float* geom,
                                  const float* aabb, const float* sb_aabb, int n_clusters, int k,
                                  int c_pad, const float* prims, int n_sph, int n_box, int fission,
                                  const float* sh_geom, const float* sh_aabb, int sh_clusters,
-                                 int sh_k, int sh_c_pad, float* state, void* stream) {
+                                 int sh_k, int sh_c_pad, float* state,
+                                 unsigned long long* counts, void* stream) {
   return cosig::primary_form_launch<true>(frame, geom, aabb, sb_aabb, n_clusters, k, c_pad,
                                           prims, n_sph, n_box, fission, sh_geom, sh_aabb,
-                                          sh_clusters, sh_k, sh_c_pad, state, stream);
+                                          sh_clusters, sh_k, sh_c_pad, state, counts, stream);
 }
 
 // One bounce on a list with the tensor-core closest hit, its shadow rays
@@ -67,9 +68,10 @@ int cosig_trace_mx_launch(const cosig::Frame* frame, const float* geom, const fl
 int cosig_shade_mx_launch(const cosig::Frame* frame, const float* geom, const float* aabb,
                           const float* sb_aabb, int n_clusters, int k, int c_pad,
                           const float* prims, int n_sph, int n_box, const int* idx,
-                          const int* n_live, float* state, void* stream) {
+                          const int* n_live, float* state,
+                          unsigned long long* counts, void* stream) {
   return cosig::shade_launch<true>(frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims,
-                                   n_sph, n_box, idx, n_live, state, stream);
+                                   n_sph, n_box, idx, n_live, state, counts, stream);
 }
 
 }  // extern "C"

@@ -42,9 +42,11 @@
 //     init or the pass culls without the frustum (stage_boxes), else at
 //     the first two-level cull of the boxes staged (stage_groups), so the
 //     kernels that only run the frustum cull carry none of that code. The
-//     block counts the box tests its warps run without the frustum cull
-//     (group and cluster, per lane), which the trace kernel adds to a
-//     counter of its launch (add_counts).
+//     block counts the box tests its warps run (group and cluster, per lane
+//     walking as the pass starts; in frustum mode the candidates, per ray in
+//     the block's hull), which the trace kernel, the fission primary and the
+//     shade kernel add to counters of their launch (add_counts,
+//     add_shadow_counts).
 //  2. List. Warp 0 compacts the clusters that some lane enters into a list
 //     in ascending cluster order: the closest-hit fold does not need the
 //     order (the (t, gid) winner is order-free), but the any hit must stop
@@ -224,7 +226,8 @@ struct BlockWalk {
     if (threadIdx.x == 0) {
       for (int s = 0; s < RING_STAGES; ++s) mbar_init(smem_u32(smem + lay().bars + 8 * s), 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      count()[3] = 0;  // the block's box tests
+      // The block's counts: box tests, pairs run, shadow rays cast.
+      count()[COUNT_BOX_TESTS] = count()[COUNT_PAIRS_RUN] = count()[COUNT_SHADOW_RAYS] = 0;
     }
     if (g.n_clusters <= TILE_C) stage_boxes(0, groups);
     __syncthreads();
@@ -307,7 +310,9 @@ struct BlockWalk {
     }
     bits = __reduce_or_sync(FULL_MASK, bits);
     float* part = reinterpret_cast<float*>(smem + lay().partial);
-    __syncthreads();  // every thread is done with the previous hull
+    // Every thread is done with the previous hull; the rays in this one.
+    const int rays_in = __syncthreads_count(in);
+    if (threadIdx.x == 0) count()[COUNT_HULL_RAYS] = rays_in;
     if (lane() == 0) {
 #pragma unroll
       for (int i = 0; i < 13; ++i) part[warp() * HULL_SLOTS + i] = v[i];
@@ -451,12 +456,18 @@ struct BlockWalk {
   // puts the walk's state on the stack) the primary, the megakernel and
   // the debug kernel timed 6-16 % slower than with the inlined form's few
   // more registers and spilled bytes (PERF.md).
+  // ANY: an any hit's, whose per-warp walk (exact, no slots) counts its
+  // shadow rays cast in frustum mode here: the rays in its first pass's hull.
+  template <bool ANY>
   __device__ __forceinline__ int prefilter(const Ray& r, bool enter, float max_t, bool frustum,
                                            int c0, int n) {
     // A block with no ray to walk skips the pass (walking can only stop, so
     // a later pass has none either); without the frustum cull it is left to
     // the superblock test and the per-warp vote below, as in the flat walk.
     if (frustum && !block_hull(r, enter, max_t)) return -1;
+    if constexpr (ANY && !PC && !MX) {  // thread 0 wrote the hull's rays
+      if (frustum && c0 == 0 && threadIdx.x == 0) count()[COUNT_SHADOW_RAYS] += count()[COUNT_HULL_RAYS];
+    }
     if (SB && c0 % SB_CLUSTERS == 0) {
       const Box sb = sb_box_ldg(g, c0 / SB_CLUSTERS);
       sb_open = frustum ? frustum_pass(*hull(), sb)
@@ -491,7 +502,10 @@ struct BlockWalk {
         if (f) cand[m + __popc(fb & ((1u << lane()) - 1u))] = c;
         m += __popc(fb);
       }
-      if (lane() == 0) count()[1] = m;
+      if (lane() == 0) {
+        count()[1] = m;
+        count()[COUNT_BOX_TESTS] += m * count()[COUNT_HULL_RAYS];  // each ray in tests each candidate
+      }
     }
     __syncthreads();
     return count()[1];
@@ -531,14 +545,15 @@ struct BlockWalk {
   // cull (incoherent rays) a pass of more than CULL_GROUP clusters is culled
   // in two levels: a warp tests the union box of each group first
   // (group_pass, exact) and runs the members' slab tests only where some
-  // lane enters it, else stores 0 as their ballots. Without the frustum cull
-  // each warp also adds the box tests it runs (group and cluster), once per
-  // lane with `enter` set, to the block's count (count()[3], add_counts).
+  // lane enters it, else stores 0 as their ballots. Each warp also adds the
+  // box tests it runs (group and cluster), once per lane with `enter` set,
+  // to the block's count (count()[COUNT_BOX_TESTS], add_counts); in frustum
+  // mode prefilter adds the candidates' for the rays in the block's hull.
   // KEYS: gather the listed clusters' entry keys too (slab_ballot).
   template <bool ANY, bool KEYS = false>
   __device__ __forceinline__ int cull(const Ray& r, bool enter, float max_t, bool frustum,
                                       int c0, int n) {
-    const int m0 = prefilter(r, enter, max_t, frustum, c0, n);
+    const int m0 = prefilter<ANY>(r, enter, max_t, frustum, c0, n);
     if (m0 < 0) return 0;
     const int* cand = reinterpret_cast<const int*>(smem + lay().cand);
     const bool two_level = !frustum && m0 > CULL_GROUP;
@@ -569,7 +584,7 @@ struct BlockWalk {
           for (int j = 0; j < m0; ++j) slab_ballot<ANY, KEYS>(r, enter, max_t, j);
         }
         const int lanes = __popc(__ballot_sync(FULL_MASK, enter));
-        if (lane() == 0) atomicAdd(count() + 3, tests * lanes);
+        if (lane() == 0) atomicAdd(count() + COUNT_BOX_TESTS, tests * lanes);
       }
     } else {
       for (int j = lane(); j < m0; j += 32) bal[(frustum ? cand[j] : j) * TILE_WARPS + warp()] = 0u;
@@ -598,19 +613,40 @@ struct BlockWalk {
     return count()[0];
   }
 
-  // Thread 0, after a walk: add the block's counts since init to out[0 ..
-  // 2]: its box tests (count()[3]: every cull's count lands before its
-  // step-1 barrier), and the compacted closest hit's pairs run and pairs
-  // pruned (its region's count words, thread 0's own adds; 0 for the other
-  // walks, which have no such region).
+  // Thread 0, after a closest hit: add the block's counts since init to
+  // out[0 .. 2]: its box tests (every cull's count lands before its step-1
+  // barrier), and the pairs its closest hit runs and prunes: the compacted
+  // walk's region's count words (thread 0's own adds), or the per-warp
+  // walk's pairs run (each warp's add lands before the barrier that ends
+  // its cluster), which prunes none. The tensor-core walk counts no pairs.
   __device__ __forceinline__ void add_counts(unsigned long long* out) const {
     if (threadIdx.x == 0) {
-      atomicAdd(out, (unsigned long long)count()[3]);
+      atomicAdd(out, (unsigned long long)count()[COUNT_BOX_TESTS]);
       if constexpr (PC && !MX) {
         const int* pc = pair_counts();
         atomicAdd(out + 1, (unsigned long long)pc[PAIRS_RUN]);
         atomicAdd(out + 2, (unsigned long long)pc[PAIRS_PRUNED]);
+      } else if constexpr (!MX) {
+        atomicAdd(out + 1, (unsigned long long)count()[COUNT_PAIRS_RUN]);
       }
+    }
+  }
+
+  // Thread 0, after a shade's any hits: add the block's counts since init
+  // to out[0 .. 2]: its box tests, the pairs its any hits run (the per-warp
+  // walk's tests up to each lane's first occluder, or the compacted walk's
+  // listed pairs) and the shadow rays it casts (the compacted walk's first
+  // barrier counts them, the per-warp walk's first frustum hull; both exact
+  // walks' forms in the shade kernel). The tensor-core form counts its box
+  // tests only. Every count lands before a block barrier of the walk. Where
+  // each count sits was chosen by ptxas: the shadow rays counted in the
+  // per-warp any hit's own code, or the frustum cull's box tests counted per
+  // warp, spilled 24-40 bytes more in the shade over every ray (PERF.md).
+  __device__ __forceinline__ void add_shadow_counts(unsigned long long* out) const {
+    if (threadIdx.x == 0) {
+      atomicAdd(out, (unsigned long long)count()[COUNT_BOX_TESTS]);
+      atomicAdd(out + 1, (unsigned long long)count()[COUNT_PAIRS_RUN]);
+      atomicAdd(out + 2, (unsigned long long)count()[COUNT_SHADOW_RAYS]);
     }
   }
 
@@ -661,12 +697,14 @@ struct BlockWalk {
           wait_copy(q);
           const bool mine = (w >> lane()) & 1u;
           const float4* rows_q = ring_rows(q);
-          for (int k = 0; k < kr; ++k) {
+          int k = 0;
+          for (; k < kr; ++k) {
             const float4* pr = rows_q + 9 * k;
             const float gid = pr[8].w;
             if (gid >= GID_PAD) break;  // padding rows: all-zero constants, never valid
             if (mine) fold_pair(b, row_smem(pr), gid, r, row0 + k);
           }
+          if (lane() == 0) atomicAdd(count() + COUNT_PAIRS_RUN, __popc(w) * k);  // pairs run
         }
         __syncthreads();  // every warp is done with this slot
         if (threadIdx.x == 0 && j + RING_STAGES < m) {
@@ -726,12 +764,17 @@ struct BlockWalk {
           }
         }
         if (w != 0u && !mx_walk) {
+          // Pairs run: each lane's tests, one add a cluster (counted from the
+          // rows run after the loop, or by an add at each occluder, the walk
+          // timed 6-8 % slower at glass_sphere; PERF.md).
           bool mine = (w >> lane()) & 1u;
+          int tested = 0;
           const float4* rows_q = ring_rows(q);
           for (int k = 0; k < kr; ++k) {
             const float4* pr = rows_q + 9 * k;
             if (pr[8].w >= GID_PAD) break;
             if (mine) {
+              ++tested;
               float t, vb, vc, inv_s;
               if (pair_test(row_smem(pr), r, t, vb, vc, inv_s) && t <= max_t) {
                 mine = false;
@@ -740,6 +783,8 @@ struct BlockWalk {
             }
             if (__ballot_sync(FULL_MASK, mine) == 0u) break;
           }
+          const int run = __reduce_add_sync(FULL_MASK, tested);
+          if (lane() == 0) atomicAdd(count() + COUNT_PAIRS_RUN, run);
         }
         ++j;
         if (!__syncthreads_or(walking)) break;  // also: every warp is done with this slot
@@ -992,7 +1037,9 @@ struct BlockWalk {
     float* ops = reinterpret_cast<float*>(pairs + PAIR_OPS);
     int* in_box = reinterpret_cast<int*>(pairs + PAIR_LIST);
     const int tid = threadIdx.x;
-    __syncthreads();  // every thread is done with the previous walk's region
+    // Every thread is done with the previous walk's region; the shadow rays cast.
+    const int cast = __syncthreads_count(active);
+    if (tid == 0) count()[COUNT_SHADOW_RAYS] += cast;
     flags[tid] = active ? 0 : 1;
     mts[tid] = max_t;
     stage_ops(ops, r);
@@ -1049,6 +1096,7 @@ struct BlockWalk {
         const int real = pad ? __ffs(pad) - 1 : kr;
         __syncthreads();  // the list is written; every thread has read the flags
         const int total = n_in * real;
+        if (tid == 0) count()[COUNT_PAIRS_RUN] += total;  // the pairs listed
         if (tid < total) {
           PairCursor cur = pair_first(tid, n_in);
           for (int pp = tid; pp < total; pp += TILE_THREADS) {

@@ -53,6 +53,15 @@ constexpr int PAIR_COUNTS = PAIR_LIST + TILE_THREADS * 4;
 constexpr int PAIR_COUNT_WORDS = 4;
 constexpr int PAIRS_RUN = 0, PAIRS_PRUNED = 1, PAIRS_IN_BOX = 2;
 constexpr int PAIR_BYTES = PAIR_COUNTS + 4 * PAIR_COUNT_WORDS;  // 6,160
+// The block's count words (the layout's `count` region): the list's
+// length, the frustum candidates' count, the hull's flag and the rays in
+// the hull, which each cull pass rewrites, and what the block adds to its
+// launch's counters (traverse_tile.cuh add_counts, add_shadow_counts): its
+// box tests, the pairs its per-warp walks and compacted any hits run, and
+// the shadow rays its any hits cast.
+constexpr int COUNT_WORDS = 8;
+constexpr int COUNT_BOX_TESTS = 3, COUNT_PAIRS_RUN = 4, COUNT_HULL_RAYS = 5,
+              COUNT_SHADOW_RAYS = 6;
 
 // Rows of a slot of at most `cap` rows over clusters of k rows.
 MX_HD constexpr int slot_rows(int k, int cap) { return k < cap ? k : cap; }
@@ -73,7 +82,7 @@ MX_HD constexpr int shadow_rows(int k, int sh_k) { return slot_rows(sh_k, walk_r
 // frustum candidates (the clusters of a pass the block's hull passes, in
 // order) and their flag words, the warps' partial hulls
 // [TILE_WARPS][HULL_SLOTS], the block's hull, the mbarriers, the two
-// list lengths, the hull's flag and the block's box-test count, and with
+// list lengths, the hull's flag and the block's counts (COUNT_WORDS), and with
 // `mx` the two B tiles of the tensor-core pair test
 // (mx_layout.h, MX_B_BYTES each, at a multiple of MX_B_ALIGN), with
 // `pairs` the compacted walk's region. Every offset is a multiple of 16.
@@ -95,7 +104,7 @@ MX_HD inline TileLayout tile_layout(int rows, bool mx = false, bool pairs = fals
   l.hull = l.partial + TILE_WARPS * HULL_SLOTS * 4;
   l.bars = l.hull + 16 * ((HULL_BYTES + 4 + 15) / 16);
   l.count = l.bars + 16 * ((RING_STAGES * 8 + 15) / 16);
-  l.mxb = l.count + 16;
+  l.mxb = l.count + 4 * COUNT_WORDS;
   if (mx) l.mxb = (l.mxb + MX_B_ALIGN - 1) / MX_B_ALIGN * MX_B_ALIGN;
   l.pairs = l.mxb + (mx ? 2u * MX_B_BYTES : 0u);
   l.total = l.pairs + (pairs ? (unsigned)PAIR_BYTES : 0u);

@@ -245,7 +245,8 @@ int cosig_primary_launch(const cosig::Frame* frame, const float* geom, const flo
       cosig::pick_build(n_clusters, k, COSIG_BUILDS(cosig::primary_kernel, false, false, false));
   return (int)cosig::launch_walk(kernel, blocks, cosig::walk_smem(k), (cudaStream_t)stream,
                                  *frame, geom, aabb, sb_aabb, n_clusters, k, c_pad, prims, n_sph,
-                                 n_box, cosig::Geometry{}, state);
+                                 n_box, cosig::Geometry{}, state,
+                                 static_cast<unsigned long long*>(nullptr));
 }
 
 // The compaction's grid for n rays: blocks and rays per block (0 and 0

@@ -195,7 +195,10 @@ __device__ __forceinline__ BlockWalk<false, false, true> shadow_walk(const Geome
 // primary's PC build instead: the compacted closest hit (closest_pairs)
 // behind the frustum cull, in slots of TRACE_SLOT rows, the build for
 // k > PER_WARP_ROWS (forms.cuh fission_build); without PC the per-warp
-// walk of whole clusters.
+// walk of whole clusters. counts (FISSION; or NULL): the launch's three
+// counters, one add each a block (add_counts): the box tests of its
+// closest hit's cull (the frustum candidates, per camera ray), and the
+// pairs it runs and prunes; the other builds leave it unread.
 template <bool SB, bool SH, bool FISSION, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(
     THREADS,
@@ -204,7 +207,8 @@ __global__ void __launch_bounds__(
                    const float* __restrict__ aabb, const float* __restrict__ sb_aabb,
                    int n_clusters, int k, int c_pad,
                    const float* __restrict__ prims, int n_sph, int n_box,
-                   const __grid_constant__ Geometry sh, float* __restrict__ state) {
+                   const __grid_constant__ Geometry sh, float* __restrict__ state,
+                   unsigned long long* __restrict__ counts) {
   static_assert(!(SH && FISSION), "the fission primary traces no shadow rays");
   constexpr bool PAIRS = FISSION && !MX && PC;  // the compacted closest hit
   extern __shared__ __align__(128) unsigned char tile_smem[];
@@ -239,6 +243,7 @@ __global__ void __launch_bounds__(
     } else {
       h = bounce_trace(walk, st, true);
     }
+    if (counts != nullptr) walk.add_counts(counts);
     if (!in_range) return;
     if (!st.alive) {  // a dead ray's record is a miss, as the plain traversal's
       h.t = INF;
@@ -397,7 +402,9 @@ __global__ void __launch_bounds__(THREADS, MX ? MX_MIN_BLOCKS : TRACE_MIN_BLOCKS
 // SHADE_MIN_BLOCKS blocks a multiprocessor: on a list at every k (PC
 // unused); over every ray in the PC build, the build for k > PER_WARP_ROWS
 // (forms.cuh shade_build), and without PC the per-warp walk of whole
-// clusters (any()).
+// clusters (any()). counts (or NULL): the launch's three counters, one add
+// each a block (add_shadow_counts): the box tests of its shadow rays'
+// culls, the pairs their any hits run, and the shadow rays cast.
 template <bool SB, bool LISTED, bool MX = false, bool PC = false>
 __global__ void __launch_bounds__(THREADS,
                                   MX ? MX_MIN_BLOCKS : (LISTED || PC ? SHADE_MIN_BLOCKS : SHADE_ALL_MIN_BLOCKS))
@@ -406,7 +413,7 @@ __global__ void __launch_bounds__(THREADS,
                  int n_clusters, int k, int c_pad,
                  const float* __restrict__ prims, int n_sph, int n_box,
                  const int* __restrict__ idx, const int* __restrict__ n_live,
-                 float* __restrict__ state) {
+                 float* __restrict__ state, unsigned long long* __restrict__ counts) {
   const int n = f.n_rays;
   int i;
   bool listed;
@@ -449,6 +456,7 @@ __global__ void __launch_bounds__(THREADS,
     seeds(f, (int)state[ROW_ID * (size_t)n + i], px, py, s);
   }
   bounce_shade<PAIRS>(f, walk, st, h, px, py, s, (float)f.depth, f.is_last != 0, !LISTED);
+  if (counts != nullptr) walk.add_shadow_counts(counts);
   if (listed) store(state, n, i, st);
 }
 

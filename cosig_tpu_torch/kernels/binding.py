@@ -283,14 +283,16 @@ def _load() -> ctypes.CDLL:
         ("cosig_primary_mx_launch", []),  # state, stream
         ("cosig_bounce_mx_launch", [ptr, ptr]),  # idx, n_live, state, stream
         ("cosig_megakernel_mx_launch", [i32]),  # max_depth, out, stream
-        ("cosig_primary_form_launch", [i32] + shadow),  # fission, shadow set, state, stream
+        # fission, shadow set, state, counts or NULL, stream
+        ("cosig_primary_form_launch", [i32] + shadow, [ptr]),
         ("cosig_bounce_shadow_launch", shadow + [ptr, ptr]),  # shadow set, idx, n_live, ...
         ("cosig_trace_launch", [ptr, ptr], [ptr]),  # idx, n_live, state, counts, stream
-        ("cosig_shade_launch", [ptr, ptr]),  # idx or NULL, n_live or NULL, state, stream
-        ("cosig_primary_form_mx_launch", [i32] + shadow),  # as their exact builds'
+        # idx or NULL, n_live or NULL, state, counts or NULL, stream
+        ("cosig_shade_launch", [ptr, ptr], [ptr]),
+        ("cosig_primary_form_mx_launch", [i32] + shadow, [ptr]),  # as their exact builds'
         ("cosig_bounce_shadow_mx_launch", shadow + [ptr, ptr]),
         ("cosig_trace_mx_launch", [ptr, ptr], [ptr]),
-        ("cosig_shade_mx_launch", [ptr, ptr]),
+        ("cosig_shade_mx_launch", [ptr, ptr], [ptr]),
         ("cosig_megakernel_launch", [i32]),  # max_depth, out, stream
         ("cosig_debug_launch", [i32]),  # mode, out, stream
     ):

@@ -48,23 +48,41 @@ def _device(name: str, dev: torch.device) -> None:
         raise ValueError(f"no {name} kernel for device {dev}")
 
 
+def _check_counts(counts, dev: torch.device) -> None:
+    """Raise unless ``counts`` is None or a contiguous int64 [3] on ``dev``."""
+    n_counts = len(trace_wavefront.TRACE_COUNTS)
+    if counts is not None and (counts.device != dev or counts.dtype != torch.int64
+                               or not counts.is_contiguous()
+                               or tuple(counts.shape) != (n_counts,)):
+        raise ValueError(f"counts must be contiguous int64 [{n_counts}] on {dev}, got "
+                         f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
+
+
 def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: int,
             prims: torch.Tensor, n_sph: int, n_box: int, fission: bool = False,
-            cset_shadow=None, mxu: str = "off") -> torch.Tensor:
+            cset_shadow=None, mxu: str = "off", counts=None) -> torch.Tensor:
     """Primary stage -> state f32 [16, N] on the cluster set's device.
     ``prims``: the table of :func:`cosig_tpu_torch.ops.kernel_core.prim_table`.
     ``fission``: the build that stops after the trace -> state f32 [24, N]
     with the hit record in rows 15-19; ``cset_shadow``: the build whose
-    shadow rays walk that cluster set; ``mxu``: the pair test's form."""
+    shadow rays walk that cluster set; ``mxu``: the pair test's form.
+    ``counts`` (``fission`` only): a contiguous int64 [3] on the device that
+    the launch adds its closest hit's box tests, pairs run and pairs pruned
+    to (``trace_wavefront.TRACE_COUNTS``), or None; the plain version on the
+    CPU counts them only while tracing is on."""
     dev = cset.device
     if fission and cset_shadow is not None:
         raise ValueError("the fission primary traces no shadow rays: pass cset_shadow to shade")
+    if counts is not None and not fission:
+        raise ValueError("only the fission primary keeps counters")
     trace_wavefront.check_mxu(mxu)
-    tracing.plan_step("primary")
+    _check_counts(counts, dev)
+    tracing.plan_step("primary", counts=counts)
     if dev.type == "cpu":
         return trace_wavefront.primary_stage(cset, fb.uniforms, fb.mats, fb.lights, cfg, band,
                                              prims, n_sph, n_box, fission=fission,
-                                             cset_shadow=cset_shadow, mxu=mxu)
+                                             cset_shadow=cset_shadow, mxu=mxu,
+                                             counts=counts if tracing.on() else None)
     _device("primary", dev)
     binding.check_inputs(cset, dev, prims, n_sph, n_box)
     binding.check_buffer(fb, dev)
@@ -77,7 +95,7 @@ def primary(cset: ClusterSet, fb: binding.FrameBuffer, cfg: StaticConfig, band: 
     mx = "_mx" if mxu != "off" else ""
     if fission or cset_shadow is not None:
         binding.launch(f"cosig_primary_form{mx}_launch", frame, cset, prims, n_sph, n_box, state,
-                       int(fission), *binding.shadow_args(cset_shadow))
+                       int(fission), *binding.shadow_args(cset_shadow), tail=(counts,))
     else:
         binding.launch(f"cosig_primary{mx}_launch", frame, cset, prims, n_sph, n_box, state)
     name = ("primary_fission" if fission else "primary" if cset_shadow is None
@@ -187,12 +205,7 @@ def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: Cl
     CPU counts them only while tracing is on."""
     dev = state.device
     trace_wavefront.check_mxu(mxu)
-    n_counts = len(trace_wavefront.TRACE_COUNTS)
-    if counts is not None and (counts.device != dev or counts.dtype != torch.int64
-                               or not counts.is_contiguous()
-                               or tuple(counts.shape) != (n_counts,)):
-        raise ValueError(f"counts must be contiguous int64 [{n_counts}] on {dev}, got "
-                         f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
+    _check_counts(counts, dev)
     tracing.plan_step("trace", depth, counts=counts)
     if dev.type == "cpu":
         trace_wavefront.trace_listed_stage(state, idx, n_live, cset, prims, n_sph, n_box,
@@ -208,7 +221,7 @@ def trace(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor, cset: Cl
 
 def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameBuffer,
           cfg: StaticConfig, depth: int, prims: torch.Tensor, n_sph: int, n_box: int,
-          mxu: str = "off") -> None:
+          mxu: str = "off", counts=None) -> None:
     """The shade half of a stage on a 24-row ``state`` in place, its shadow
     rays through ``cset`` (the shadow set where there is one): with ``idx``
     and ``n_live`` (None both) on the listed rays of the bounce stage at
@@ -216,20 +229,26 @@ def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameB
     primary stage (``depth`` 0), on the primary kernel's blocks with the
     frustum cull. ``mxu``: the shadow rays take the tensor-core build in
     ``"full"`` (counters ``shade_mx`` on a list, ``shade_all_mx`` over
-    every ray); pass ``"off"`` for a separate shadow set."""
+    every ray); pass ``"off"`` for a separate shadow set. ``counts``: a
+    contiguous int64 [3] on the device that the launch adds its shadow
+    rays' box tests, the pairs their any hits run and the shadow rays cast
+    to (``trace_wavefront.SHADE_COUNTS``), or None; the plain version on
+    the CPU counts them only while tracing is on."""
     dev = state.device
     if (idx is None) != (n_live is None) or (idx is None) != (depth == 0):
         raise ValueError("shade takes a list at depth >= 1 and none at depth 0")
     trace_wavefront.check_mxu(mxu)
-    tracing.plan_step("shade" if depth else "shade_all", depth)
+    _check_counts(counts, dev)
+    tracing.plan_step("shade" if depth else "shade_all", depth, counts=counts)
     if dev.type == "cpu":
+        counts = counts if tracing.on() else None
         if idx is None:
             trace_wavefront.primary_shade(state, cset, fb.uniforms, fb.mats, fb.lights, cfg,
-                                          prims, n_sph, n_box, mxu=mxu)
+                                          prims, n_sph, n_box, mxu=mxu, counts=counts)
         else:
             trace_wavefront.shade_listed_stage(state, idx, n_live, cset, fb.uniforms, fb.mats,
                                                fb.lights, cfg, depth, prims, n_sph, n_box,
-                                               mxu=mxu)
+                                               mxu=mxu, counts=counts)
         return
     full = kernel_core.mxu_mode(cset, mxu) == "full"
     if idx is None:
@@ -244,7 +263,7 @@ def shade(state: torch.Tensor, idx, n_live, cset: ClusterSet, fb: binding.FrameB
         frame = _check_stage("shade", state, idx, n_live, cset, fb, cfg, depth, prims, n_sph,
                              n_box, (FISSION_ROWS,), mx_shadow=full)
     binding.launch("cosig_shade_mx_launch" if full else "cosig_shade_launch", frame, cset, prims,
-                   n_sph, n_box, state, idx, n_live)
+                   n_sph, n_box, state, idx, n_live, tail=(counts,))
     if not full:
         binding.LAUNCHES["shade"] += 1
     else:

@@ -158,7 +158,7 @@ class FrameGraph:
         self.capture = trace.captured(path, plan, pool_bytes, launches,
                                       "fission" if forms.get("fission") else "fused",
                                       [(off, n, n * per_row) for off, n in self.plan])
-        # The compactions' list lengths and the traces' counters in the
+        # The compactions' list lengths and the kernels' counters in the
         # graph's pool, and the pinned copies that a traced replay fills
         # (None on paths with no compaction, or no trace).
         self._lives = trace.live_tensor(plan.n_live)
@@ -201,7 +201,7 @@ class FrameGraph:
         of the graph's outputs (one device copy of the image), so a caller
         may keep them across later replays, as a JAX array is kept. While
         tracing is on, the compactions' list lengths (depth 1 up) are copied
-        to ``lives_host`` too, and the traces' counters to ``tests_host``,
+        to ``lives_host`` too, and the kernels' counters to ``tests_host``,
         to be read once the frame is done."""
         self.launch(uniforms, lights)
         with torch.cuda.device(self.device), trace.span("cosig.frame.copy_out"):

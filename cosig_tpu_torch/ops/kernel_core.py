@@ -149,10 +149,20 @@ _PAIR_CHUNK = 1 << 20
 # distance-pruned (:func:`prune_flags`): its ``pair_tests`` and
 # ``pair_slots`` are the pairs that walk runs, ``pairs_pruned`` those it
 # skips (a walk without pruning, such as the kernels' per-warp walks, runs
-# their sum).
+# their sum). The kernels' own counters (csrc/traverse_tile.cuh add_counts,
+# add_shadow_counts) count as the kernels' culls run: ``box_tests`` the
+# group and cluster box tests of every ray walking as its cull pass starts
+# (an any-hit ray stopped within the pass keeps its tests of the pass's
+# later boxes, which ``slab_tests`` leaves out; for a closest hit the two
+# counts agree with ``group_tests``), ``shadow_rays`` an any hit's rays
+# cast, and ``any_pairs_run`` the pairs the compacted any hit lists: each
+# ray in a box runs every real row of the box's pieces of TRACE_SLOT rows
+# up to the piece of its first occluder (an exact any hit's ``pair_tests``
+# are those a per-warp walk runs, up to the occluder itself).
 WORK = {"slab_tests": 0, "pair_tests": 0, "prim_tests": 0, "warp_slots": 0,
         "pair_slots": 0, "any_warp_slots": 0, "any_pair_slots": 0, "frustum_tests": 0,
-        "superblock_tests": 0, "group_tests": 0, "pairs_pruned": 0}
+        "superblock_tests": 0, "group_tests": 0, "pairs_pruned": 0, "box_tests": 0,
+        "shadow_rays": 0, "any_pairs_run": 0}
 
 # The kernels' block walk (csrc/traverse_tile.cuh): the rays of a thread
 # block walk together, and its cull takes TILE_C clusters a pass; the
@@ -612,6 +622,8 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
     rows_real = (geom[:, :, _GID] != float(GID_PAD)).sum(dim=1).tolist()
     if not any_hit:
         WORK["prim_tests"] += int(active.sum()) * (n_sph + n_box)
+    else:
+        WORK["shadow_rays"] += int(active.sum())
     n_packets = int(packets.max()) + 1 if packets is not None and n > 0 else 0
     n_sb = superblocks(C)
     rays6 = (ox, oy, oz, dx, dy, dz)
@@ -650,7 +662,11 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
         if any_hit:
             # An occluded ray's walk has stopped: it tests no more clusters.
             active = active & ~occ
+        if c % TILE_C == 0:
+            # The rays the kernels' cull of this pass tests (box_tests).
+            pass_active = active
         tested = active
+        culled = pass_active
         if n_packets:
             if c % TILE_C == 0:
                 # A cull pass: blocks without a ray still walking skip it.
@@ -671,16 +687,24 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                     width = min(TILE_C, C - c)
                     pass_fl = frustum_flags(hull, aabb[:6, c:c + width]) & entered[:, None]
                     WORK["frustum_tests"] += int(entered.sum()) * width
-            tested = active & (pass_fl[:, c % TILE_C] if frustum else entered)[packets]
+            passes = (pass_fl[:, c % TILE_C] if frustum else entered)[packets]
+            tested = active & passes
+            culled = pass_active & passes
         pass_end = min(C, c - c % TILE_C + TILE_C)
         if n_warps and not frustum and pass_end - (c - c % TILE_C) > CULL_GROUP:
             if c % CULL_GROUP == 0:  # the group's union box, then its warps
                 u = union_box(aabb[:6, c:min(c + CULL_GROUP, pass_end)])
-                g_in = tested & group_flags(u, *rays6, idx, idy, idz, max_t)
+                g_flags = group_flags(u, *rays6, idx, idy, idz, max_t)
+                g_in = tested & g_flags
                 WORK["group_tests"] += int(tested.sum())
                 in_group = _pack_any(warps[g_in], n_warps, g_in[g_in])[warps]
+                g_cull = culled & g_flags
+                WORK["box_tests"] += int(culled.sum())
+                cull_group = _pack_any(warps[g_cull], n_warps, g_cull[g_cull])[warps]
             tested = tested & in_group
+            culled = culled & cull_group
         WORK["slab_tests"] += int(tested.sum())
+        WORK["box_tests"] += int(culled.sum())
         # Per-ray slab cull, NaN-conservative (cosig_tpu/ops/kernel_core.py:430-449).
         tn, tf = slab(aabb[:6, c], ox, oy, oz, idx, idy, idz)
         boxhit = ~(tn > tf) & ~(tf < 0.0) & tested
@@ -698,7 +722,7 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
             WORK["pair_tests"] += int(rays.numel()) * rows_real[c]
         g = geom[c]  # [K, 36]
         gid = g[:, _GID].unsqueeze(0)  # [1, K]
-        if any_hit and warps is not None:
+        if any_hit:
             # Each ray's first occluding row in the cluster (rows_real: none).
             first_occ = torch.full((rays.numel(),), rows_real[c], dtype=torch.int64, device=dev)
         for lo in range(0, int(rays.numel()), chunk):
@@ -721,17 +745,20 @@ def traverse(cset: ClusterSet, ox, oy, oz, dx, dy, dz, active,
                     tested_rows = torch.clamp((first // MX_ROWS + 1) * MX_ROWS, max=rows_real[c])
                 WORK["pair_tests"] += int(torch.where(hit_here, tested_rows, rows_real[c]).sum())
                 occ[r] |= hit_here
-                if warps is not None:
-                    first_occ[lo:lo + chunk] = torch.where(hit_here, first, rows_real[c])
+                first_occ[lo:lo + chunk] = torch.where(hit_here, first, rows_real[c])
                 continue
             _fold_closest(best, r, valid, t, vb, vc, inv_s, gid, c * K + rows_k)
+        if any_hit:
+            # The compacted any hit lists a ray's pieces up to its occluder's.
+            stop = first_occ.clamp(max=max(0, rows_real[c] - 1)) // TRACE_SLOT
+            WORK["any_pairs_run"] += int(torch.clamp((stop + 1) * TRACE_SLOT,
+                                                     max=rows_real[c]).sum())
         if any_hit and warps is not None:
             wr = warps[rays]
             tested = torch.clamp(first_occ + 1, max=rows_real[c])
             top = torch.zeros(int(wr.max()) + 1, dtype=torch.int64, device=dev)
             top.scatter_reduce_(0, wr, tested, "amax")
             WORK["any_warp_slots"] += 32 * int(top.sum())
-            stop = first_occ.clamp(max=max(0, rows_real[c] - 1)) // TRACE_SLOT
             WORK["any_pair_slots"] += any_compact_slots(wr // (BLOCK_RAYS // 32), stop,
                                                         rows_real[c])
 

@@ -75,9 +75,24 @@ F32 = np.float32
 
 # Camera rays a band holds fewer of: the ray ids ride a float32 state row.
 MAX_RAYS = 2 ** 24
-# The trace kernel's counters, in the order of its int64 [3] (kw.trace's
-# ``counts``): box tests, pairs its closest hit runs, pairs it prunes.
+# The counters of the kernels of the fission form, in the order of their
+# int64 [3] (the wrappers' ``counts``): the trace's and the fission
+# primary's box tests, pairs their closest hit runs, pairs it prunes; the
+# shade's box tests, pairs run and shadow rays cast by its any hits. A frame
+# keeps them in one int64 [count_rows(max_depth), 3] a band, in launch
+# order: the primary, the shade over every ray, then each depth's trace and
+# shade.
 TRACE_COUNTS = ("box_tests", "pairs_run", "pairs_pruned")
+SHADE_COUNTS = ("box_tests", "pairs_run", "shadow_rays")
+# Rows of a cluster up to which the exact fission primary and the shade over
+# every ray walk per warp, whole clusters (csrc/wavefront.cuh PER_WARP_ROWS);
+# past it their walks are compacted.
+PER_WARP_ROWS = kernel_core.TRACE_SLOT
+
+
+def count_rows(max_depth: int) -> int:
+    """Counter rows of a fission frame's band: one a kernel."""
+    return 2 * max_depth
 
 
 def num_rays(cfg: StaticConfig, band: int) -> int:
@@ -151,11 +166,22 @@ def check_forms(cset: ClusterSet, cset_primary=None, cset_shadow=None,
         )
 
 
+def _deltas(keys, before: list) -> list:
+    """kernel_core.WORK's ``keys`` less their values ``before``."""
+    return [kernel_core.WORK[k] - b for k, b in zip(keys, before)]
+
+
+def _add_counts(counts, values: list) -> None:
+    """Add ``values`` to the int64 [3] ``counts`` in place (None: none)."""
+    if counts is not None:
+        counts += torch.tensor(values, dtype=torch.int64, device=counts.device)
+
+
 def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                   lights: np.ndarray, cfg: StaticConfig, band: int,
                   prims: torch.Tensor, n_sph: int, n_box: int,
                   warps=None, fission: bool = False, cset_shadow=None,
-                  mxu: str = "off") -> torch.Tensor:
+                  mxu: str = "off", counts=None) -> torch.Tensor:
     """Plain version of the primary kernel -> state f32 [16, N] ([24, N]
     with ``fission``) on the cluster set's device (trace_wavefront.py:317-434). ``prims`` is the
     table of :func:`kernel_core.prim_table`; ``warps`` an optional ray ->
@@ -166,7 +192,12 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     has 24 rows and the stage stops after the trace, with the hit record
     in rows 15-19 (:func:`primary_shade` finishes it); ``cset_shadow``: the
     cluster set the shadow rays walk; ``mxu``: the pair test's form (module
-    docstring)."""
+    docstring). ``counts`` (``fission``; an int64 [3], or None): add the
+    fission primary kernel's counters (:data:`TRACE_COUNTS`) to it: the box
+    tests of its cull (the frustum candidates, per camera ray walking) and
+    the pairs its closest hit runs and prunes, counted in its warps (the
+    per-warp walk up to PER_WARP_ROWS rows runs the pruned walk's every pair
+    and prunes none; the tensor-core walk counts no pairs)."""
     check_mxu(mxu)
     mxu = kernel_core.mxu_mode(cset, mxu)
     dev = cset.device
@@ -186,11 +217,21 @@ def primary_stage(cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
     state[6:9] = 1.0
     state[ROW_ALIVE] = in_image.to(torch.float32)
     state[ROW_ID] = rid.to(torch.float32)
+    if counts is not None and warps is None:
+        warps = torch.arange(n, device=dev) // 32
     pk = dict(prims=prims, n_sph=n_sph, n_box=n_box, warps=warps,
               packets=kernel_core.linear_packets(n).to(dev), frustum=True)
     if fission:
+        keys = ("box_tests", "pair_tests", "pairs_pruned")
+        before = [kernel_core.WORK[k] for k in keys]
         kernel_core.rec_store(state, kernel_core.bounce_trace(cset, state, mx=mxu != "off",
                                                               **pk))
+        tests, run, pruned = _deltas(keys, before)
+        if mxu != "off":
+            run = pruned = 0
+        elif cset.k <= PER_WARP_ROWS:
+            run, pruned = run + pruned, 0
+        _add_counts(counts, [tests, run, pruned])
         return state
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state,
                             px, py, s, depth=0, is_last=cfg.max_depth == 1,
@@ -231,7 +272,7 @@ def bounce_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
 def shade_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                 mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig, depth: int,
                 prims: torch.Tensor, n_sph: int, n_box: int, warps=None, packets=None,
-                frustum: bool = False, mxu: str = "off") -> None:
+                frustum: bool = False, mxu: str = "off", counts=None) -> None:
     """The shade half of a bounce at ``depth`` on every column of a 24-row
     ``state`` in place (``mode="shade"``, trace_wavefront.py:439-507): the
     hit record of rows 15-19, then ambient, per light a shadow ray through
@@ -240,26 +281,37 @@ def shade_stage(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
     ray, with ``packets`` its kernel's blocks and the frustum cull on.
     ``mxu``: the shadow rays take the tensor-core form in ``"full"`` (the
     caller passes ``"off"`` for a separate shadow set, whose walk is always
-    exact)."""
+    exact). ``counts`` (an int64 [3], or None): add the shade kernel's
+    counters to it (:data:`SHADE_COUNTS`): its shadow rays' box tests, the
+    pairs their any hits run (the compacted walk's listed pairs, or where
+    the kernel walks per warp, the shade over every ray up to PER_WARP_ROWS
+    rows, its tests) and the shadow rays cast (the tensor-core form counts
+    its box tests only)."""
     check_mxu(mxu)
     mxu = kernel_core.mxu_mode(cset, mxu)
     px, py, s = _seeds_of(state, cfg, uniforms)
+    per_warp = frustum and cset.k <= PER_WARP_ROWS
+    keys = ("box_tests", "pair_tests" if per_warp else "any_pairs_run", "shadow_rays")
+    before = [kernel_core.WORK[k] for k in keys]
     kernel_core.bounce_core(cfg, uniforms, mats, lights, cset, state, px, py, s, depth=depth,
                             is_last=depth == cfg.max_depth - 1, prims=prims, n_sph=n_sph,
                             n_box=n_box, warps=warps, packets=packets, frustum=frustum,
                             rec=kernel_core.rec_load(state), mxu=mxu)
+    tests, run, cast = _deltas(keys, before)
+    _add_counts(counts, [tests] + ([0, 0] if mxu == "full" else [run, cast]))
 
 
 def primary_shade(state: torch.Tensor, cset: ClusterSet, uniforms: np.ndarray,
                   mats: np.ndarray, lights: np.ndarray, cfg: StaticConfig,
                   prims: torch.Tensor, n_sph: int, n_box: int, warps=None,
-                  mxu: str = "off") -> None:
+                  mxu: str = "off", counts=None) -> None:
     """Plain version of the shade kernel over every ray of a fission
     primary stage: depth 0 on the primary kernel's blocks, frustum cull on
-    (the fused primary's shadow rays); ``mxu`` as in :func:`shade_stage`."""
+    (the fused primary's shadow rays); ``mxu`` and ``counts`` as in
+    :func:`shade_stage`."""
     shade_stage(state, cset, uniforms, mats, lights, cfg, 0, prims, n_sph, n_box, warps=warps,
                 packets=kernel_core.linear_packets(state.shape[1]).to(state.device),
-                frustum=True, mxu=mxu)
+                frustum=True, mxu=mxu, counts=counts)
 
 
 def compact_plain(state: torch.Tensor):
@@ -316,14 +368,6 @@ def bounce_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Te
         cset_shadow=cset_shadow, mxu=mxu, **kw))
 
 
-def _trace_counts() -> list:
-    """The trace kernel's counters (:data:`TRACE_COUNTS`) in
-    kernel_core.WORK's terms: the group and member box tests, the pairs
-    the pruned closest hit runs and those it prunes."""
-    w = kernel_core.WORK
-    return [w["group_tests"] + w["slab_tests"], w["pair_tests"], w["pairs_pruned"]]
-
-
 def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, prims: torch.Tensor, n_sph: int, n_box: int,
                        warps=None, mxu: str = "off", counts=None) -> None:
@@ -334,31 +378,36 @@ def trace_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Ten
     ``counts`` (an int64 [3], or None): add the kernel's counters to it
     (:data:`TRACE_COUNTS`: the box tests its walk runs, group and cluster,
     per listed ray; the pairs its near-first, distance-pruned closest hit
-    runs and prunes), counted in the kernel's warps (:func:`list_warps`)
-    unless ``warps`` gives others."""
+    runs and prunes, none in the tensor-core form), counted in the kernel's
+    warps (:func:`list_warps`) unless ``warps`` gives others."""
     check_mxu(mxu)
     mx = kernel_core.mxu_mode(cset, mxu) != "off"
     if counts is not None and warps is None:
         warps = list_warps(idx, n_live, state.shape[1])
-    before = _trace_counts()
+    keys = ("box_tests", "pair_tests", "pairs_pruned")
+    before = [kernel_core.WORK[k] for k in keys]
     _on_list(state, idx, n_live, warps, lambda st, **kw: kernel_core.rec_store(
         st, kernel_core.bounce_trace(cset, st, prims=prims, n_sph=n_sph, n_box=n_box, mx=mx,
                                      **kw)))
-    if counts is not None:
-        counts += torch.tensor([a - b for a, b in zip(_trace_counts(), before)],
-                               dtype=torch.int64, device=counts.device)
+    tests, run, pruned = _deltas(keys, before)
+    _add_counts(counts, [tests] + ([0, 0] if mx else [run, pruned]))
 
 
 def shade_listed_stage(state: torch.Tensor, idx: torch.Tensor, n_live: torch.Tensor,
                        cset: ClusterSet, uniforms: np.ndarray, mats: np.ndarray,
                        lights: np.ndarray, cfg: StaticConfig, depth: int,
                        prims: torch.Tensor, n_sph: int, n_box: int, warps=None,
-                       mxu: str = "off") -> None:
+                       mxu: str = "off", counts=None) -> None:
     """Plain version of the shade kernel on a bounce's list: :func:`shade_stage`
     on the listed rays, the same list the depth's trace took (``cset``: the
-    set the shadow rays walk; ``mxu`` as there)."""
+    set the shadow rays walk; ``mxu`` as there). ``counts``: as there, the
+    any hits compacted, counted in the kernel's warps (:func:`list_warps`)
+    unless ``warps`` gives others."""
+    if counts is not None and warps is None:
+        warps = list_warps(idx, n_live, state.shape[1])
     _on_list(state, idx, n_live, warps, lambda st, **kw: shade_stage(
-        st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box, mxu=mxu, **kw))
+        st, cset, uniforms, mats, lights, cfg, depth, prims, n_sph, n_box, mxu=mxu,
+        counts=counts, **kw))
 
 
 def finalize(state: torch.Tensor, cfg: StaticConfig, band: int, rays_on_device: bool = False,
@@ -417,9 +466,9 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
     pair test's form of every stage (the shade's shadow rays exact on a
     separate shadow set); ``lives``: the int32 [max_depth - 1] on the
     device that the compactions write their list lengths into, else a new
-    one; ``counts``: the int64 [max_depth - 1, 3] that the fission traces
-    add their counters to (:data:`TRACE_COUNTS`, zero before the frame),
-    else a new one. Nothing here
+    one; ``counts``: the int64 [:func:`count_rows`, 3] that the fission
+    kernels add their counters to, in launch order (:data:`TRACE_COUNTS`,
+    zero before the frame), else a new one. Nothing here
     reads the device from the host, so a stream capture can record it
     (:mod:`cosig_tpu_torch.ops.frame_graph`)."""
     from cosig_tpu_torch.kernels import wavefront as kw
@@ -449,22 +498,23 @@ def stages(cset: ClusterSet, fb, cfg: StaticConfig, band: int, prims: torch.Tens
                 bounce_listed_stage(state, idx, n_live, cset, u, m, li, cfg, depth, *pk,
                                     cset_shadow=cset_shadow, mxu=mxu)
         return state
+    if fission and counts is None:
+        counts = torch.zeros((count_rows(cfg.max_depth), len(TRACE_COUNTS)), dtype=torch.int64,
+                             device=cset.device)
     state = kw.primary(pcs, fb, cfg, band, *pk, fission=fission, cset_shadow=primary_shadow,
-                       mxu=mxu)
+                       mxu=mxu, counts=counts[0] if fission else None)
     if fission:
-        kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu)
+        kw.shade(state, None, None, p_sh, fb, cfg, 0, *pk, mxu=sh_mxu, counts=counts[1])
     # The list lengths side by side, so a traced frame reads them with one copy.
     if lives is None:
         lives = torch.empty(max(0, cfg.max_depth - 1), dtype=torch.int32, device=state.device)
-    if fission and counts is None:
-        counts = torch.zeros((max(0, cfg.max_depth - 1), len(TRACE_COUNTS)), dtype=torch.int64,
-                             device=state.device)
     for depth in range(1, cfg.max_depth):
         idx, n_live = kw.compact(state, lives[depth - 1:depth])
         if fission:
             kw.trace(state, idx, n_live, cset, fb, cfg, depth, *pk, mxu=mxu,
-                     counts=counts[depth - 1])
-            kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu)
+                     counts=counts[2 * depth])
+            kw.shade(state, idx, n_live, b_sh, fb, cfg, depth, *pk, mxu=sh_mxu,
+                     counts=counts[2 * depth + 1])
         else:
             kw.bounce(state, idx, n_live, cset, fb, cfg, depth, *pk, cset_shadow=cset_shadow,
                       mxu=mxu)
@@ -496,20 +546,21 @@ def banded_frame(cset: ClusterSet, fbs: list, cfg: StaticConfig, plan: tuple,
     view of it for each further band, whose ``copy`` queues the frame's
     data with the band's row offset before the band's kernels. The list
     lengths of every band lie in one buffer, band after band, and so do
-    the traces' counters. A frame in one band is :func:`one_frame`, which
+    the kernels' counters. A frame in one band is :func:`one_frame`, which
     writes no copy of its image."""
     dev = cset.device
     image = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32, device=dev)
     depths = max(0, cfg.max_depth - 1)
     lives = torch.empty(len(plan) * depths, dtype=torch.int32, device=dev)
-    counts = torch.zeros((len(plan) * depths, len(TRACE_COUNTS)), dtype=torch.int64, device=dev)
+    per_band = count_rows(cfg.max_depth)
+    counts = torch.zeros((len(plan) * per_band, len(TRACE_COUNTS)), dtype=torch.int64, device=dev)
     total = None
     for b, (fb, (off, rows)) in enumerate(zip(fbs, plan)):
         if b:
             fb.copy()
         state = stages(cset, fb, cfg, rows, prims, n_sph, n_box, plain, cset_primary,
                        cset_shadow, fission, mxu, lives[b * depths:(b + 1) * depths],
-                       counts[b * depths:(b + 1) * depths])
+                       counts[b * per_band:(b + 1) * per_band])
         _, rays = finalize(state, cfg, rows, rays_on_device=True, out=image[off:off + rows])
         total = rays if total is None else total + rays
         del state  # the next band's state takes its memory

@@ -9,8 +9,13 @@ BASELINE.json "configs" (paraphrased):
 5. large mesh (10k+ tris) with acceleration, full reflect+refract, 2048x2048
 
 ``large_mesh_aa4`` is config 5 at the upstream UI's AA 4 (its AA control
-cycles 1, 2, 4, 8): 2^24 camera rays, past one wavefront band. The JAX
-package has no such entry; the rest are its configs unchanged.
+cycles 1, 2, 4, 8): 2^24 camera rays, past one wavefront band.
+``glass_sphere_drt`` is config 4 with the upstream's three distributed
+ray tracing effects on at the first non-zero entry of each of the UI's
+menus (SceneBuilder.cs:62,69,481; models/preset.py): soft shadows of
+light size 5, glossy reflection of roughness 0.05 and motion blur of
+shutter speed 0.5. The JAX package has neither entry; the rest are its
+configs unchanged.
 
 These are built programmatically (not copied from the reference's scene
 assets) via the same SceneData model the parser produces, so every config
@@ -38,6 +43,7 @@ from cosig_tpu_torch.models.scene import (
     Triangle,
     TrianglesMesh,
 )
+from cosig_tpu_torch.models.preset import BLUR_SPEEDS, GLOSSY_ROUGHNESS, SHADOW_SIZES
 from cosig_tpu_torch.models.settings import RenderSettings
 
 T = TransformElement
@@ -216,6 +222,15 @@ def config5_large_mesh_aa4():
     return s, settings.replace(aa_samples=4)
 
 
+def config4_glass_sphere_drt():
+    """Config 4 with soft shadows, glossy reflection and motion blur at the
+    upstream UI's first non-zero menu entries (ShadowMode 1, BlurMode 1)."""
+    s, settings = config4_glass_sphere()
+    return s, settings.replace(enable_soft_shadows=True, light_size=SHADOW_SIZES[1],
+                               enable_glossy=True, surface_roughness=GLOSSY_ROUGHNESS,
+                               enable_motion_blur=True, shutter_speed=BLUR_SPEEDS[1])
+
+
 CONFIGS = {
     "diffuse_sphere": config1_diffuse_sphere,
     "cosig_walls": config2_cosig_walls,
@@ -223,4 +238,5 @@ CONFIGS = {
     "glass_sphere": config4_glass_sphere,
     "large_mesh": config5_large_mesh,
     "large_mesh_aa4": config5_large_mesh_aa4,
+    "glass_sphere_drt": config4_glass_sphere_drt,
 }

@@ -47,8 +47,15 @@ camera rays). While on, each frame leaves a :class:`FrameRecord`
 handed to depth d, summed over the bands), ``band_live`` (by band and
 depth), ``box_tests`` (the box tests of the traces at depth d, group
 and cluster, per listed ray, summed over the bands: the trace kernels'
-counter) and ``pair_tests`` (the pairs those traces' closest hits ran and
-pruned), read after the frame's wait.
+counter), ``pair_tests`` (the pairs those traces' closest hits ran and
+pruned), ``primary_tests`` (the fission primary's box tests, per camera
+ray walking, and the pairs its closest hit ran and pruned, summed over
+the bands) and ``shadow_tests`` (by depth, 0 the shade over every ray:
+the shade kernels' shadow rays' box tests, the pairs their any hits ran
+and the shadow rays cast, summed over the bands), read after the frame's
+wait. The fission form's kernels add these counters to one int64 buffer
+of three words a kernel, in launch order, zeroed once a frame; a capture's
+``count_plan`` names the kernel of each entry.
 """
 
 from __future__ import annotations
@@ -111,8 +118,10 @@ class Capture:
     ``binding.LAUNCHES``), ``form``: ``"fission"`` where the wavefront's
     stages are split into trace and shade kernels, else ``"fused"``,
     ``bands``: (row offset, rows, camera rays) of each row band the frame
-    renders, one entry for a frame in one band, and ``plan_bands``: the
-    band of each label of ``plan``."""
+    renders, one entry for a frame in one band, ``plan_bands``: the band of
+    each label of ``plan``, and ``count_plan``: the label of each kernel
+    whose counters (three words each) a traced replay reads, in the order
+    of their buffer."""
 
     index: int
     path: str
@@ -124,6 +133,7 @@ class Capture:
     form: str = "fused"
     bands: tuple = ()
     plan_bands: tuple = ()
+    count_plan: tuple = ()
 
 
 @dataclass
@@ -132,9 +142,13 @@ class FrameRecord:
     its ``plan``, the :class:`Capture` it replayed (None for an eager
     frame), ``live_rays`` {depth: listed rays, summed over the bands},
     ``band_live`` {(band, depth): listed rays}, ``box_tests`` {depth: the
-    box tests of the depth's traces, summed over the bands} and
+    box tests of the depth's traces, summed over the bands},
     ``pair_tests`` {depth: (pairs run, pairs pruned) by those traces'
-    closest hits, summed over the bands}."""
+    closest hits, summed over the bands}, ``primary_tests`` (box tests,
+    pairs run, pairs pruned) of the fission primary's closest hit, summed
+    over the bands, and ``shadow_tests`` {depth: (box tests, pairs run,
+    shadow rays cast) of the depth's shade kernels' any hits, summed over
+    the bands; depth 0 the shade over every ray}."""
 
     frame: int
     plan: tuple = ()
@@ -143,6 +157,8 @@ class FrameRecord:
     band_live: dict = field(default_factory=dict)
     box_tests: dict = field(default_factory=dict)
     pair_tests: dict = field(default_factory=dict)
+    primary_tests: tuple = ()
+    shadow_tests: dict = field(default_factory=dict)
 
 
 class _Plan:
@@ -150,9 +166,10 @@ class _Plan:
     (``plan_bands``: every primary stage after the first starts the next band),
     each compaction's list length (a tensor) by the depth it hands the
     list to (``n_live``), and by its band (``live_bands``): the k-th
-    compaction after a primary stage hands it to depth k; each trace's
-    counters (an int64 [3] tensor, ``trace_wavefront.TRACE_COUNTS``) by its
-    depth (``counts``)."""
+    compaction after a primary stage hands it to depth k; the counters (an
+    int64 [3] tensor) of each kernel that keeps them, by its label
+    (``counts``: the fission primary's and the traces'
+    ``trace_wavefront.TRACE_COUNTS``, the shades' ``SHADE_COUNTS``)."""
 
     def __init__(self):
         self.labels, self.plan_bands, self.n_live, self.live_bands = [], [], [], []
@@ -170,16 +187,18 @@ class _Plan:
             depth = self._compactions
             self.n_live.append((depth, n_live))
             self.live_bands.append(band)
+        label = f"{stage}.{depth}" if depth else stage
         if counts is not None:
-            self.counts.append((depth, counts))
-        self.labels.append(f"{stage}.{depth}" if depth else stage)
+            self.counts.append((label, counts))
+        self.labels.append(label)
         self.plan_bands.append(band)
 
 
 def plan_step(stage: str, depth: int = 0, n_live=None, counts=None) -> None:
     """A launch wrapper's kernel, for the plan recorded now (a capture's, or
     an eager traced frame's); ``n_live``: a compaction's list length;
-    ``counts``: a trace's counters."""
+    ``counts``: the kernel's counters (the fission primary's, a trace's or a
+    shade's)."""
     if _recorder is not None:
         _recorder.step(stage, depth, n_live, counts)
 
@@ -215,8 +234,8 @@ class _Frame:
     def replayed(self, capture: Capture, live, tests=None) -> None:
         """The frame replayed the graph of ``capture``; ``live``: a host
         tensor of its list lengths from depth 1, ``tests``: one of its
-        traces' counters in launch order ([traces, 3]), each filled before
-        the wait (or None)."""
+        kernels' counters in the order of ``capture.count_plan`` ([kernels,
+        3]), each filled before the wait (or None)."""
         self.record.plan, self.record.capture = capture.plan, capture
         self._live, self._tests = live, tests
 
@@ -229,7 +248,7 @@ class _Frame:
             rec.plan = tuple(self._plan.labels)
             _live_records(rec, zip(self._plan.live_bands, (d for d, _ in self._plan.n_live)),
                           [int(n.reshape(-1)[0]) for _, n in self._plan.n_live])
-            _counts_record(rec, [d for d, _ in self._plan.counts],
+            _counts_record(rec, [label for label, _ in self._plan.counts],
                            [t.tolist() for _, t in self._plan.counts])
         else:
             cap = rec.capture
@@ -238,8 +257,7 @@ class _Frame:
                         zip(cap.plan, cap.plan_bands) if label.startswith("compact.")]
                 _live_records(rec, keys, self._live.tolist())
             if self._tests is not None:
-                _counts_record(rec, [int(label.rpartition(".")[2]) for label in cap.plan
-                                     if label.startswith("trace.")], self._tests.tolist())
+                _counts_record(rec, cap.count_plan, self._tests.tolist())
         _frames.append(rec)
         return False
 
@@ -254,15 +272,27 @@ def _live_records(rec: FrameRecord, keys, counts: list) -> None:
         rec.live_rays[depth] = rec.live_rays.get(depth, 0) + n
 
 
-def _counts_record(rec: FrameRecord, depths: list, counts: list) -> None:
+def _counts_record(rec: FrameRecord, labels, counts: list) -> None:
     """Fill ``rec``'s ``box_tests`` and ``pair_tests`` from each trace's
-    depth and counters (box tests, pairs run, pairs pruned), summed by
-    depth."""
-    rec.box_tests, rec.pair_tests = {}, {}
-    for depth, (tests, run, pruned) in zip(depths, counts):
-        rec.box_tests[depth] = rec.box_tests.get(depth, 0) + tests
-        old = rec.pair_tests.get(depth, (0, 0))
-        rec.pair_tests[depth] = (old[0] + run, old[1] + pruned)
+    counters (box tests, pairs run, pairs pruned), its ``primary_tests``
+    from the fission primaries' (the same three) and its ``shadow_tests``
+    from the shades' (box tests, pairs run, shadow rays cast), each kernel
+    named by its plan label, summed by depth and over the bands."""
+    rec.box_tests, rec.pair_tests, rec.shadow_tests = {}, {}, {}
+    primary = None
+    for label, (tests, run, third) in zip(labels, counts):
+        stage, _, tail = label.rpartition(".")
+        stage, depth = (stage, int(tail)) if tail.isdigit() else (label, 0)
+        if stage == "trace":
+            rec.box_tests[depth] = rec.box_tests.get(depth, 0) + tests
+            old = rec.pair_tests.get(depth, (0, 0))
+            rec.pair_tests[depth] = (old[0] + run, old[1] + third)
+        elif stage == "primary":
+            primary = [a + b for a, b in zip(primary or (0, 0, 0), (tests, run, third))]
+        else:  # "shade_all" (depth 0) or "shade"
+            old = rec.shadow_tests.get(depth, (0, 0, 0))
+            rec.shadow_tests[depth] = tuple(a + b for a, b in zip(old, (tests, run, third)))
+    rec.primary_tests = () if primary is None else tuple(primary)
 
 
 def frame():
@@ -312,7 +342,8 @@ def captured(path: str, plan: _Plan, pool_bytes: int, launches: dict, form: str,
     COUNTS["captures"] += 1
     _last_capture = Capture(COUNTS["captures"], path, tuple(plan.labels), dict(_pending),
                             {k: _parents.get(k) for k in _pending}, pool_bytes, launches, form,
-                            tuple(bands), tuple(plan.plan_bands))
+                            tuple(bands), tuple(plan.plan_bands),
+                            tuple(label for label, _ in plan.counts))
     _pending.clear()
     return _last_capture
 
@@ -329,7 +360,7 @@ def frames() -> list:
 
 def live_tensor(n_live: list):
     """A plan's counters, its compactions' list lengths (``n_live``, one
-    element each) or its traces' counters (``counts``, three each), as one
+    element each) or its kernels' counters (``counts``, three each), as one
     tensor [launches] or [launches, 3] where they are consecutive runs of
     one int32 or int64 buffer, as ``trace_wavefront.stages`` and
     ``banded_frame`` allocate them (a view, read with one copy), else

@@ -239,7 +239,8 @@ def test_replay_keys_box_tests_by_the_traces_depths(monkeypatch):
     monkeypatch.setattr(trace, "_frames", trace.collections.deque(maxlen=trace.FRAMES_KEPT))
     cap = trace.Capture(1, "wavefront", ("primary", "shade_all", "compact.1", "trace.1",
                                          "shade.1", "compact.2", "trace.2", "shade.2") * 2,
-                        {}, {}, plan_bands=(0,) * 8 + (1,) * 8)
+                        {}, {}, plan_bands=(0,) * 8 + (1,) * 8,
+                        count_plan=("trace.1", "trace.2") * 2)
     lives = torch.tensor([50, 7, 40, 3], dtype=torch.int32)
     tests = torch.tensor([[500, 60, 20], [90, 30, 0], [400, 50, 10], [30, 9, 1]],
                          dtype=torch.int64)

@@ -97,7 +97,10 @@ def test_jax_parsed_scene_renders_in_port(backend):
 
 # The port's configurations that the JAX package lacks: name -> (the JAX
 # configuration it is built from, the settings it changes).
-PORT_ONLY = {"large_mesh_aa4": ("large_mesh", {"aa_samples": 4})}
+PORT_ONLY = {"large_mesh_aa4": ("large_mesh", {"aa_samples": 4}),
+             "glass_sphere_drt": ("glass_sphere", {
+                 "enable_soft_shadows": True, "light_size": 5.0, "enable_glossy": True,
+                 "surface_roughness": 0.05, "enable_motion_blur": True, "shutter_speed": 0.5})}
 
 
 @pytest.mark.parametrize("name", sorted(jgen.CONFIGS))

@@ -30,7 +30,7 @@ from cosig_tpu_torch.kernels import sass
 from cosig_tpu_torch.ops import kernel_core as tkc
 
 OPTIN_BYTES = 232_448  # the most dynamic shared memory an H100 block may opt into
-MX_EXTRA = 5_200  # the tensor-core layout's B tiles and their alignment at k = 32-128
+MX_EXTRA = 5_184  # the tensor-core layout's B tiles and their alignment at k = 32-128
 
 _SRC = r"""
 #include "walk_layout.h"
@@ -127,24 +127,24 @@ def test_offsets_are_16_byte_words_and_every_k_fits(walk, mx):
 def test_layouts_up_to_k128_are_unchanged(walk):
     """Up to k = 128 a slot is one whole cluster and the layout is the one
     every build had before slots, with the two-level cull's union boxes
-    (1,024 B) beside the boxes: 29,616 B at k = 32, 71,088 B at k = 128
-    (PERF.md), the tensor-core layout 5,200 B more; past 128 it stays at
+    (1,024 B) beside the boxes: 29,632 B at k = 32, 71,104 B at k = 128
+    (PERF.md), the tensor-core layout 5,184 B more; past 128 it stays at
     k = 128's."""
     lib, c = walk
     assert (c["RING_STAGES"], c["ROW_BYTES"], c["SLOT_MAX"]) == (3, 144, 128)
-    assert lib.walk_smem(32, 0) == 29_616 and lib.walk_smem(128, 0) == 71_088
+    assert lib.walk_smem(32, 0) == 29_632 and lib.walk_smem(128, 0) == 71_104
     for k in (32, 64, 128):
         assert lib.walk_smem(k, 1) == lib.walk_smem(k, 0) + MX_EXTRA
     for k in (1, 8, 16, 32, 64, 100, 128):
         assert lib.walk_rows(k) == k
-        assert lib.walk_smem(k, 0) == 29_616 + 3 * 144 * (k - 32)
+        assert lib.walk_smem(k, 0) == 29_632 + 3 * 144 * (k - 32)
         # The two B tiles (2 x 2,560 B) at the next multiple of 128 B.
         assert lib.walk_smem(k, 1) == -(-lib.walk_smem(k, 0) // 128) * 128 + 5_120
         assert _layout(lib, k)["pairs"] == _layout(lib, k)["total"]  # no pair region
         assert _layout(lib, k)["ballots"] - _layout(lib, k)["groups"] == 256 // 8 * 32
     for k in (129, 512, 1024, 2048):
         assert lib.walk_rows(k) == 128
-        assert lib.walk_smem(k, 0) == 71_088 and lib.walk_smem(k, 1) == 71_088 + MX_EXTRA
+        assert lib.walk_smem(k, 0) == 71_104 and lib.walk_smem(k, 1) == 71_104 + MX_EXTRA
 
 
 @pytest.mark.parametrize("rows", [1, 7, 32, 64, 128])
@@ -167,7 +167,7 @@ def test_shadow_builds_hold_the_main_walks_memory(walk):
     """A shadow walk's slots hold no more rows than its main walk's, so the
     shadow-set builds' shared memory is the main walk's, exact and
     tensor-core, for the (k, shadow k) pairs of phase 10 (FORM_KS,
-    SLOT_KS) and more: at large_mesh 43,440 B, not the 71,088 B of its
+    SLOT_KS) and more: at large_mesh 43,456 B, not the 71,104 B of its
     k = 128 shadow set's whole-cluster ring."""
     lib, _ = walk
     pairs = [(32, 64), (64, 128), (128, 1024), (512, 1024), (64, 1024), (8, 2048), (200, 300)]
@@ -178,7 +178,7 @@ def test_shadow_builds_hold_the_main_walks_memory(walk):
         assert lib.shadow_rows(k, sh_k) == min(sh_k, k, 128)
         for mx in (0, 1):
             assert lib.both_smem(k, sh_k, mx) == lib.walk_smem(k, mx), (k, sh_k, mx)
-    assert lib.both_smem(64, 128, 0) == 43_440
+    assert lib.both_smem(64, 128, 0) == 43_456
 
 
 def test_trace_layout(walk):
