@@ -10,7 +10,9 @@ tensors they read and launches them on the current stream.
 
 A :class:`FrameBuffer` holds one frame's ``FrameData``: packed with
 numpy into pinned host memory and copied to its device buffer on the
-current stream, ahead of the launches that read it. A CUDA graph of a
+current stream, ahead of the launches that read it; its materials and
+lights packed once a record while the caller passes the same read-only
+tables (:func:`read_only`). A CUDA graph of a
 frame keeps the buffer's address, so writing the buffer and replaying
 renders another camera without a new capture
 (:mod:`cosig_tpu_torch.ops.frame_graph`).
@@ -139,18 +141,29 @@ def pack_frame_data(out: np.ndarray, uniforms: np.ndarray, mats: np.ndarray,
     out["lights"][: lights.size] = lights.ravel()
 
 
+def read_only(a) -> np.ndarray:
+    """A read-only contiguous float32 copy of ``a``: a table that a
+    :class:`FrameBuffer` packs once into each of its records."""
+    a = np.array(a, F32, order="C")
+    a.flags.writeable = False
+    return a
+
+
 class FrameBuffer:
     """One frame's uniforms, materials and lights on ``device``: as numpy
     arrays, which the plain versions read, and on a CUDA device also as a
     :data:`FRAME_DATA` record in device memory (``data``), which the
     kernels read.
 
-    :meth:`write` packs the record into the next of ``ring`` pinned host
-    buffers and copies it to ``data`` on the current stream, so launches
-    queued after it read it and launches queued before it read the last
-    one. A pinned buffer is packed again only after its earlier copy has
-    run (an event per buffer), so the host may run ``ring - 1`` frames
-    ahead of the card."""
+    :meth:`write` packs the frame into the next of ``ring`` records
+    (pinned host memory on a CUDA device) and copies it to ``data`` on the
+    current stream, so launches queued after it read it and launches
+    queued before it read the last one. A pinned record is written again
+    only after its earlier copy has run (an event per record), so the host
+    may run ``ring - 1`` frames ahead of the card. A record's material and
+    light regions are packed when they change: a write that passes the
+    same read-only arrays (:func:`read_only`) as the record's last packing
+    writes its uniforms alone."""
 
     def __init__(self, device, ring: int = 1):
         self.device = torch.device(device)
@@ -162,22 +175,34 @@ class FrameBuffer:
                             for _ in range(ring)]
             self._records = [p.numpy().view(FRAME_DATA)[0] for p in self._pinned]
             self._copied = [torch.cuda.Event() for _ in range(ring)]
-            self._next = 0
+        else:
+            self._records = [np.zeros((), FRAME_DATA) for _ in range(ring)]
+        self._u = [r["u"] for r in self._records]
+        self._tables = [None] * ring  # the read-only (mats, lights) each record holds
+        self._next = 0
 
     def write(self, uniforms: np.ndarray, mats: np.ndarray, lights: np.ndarray) -> None:
-        self.uniforms = np.asarray(uniforms, F32)
-        self.mats = np.asarray(mats, F32)
-        self.lights = np.asarray(lights, F32)
-        if self.data is None:
-            pack_frame_data(np.zeros((), FRAME_DATA), self.uniforms, self.mats, self.lights)
-            return
+        uniforms = np.asarray(uniforms, F32)
+        mats = np.asarray(mats, F32)
+        lights = np.asarray(lights, F32)
+        if uniforms.shape != (UNIFORMS_LEN,):
+            raise ValueError(f"uniforms must be [{UNIFORMS_LEN}], got {uniforms.shape}")
         i = self._next
-        self._next = (i + 1) % len(self._pinned)
-        self._copied[i].synchronize()  # the copy from this buffer has run
-        pack_frame_data(self._records[i], self.uniforms, self.mats, self.lights)
-        with torch.cuda.device(self.device):
-            self.data.copy_(self._pinned[i], non_blocking=True)
-            self._copied[i].record()
+        self._next = (i + 1) % len(self._records)
+        if self.data is not None:
+            self._copied[i].synchronize()  # the copy from this record has run
+        held = self._tables[i]
+        if held is not None and held[0] is mats and held[1] is lights:
+            self._u[i][:] = uniforms
+        else:
+            pack_frame_data(self._records[i], uniforms, mats, lights)
+            fixed = not (mats.flags.writeable or lights.flags.writeable)
+            self._tables[i] = (mats, lights) if fixed else None
+        self.uniforms, self.mats, self.lights = self._u[i], mats, lights
+        if self.data is not None:
+            with torch.cuda.device(self.device):
+                self.data.copy_(self._pinned[i], non_blocking=True)
+                self._copied[i].record()
 
     def band(self, row_offset: int) -> BandBuffer:
         """A view of this frame for the band of rows at ``row_offset``."""

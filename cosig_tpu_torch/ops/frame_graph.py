@@ -41,6 +41,8 @@ pointer to the device buffer of a
 :class:`~cosig_tpu_torch.kernels.binding.FrameBuffer` that the graph
 owns, so :meth:`FrameGraph.replay` writes that buffer on the current
 stream and replays: a new camera or new lights need no new capture. The
+graph's materials are a read-only copy of the cluster set's, packed once
+into each record of the buffer's ring, as are lights passed read-only. The
 graph's private memory pool holds what the frame allocates: the state
 [16, N] ([24, N] with fission), the lists and their lengths, the compaction's scratch, the
 traces' box test counters (zeroed by one fill a frame), the image and the int64 ray count
@@ -118,8 +120,9 @@ class FrameGraph:
         self.device = dev
         self.band = cfg.height if rows is None else int(rows)
         self.row_offset = int(row_offset)
-        uniforms, lights, self.mats, prims, n_sph, n_box = trace_wavefront.frame_inputs(
+        uniforms, lights, mats, prims, n_sph, n_box = trace_wavefront.frame_inputs(
             cset, uniforms, lights, row_offset, dev, prims, prim_counts)
+        self.mats = binding.read_only(mats)  # packed once into each record of the ring
         self.prims = prims  # the graph reads this table's memory
         self.fb = binding.FrameBuffer(dev, RING)
         self.forms = forms  # the graph reads these sets' memory
@@ -184,12 +187,17 @@ class FrameGraph:
     def launch(self, uniforms: np.ndarray, lights: np.ndarray) -> None:
         """Write the frame's inputs and replay the graph on the current
         stream; ``self.image`` and ``self.rays`` are then the frame's until
-        the next replay."""
+        the next replay. The uniforms' row offset is the graph's; a
+        read-only ``lights`` passed frame after frame (the Renderer's
+        :class:`~cosig_tpu_torch.render.frame_inputs.FrameInputs` table)
+        is packed once into each record of the ring."""
         with torch.cuda.device(self.device):
             with trace.span("cosig.frame.write"):
-                uniforms = np.array(uniforms, F32)
-                uniforms[U_ROW_OFF] = F32(self.row_offset)
-                self.fb.write(uniforms, self.mats, np.ascontiguousarray(lights, F32))
+                uniforms = np.asarray(uniforms, F32)
+                if uniforms[U_ROW_OFF] != self.row_offset:  # another band's uniforms
+                    uniforms = uniforms.copy()
+                    uniforms[U_ROW_OFF] = F32(self.row_offset)
+                self.fb.write(uniforms, self.mats, lights)
             with trace.span("cosig.frame.launch"):
                 self.graph.replay()
                 for name, n in self.capture.launches.items():

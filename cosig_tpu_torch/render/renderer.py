@@ -26,9 +26,13 @@ for the caller: a CUDA renderer on a machine without a GPU raises.
 
 Geometry is cached per scene object and analytic mode
 (``renderer.py:84-98,230-241``): the cluster set and primitive table for
-the kernels, the triangle soup (and the BVH or the analytic tables) for
-the oracle path, so camera or settings changes never rebuild or re-upload
-geometry.
+the kernels, with the scene's part of a frame's uniforms and lights
+(:class:`~cosig_tpu_torch.render.frame_inputs.FrameInputs`), the triangle
+soup (and the BVH or the analytic tables) for the oracle path, so camera
+or settings changes never rebuild or re-upload geometry. A kernel path's
+frame computes only its settings' part of the uniforms, bit-equal to
+``build_uniforms(frame_params(scene, settings))``; the oracle path and
+:meth:`Renderer.render_chunked` take ``frame_params``.
 
 On ``"cuda"`` a frame of the kernel paths (wavefront, megakernel, debug
 view, analytic mode) is one replay of a CUDA graph
@@ -87,6 +91,7 @@ from cosig_tpu_torch.models.settings import RenderSettings
 from cosig_tpu_torch.models.soa import compile_scene, frame_params, materials_host, static_config
 from cosig_tpu_torch.ops import bvh_traverse, frame_graph, kernel_core, trace_megakernel, trace_xla
 from cosig_tpu_torch.ops.analytic import closest_hit_analytic, compile_analytic, pack_prims_host
+from cosig_tpu_torch.render.frame_inputs import FrameInputs
 from cosig_tpu_torch.scene.tessellate import extract_triangles
 from cosig_tpu_torch.utils import trace
 
@@ -145,7 +150,8 @@ class Renderer:
         if mxu != "off" and self.resolve_backend() in ("xla", "xla-brute"):
             raise ValueError(f"mxu={mxu!r} needs a kernel path: the {self.resolve_backend()!r} "
                              "backend has only the exact pair test")
-        # Kernel paths: (scene, analytic, cluster set, primitive table, (n_sph, n_box)).
+        # Kernel paths: (scene, analytic, cluster set, primitive table, (n_sph, n_box),
+        # FrameInputs).
         self._cached: Optional[tuple] = None
         # Oracle path: [scene, analytic, triangle soup, SceneArrays,
         # AnalyticPrims (analytic) or the BVH (once a frame has walked it) or None].
@@ -157,6 +163,8 @@ class Renderer:
         self.last_stats = RenderStats()
 
     def invalidate_cache(self) -> None:
+        """Drop the cached geometry (with the scene's frame inputs), the
+        oracle path's arrays and the frame graph."""
         self._cached = None
         self._cached_xla = None
         self._graph = None
@@ -174,6 +182,12 @@ class Renderer:
         without its spheres and boxes, which the table then holds; else the
         whole mesh and a zero table (0, 0), kept on the device so a frame
         uploads nothing."""
+        return self._kernel_cache(scene, analytic)[2:5]
+
+    def _kernel_cache(self, scene: SceneData, analytic: bool) -> tuple:
+        """The kernel paths' cache entry of (scene, analytic), built if it
+        holds another: the geometry of :meth:`_geometry_for` and the
+        scene's :class:`FrameInputs`."""
         c = self._cached
         if c is None or c[0] is not scene or c[1] != analytic:
             with trace.setup("cosig.setup.geometry") as step:
@@ -183,8 +197,8 @@ class Renderer:
                 table, n_sph, n_box = pack_prims_host(scene) if analytic else (None, 0, 0)
                 prims, n_sph, n_box = kernel_core.prim_table(table, (n_sph, n_box), self.device)
             self._geometry_s = step.seconds
-            self._cached = (scene, analytic, cset, prims, (n_sph, n_box))
-        return self._cached[2:]
+            self._cached = c = (scene, analytic, cset, prims, (n_sph, n_box), FrameInputs(scene))
+        return c
 
     def _arrays_for(self, scene: SceneData, analytic: bool = False) -> list:
         """The oracle path's geometry on the renderer's device, cached per
@@ -257,12 +271,14 @@ class Renderer:
             raise ValueError(f"mxu={self.mxu!r}: the debug view has only the exact pair test")
         return self.mxu if path in ("wavefront", "megakernel") else "off"
 
-    def _frame_graph(self, key, scene, cfg, uniforms, lights, cset, prims, prim_counts):
+    def _frame_graph(self, key, scene, settings, cfg, inputs, cset, prims, prim_counts):
         """The cached graph of this frame's key, captured (in place of the
-        last one) if the key changed."""
+        last one), its warm-up frame that of ``settings``, if the key
+        changed."""
         if self._graph is None or self._graph[0] != key:
             self._graph = None  # free the last graph's pool before capturing
-            graph = frame_graph.FrameGraph(key[2], cset, cfg, uniforms, lights, prims,
+            graph = frame_graph.FrameGraph(key[2], cset, cfg, inputs.uniforms(settings),
+                                           inputs.lights(cfg.multi_light), prims,
                                            prim_counts, mxu=key[4],
                                            fission=key[5] == "fission")
             # The geometry's own set-up, where an earlier capture built it.
@@ -278,13 +294,13 @@ class Renderer:
         rays of the k frames as an int); sets ``last_stats``."""
         with trace.frame() as fr:
             with trace.span("cosig.frame.settings"):
-                params = frame_params(scene, settings)
                 cfg = static_config(scene, settings)
                 backend = self.resolve_backend()
                 analytic = settings.analytic_primitives
                 path = self.kernel_path(cfg)
                 on_card = path is not None and self.device.type == "cuda"
                 key = None if path is None else self._key(scene, settings, cfg, path)
+                params = frame_params(scene, settings) if path is None else None
 
             t0 = time.perf_counter()
             if path is None:
@@ -297,14 +313,14 @@ class Renderer:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
             else:
-                with trace.span("cosig.frame.uniforms"):
-                    uniforms = kernel_core.build_uniforms(params)
-                    lights = kernel_core.build_lights(params, cfg.multi_light)
                 with trace.span("cosig.frame.lookup"):
-                    cset, prims, prim_counts = self._geometry_for(scene, analytic)
+                    _, _, cset, prims, prim_counts, inputs = self._kernel_cache(scene, analytic)
                     if on_card:
-                        graph = self._frame_graph(key, scene, cfg, uniforms, lights, cset,
-                                                  prims, prim_counts)
+                        graph = self._frame_graph(key, scene, settings, cfg, inputs, cset, prims,
+                                                  prim_counts)
+                with trace.span("cosig.frame.uniforms"):
+                    uniforms = inputs.uniforms(settings)
+                    lights = inputs.lights(cfg.multi_light)
                 triangles = cset.num_triangles
                 if not on_card:
                     img, rays = frame_graph.render_chain(path, cset, uniforms, lights, cfg, k,

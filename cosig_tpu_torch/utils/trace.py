@@ -11,10 +11,10 @@ Hot spans, one frame of ``Renderer.render_to_device`` (only while on):
 
 * ``cosig.frame``, the root (:func:`frame`), its argument the frame's
   number, which its children share;
-* ``cosig.frame.settings``: ``frame_params``, ``static_config``, the
-  graph key;
-* ``cosig.frame.uniforms``: ``build_uniforms``, ``build_lights``;
+* ``cosig.frame.settings``: ``static_config``, the graph key
+  (``frame_params`` on the oracle path);
 * ``cosig.frame.lookup``: the geometry and graph caches;
+* ``cosig.frame.uniforms``: ``FrameInputs.uniforms`` and its light table;
 * ``cosig.frame.write``: ``FrameBuffer.write``, the ring's event wait in it;
 * ``cosig.frame.launch``: the graph's replay on the card, the stages on
   the CPU;
@@ -30,7 +30,10 @@ graph's instantiation in it). A capture takes the steps run since the
 last one into its :class:`Capture`, :func:`last_capture`.
 
 Counters, in the style of ``binding.LAUNCHES``: :data:`COUNTS`
-``captures``, one per graph capture, always; a capture's ``form``
+``captures``, one per graph capture, always; ``frame_inputs_built``, one
+per build of a scene's part of the frames' inputs
+(:class:`~cosig_tpu_torch.render.frame_inputs.FrameInputs`, cached with
+the Renderer's geometry), always; a capture's ``form``
 (``"fission"`` or ``"fused"``), so a record says which form ran. A
 capture's ``plan``: the ordered labels of the port's kernels its frame
 launches, recorded by the launch wrappers (:func:`plan_step`):
@@ -68,7 +71,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
-COUNTS = {"captures": 0}
+COUNTS = {"captures": 0, "frame_inputs_built": 0}
 FRAMES_KEPT = 4096  # frame records kept, the newest
 
 _frames: collections.deque = collections.deque(maxlen=FRAMES_KEPT)

@@ -44,7 +44,7 @@ def test_cache_reused_across_frames(tiny):
     st = cosig_tpu_torch.RenderSettings(resolution_override=(16, 16), max_depth=2)
     a = r.render(tiny, st)
     cached = r._cached
-    cset, prims, counts = cached[2:]
+    cset, prims, counts = cached[2:5]
     assert cached[:2] == (tiny, False) and counts == (0, 0)
     assert prims.shape == (1, 22) and not prims.any()
     assert tkc.prim_table(prims, counts, r.device)[0] is prims  # a frame uploads no table

@@ -20,7 +20,7 @@ from cosig_tpu_torch.ops import trace_megakernel as ttm
 from cosig_tpu_torch.ops import trace_wavefront as ttw
 from cosig_tpu_torch.utils import trace
 
-FRAME_STEPS = ("settings", "uniforms", "lookup", "write", "launch", "copy_out", "wait")
+FRAME_STEPS = ("settings", "lookup", "uniforms", "write", "launch", "copy_out", "wait")
 FISSION_PLAN = ("primary", "shade_all", "compact.1", "trace.1", "shade.1", "compact.2", "trace.2",
                 "shade.2")
 
@@ -162,7 +162,7 @@ def test_capture_records_bands_and_a_replay_keys_live_rays_by_depth(monkeypatch)
     by (band, depth) and ``live_rays`` by depth, summed over the bands,
     not by their order in the buffer."""
     monkeypatch.setattr(trace, "_pending", {})
-    monkeypatch.setattr(trace, "COUNTS", {"captures": 0})
+    monkeypatch.setattr(trace, "COUNTS", {"captures": 0, "frame_inputs_built": 0})
     monkeypatch.setattr(trace, "_last_capture", None)
     monkeypatch.setattr(trace, "_frames", trace.collections.deque(maxlen=trace.FRAMES_KEPT))
     monkeypatch.setattr(ttw, "MAX_RAYS", 16384)
